@@ -1,0 +1,89 @@
+"""Carry weights and optimizer state across from the JAX package.
+
+The JAX package's ``params`` / ``batch_stats`` are nested dicts keyed by
+flax module names; the port keys the same leaves by their ``/``-joined
+path (:meth:`ResNet.jax_params`), as views in flax's layouts, so loading
+is a copy through those views. Arrays arrive as numpy (the two
+frameworks exchange data only through numpy).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """Nested dict → ``{"a/b/c": leaf}``."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def unflatten_tree(flat: dict) -> dict:
+    """``{"a/b/c": leaf}`` → nested dict."""
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+@torch.no_grad()
+def _copy_into(views: dict, src: dict, what: str) -> None:
+    src = flatten_tree(src)
+    if set(src) != set(views):
+        missing = sorted(set(views) - set(src))[:5]
+        extra = sorted(set(src) - set(views))[:5]
+        raise KeyError(f"{what} do not match the model: missing {missing}, "
+                       f"unexpected {extra}")
+    for k, view in views.items():
+        a = np.asarray(src[k])
+        if tuple(a.shape) != tuple(view.shape):
+            raise ValueError(
+                f"{what} {k}: shape {a.shape} != model's {tuple(view.shape)}")
+        view.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+
+
+def load_flax_variables(model, params: dict,
+                        batch_stats: Optional[dict] = None) -> None:
+    """Overwrite ``model``'s parameters (and BatchNorm running stats) with
+    the JAX package's ``params`` (``batch_stats``), numpy leaves."""
+    _copy_into(model.jax_params(), params, "params")
+    if batch_stats is not None:
+        _copy_into(model.jax_batch_stats(), batch_stats, "batch_stats")
+
+
+def flax_params(model) -> dict:
+    """The model's parameters as the JAX package's nested numpy tree."""
+    return unflatten_tree({k: v.detach().cpu().numpy().copy()
+                           for k, v in model.jax_params().items()})
+
+
+def zero1_state_from_jax(count, mu: dict, nu: dict, rank: int, *,
+                         residual: Optional[dict] = None) -> dict:
+    """One rank's port ZeRO-1 state from the JAX package's ``[N, shard]``
+    Adam state: ``count`` ``[N]``, ``mu``/``nu`` ``{dtype: [N, s]}`` and,
+    with error feedback, ``residual`` ``{dtype: [N, Lp]}`` (numpy)."""
+    count = np.asarray(count)
+    n = int(count.shape[0])
+    t = lambda a: torch.from_numpy(np.array(a[rank]))  # noqa: E731
+    state = {
+        "shard": {"rank": int(rank), "size": n},
+        "inner": {"count": int(count[rank]),
+                  "mu": {k: t(v) for k, v in mu.items()},
+                  "nu": {k: t(v) for k, v in nu.items()}},
+    }
+    if residual is not None:
+        state["residual"] = {k: t(v) for k, v in residual.items()}
+    return state
