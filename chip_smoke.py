@@ -9,32 +9,43 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. versions, and the card's name and power limit from nvidia-smi;
 2. build the CUDA kernels from ``horovod_tpu_torch/ops/csrc`` (one nvcc
    per source, started together);
-3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes (ResNet-50's flat gradient buffer, one rank and eight
-   synthetic senders), bit for bit for the int8 wire, within 2 ULP for
-   fused Adam; timed with CUDA events beside its memory bound and, for
-   fused Adam, beside ``torch._fused_adam_`` (a yardstick only);
-4. small-input check: three ZeRO-1 int8 + error-feedback steps of a
+3. small-input check: three ZeRO-1 int8 + error-feedback steps of a
    narrow ResNet on the GPU agree with the same steps on the CPU (a
    child process, plain versions, gloo);
-5. end to end: ResNet-50 at full width (224x224x3, 1000 classes, bf16
+4. end to end: ResNet-50 at full width (224x224x3, 1000 classes, bf16
    compute, f32 parameters), batch 64, random weights from a seed, a
    world of one over NCCL: (a) ZeRO-1 + int8 + EF + fused Adam, 10 steps;
    (b) allreduce mode + int8 + EF + fused Adam, 5 steps. Losses must be
    finite and fall on the repeated batch, and every kernel of each run's
-   path must have launched during it.
+   path must have launched during it. Every kernel-wrapper call of the
+   run is logged with its shape;
+5. with ``--gpus N``: phase 4 again across N GPUs of the host (one process
+   per GPU, NCCL, each rank on its own 64 rows of one global batch, 4
+   steps per mode); every rank must report the same falling losses and
+   the same parameters;
+6. kernels: every call of one step of each run above is replayed on
+   fresh inputs at its own shape (the flat buffer's quantize, the 152
+   per-leaf quantizes and 76 requantizes of allreduce mode, the 161
+   per-leaf Adam updates, ...) and held against the plain PyTorch version:
+   bit for bit for the int8 wire, within 2 ULP for fused Adam, a NaN
+   meeting a NaN. The inputs carry all-zero blocks, exact half-way
+   quotients, NaN and infinite blocks. Each mode's replay is timed with
+   CUDA events (kernel, plain version, and for fused Adam
+   ``torch._fused_adam_`` over the same tensors as a yardstick) beside
+   the sum of the calls' bounds. ResNet-50's flat buffer is also checked
+   with a tail that does not divide the block and with eight synthetic
+   senders.
 
-With ``--gpus N`` it then runs phase 5 again across N GPUs of the host
-(one process per GPU, NCCL, each rank on its own 64 rows of one global
-batch, 4 steps per mode): every rank must report the same falling losses
-and the same parameters.
-
-The last two lines of standard output are the ``{"kernels": [...]}``
-record and ``{"ok": true, "device": {...}}``.
+A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
+``{"kernels": [...]}`` line are per step: the sum over one step of each
+one-GPU mode that launches it; ``by_mode`` splits them. ``launches``
+counts the one-GPU runs' launches. The last two lines of standard output
+are that record and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -48,6 +59,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM dense f32 rate outside the tensor cores, operations/s
 F32_OPS_PER_S = 67e12
+#: fused Adam's bar against its plain version
+ADAM_ULPS = 2
 
 TPU_KERNELS = {
     "quantize": "horovod_tpu/ops/pallas_kernels.py:220",
@@ -61,6 +74,18 @@ SOURCES = {
     "dequant_accumulate_requantize": "horovod_tpu_torch/ops/csrc/int8_wire.cu",
     "fused_adam": "horovod_tpu_torch/ops/csrc/fused_adam.cu",
 }
+#: the public wrappers of ops.kernels the path calls, and their kernel
+WRAPPERS = {
+    "quantize_blockwise": "quantize",
+    "quantize_roundtrip": "quantize",
+    "dequant_accumulate": "dequant_accumulate",
+    "dequant_accumulate_requantize": "dequant_accumulate_requantize",
+    "fused_adam_update": "fused_adam",
+}
+#: kernels each mode's path must launch
+NEED = {"zero1": ("quantize", "dequant_accumulate", "fused_adam"),
+        "allreduce": ("quantize", "dequant_accumulate_requantize",
+                      "fused_adam")}
 
 
 def fail(msg: str) -> None:
@@ -68,13 +93,7 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
-    t_b = nbytes / HBM_BYTES_PER_S
-    t_o = ops / F32_OPS_PER_S
-    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     import torch
 
     for _ in range(warmup):
@@ -90,151 +109,305 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return s.elapsed_time(e) / iters
 
 
-def max_abs(a, b) -> float:
-    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
-
-
-def check_equal(name, outs, refs):
+def _numbers(a, b):
+    """``a`` and ``b`` where neither is NaN, after checking that they are
+    NaN at the same places (a NaN's payload is not part of the contract:
+    PyTorch's CPU and CUDA casts and the CUDA intrinsics differ in it)."""
     import torch
 
-    for i, (a, b) in enumerate(zip(outs, refs)):
-        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
-            fail(f"{name}: output {i} differs from the plain version "
-                 f"(max abs err {max_abs(a, b)})")
+    if not a.is_floating_point():
+        return a, b
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return None
+    return a[~nan], b[~nan]
 
 
-def ulp_ok(a, b, ulps: int = 2) -> bool:
+def same_bits(a, b) -> bool:
     import torch
 
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ab = _numbers(a, b)
+    if ab is None:
+        return False
+    a, b = ab
+    if a.is_floating_point():
+        itype = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        return torch.equal(a.view(itype[a.dtype]), b.view(itype[b.dtype]))
+    return torch.equal(a, b)
+
+
+def within_ulps(a, b, ulps: int = ADAM_ULPS) -> bool:
+    import torch
+
+    ab = _numbers(a, b)
+    if ab is None:
+        return False
+    a, b = ab
+    inf = torch.isinf(a) | torch.isinf(b)
+    if not torch.equal(a[inf], b[inf]):
+        return False
+    a, b = a[~inf], b[~inf]
     big = torch.maximum(a.abs(), b.abs())
     spacing = torch.nextafter(big, torch.full_like(big, math.inf)) - big
     return bool(((a - b).abs() <= ulps * spacing).all())
 
 
+def max_abs(a, b) -> float:
+    """Largest |a - b| where both are numbers."""
+    d = (a.float() - b.float()).abs()
+    d = d[~d.isnan()]
+    return float(d.max()) if d.numel() else 0.0
+
+
 # --------------------------------------------------------------------------
-# phase 3: kernels against their plain versions
+# the kernel calls of the main path
 
 
-def kernel_phase(L: int, results: dict) -> None:
+def _signature(wrapper: str, args, kw) -> tuple:
+    kernel = WRAPPERS[wrapper]
+    if kernel == "quantize":
+        return (kernel, wrapper == "quantize_roundtrip", args[0].numel())
+    if kernel == "dequant_accumulate":
+        return (kernel, *args[0].shape)
+    if kernel == "dequant_accumulate_requantize":
+        return (kernel, *args[0].shape, kw.get("divisor"))
+    return (kernel, args[0].numel(), args[3], tuple(sorted(kw.items())))
+
+
+@contextlib.contextmanager
+def logging_calls(steps: list):
+    """Log the shape signature of every call of a kernel wrapper into
+    ``steps[-1]`` (the caller appends a list per step). The path reaches
+    the wrappers through the ``ops.kernels`` module, so wrapping the
+    module's attributes sees every call; :func:`train` checks that the
+    log and the launch counters agree."""
+    from horovod_tpu_torch.ops import kernels as K
+
+    saved = {w: getattr(K, w) for w in WRAPPERS}
+
+    def logged(w, f):
+        def call(*args, **kw):
+            steps[-1].append(_signature(w, args, kw))
+            return f(*args, **kw)
+        return call
+
+    for w, f in saved.items():
+        setattr(K, w, logged(w, f))
+    try:
+        yield
+    finally:
+        for w, f in saved.items():
+            setattr(K, w, f)
+
+
+def call_bound(sig) -> tuple:
+    """``(bytes, operations)`` of one call: each input read once, each
+    output written once."""
+    kernel = sig[0]
+    if kernel == "quantize":
+        _, roundtrip, L = sig
+        return 4 * L + L + 2 * (L // 256) + 4 * L * roundtrip, 4 * L
+    if kernel in ("dequant_accumulate", "dequant_accumulate_requantize"):
+        n, sp = sig[1], sig[2]
+        wire = n * sp + 2 * n * (sp // 256)
+        if kernel == "dequant_accumulate":
+            return wire + 4 * sp, 2 * n * sp
+        return wire + sp + 2 * (sp // 256), 2 * n * sp + 4 * sp
+    L = sig[1]
+    return 24 * L, 12 * L
+
+
+def bound_ms(sigs) -> tuple:
+    """The least time for all of ``sigs``: the sum of each call's larger
+    of bytes over the memory rate and operations over the f32 rate."""
+    total, by = 0.0, set()
+    for sig in sigs:
+        nbytes, ops = call_bound(sig)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        total += max(t_b, t_o)
+        by.add("bytes" if t_b >= t_o else "operations")
+    return total * 1e3, "bytes" if by == {"bytes"} else "operations"
+
+
+def _special_blocks(x, gen) -> None:
+    """Overwrite the first blocks of a flat f32 input with edge cases, as
+    far as it has blocks and leaving at least one ordinary block: all zero;
+    exact half-way quotients (amax 127 gives scale 1); a NaN; infinities."""
+    import torch
+
+    half = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 3.5, -3.5] * 32,
+                        device=x.device)
+    nan = torch.randn(256, device=x.device, generator=gen)
+    nan[17] = math.nan
+    inf = torch.randn(256, device=x.device, generator=gen)
+    inf[3], inf[200] = math.inf, -math.inf
+    for i, block in enumerate((torch.zeros_like(half), half, nan, inf)):
+        if (i + 2) * 256 > x.numel():
+            break
+        x[i * 256:(i + 1) * 256] = block
+
+
+def make_call(sig, gen):
+    """``(kernel_call, plain_call, compare)`` on fresh inputs on
+    ``gen``'s device for one logged call; ``compare(out, ref)`` is None
+    when they agree, else a message."""
+    import torch
+
+    from horovod_tpu_torch.ops import kernels as K
+
+    dev = gen.device
+    kernel = sig[0]
+    if kernel == "quantize":
+        _, roundtrip, L = sig
+        x = torch.randn(L, device=dev, generator=gen) * 1e-2
+        _special_blocks(x, gen)
+        f = K.quantize_roundtrip if roundtrip else K.quantize_blockwise
+        return (lambda: f(x), lambda: K.quantize_plain(x, roundtrip=roundtrip),
+                _bits)
+    if kernel in ("dequant_accumulate", "dequant_accumulate_requantize"):
+        n, sp = sig[1], sig[2]
+        nb = sp // 256
+        q = torch.randint(-127, 128, (n, sp), device=dev, generator=gen,
+                          dtype=torch.int8)
+        s = (torch.rand(n, nb, device=dev, generator=gen) * 1e-2).to(
+            torch.bfloat16)
+        q[:, :256], s[:, 0] = 0, 0.0           # an all-zero block
+        if nb >= 4:                             # a sender's NaN / inf block
+            s[0, 1], s[n - 1, 2] = math.nan, math.inf
+        if kernel == "dequant_accumulate":
+            return (lambda: (K.dequant_accumulate(q, s),),
+                    lambda: (K.dequant_accumulate_plain(q, s),), _bits)
+        d = sig[3]
+        return (lambda: K.dequant_accumulate_requantize(q, s, divisor=d),
+                lambda: K.dequant_accumulate_requantize_plain(q, s, divisor=d),
+                _bits)
+    _, L, count, kw = sig
+    kw = dict(kw)
+    g = torch.randn(L, device=dev, generator=gen) * 1e-2
+    mu = torch.randn(L, device=dev, generator=gen) * 1e-3
+    nu = torch.rand(L, device=dev, generator=gen) * 1e-6
+    if L >= 8:
+        g[1], g[5] = math.nan, math.inf
+    c = K.adam_constants(kw["lr"], kw["b1"], kw["b2"], kw["eps"],
+                         kw["eps_root"], count)
+    call = (lambda: K.fused_adam_update(g, mu, nu, count, **kw),
+            lambda: K.fused_adam_plain(g, mu, nu, c), _ulps)
+    call[0].tensors = (g, mu, nu)
+    return call
+
+
+def _bits(out, ref):
+    for i, (a, b) in enumerate(zip(out, ref)):
+        if not same_bits(a, b):
+            return f"output {i} differs (max abs err {max_abs(a, b)})"
+    return None
+
+
+def _ulps(out, ref):
+    for name, a, b in zip(("update", "mu", "nu"), out, ref):
+        if not within_ulps(a, b):
+            return (f"{name} more than {ADAM_ULPS} ULP from the plain "
+                    f"version (max abs err {max_abs(a, b)})")
+    return None
+
+
+def library_adam_ms(calls, count: int, kw: dict) -> float:
+    """``torch._fused_adam_`` over the same tensors as one step's fused
+    Adam calls, in one multi-tensor call (a yardstick; the port never
+    calls it)."""
+    import torch
+
+    gs, mus, nus = zip(*(c.tensors for c in calls))
+    params = [torch.zeros_like(g) for g in gs]
+    m2, v2 = [m.clone() for m in mus], [v.clone() for v in nus]
+    steps = [torch.tensor(float(count), device=gs[0].device) for _ in gs]
+    return cuda_ms(lambda: torch._fused_adam_(
+        params, list(gs), m2, v2, [], steps, lr=kw["lr"], beta1=kw["b1"],
+        beta2=kw["b2"], weight_decay=0.0, eps=kw["eps"], amsgrad=False,
+        maximize=False))
+
+
+def kernel_phase(step_calls: dict, main_modes) -> dict:
+    """Replay each mode's logged step on fresh inputs: hold every call
+    against its plain version, then time the kernel, plain and library
+    replays. Returns the per-kernel record."""
+    import torch
+
+    from horovod_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    rows = {k: dict(max_abs_err=0.0, calls_checked=0, by_mode={})
+            for k in K.KERNELS}
+    for mode, sigs in step_calls.items():
+        for kernel in K.KERNELS:
+            ks = [s for s in sigs if s[0] == kernel]
+            if not ks:
+                continue
+            calls = [make_call(s, gen) for s in ks]
+            row = rows[kernel]
+            for sig, (run, plain, compare) in zip(ks, calls):
+                out, ref = run(), plain()
+                bad = compare(out, ref)
+                if bad:
+                    fail(f"{kernel} at {sig} ({mode}): {bad}")
+                row["max_abs_err"] = max(
+                    [row["max_abs_err"]]
+                    + [max_abs(a, b) for a, b in zip(out, ref)])
+                row["calls_checked"] += 1
+            b, by = bound_ms(ks)
+            lib = None
+            if kernel == "fused_adam" and hasattr(torch, "_fused_adam_"):
+                lib = library_adam_ms([c[0] for c in calls], ks[0][2],
+                                      dict(ks[0][3]))
+            row["by_mode"][mode] = dict(
+                calls=len(ks), shapes=len(set(ks)),
+                ms=cuda_ms(lambda: [c[0]() for c in calls]),
+                plain_ms=cuda_ms(lambda: [c[1]() for c in calls]),
+                bound_ms=b, bound_by=by, library_ms=lib)
+            del calls
+            torch.cuda.empty_cache()
+    for kernel, row in rows.items():
+        main = [row["by_mode"][m] for m in main_modes if m in row["by_mode"]]
+        for key in ("ms", "plain_ms", "bound_ms"):
+            row[key] = sum(m[key] for m in main)
+        row["bound_by"] = ("bytes" if all(m["bound_by"] == "bytes"
+                                          for m in main) else "operations")
+        libs = [m["library_ms"] for m in main if m["library_ms"] is not None]
+        row["library_ms"] = sum(libs) if libs else None
+    return rows
+
+
+def flat_buffer_checks(L: int) -> None:
+    """ResNet-50's whole flat buffer, whose length does not divide the
+    block, through the padding the path uses; and the reduce-scatter
+    epilogues at eight synthetic senders."""
     import torch
 
     from horovod_tpu_torch.compression import _pad_to_block
     from horovod_tpu_torch.ops import kernels as K
 
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    x = torch.randn(L, device=dev, generator=gen)
-    x[:256] = 0.0                                  # an all-zero block
-    x[256:512] = torch.tensor(                     # exact half-way values
-        [127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 3.5, -3.5] * 32, device=dev)
-    xp = _pad_to_block(x, K.INT8_BLOCK)            # L's tail does not divide
-    Lp = xp.numel()
-
-    # quantize (B1/B2): the ZeRO-1 path runs the roundtrip form
-    out = K.quantize_roundtrip(xp)
-    check_equal("quantize roundtrip", out, K.quantize_plain(xp, roundtrip=True))
-    check_equal("quantize", K.quantize_blockwise(xp), K.quantize_plain(xp))
-    nb = Lp // 256
-    b, by = bound_ms(Lp * 4 + Lp + nb * 2 + Lp * 4, Lp * 4)
-    results["quantize"] = dict(
-        shape=f"f32[{Lp}] -> int8, bf16[{nb}], f32 roundtrip",
-        max_abs_err=max(max_abs(a, c) for a, c in
-                        zip(out, K.quantize_plain(xp, roundtrip=True))),
-        ms=cuda_ms(lambda: K.quantize_roundtrip(xp)),
-        plain_ms=cuda_ms(lambda: K.quantize_plain(xp, roundtrip=True)),
-        bound_ms=b, bound_by=by, library_ms=None)
-    b1, _ = bound_ms(Lp * 4 + Lp + nb * 2, Lp * 4)
-    results["quantize"]["no_roundtrip"] = dict(
-        ms=cuda_ms(lambda: K.quantize_blockwise(xp)),
-        plain_ms=cuda_ms(lambda: K.quantize_plain(xp)), bound_ms=b1)
-
-    # dequant_accumulate (B3) / dequant_accumulate_requantize (B4):
-    # N=1 is the world-of-one main path; N=8 synthetic senders
-    for n in (1, 8):
-        s = -(-L // n)
-        sp = s + (-s) % 256
-        if n == 1:
-            qr, scr = out[0].view(1, sp), out[1].view(1, sp // 256)
-        else:
-            qr = torch.randint(-127, 128, (n, sp), device=dev, generator=gen,
-                               dtype=torch.int8)
-            scr = (torch.rand(n, sp // 256, device=dev, generator=gen)
-                   * 0.01).to(torch.bfloat16)
-            scr[:, 0] = 0.0                         # all-zero sender blocks
-            qr[:, :256] = 0
-        ref = K.dequant_accumulate_plain(qr, scr)
-        got = K.dequant_accumulate(qr, scr)
-        check_equal(f"dequant_accumulate N={n}", [got], [ref])
-        nbytes = n * sp + n * (sp // 256) * 2
-        b, by = bound_ms(nbytes + sp * 4, 2 * n * sp)
-        r = dict(shape=f"int8[{n},{sp}], bf16[{n},{sp // 256}] -> f32[{sp}]",
-                 max_abs_err=max_abs(got, ref),
-                 ms=cuda_ms(lambda: K.dequant_accumulate(qr, scr)),
-                 plain_ms=cuda_ms(lambda: K.dequant_accumulate_plain(qr, scr)),
-                 bound_ms=b, bound_by=by, library_ms=None)
-        ref2 = K.dequant_accumulate_requantize_plain(qr, scr, divisor=n)
-        got2 = K.dequant_accumulate_requantize(qr, scr, divisor=n)
-        check_equal(f"dequant_accumulate_requantize N={n}", got2, ref2)
-        check_equal(f"dequant_accumulate_requantize N={n} (Sum)",
-                    K.dequant_accumulate_requantize(qr, scr),
-                    K.dequant_accumulate_requantize_plain(qr, scr))
-        b2, by2 = bound_ms(nbytes + sp + (sp // 256) * 2, 2 * n * sp + 4 * sp)
-        r2 = dict(shape=f"int8[{n},{sp}], bf16[{n},{sp // 256}] -> "
-                        f"int8[{sp}], bf16[{sp // 256}]",
-                  max_abs_err=max(max_abs(a, c) for a, c in zip(got2, ref2)),
-                  ms=cuda_ms(lambda: K.dequant_accumulate_requantize(
-                      qr, scr, divisor=n)),
-                  plain_ms=cuda_ms(lambda: K.dequant_accumulate_requantize_plain(
-                      qr, scr, divisor=n)),
-                  bound_ms=b2, bound_by=by2, library_ms=None)
-        if n == 1:
-            results["dequant_accumulate"] = r
-            results["dequant_accumulate_requantize"] = r2
-        else:
-            results["dequant_accumulate"]["n8"] = r
-            results["dequant_accumulate_requantize"]["n8"] = r2
-
-    # fused_adam (B5): the ZeRO-1 shard of a world of one is all L elements
-    g = torch.randn(L, device=dev, generator=gen)
-    mu = torch.randn(L, device=dev, generator=gen) * 0.01
-    nu = torch.rand(L, device=dev, generator=gen) * 1e-4
-    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
-    c = K.adam_constants(1e-3, 0.9, 0.999, 1e-8, 0.0, 3)
-    got = K.fused_adam_update(g, mu, nu, 3, **kw)
-    ref = K.fused_adam_plain(g, mu, nu, c)
-    for name, a, b_ in zip(("update", "mu", "nu"), got, ref):
-        if not ulp_ok(a, b_):
-            fail(f"fused_adam {name}: more than 2 ULP from the plain version "
-                 f"(max abs err {max_abs(a, b_)})")
-    gq = K.fused_adam_update(g, mu, nu, 3, requant_block=256, **kw)
-    rq = K.fused_adam_plain(g, mu, nu, c, requant_block=256)
-    if not all(ulp_ok(a, b_) for a, b_ in zip(gq[:3], rq[:3])):
-        fail("fused_adam (requant epilogue): more than 2 ULP from plain")
-    check_equal("fused_adam requant epilogue", gq[3], rq[3])
-    b, by = bound_ms(L * 24, L * 12)
-    lib_ms = None
-    if hasattr(torch, "_fused_adam_"):
-        p = torch.zeros(L, device=dev)
-        m2, v2 = mu.clone(), nu.clone()
-        step = torch.tensor(3.0, device=dev)
-
-        def lib():
-            torch._fused_adam_([p], [g], [m2], [v2], [], [step], lr=1e-3,
-                               beta1=0.9, beta2=0.999, weight_decay=0.0,
-                               eps=1e-8, amsgrad=False, maximize=False)
-
-        lib_ms = cuda_ms(lib)
-    results["fused_adam"] = dict(
-        shape=f"f32[{L}] x3 -> f32[{L}] x3",
-        max_abs_err=max(max_abs(a, b_) for a, b_ in zip(got, ref)),
-        ms=cuda_ms(lambda: K.fused_adam_update(g, mu, nu, 3, **kw)),
-        plain_ms=cuda_ms(lambda: K.fused_adam_plain(g, mu, nu, c)),
-        bound_ms=b, bound_by=by, library_ms=lib_ms)
-    torch.cuda.synchronize()
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    x = torch.randn(L, device=gen.device, generator=gen)
+    _special_blocks(x, gen)
+    xp = _pad_to_block(x, K.INT8_BLOCK)
+    bad = _bits(K.quantize_roundtrip(xp), K.quantize_plain(xp, roundtrip=True))
+    if bad:
+        fail(f"quantize roundtrip at the flat buffer [{L}]: {bad}")
+    s = -(-L // 8)
+    sp = s + (-s) % 256
+    for sig in (("dequant_accumulate", 8, sp),
+                ("dequant_accumulate_requantize", 8, sp, 8),
+                ("dequant_accumulate_requantize", 8, sp, None)):
+        run, plain, compare = make_call(sig, gen)
+        bad = compare(run(), plain())
+        if bad:
+            fail(f"{sig} (flat buffer, 8 senders): {bad}")
 
 
 # --------------------------------------------------------------------------
-# phase 4: a small input, GPU against CPU
+# phase 3: a small input, GPU against CPU
 
 
 def small_run(device: str) -> list:
@@ -277,10 +450,14 @@ def cpu_reference() -> None:
 
 
 # --------------------------------------------------------------------------
-# phase 5: ResNet-50 end to end
+# phases 4 and 5: ResNet-50 end to end
 
 
-def train(model_seed: int, shard: bool, steps: int, x, y) -> dict:
+def train(shard: bool, steps: int, x, y, model_seed: int = 0) -> dict:
+    """``steps`` steps of ResNet-50 on this rank's batch ``x, y`` in one
+    optimizer mode; fails unless the loss is finite and falls and every
+    kernel of the mode's path launched. ``step_calls`` is the kernel
+    calls of the last step."""
     import torch
 
     import horovod_tpu_torch as hvd
@@ -300,118 +477,72 @@ def train(model_seed: int, shard: bool, steps: int, x, y) -> dict:
             torch.isfinite(logits).all()):
         fail(f"ResNet-50 logits: shape {tuple(logits.shape)} or non-finite")
     torch.cuda.synchronize()
+    calls: list = []
     K.reset_launches()                  # count the main path's run only
     losses, times = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        st, loss = step(st, x, y)
-        losses.append(float(loss))      # device->host read fences the step
-        times.append(time.perf_counter() - t0)
+    with logging_calls(calls):
+        for _ in range(steps):
+            calls.append([])
+            t0 = time.perf_counter()
+            st, loss = step(st, x, y)
+            losses.append(float(loss))  # device->host read fences the step
+            times.append(time.perf_counter() - t0)
     launches = dict(K.launches)
     mode = "zero1" if shard else "allreduce"
     if not all(math.isfinite(v) for v in losses):
         fail(f"{mode}: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
         fail(f"{mode}: loss did not fall on the repeated batch: {losses}")
+    for k in K.KERNELS:
+        logged = sum(sig[0] == k for c in calls for sig in c)
+        if logged != launches[k]:
+            fail(f"{mode}: {launches[k]} launches of {k} but {logged} "
+                 "logged calls: a caller bypasses ops.kernels' wrappers")
+    for k in NEED[mode]:
+        if launches[k] < 1:
+            fail(f"{mode}: kernel {k} was not launched on the main path "
+                 f"({launches})")
     steady = times[1:] if len(times) > 1 else times
+    checksum = float(sum(p.detach().double().sum() for p in model.parameters()))
     return dict(mode=mode, steps=steps, losses=losses, launches=launches,
-                step_s=times, img_per_s=x.shape[0] * len(steady) / sum(steady))
+                step_s=times, img_per_s=x.shape[0] * len(steady) / sum(steady),
+                checksum=checksum, step_calls=calls[-1])
 
 
-# --------------------------------------------------------------------------
-# --gpus N: the same path across N GPUs of one host (NCCL)
-
-
-def _world_rank(rank: int, n: int, port: int, device: str, small: bool, q):
+def _world_rank() -> list:
     """One rank of the multi-GPU run: ZeRO-1 then allreduce mode, int8 +
     EF + fused Adam, each rank on its own rows of one global batch."""
     import torch
 
-    sys.path.insert(0, ROOT)
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.models import BottleneckBlock, ResNet, ResNet50
-    from horovod_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator().manual_seed(0)
+    n = hvd.size()
+    x = torch.randn(64 * n, 224, 224, 3, generator=gen)
+    y = torch.randint(0, 1000, (64 * n,), generator=gen)
+    xs, ys = hvd.shard_batch(x).to(hvd.device()), hvd.shard_batch(y).to(
+        hvd.device())
+    return [train(True, 4, xs, ys), train(False, 4, xs, ys)]
+
+
+def run_gpus(n: int) -> list:
+    """Phase 5: ``[zero1, allreduce]`` results of rank 0, after checking
+    that every rank reports the same losses and parameters."""
+    from horovod_tpu_torch.testing import run_world
 
     try:
-        hvd.init(None if device == "cuda" else device,
-                 init_method=f"tcp://127.0.0.1:{port}", rank=rank, size=n,
-                 local_rank=rank)
-        dev = hvd.device()
-        gen = torch.Generator().manual_seed(0)
-        side, classes = (32, 10) if small else (224, 1000)
-        x = torch.randn(4 * n if small else 64 * n, side, side, 3,
-                        generator=gen)
-        y = torch.randint(0, classes, (x.shape[0],), generator=gen)
-        xs, ys = hvd.shard_batch(x).to(dev), hvd.shard_batch(y).to(dev)
-        out = {}
-        for shard in (True, False):
-            model = (ResNet([1, 1, 1, 1], BottleneckBlock, num_filters=8,
-                            num_classes=classes, dtype=torch.float32)
-                     if small else ResNet50(seed=0)).to(dev)
-            tx = hvd.DistributedOptimizer(
-                hvd.fused_adam(1e-3), compression=hvd.Compression.int8,
-                error_feedback=True, shard_optimizer=shard)
-            st = tx.init(model.jax_params())
-            step = hvd.make_train_step(model, tx, shard_optimizer=shard)
-            K.reset_launches()
-            losses, times = [], []
-            for _ in range(4):
-                t0 = time.perf_counter()
-                st, loss = step(st, xs, ys)
-                losses.append(float(loss))
-                times.append(time.perf_counter() - t0)
-            checksum = float(sum(p.detach().double().sum()
-                                 for p in model.parameters()))
-            out["zero1" if shard else "allreduce"] = dict(
-                losses=losses, checksum=checksum, launches=dict(K.launches),
-                step_s=times,
-                img_per_s_per_gpu=xs.shape[0] * 3 / sum(times[1:]))
-        q.put((rank, out))
-    except BaseException as e:  # noqa: BLE001 - reported by the parent
-        q.put((rank, f"{type(e).__name__}: {e}"))
-    finally:
-        hvd.shutdown()
-
-
-def run_world(n: int, device: str = "cuda", small: bool = False) -> dict:
-    """Run :func:`_world_rank` on ``n`` processes; every rank must report
-    finite, falling losses and the same parameters as rank 0.
-    ``run_world(4, device="cpu", small=True)`` rehearses the same path on
-    gloo with a narrow model, without a GPU."""
-    import socket
-
-    import torch.multiprocessing as mp
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    procs = [ctx.Process(target=_world_rank,
-                         args=(r, n, port, device, small, q)) for r in range(n)]
-    for p in procs:
-        p.start()
-    res = {}
-    try:
-        for _ in range(n):
-            r, out = q.get(timeout=600)
-            res[r] = out
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-    for r, out in sorted(res.items()):
-        if isinstance(out, str):
-            fail(f"rank {r}: {out}")
-        for mode, o in out.items():
-            if not all(math.isfinite(v) for v in o["losses"]) or \
-                    not o["losses"][-1] < o["losses"][0]:
-                fail(f"{n} ranks, {mode}, rank {r}: losses {o['losses']}")
-            if o["losses"] != res[0][mode]["losses"] or \
-                    o["checksum"] != res[0][mode]["checksum"]:
-                fail(f"{n} ranks, {mode}: rank {r} diverged from rank 0")
+        res = run_world(_world_rank, n, device=None, timeout=600)
+    except RuntimeError as e:
+        fail(f"{n} GPUs: {e}")
+    for r, runs in enumerate(res):
+        for o, o0 in zip(runs, res[0]):
+            if o["losses"] != o0["losses"] or o["checksum"] != o0["checksum"]:
+                fail(f"{n} GPUs, {o['mode']}: rank {r} diverged from rank 0")
     return res[0]
+
+
+def _summary(run: dict) -> str:
+    return json.dumps({k: v for k, v in run.items() if k != "step_calls"})
 
 
 def main() -> None:
@@ -429,6 +560,8 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
+    if torch.cuda.device_count() < gpus:
+        fail(f"--gpus {gpus}: only {torch.cuda.device_count()} GPUs")
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -452,12 +585,6 @@ def main() -> None:
           + ", ".join(f"{n} {r['seconds']:.2f} s" for n, r in report.items()),
           flush=True)
 
-    L = sum(v.numel() for v in ResNet50(device="meta").jax_params().values())
-    results: dict = {}
-    kernel_phase(L, results)
-    for name, r in results.items():
-        print(f"kernel {name}: {json.dumps(r)}", flush=True)
-
     cpu = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--cpu-reference"], capture_output=True, text=True,
                          timeout=300)
@@ -478,32 +605,34 @@ def main() -> None:
         gen = torch.Generator(device=hvd.device()).manual_seed(0)
         x = torch.randn(64, 224, 224, 3, device=hvd.device(), generator=gen)
         y = torch.randint(0, 1000, (64,), device=hvd.device(), generator=gen)
-        runs = [train(0, True, 10, x, y), train(0, False, 5, x, y)]
+        runs = [train(True, 10, x, y), train(False, 5, x, y)]
+        del x, y
     finally:
         hvd.shutdown()
-    if gpus > 1:
-        if torch.cuda.device_count() < gpus:
-            fail(f"--gpus {gpus}: only {torch.cuda.device_count()} GPUs")
-        multi = run_world(gpus)
-        print(f"e2e {gpus} GPUs: {json.dumps(multi)}", flush=True)
-    need = {"zero1": ("quantize", "dequant_accumulate", "fused_adam"),
-            "allreduce": ("quantize", "dequant_accumulate_requantize",
-                          "fused_adam")}
     for run in runs:
-        print(f"e2e {run['mode']}: {json.dumps(run)}", flush=True)
-        for k in need[run["mode"]]:
-            if run["launches"][k] < 1:
-                fail(f"{run['mode']}: kernel {k} was not launched on the "
-                     f"main path ({run['launches']})")
+        print(f"e2e {run['mode']}: {_summary(run)}", flush=True)
+    step_calls = {run["mode"]: run["step_calls"] for run in runs}
+    if gpus > 1:
+        torch.cuda.empty_cache()
+        for run in run_gpus(gpus):
+            print(f"e2e {gpus} GPUs {run['mode']}: {_summary(run)}", flush=True)
+            step_calls[f"{run['mode']}@{gpus}"] = run["step_calls"]
+
+    L = sum(v.numel() for v in ResNet50(device="meta").jax_params().values())
+    flat_buffer_checks(L)
+    rows = kernel_phase(step_calls, main_modes=("zero1", "allreduce"))
+    for name, r in rows.items():
+        print(f"kernel {name}: {json.dumps(r)}", flush=True)
 
     kernels = []
     for name in K.KERNELS:
-        r = results[name]
+        r = rows[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=TPU_KERNELS[name],
             launches=sum(run["launches"][name] for run in runs),
-            launches_by_mode={run["mode"]: run["launches"][name] for run in runs},
+            launches_by_mode={run["mode"]: run["launches"][name]
+                              for run in runs},
             max_abs_err=r["max_abs_err"], ms=r["ms"], kernel_ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))

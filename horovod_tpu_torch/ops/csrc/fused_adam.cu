@@ -1,9 +1,10 @@
 // Fused Adam update on Hopper: moments, bias correction and the -lr step
-// in one pass, optionally with the blockwise-int8 requantize epilogue of
-// the update.
+// in one pass.
 //
 // Replaces horovod_tpu/ops/pallas_kernels.py: fused_adam_update /
-// _adam_kernel (and _requant_rows for the epilogue).
+// _adam_kernel. (Its optional int8 requantize epilogue has no caller on
+// the reference's training path; it is ported with the ZeRO-3 int8
+// gather that would use it.)
 //
 // Expression order is optax's scale_by_adam -> scale(-lr):
 //   mu' = (1-b1)*g + b1*mu
@@ -18,15 +19,10 @@
 // nu (12 bytes) and writes u, mu', nu' (12 bytes) for ~12 f32
 // operations: 0.5 operations per byte against the card's ~20. The design
 // reads and writes each array once, in float4s on a grid-stride loop
-// (ragged tails and unaligned views take a scalar path). The requantize
-// variant gives one warp a 256-element block so the scale reduction
-// stays in registers, as in int8_wire.cu.
-#include "int8_wire.cuh"
+// (ragged tails and unaligned views take a scalar path).
+#include <cuda_runtime.h>
 
 namespace {
-
-using hvdt::kBlock;
-using hvdt::kLane;
 
 constexpr int kThreads = 256;
 
@@ -81,71 +77,24 @@ __global__ void adam_kernel(const float* __restrict__ g,
   }
 }
 
-// One warp per 256-element block of the update; elements past L are the
-// reference's zero pad (g = mu = nu = 0), quantized but not stored.
-__global__ void adam_requant_kernel(const float* __restrict__ g,
-                                    const float* __restrict__ mu,
-                                    const float* __restrict__ nu,
-                                    float* __restrict__ u,
-                                    float* __restrict__ mu2,
-                                    float* __restrict__ nu2,
-                                    int8_t* __restrict__ q,
-                                    __nv_bfloat16* __restrict__ s,
-                                    long long L, long long nblocks,
-                                    AdamConsts c) {
-  const long long blk =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (blk >= nblocks) return;           // warp-uniform
-  const long long e = blk * kBlock + lane * kLane;
-  float uv[kLane], dv[kLane];
-  int8_t qi[kLane];
-#pragma unroll
-  for (int i = 0; i < kLane; ++i) {
-    const long long k = e + i;
-    float m = 0.0f, v = 0.0f, gg = 0.0f;
-    if (k < L) { gg = g[k]; m = mu[k]; v = nu[k]; }
-    uv[i] = adam_elem(gg, m, v, c);
-    if (k < L) { u[k] = uv[i]; mu2[k] = m; nu2[k] = v; }
-  }
-  const __nv_bfloat16 sc = hvdt::requant_lane(uv, qi, dv);
-  if (lane == 0) s[blk] = sc;
-  hvdt::store8(q + e, qi);
-}
-
 }  // namespace
 
 extern "C" {
 
-// g, mu, nu f32 [L] -> u, mu2, nu2 f32 [L]; with q != NULL also the
-// int8 wire image of u: q int8 [ceil(L/256)*256], s bf16 [ceil(L/256)].
-// vec != 0 promises every f32 pointer is 16-byte aligned.
+// g, mu, nu f32 [L] -> u, mu2, nu2 f32 [L].
+// vec != 0 promises every pointer is 16-byte aligned.
 int hvd_fused_adam(const void* g, const void* mu, const void* nu, void* u,
-                   void* mu2, void* nu2, void* q, void* s, long long L,
-                   float omb1, float b1, float omb2, float b2, float b1c,
-                   float b2c, float eps, float eps_root, float neg_lr,
-                   int vec, void* stream) {
+                   void* mu2, void* nu2, long long L, float omb1, float b1,
+                   float omb2, float b2, float b1c, float b2c, float eps,
+                   float eps_root, float neg_lr, int vec, void* stream) {
   const AdamConsts c{omb1, b1, omb2, b2, b1c, b2c, eps, eps_root, neg_lr};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q == nullptr) {
-    long long blocks = ((L + 3) / 4 + kThreads - 1) / kThreads;
-    if (blocks > 132 * 16) blocks = 132 * 16;   // grid-stride beyond this
-    adam_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, st>>>(
-        static_cast<const float*>(g), static_cast<const float*>(mu),
-        static_cast<const float*>(nu), static_cast<float*>(u),
-        static_cast<float*>(mu2), static_cast<float*>(nu2), L, c, vec);
-  } else {
-    const long long nblocks = (L + kBlock - 1) / kBlock;
-    const long long threads = nblocks * 32;
-    adam_requant_kernel<<<static_cast<unsigned int>(
-                              (threads + kThreads - 1) / kThreads),
-                          kThreads, 0, st>>>(
-        static_cast<const float*>(g), static_cast<const float*>(mu),
-        static_cast<const float*>(nu), static_cast<float*>(u),
-        static_cast<float*>(mu2), static_cast<float*>(nu2),
-        static_cast<int8_t*>(q), static_cast<__nv_bfloat16*>(s), L, nblocks,
-        c);
-  }
+  long long blocks = ((L + 3) / 4 + kThreads - 1) / kThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;     // grid-stride beyond this
+  adam_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(mu),
+      static_cast<const float*>(nu), static_cast<float*>(u),
+      static_cast<float*>(mu2), static_cast<float*>(nu2), L, c, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

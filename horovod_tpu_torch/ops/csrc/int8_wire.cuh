@@ -1,5 +1,4 @@
-// Device code shared by the int8-wire kernels (int8_wire.cu) and the
-// fused Adam requantize epilogue (fused_adam.cu).
+// Device code shared by the int8-wire kernels (int8_wire.cu).
 //
 // One warp owns one 256-element scale block: lane l holds elements
 // [8l, 8l + 8) of it, read as two float4s. Every rounding is pinned with
@@ -9,6 +8,12 @@
 //   q = sf > 0 ? clip(round_half_even(x / sf), -127, 127) : 0
 // The build passes no -use_fast_math, and __fdiv_rn keeps the divide an
 // IEEE division (never a multiply by a reciprocal).
+//
+// Non-finite input follows the reference too: a NaN in a block makes its
+// max and scale NaN and its q all 0 (NaN > 0 is false); an infinity makes
+// the scale inf, so finite x / inf = 0 and inf / inf = NaN, which the int8
+// cast turns into 0 as XLA's float-to-int conversion does. The roundtrip
+// image q * sf is then NaN throughout such a block, as in the reference.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,10 +25,15 @@ namespace hvdt {
 constexpr int kBlock = 256;             // compression.INT8_BLOCK
 constexpr int kLane = kBlock / 32;      // elements per lane
 
+// max that propagates NaN, as jnp.max does (fmaxf would drop it)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (b > a || b != b) ? b : a;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -54,7 +64,7 @@ __device__ __forceinline__ __nv_bfloat16 requant_lane(
     const float (&x)[kLane], int8_t (&q)[kLane], float (&d)[kLane]) {
   float a = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kLane; ++i) a = fmaxf(a, fabsf(x[i]));
+  for (int i = 0; i < kLane; ++i) a = max_nan(a, fabsf(x[i]));
   a = warp_max(a);
   const __nv_bfloat16 sc = __float2bfloat16_rn(__fdiv_rn(a, 127.0f));
   const float sf = __bfloat162float(sc);
@@ -63,7 +73,8 @@ __device__ __forceinline__ __nv_bfloat16 requant_lane(
     float v = 0.0f;
     if (sf > 0.0f) {
       v = rintf(__fdiv_rn(x[i], sf));  // round half to even, as jnp.round
-      v = fminf(fmaxf(v, -127.0f), 127.0f);
+      // a NaN quotient (inf / inf) casts to 0; never convert a NaN
+      v = (v != v) ? 0.0f : fminf(fmaxf(v, -127.0f), 127.0f);
     }
     q[i] = static_cast<int8_t>(static_cast<int>(v));
     d[i] = __fmul_rn(static_cast<float>(q[i]), sf);

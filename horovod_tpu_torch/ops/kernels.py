@@ -48,7 +48,7 @@ _ARGTYPES = {
     "hvd_dequant_accumulate": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
     "hvd_dequant_accumulate_requantize": [
         _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P],
-    "hvd_fused_adam": [_P] * 8 + [ctypes.c_longlong] + [ctypes.c_float] * 9
+    "hvd_fused_adam": [_P] * 6 + [ctypes.c_longlong] + [ctypes.c_float] * 9
     + [ctypes.c_int, _P],
 }
 _fns: dict = {}
@@ -118,21 +118,16 @@ def _f32_scalar(x, like):
                         device=like.device)
 
 
-def _pad_tail(flat, multiple: int):
-    """Zero-pad a flat vector to a multiple of ``multiple`` (the
-    reference helper of the same name)."""
-    pad = (-flat.shape[0]) % multiple
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros(pad)])
-    return flat
-
-
 # --------------------------------------------------------------------------
 # blockwise int8 quantize (+ roundtrip image)
 
 
 def quantize_plain(flat, block: int = INT8_BLOCK, roundtrip: bool = False):
-    """The reference's discrete quantize: ``(q, scales[, deq])``."""
+    """The reference's discrete quantize: ``(q, scales[, deq])``. A NaN
+    in a block makes its scale NaN and its q 0; an infinity makes the
+    scale inf, and the NaN quotient inf / inf becomes q 0, as XLA's
+    float-to-int cast makes it (spelled out here: a NaN cast to int8 is
+    undefined in C++)."""
     m = flat.reshape(-1, block)
     amax = m.abs().amax(dim=1, keepdim=True)
     sc = (amax / _f32_scalar(127.0, m)).to(torch.bfloat16)
@@ -140,7 +135,8 @@ def quantize_plain(flat, block: int = INT8_BLOCK, roundtrip: bool = False):
     pos = sf > 0
     q = torch.where(pos, m / torch.where(pos, sf, torch.ones_like(sf)),
                     torch.zeros_like(m))
-    qi = torch.clamp(torch.round(q), -127, 127).to(torch.int8)
+    q = torch.nan_to_num(torch.round(q), nan=0.0)
+    qi = torch.clamp(q, -127, 127).to(torch.int8)
     out = (qi.reshape(-1), sc.reshape(-1))
     if roundtrip:
         out += ((qi.to(m.dtype) * sf).reshape(-1),)
@@ -275,7 +271,7 @@ def adam_constants(lr, b1, b2, eps, eps_root, count: int) -> dict:
     )
 
 
-def fused_adam_plain(g, mu, nu, c: dict, requant_block=None):
+def fused_adam_plain(g, mu, nu, c: dict):
     t = lambda x: _f32_scalar(x, g)  # noqa: E731
     mu2 = c["omb1"] * g + c["b1"] * mu
     nu2 = c["omb2"] * (g * g) + c["b2"] * nu
@@ -284,24 +280,17 @@ def fused_adam_plain(g, mu, nu, c: dict, requant_block=None):
     # are), and a rounding of f64 sqrt to f32 is exact-rounded
     root = torch.sqrt((nu2 / t(c["b2c"]) + c["eps_root"]).double()).float()
     u = c["neg_lr"] * ((mu2 / t(c["b1c"])) / (root + c["eps"]))
-    if requant_block is None:
-        return u, mu2, nu2
-    up = fused_adam_plain(*(_pad_tail(x, requant_block) for x in (g, mu, nu)),
-                          c)[0]
-    return u, mu2, nu2, quantize_plain(up, requant_block)
+    return u, mu2, nu2
 
 
 def fused_adam_update(g, mu, nu, count: int, *, lr, b1=0.9, b2=0.999,
-                      eps=1e-8, eps_root=0.0, requant_block=None):
+                      eps=1e-8, eps_root=0.0):
     """One Adam step over a flat f32 shard, bias corrections taken at step
     ``count`` (the incremented count): ``(update, mu', nu')`` in optax's
-    ``scale_by_adam -> scale(-lr)`` order, plus with ``requant_block`` the
-    int8 wire image ``(q, scales)`` of the update from the same pass."""
+    ``scale_by_adam -> scale(-lr)`` order."""
     c = adam_constants(lr, b1, b2, eps, eps_root, count)
     if not _on_cuda(g, mu, nu):
-        return fused_adam_plain(g, mu, nu, c, requant_block)
-    if requant_block is not None:
-        _need_block(requant_block)
+        return fused_adam_plain(g, mu, nu, c)
     for name, x in (("g", g), ("mu", mu), ("nu", nu)):
         if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous 1-D float32 tensor")
@@ -309,20 +298,11 @@ def fused_adam_update(g, mu, nu, count: int, *, lr, b1=0.9, b2=0.999,
     if mu.shape[0] != L or nu.shape[0] != L:
         raise ValueError("g, mu and nu must have the same length")
     u, mu2, nu2 = (torch.empty_like(g) for _ in range(3))
-    q = s = None
-    if requant_block is not None:
-        nb = -(-L // requant_block)
-        q = torch.empty(nb * requant_block, dtype=torch.int8, device=g.device)
-        s = torch.empty(nb, dtype=torch.bfloat16, device=g.device)
     vec = int(all(x.data_ptr() % 16 == 0 for x in (g, mu, nu, u, mu2, nu2)))
     if L:
         _launch("fused_adam", "fused_adam", "hvd_fused_adam", g.device,
                 g.data_ptr(), mu.data_ptr(), nu.data_ptr(), u.data_ptr(),
-                mu2.data_ptr(), nu2.data_ptr(),
-                q.data_ptr() if q is not None else None,
-                s.data_ptr() if s is not None else None, L,
+                mu2.data_ptr(), nu2.data_ptr(), L,
                 c["omb1"], c["b1"], c["omb2"], c["b2"], c["b1c"], c["b2c"],
                 c["eps"], c["eps_root"], c["neg_lr"], vec)
-    if requant_block is None:
-        return u, mu2, nu2
-    return u, mu2, nu2, (q, s)
+    return u, mu2, nu2

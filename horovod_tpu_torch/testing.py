@@ -1,8 +1,9 @@
-"""Run a function in a world of CPU processes over gloo.
+"""Run a function in a world of processes, one per rank.
 
 ``run_world(fn, n, *args)`` spawns ``n`` processes, initializes
 ``horovod_tpu_torch`` in each on the CPU (gloo, a free localhost port),
 calls ``fn(*args)`` and returns the per-rank results, rank-ordered.
+``device=None`` gives each rank its GPU instead (``cuda:<rank>``, NCCL).
 ``fn`` must be importable by the children (a module-level function of a
 module that does not import JAX keeps the spawn cheap).
 """
@@ -21,14 +22,15 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _child(rank, n, port, fn, args, q):
+def _child(rank, n, port, device, fn, args, q):
     import torch
 
     import horovod_tpu_torch as hvd
 
-    torch.set_num_threads(1)
+    if device == "cpu":
+        torch.set_num_threads(1)
     try:
-        hvd.init(device="cpu", init_method=f"tcp://127.0.0.1:{port}",
+        hvd.init(device=device, init_method=f"tcp://127.0.0.1:{port}",
                  rank=rank, size=n)
         out = fn(*args)
         q.put((rank, True, out))
@@ -38,13 +40,14 @@ def _child(rank, n, port, fn, args, q):
         hvd.shutdown()
 
 
-def run_world(fn, n: int, *args, timeout: float = 120.0) -> list:
+def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0) -> list:
     """``[fn(*args) on rank 0, ..., on rank n-1]``; raises with the first
     failing rank's traceback."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_child, args=(r, n, port, fn, args, q))
+    procs = [ctx.Process(target=_child,
+                         args=(r, n, port, device, fn, args, q))
              for r in range(n)]
     for p in procs:
         p.start()
