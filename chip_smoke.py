@@ -34,12 +34,40 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``torch._fused_adam_`` over the same tensors as a yardstick) beside
    the sum of the calls' bounds. ResNet-50's flat buffer is also checked
    with a tail that does not divide the block and with eight synthetic
-   senders.
+   senders;
+7. the LM slice (one GPU, NCCL world of one, matmuls in full f32 where
+   f32: TF32 off): TransformerLM at the flagship configuration's full
+   width (vocab 32000, dim 1024, depth 12, 16 heads of 64, RoPE, flash
+   attention, bf16 compute, f32 parameters, 216,643,584 of them), batch
+   8 x 2048 tokens from ``np.random.RandomState(0)``, targets rolled by
+   one, ``DistributedOptimizer(adamw(1e-4))`` + ``lm_xent``, 8 steps.
+   Losses must be finite and fall on the repeated batch, and the
+   ``flash_fwd`` kernel must have launched exactly 12 times a step. It
+   prints tokens/s per GPU over steps 2-8 and one more step of the same
+   step function split into forward (with the kernel), backward (the
+   plain flash backward inside), optimizer and loss allreduce by
+   synchronised host timers at ``make_train_step``'s phase hook; the
+   plain flash backward of the step's 12 calls is timed alone with CUDA
+   events. The kernel phase
+   replays the 12 logged ``flash_fwd`` calls of the last step at their
+   own shapes and strides against ``flash_fwd_plain`` (``out`` within
+   one bf16 ULP, ULPs below 2^-8's counted as 2^-8's, and the elements
+   that floor lets through counted; ``lse`` within 1e-5 relative, 1e-5
+   absolute below 1: the two sum in different f32 orders), and times them beside ``F.scaled_dot_product_attention``
+   over the same tensors (a yardstick the port never calls; it emits no
+   lse). Shapes the path does not give are checked too: GQA (16 query
+   heads on 4 kv heads), non-causal, T = 1000 (not a multiple of the
+   tile), head dim 128, f32 inputs.
 
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
 one-GPU mode that launches it; ``by_mode`` splits them. ``launches``
-counts the one-GPU runs' launches. The last two lines of standard output
+counts the one-GPU runs' launches. A bound is the larger of the bytes
+over the memory rate and the operations over the peak rate for the
+inputs' type (bf16 tensor cores for ``flash_fwd``'s bf16 dots, the f32
+rate outside the tensor cores otherwise); ``flash_fwd``'s operations are
+those of the (query, key) pairs the causal mask keeps, whatever the
+kernel's tiling. The last two lines of standard output
 are that record and ``{"ok": true, "device": {...}}``.
 """
 
@@ -59,20 +87,35 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM dense f32 rate outside the tensor cores, operations/s
 F32_OPS_PER_S = 67e12
+#: H100 SXM dense bf16 tensor-core rate, operations/s
+BF16_OPS_PER_S = 989e12
 #: fused Adam's bar against its plain version
 ADAM_ULPS = 2
+#: flash_fwd's bars against its plain version: out within one ULP (of bf16;
+#: ULPs below 2^-8's are counted as 2^-8's, where the f32 sums' rounding
+#: is larger than an ULP), f32 out within 1e-5; lse within 1e-5 relative
+#: (absolute below 1: row 0's lse is a single dot product, near 0)
+FLASH_ULP_FLOOR = 2.0 ** -8
+FLASH_TOL = 1e-5
+
+#: the LM slice: the flagship TransformerLM configuration
+LM = dict(vocab=32000, dim=1024, depth=12, heads=16, kv_heads=None,
+          mlp_ratio=4, max_len=2048, pos_embedding="rope")
+LM_BATCH, LM_SEQ, LM_STEPS = 8, 2048, 8
 
 TPU_KERNELS = {
     "quantize": "horovod_tpu/ops/pallas_kernels.py:220",
     "dequant_accumulate": "horovod_tpu/ops/pallas_kernels.py:323",
     "dequant_accumulate_requantize": "horovod_tpu/ops/pallas_kernels.py:354",
     "fused_adam": "horovod_tpu/ops/pallas_kernels.py:673",
+    "flash_fwd": "horovod_tpu/ops/flash_attention.py:250",
 }
 SOURCES = {
     "quantize": "horovod_tpu_torch/ops/csrc/int8_wire.cu",
     "dequant_accumulate": "horovod_tpu_torch/ops/csrc/int8_wire.cu",
     "dequant_accumulate_requantize": "horovod_tpu_torch/ops/csrc/int8_wire.cu",
     "fused_adam": "horovod_tpu_torch/ops/csrc/fused_adam.cu",
+    "flash_fwd": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
 }
 #: the public wrappers of ops.kernels the path calls, and their kernel
 WRAPPERS = {
@@ -81,11 +124,13 @@ WRAPPERS = {
     "dequant_accumulate": "dequant_accumulate",
     "dequant_accumulate_requantize": "dequant_accumulate_requantize",
     "fused_adam_update": "fused_adam",
+    "flash_fwd": "flash_fwd",
 }
 #: kernels each mode's path must launch
 NEED = {"zero1": ("quantize", "dequant_accumulate", "fused_adam"),
         "allreduce": ("quantize", "dequant_accumulate_requantize",
-                      "fused_adam")}
+                      "fused_adam"),
+        "lm": ("flash_fwd",)}
 
 
 def fail(msg: str) -> None:
@@ -173,6 +218,11 @@ def _signature(wrapper: str, args, kw) -> tuple:
         return (kernel, *args[0].shape)
     if kernel == "dequant_accumulate_requantize":
         return (kernel, *args[0].shape, kw.get("divisor"))
+    if kernel == "flash_fwd":
+        q, k, v = args
+        return (kernel, tuple(q.shape), tuple(k.shape),
+                str(q.dtype).replace("torch.", ""), bool(kw.get("causal")),
+                kw.get("sm_scale"), q.stride(), k.stride(), v.stride())
     return (kernel, args[0].numel(), args[3], tuple(sorted(kw.items())))
 
 
@@ -202,30 +252,49 @@ def logging_calls(steps: list):
             setattr(K, w, f)
 
 
+def flash_pairs(t_q: int, t_k: int, causal: bool) -> int:
+    """The (query, key) pairs attention needs for one (batch, head): all
+    of them, or those the causal mask keeps (key index <= query index),
+    ``sum_i min(t_k, i + 1)``."""
+    if not causal:
+        return t_q * t_k
+    n = min(t_q, t_k)
+    return n * (n + 1) // 2 + (t_q - n) * t_k
+
+
 def call_bound(sig) -> tuple:
-    """``(bytes, operations)`` of one call: each input read once, each
-    output written once."""
+    """``(bytes, operations, operations/s)`` of one call: each input read
+    once, each output written once; the operations at the peak rate for
+    their type."""
     kernel = sig[0]
     if kernel == "quantize":
         _, roundtrip, L = sig
-        return 4 * L + L + 2 * (L // 256) + 4 * L * roundtrip, 4 * L
+        return (4 * L + L + 2 * (L // 256) + 4 * L * roundtrip, 4 * L,
+                F32_OPS_PER_S)
     if kernel in ("dequant_accumulate", "dequant_accumulate_requantize"):
         n, sp = sig[1], sig[2]
         wire = n * sp + 2 * n * (sp // 256)
         if kernel == "dequant_accumulate":
-            return wire + 4 * sp, 2 * n * sp
-        return wire + sp + 2 * (sp // 256), 2 * n * sp + 4 * sp
+            return wire + 4 * sp, 2 * n * sp, F32_OPS_PER_S
+        return wire + sp + 2 * (sp // 256), 2 * n * sp + 4 * sp, F32_OPS_PER_S
+    if kernel == "flash_fwd":
+        (b, t_q, h, d), (_, t_k, h_kv, _), dtype, causal = sig[1:5]
+        item = 2 if dtype == "bfloat16" else 4
+        nbytes = item * d * (2 * b * t_q * h + 2 * b * t_k * h_kv) + 4 * b * h * t_q
+        # q.k and p.v: 2 + 2 operations per (q, k, d) of every needed pair
+        ops = 4 * d * b * h * flash_pairs(t_q, t_k, causal)
+        return nbytes, ops, (BF16_OPS_PER_S if item == 2 else F32_OPS_PER_S)
     L = sig[1]
-    return 24 * L, 12 * L
+    return 24 * L, 12 * L, F32_OPS_PER_S
 
 
 def bound_ms(sigs) -> tuple:
     """The least time for all of ``sigs``: the sum of each call's larger
-    of bytes over the memory rate and operations over the f32 rate."""
+    of bytes over the memory rate and operations over its peak rate."""
     total, by = 0.0, set()
     for sig in sigs:
-        nbytes, ops = call_bound(sig)
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        nbytes, ops, rate = call_bound(sig)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
         total += max(t_b, t_o)
         by.add("bytes" if t_b >= t_o else "operations")
     return total * 1e3, "bytes" if by == {"bytes"} else "operations"
@@ -259,6 +328,23 @@ def make_call(sig, gen):
 
     dev = gen.device
     kernel = sig[0]
+    if kernel == "flash_fwd":
+        _, qs, ks, dtype, causal, scale, qst, kst, vst = sig
+        dtype = getattr(torch, dtype)
+
+        def strided(shape, stride):
+            # the logged layout: a view of a buffer just large enough
+            n = 1 + sum((a - 1) * st for a, st in zip(shape, stride))
+            x = torch.randn(n, device=dev, generator=gen).to(dtype)
+            return x.as_strided(shape, stride)
+
+        q, k, v = strided(qs, qst), strided(ks, kst), strided(ks, vst)
+        call = (lambda: K.flash_fwd(q, k, v, causal=causal, sm_scale=scale),
+                lambda: K.flash_fwd_plain(q, k, v, causal=causal,
+                                          sm_scale=scale),
+                _flash_close)
+        call[0].tensors = (q, k, v, causal, scale)
+        return call
     if kernel == "quantize":
         _, roundtrip, L = sig
         x = torch.randn(L, device=dev, generator=gen) * 1e-2
@@ -305,6 +391,44 @@ def _bits(out, ref):
     return None
 
 
+def _bf16_ulps(a, b, floor):
+    """``(|a - b|, bf16's ULP at the larger of |a|, |b|)`` with magnitudes
+    below ``floor`` taken as ``floor``."""
+    import torch
+
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs())
+    _, e = torch.frexp(big.clamp_min(floor))
+    return (a - b).abs(), torch.ldexp(torch.ones_like(big), e - 8)
+
+
+def flash_unfloored_misses(out, ref) -> int:
+    """Elements of a bf16 ``out`` more than one bf16 ULP from the plain
+    version with no floor: how many the floor of the bar lets through."""
+    diff, ulp = _bf16_ulps(out[0], ref[0], 2.0 ** -126)
+    return int((diff > ulp).sum())
+
+
+def _flash_close(out, ref):
+    import torch
+
+    (o, lse), (ro, rlse) = out, ref
+    if o.shape != ro.shape or o.dtype != ro.dtype or lse.shape != rlse.shape:
+        return f"shapes/dtypes {o.shape}/{o.dtype} vs {ro.shape}/{ro.dtype}"
+    if not (bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())):
+        return "non-finite output"
+    if o.dtype == torch.bfloat16:
+        diff, bar = _bf16_ulps(o, ro, FLASH_ULP_FLOOR)
+        if bool((diff > bar).any()):
+            worst = float((diff / bar).max())
+            return f"out more than one bf16 ULP off ({worst:.2f} ULP)"
+    elif max_abs(o, ro) > FLASH_TOL:
+        return f"out off by {max_abs(o, ro)}"
+    if bool(((lse - rlse).abs() > FLASH_TOL * rlse.abs().clamp_min(1.0)).any()):
+        return f"lse off by {max_abs(lse, rlse)}"
+    return None
+
+
 def _ulps(out, ref):
     for name, a, b in zip(("update", "mu", "nu"), out, ref):
         if not within_ulps(a, b):
@@ -327,6 +451,23 @@ def library_adam_ms(calls, count: int, kw: dict) -> float:
         params, list(gs), m2, v2, [], steps, lr=kw["lr"], beta1=kw["b1"],
         beta2=kw["b2"], weight_decay=0.0, eps=kw["eps"], amsgrad=False,
         maximize=False))
+
+
+def library_flash_ms(calls) -> float:
+    """``F.scaled_dot_product_attention`` over the same tensors as one
+    step's flash_fwd calls, ``[B, H, T, D]`` views (a yardstick the port
+    never calls: it emits no lse)."""
+    import torch.nn.functional as F
+
+    def run():
+        for c in calls:
+            q, k, v, causal, scale = c.tensors
+            F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, scale=scale,
+                enable_gqa=q.shape[2] != k.shape[2])
+
+    return cuda_ms(run)
 
 
 def kernel_phase(step_calls: dict, main_modes) -> dict:
@@ -356,11 +497,19 @@ def kernel_phase(step_calls: dict, main_modes) -> dict:
                     [row["max_abs_err"]]
                     + [max_abs(a, b) for a, b in zip(out, ref)])
                 row["calls_checked"] += 1
+                if kernel == "flash_fwd" and out[0].dtype == torch.bfloat16:
+                    row["out_elements"] = (row.get("out_elements", 0)
+                                           + out[0].numel())
+                    row["over_one_unfloored_ulp"] = (
+                        row.get("over_one_unfloored_ulp", 0)
+                        + flash_unfloored_misses(out, ref))
             b, by = bound_ms(ks)
             lib = None
             if kernel == "fused_adam" and hasattr(torch, "_fused_adam_"):
                 lib = library_adam_ms([c[0] for c in calls], ks[0][2],
                                       dict(ks[0][3]))
+            elif kernel == "flash_fwd":
+                lib = library_flash_ms([c[0] for c in calls])
             row["by_mode"][mode] = dict(
                 calls=len(ks), shapes=len(set(ks)),
                 ms=cuda_ms(lambda: [c[0]() for c in calls]),
@@ -404,6 +553,57 @@ def flat_buffer_checks(L: int) -> None:
         bad = compare(run(), plain())
         if bad:
             fail(f"{sig} (flat buffer, 8 senders): {bad}")
+
+
+def flash_extra_checks() -> list:
+    """flash_fwd against its plain version at shapes the path does not
+    give: GQA, non-causal, a T that is not a multiple of the tile, head
+    dim 128, f32 inputs. Returns the shapes checked."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [  # (q shape, kv heads, causal, dtype)
+        ((8, 2048, 16, 64), 4, True, "bfloat16"),
+        ((8, 2048, 16, 64), 16, False, "bfloat16"),
+        ((8, 1000, 16, 64), 16, True, "bfloat16"),
+        ((2, 512, 8, 128), 8, True, "bfloat16"),
+        ((2, 300, 4, 64), 2, True, "float32"),
+    ]
+    done = []
+    for (b, t, h, d), h_kv, causal, dtype in cases:
+        qs, ks = (b, t, h, d), (b, t, h_kv, d)
+        strides = lambda sh: (sh[1] * sh[2] * sh[3], sh[2] * sh[3], sh[3], 1)  # noqa: E731
+        sig = ("flash_fwd", qs, ks, dtype, causal, d ** -0.5, strides(qs),
+               strides(ks), strides(ks))
+        run, plain, compare = make_call(sig, gen)
+        bad = compare(run(), plain())
+        if bad:
+            fail(f"flash_fwd at {sig[1:5]}: {bad}")
+        done.append(sig[1:5])
+        del run, plain
+    torch.cuda.empty_cache()
+    return done
+
+
+def flash_bwd_ms(sigs) -> float:
+    """CUDA-event time of the plain flash backward of all the logged
+    flash_fwd calls of one step, each at its call's shape and strides."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bwd = []
+    for sig in sigs:
+        run, _, _ = make_call(sig, gen)
+        q, k, v, causal, scale = run.tensors
+        out, lse = run()
+        dout = torch.randn(out.shape, device=out.device,
+                           generator=gen).to(out.dtype)
+        bwd.append((q, k, v, out, lse, dout, causal, scale))
+    return cuda_ms(lambda: [fa.flash_bwd(q, k, v, out, lse, dout, causal=c,
+                                         sm_scale=s)
+                            for q, k, v, out, lse, dout, c, s in bwd])
 
 
 # --------------------------------------------------------------------------
@@ -453,6 +653,41 @@ def cpu_reference() -> None:
 # phases 4 and 5: ResNet-50 end to end
 
 
+def run_steps(mode: str, step, st, x, y, steps: int):
+    """``steps`` calls of ``step(st, x, y)`` with every kernel-wrapper
+    call logged, launch counts set to 0 just before; fails unless the
+    loss is finite and falls on the repeated batch, the logged calls
+    match the launch counts and every kernel of the mode's path launched.
+    Returns ``(st, losses, step seconds, launches, last step's calls)``."""
+    from horovod_tpu_torch.ops import kernels as K
+
+    calls: list = []
+    K.reset_launches()                  # count the main path's run only
+    losses, times = [], []
+    with logging_calls(calls):
+        for _ in range(steps):
+            calls.append([])
+            t0 = time.perf_counter()
+            st, loss = step(st, x, y)
+            losses.append(float(loss))  # device->host read fences the step
+            times.append(time.perf_counter() - t0)
+    launches = dict(K.launches)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{mode}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{mode}: loss did not fall on the repeated batch: {losses}")
+    for k in K.KERNELS:
+        logged = sum(sig[0] == k for c in calls for sig in c)
+        if logged != launches[k]:
+            fail(f"{mode}: {launches[k]} launches of {k} but {logged} "
+                 "logged calls: a caller bypasses ops.kernels' wrappers")
+    for k in NEED[mode]:
+        if launches[k] < 1:
+            fail(f"{mode}: kernel {k} was not launched on the main path "
+                 f"({launches})")
+    return st, losses, times, launches, calls[-1]
+
+
 def train(shard: bool, steps: int, x, y, model_seed: int = 0) -> dict:
     """``steps`` steps of ResNet-50 on this rank's batch ``x, y`` in one
     optimizer mode; fails unless the loss is finite and falls and every
@@ -462,7 +697,6 @@ def train(shard: bool, steps: int, x, y, model_seed: int = 0) -> dict:
 
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import ResNet50
-    from horovod_tpu_torch.ops import kernels as K
 
     dev = hvd.device()
     model = ResNet50(dtype=torch.bfloat16, seed=model_seed, device=dev)
@@ -477,36 +711,76 @@ def train(shard: bool, steps: int, x, y, model_seed: int = 0) -> dict:
             torch.isfinite(logits).all()):
         fail(f"ResNet-50 logits: shape {tuple(logits.shape)} or non-finite")
     torch.cuda.synchronize()
-    calls: list = []
-    K.reset_launches()                  # count the main path's run only
-    losses, times = [], []
-    with logging_calls(calls):
-        for _ in range(steps):
-            calls.append([])
-            t0 = time.perf_counter()
-            st, loss = step(st, x, y)
-            losses.append(float(loss))  # device->host read fences the step
-            times.append(time.perf_counter() - t0)
-    launches = dict(K.launches)
     mode = "zero1" if shard else "allreduce"
-    if not all(math.isfinite(v) for v in losses):
-        fail(f"{mode}: non-finite loss {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"{mode}: loss did not fall on the repeated batch: {losses}")
-    for k in K.KERNELS:
-        logged = sum(sig[0] == k for c in calls for sig in c)
-        if logged != launches[k]:
-            fail(f"{mode}: {launches[k]} launches of {k} but {logged} "
-                 "logged calls: a caller bypasses ops.kernels' wrappers")
-    for k in NEED[mode]:
-        if launches[k] < 1:
-            fail(f"{mode}: kernel {k} was not launched on the main path "
-                 f"({launches})")
+    st, losses, times, launches, calls = run_steps(mode, step, st, x, y, steps)
     steady = times[1:] if len(times) > 1 else times
     checksum = float(sum(p.detach().double().sum() for p in model.parameters()))
     return dict(mode=mode, steps=steps, losses=losses, launches=launches,
                 step_s=times, img_per_s=x.shape[0] * len(steady) / sum(steady),
-                checksum=checksum, step_calls=calls[-1])
+                checksum=checksum, step_calls=calls)
+
+
+def train_lm(steps: int) -> dict:
+    """The LM slice: ``steps`` steps of the flagship TransformerLM through
+    ``make_train_step`` with ``DistributedOptimizer(adamw(1e-4))`` and
+    ``lm_xent``; fails unless the loss is finite and falls and flash_fwd
+    launched once per layer and step. Then one more step of the same step
+    function, split into its parts (``make_train_step``'s ``on_phase``)
+    by synchronised host timers."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import TransformerLM
+
+    marks: dict = {}
+
+    def on_phase(name):                 # armed only for the split step
+        if marks:
+            torch.cuda.synchronize()
+            marks[name] = time.perf_counter()
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in f32
+    dev = hvd.device()
+    model = TransformerLM(**LM, dtype=torch.bfloat16,
+                          attention_fn=hvd.flash_attention, seed=0, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    tok = np.random.RandomState(0).randint(
+        0, LM["vocab"], (LM_BATCH, LM_SEQ)).astype(np.int32)
+    x = torch.from_numpy(tok).to(dev)
+    y = torch.from_numpy(np.roll(tok, -1, axis=1)).to(dev)
+    tx = hvd.DistributedOptimizer(hvd.adamw(1e-4))
+    st = tx.init(model.jax_params())
+    step = hvd.make_train_step(model, tx, loss_fn=hvd.lm_xent,
+                               on_phase=on_phase)
+    with torch.no_grad():
+        logits = model(x)
+    if tuple(logits.shape) != (LM_BATCH, LM_SEQ, LM["vocab"]) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"LM logits: shape {tuple(logits.shape)} or non-finite")
+    del logits
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, losses, times, launches, calls = run_steps("lm", step, st, x, y, steps)
+    if launches["flash_fwd"] != LM["depth"] * steps:
+        fail(f"lm: {launches['flash_fwd']} flash_fwd launches in {steps} "
+             f"steps of a depth-{LM['depth']} model ({launches})")
+    peak = torch.cuda.max_memory_allocated()
+
+    torch.cuda.synchronize()
+    marks["start"] = time.perf_counter()
+    st, loss = step(st, x, y)
+    if not math.isfinite(float(loss)):
+        fail(f"lm: non-finite loss {float(loss)} in the split step")
+    names = list(marks)
+    split = {b: marks[b] - marks[a] for a, b in zip(names, names[1:])}
+    marks.clear()
+    steady = times[1:]
+    return dict(mode="lm", steps=steps, params=n_params, losses=losses,
+                launches=launches, step_s=times,
+                tokens_per_s=LM_BATCH * LM_SEQ * len(steady) / sum(steady),
+                peak_gib=peak / 2 ** 30, split_s=split,
+                split_step_s=sum(split.values()), step_calls=calls)
 
 
 def _world_rank() -> list:
@@ -607,10 +881,16 @@ def main() -> None:
         y = torch.randint(0, 1000, (64,), device=hvd.device(), generator=gen)
         runs = [train(True, 10, x, y), train(False, 5, x, y)]
         del x, y
+        torch.cuda.empty_cache()
+        runs.append(train_lm(LM_STEPS))
+        torch.cuda.empty_cache()
     finally:
         hvd.shutdown()
     for run in runs:
         print(f"e2e {run['mode']}: {_summary(run)}", flush=True)
+    lm = runs[-1]
+    print(f"e2e lm: {lm['tokens_per_s']:.1f} tokens/s per GPU over steps "
+          f"2-{lm['steps']} ({smi}; TF32 off for matmuls)", flush=True)
     step_calls = {run["mode"]: run["step_calls"] for run in runs}
     if gpus > 1:
         torch.cuda.empty_cache()
@@ -620,9 +900,23 @@ def main() -> None:
 
     L = sum(v.numel() for v in ResNet50(device="meta").jax_params().values())
     flat_buffer_checks(L)
-    rows = kernel_phase(step_calls, main_modes=("zero1", "allreduce"))
+    rows = kernel_phase(step_calls, main_modes=("zero1", "allreduce", "lm"))
     for name, r in rows.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
+    extra = flash_extra_checks()
+    print(f"flash_fwd extra shapes agree: {extra}", flush=True)
+    flash_sigs = [s for s in lm["step_calls"] if s[0] == "flash_fwd"]
+    flash = rows["flash_fwd"]
+    # the same calls' bound at the f32 rate outside the tensor cores, the
+    # arithmetic the kernel uses
+    flash["bound_f32_ms"] = 1e3 * sum(
+        max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+        for nbytes, ops, _ in map(call_bound, flash_sigs))
+    flash["plain_bwd_ms"] = flash_bwd_ms(flash_sigs)
+    print(f"lm step split (s): {json.dumps(lm['split_s'])}, sum "
+          f"{lm['split_step_s']:.4f}; per step: "
+          f"flash_fwd {flash['ms']:.3f} ms, its plain backward "
+          f"{flash['plain_bwd_ms']:.3f} ms ({len(flash_sigs)} calls)", flush=True)
 
     kernels = []
     for name in K.KERNELS:
@@ -636,6 +930,9 @@ def main() -> None:
             max_abs_err=r["max_abs_err"], ms=r["ms"], kernel_ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    next(k for k in kernels if k["name"] == "flash_fwd").update(
+        bound_f32_ms=flash["bound_f32_ms"],
+        library="F.scaled_dot_product_attention (no lse)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

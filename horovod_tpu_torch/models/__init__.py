@@ -10,3 +10,11 @@ from horovod_tpu_torch.models.resnet import (  # noqa: F401
     ResNet152,
     ResNetBlock,
 )
+from horovod_tpu_torch.models.transformer import (  # noqa: F401
+    TransformerBlock,
+    TransformerLM,
+    TransformerSmall,
+    TransformerTiny,
+    apply_rope,
+    default_attention,
+)

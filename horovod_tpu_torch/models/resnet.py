@@ -25,13 +25,14 @@ Parameters keep PyTorch's layouts (conv OIHW, linear ``[out, in]``).
 from __future__ import annotations
 
 import functools
-import math
 from typing import Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from horovod_tpu_torch.models.layers import Dense, lecun_normal_
 
 _BN_MOMENTUM = 0.9
 _BN_EPS = 1e-5
@@ -42,12 +43,6 @@ def same_pads(size: int, k: int, stride: int):
     out = -(-size // stride)
     total = max((out - 1) * stride + k - size, 0)
     return total // 2, total - total // 2
-
-
-def _lecun_normal_(w, fan_in: int, gen):
-    # flax's lecun_normal: variance_scaling(1, fan_in, truncated_normal)
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
 class Conv(nn.Module):
@@ -61,7 +56,7 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k, device=device))
 
     def reset_parameters(self, gen):
-        _lecun_normal_(self.weight.data, self.weight[0].numel(), gen)
+        lecun_normal_(self.weight.data, self.weight[0].numel(), gen)
 
     def forward(self, x):
         if self.padding == "SAME":
@@ -118,29 +113,6 @@ class BatchNorm(nn.Module):
 
     def jax_batch_stats(self):
         return {"mean": self.mean, "var": self.var}
-
-
-class Dense(nn.Module):
-    """flax ``nn.Dense`` in float32; weight ``[out, in]``, kernel view
-    ``[in, out]``."""
-
-    def __init__(self, cin, cout, *, device=None):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, device=device))
-        self.bias = nn.Parameter(torch.empty(cout, device=device))
-
-    def reset_parameters(self, gen):
-        _lecun_normal_(self.weight.data, self.weight.shape[1], gen)
-        with torch.no_grad():
-            self.bias.zero_()
-
-    def forward(self, x):
-        return F.linear(x.float(), self.weight, self.bias)
-
-    def jax_params(self, grad=False):
-        if grad:
-            return {"kernel": self.weight.grad.t(), "bias": self.bias.grad}
-        return {"kernel": self.weight.t(), "bias": self.bias}
 
 
 class ResNetBlock(nn.Module):

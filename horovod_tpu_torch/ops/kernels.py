@@ -1,7 +1,9 @@
-"""Hand-written Hopper kernels of the int8 gradient wire and the fused
-Adam update, each beside its plain PyTorch version.
+"""Hand-written Hopper kernels of the int8 gradient wire, the fused Adam
+update and the flash-attention forward, each beside its plain PyTorch
+version.
 
-Counterpart of ``horovod_tpu/ops/pallas_kernels.py``. Every public
+Counterpart of ``horovod_tpu/ops/pallas_kernels.py`` and of the Pallas
+forward of ``horovod_tpu/ops/flash_attention.py``. Every public
 function here dispatches on where its tensors live:
 
 - a CUDA tensor launches the CUDA kernel (``csrc/*.cu``, built at first
@@ -20,7 +22,9 @@ those):
   :func:`quantize_roundtrip`);
 - ``dequant_accumulate`` — the reduce-scatter epilogue;
 - ``dequant_accumulate_requantize`` — the allreduce epilogue;
-- ``fused_adam`` — :func:`fused_adam_update`.
+- ``fused_adam`` — :func:`fused_adam_update`;
+- ``flash_fwd`` — :func:`flash_fwd`, attention's forward with its
+  log-sum-exp rows.
 
 The plain versions divide by tensors, never by Python numbers: PyTorch's
 CUDA division by a host scalar multiplies by its reciprocal, which is not
@@ -37,7 +41,9 @@ import torch
 INT8_BLOCK = 256  # the block the CUDA kernels are compiled for
 
 KERNELS = ("quantize", "dequant_accumulate", "dequant_accumulate_requantize",
-           "fused_adam")
+           "fused_adam", "flash_fwd")
+#: head dims the flash_fwd kernel is compiled for
+FLASH_HEAD_DIMS = (64, 128)
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = dict.fromkeys(KERNELS, 0)
@@ -50,6 +56,8 @@ _ARGTYPES = {
         _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P],
     "hvd_fused_adam": [_P] * 6 + [ctypes.c_longlong] + [ctypes.c_float] * 9
     + [ctypes.c_int, _P],
+    "hvd_flash_fwd": [_P] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
 }
 _fns: dict = {}
 
@@ -306,3 +314,68 @@ def fused_adam_update(g, mu, nu, count: int, *, lr, b1=0.9, b2=0.999,
                 c["omb1"], c["b1"], c["omb2"], c["b2"], c["b1c"], c["b2c"],
                 c["eps"], c["eps_root"], c["neg_lr"], vec)
     return u, mu2, nu2
+
+
+# --------------------------------------------------------------------------
+# flash-attention forward
+
+
+def flash_fwd_plain(q, k, v, *, causal: bool, sm_scale: float,
+                    block_k: int = 128):
+    """The reference's scan forward: ``(out [B, Tq, H, D] in q's dtype,
+    lse [B, H, Tq] f32)``, K/V broadcast over the query groups."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    g = fa.gqa_group(q, k)
+    m, l, acc = fa._attention_scan(
+        q, fa.rep_group(k, g), fa.rep_group(v, g), causal=causal,
+        sm_scale=sm_scale, q_offset=0, kv_offset=0, block_k=block_k)
+    return fa._finalize(m, l, acc, q.dtype), fa.lse_from_state(m, l)
+
+
+def flash_fwd(q, k, v, *, causal: bool = False, sm_scale=None,
+              block_k: int = 128):
+    """Attention forward over ``q [B, Tq, H, D]``, ``k``/``v``
+    ``[B, Tk, H_kv, D]`` (``H % H_kv == 0``): ``(out [B, Tq, H, D],
+    lse [B, H, Tq] f32)``. The kernel takes bf16 (or f32) inputs of head
+    dim 64 or 128 with a contiguous last dim, any other strides, and
+    tiles by its own 64-row blocks; ``block_k`` is the plain version's
+    K blocking."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if not _on_cuda(q, k, v):
+        return flash_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale,
+                               block_k=block_k)
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q: expected bfloat16 or float32, got {q.dtype}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype != q.dtype:
+            raise TypeError(f"{name}: dtype {x.dtype} != q's {q.dtype}")
+        if x.dim() != 4:
+            raise ValueError(f"{name}: expected [B, T, H, D], got "
+                             f"{tuple(x.shape)}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name}: the head dim must be contiguous")
+    b, t_q, h, d = q.shape
+    t_k, h_kv = k.shape[1], k.shape[2]
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"the flash_fwd kernel is built for head dims "
+                         f"{FLASH_HEAD_DIMS}, got {d}")
+    if tuple(k.shape) != tuple(v.shape) or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    if h % h_kv:
+        raise ValueError(f"query heads ({h}) must be a multiple of kv heads "
+                         f"({h_kv})")
+    if min(b, t_q, t_k) < 1 or b * h > 65535:
+        raise ValueError(f"flash_fwd: unsupported sizes B={b} H={h} "
+                         f"Tq={t_q} Tk={t_k}")
+    out = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
+    strides = [s for x in (q, k, v) for s in (x.stride(0), x.stride(1),
+                                               x.stride(2))]
+    _launch("flash_fwd", "flash_attention", "hvd_flash_fwd", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, h_kv, t_q, t_k, d, *strides,
+            float(sm_scale), int(bool(causal)), int(q.dtype == torch.bfloat16))
+    return out, lse

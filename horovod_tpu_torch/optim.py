@@ -16,6 +16,8 @@ layout-dependent.
   scale(-lr)`` expression order;
 - :func:`fused_adam` — the same update through the ``fused_adam`` kernel
   (plain version on CPU tensors); states are interchangeable;
+- :func:`adamw` — optax's ``adamw`` (Adam, decoupled weight decay, then
+  ``-lr``), plain PyTorch, same state;
 - :func:`DistributedOptimizer` — allreduce mode (Horovod's classic
   gradient allreduce, optionally with error feedback) or ZeRO-1
   (``shard_optimizer=True``: flat-packed reduce-scatter, this rank's
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from horovod_tpu_torch import basics
@@ -82,7 +85,8 @@ def _adam(lr, b1, b2, eps, eps_root, step: Callable) -> Transform:
         ups, mus, nus = {}, {}, {}
         for k in tree_keys(grads):
             ups[k], mus[k], nus[k] = step(
-                grads[k], state["mu"][k], state["nu"][k], count)
+                grads[k], state["mu"][k], state["nu"][k], count,
+                None if params is None else params[k])
         return ups, {"count": count, "mu": mus, "nu": nus}
 
     return Transform(init, update)
@@ -95,9 +99,33 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     on its own. The state is ``{"count", "mu", "nu"}``."""
     lr = float(learning_rate)
 
-    def step(g, mu, nu, count):
+    def step(g, mu, nu, count, p):
         c = _k.adam_constants(lr, b1, b2, eps, eps_root, count)
         return _k.fused_adam_plain(g, mu, nu, c)
+
+    return _adam(lr, b1, b2, eps, eps_root, step)
+
+
+def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, eps_root: float = 0.0,
+          weight_decay: float = 1e-4) -> Transform:
+    """Plain PyTorch AdamW, expression for expression optax's ``adamw``:
+    ``chain(scale_by_adam, add_decayed_weights(weight_decay),
+    scale(-lr))``, i.e. ``-lr * (adam_direction + weight_decay * p)``,
+    each operation rounded on its own. Same state as :func:`adam`;
+    ``update`` needs the parameters."""
+    lr = float(learning_rate)
+    wd = float(np.float32(weight_decay))
+
+    def step(g, mu, nu, count, p):
+        if p is None:
+            raise ValueError("adamw's weight decay needs params: call "
+                             "update(grads, state, params)")
+        c = _k.adam_constants(lr, b1, b2, eps, eps_root, count)
+        # the Adam direction: the plain Adam update with -lr set to 1,
+        # which multiplies exactly
+        d, mu2, nu2 = _k.fused_adam_plain(g, mu, nu, dict(c, neg_lr=1.0))
+        return c["neg_lr"] * (d + wd * p), mu2, nu2
 
     return _adam(lr, b1, b2, eps, eps_root, step)
 
@@ -113,7 +141,7 @@ def fused_adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         raise ValueError("fused_adam requires a static float learning_rate")
     lr = float(learning_rate)
 
-    def step(g, mu, nu, count):
+    def step(g, mu, nu, count, p):
         u, m, v = _k.fused_adam_update(
             g.reshape(-1), mu.reshape(-1), nu.reshape(-1), count,
             lr=lr, b1=b1, b2=b2, eps=eps, eps_root=eps_root)

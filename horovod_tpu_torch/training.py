@@ -3,12 +3,13 @@
 Counterpart of ``horovod_tpu/training.py``'s per-rank step
 (``make_shardmap_train_step``): forward and backward on this rank's
 batch, the gradient exchange, the optimizer update, BatchNorm running
-stats and the loss averaged across ranks.
+stats and the loss averaged across ranks. The same step trains the
+ResNets (``softmax_xent``) and the TransformerLM (``loss_fn=lm_xent``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,9 +25,17 @@ def softmax_xent(logits, labels):
     return -logp.gather(1, labels[:, None]).mean()
 
 
+def lm_xent(logits, targets):
+    """Next-token cross entropy: log-softmax in f32, the target's entry,
+    mean over ``[B, T]`` (the JAX LM benchmark's loss)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None]).mean()
+
+
 def make_train_step(model, tx, *, shard_optimizer: bool = False,
                     compression=None, reduce_op=Average,
-                    loss_fn: Callable = softmax_xent):
+                    loss_fn: Callable = softmax_xent,
+                    on_phase: Optional[Callable[[str], None]] = None):
     """Build ``step(opt_state, images, labels) -> (opt_state, loss)``.
 
     ``model`` exposes ``jax_params()``/``jax_grads()``/
@@ -40,8 +49,16 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
     optimizer exchanges the gradients (``shard_optimizer`` must match
     how it was built). ``tx`` a plain optimizer: the step allreduces each
     gradient itself with ``reduce_op``/``compression``, as the reference
-    step does. Build ``opt_state = tx.init(model.jax_params())``."""
+    step does. Build ``opt_state = tx.init(model.jax_params())``.
+
+    ``on_phase(name)``, if given, is called as each part of the step
+    ends: ``"forward"`` (forward and loss), ``"backward"`` (and, with a
+    plain ``tx``, the gradient allreduce), ``"optimizer"`` (the update,
+    the exchange inside a DistributedOptimizer, the running stats) and
+    ``"loss"`` (the loss allreduce). A hook that synchronises the device
+    and reads a clock splits the step's time."""
     distributed = isinstance(tx, DistributedTransform)
+    mark = on_phase or (lambda name: None)
     if shard_optimizer and not (distributed and tx.shard_optimizer):
         raise ValueError(
             "shard_optimizer=True needs tx = DistributedOptimizer(..., "
@@ -58,11 +75,13 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
         for p in model.parameters():
             p.grad = None
         loss = loss_fn(model(images), labels)
+        mark("forward")
         loss.backward()
         grads = model.jax_grads()
         if not distributed:
             grads = {k: allreduce(grads[k], reduce_op, compression=compression)
                      for k in tree_keys(grads)}
+        mark("backward")
         with torch.no_grad():
             updates, opt_state = tx.update(grads, opt_state, params)
             for k, u in updates.items():
@@ -76,7 +95,10 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
                     n = stats[k].numel()
                     stats[k].copy_(flat[off:off + n].view(stats[k].shape))
                     off += n
-        return opt_state, allreduce(loss.detach(), Average)
+        mark("optimizer")
+        loss = allreduce(loss.detach(), Average)
+        mark("loss")
+        return opt_state, loss
 
     return step
 

@@ -214,6 +214,33 @@ def slice_worker(params, stats, x, y, steps, lr):
             "residual": st["residual"]["float32"].numpy()}
 
 
+def lm_slice_worker(cfg, params, tokens, targets, steps, lr):
+    """The LM slice end to end: an f32 TransformerLM with flash attention,
+    weights carried across, DistributedOptimizer(adamw) + lm_xent through
+    make_train_step, this rank's rows of the global batch."""
+    import functools
+
+    from horovod_tpu_torch.models import TransformerLM
+    from horovod_tpu_torch.models.convert import (
+        flatten_tree, flax_params, load_flax_variables,
+    )
+
+    model = TransformerLM(**cfg, dtype=torch.float32,
+                          attention_fn=functools.partial(hvd.flash_attention,
+                                                         block_k=8))
+    load_flax_variables(model, params)
+    tx = hvd.DistributedOptimizer(hvd.adamw(lr))
+    st = hvd.broadcast_optimizer_state(tx.init(model.jax_params()))
+    step = hvd.make_train_step(model, tx, loss_fn=hvd.lm_xent)
+    xs = hvd.shard_batch(torch.from_numpy(tokens))
+    ys = hvd.shard_batch(torch.from_numpy(targets))
+    losses = []
+    for _ in range(steps):
+        st, loss = step(st, xs, ys)
+        losses.append(float(loss))
+    return {"losses": losses, "params": flatten_tree(flax_params(model))}
+
+
 def test_train_step_with_a_plain_optimizer_allreduces_itself(monkeypatch):
     """make_train_step given a plain optimizer exchanges the gradients
     itself (the reference step): same result as DistributedOptimizer."""
@@ -240,5 +267,33 @@ def test_train_step_with_a_plain_optimizer_allreduces_itself(monkeypatch):
         assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
         with pytest.raises(ValueError, match="shard_optimizer"):
             hvd.make_train_step(m, hvd.adam(1e-2), shard_optimizer=True)
+    finally:
+        hvd.shutdown()
+
+
+def test_train_step_phase_hook_sees_each_part_and_changes_nothing(monkeypatch):
+    """``on_phase`` is called once per part of the step, in order, and a
+    step with the hook computes what the step without it computes."""
+    from horovod_tpu_torch.models import TransformerLM
+
+    for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    tok = torch.randint(0, 64, (2, 16), generator=torch.Generator().manual_seed(3))
+    hvd.init(device="cpu")
+    try:
+        out, seen = [], []
+        for hook in (None, seen.append):
+            m = TransformerLM(vocab=64, dim=32, depth=2, heads=4, max_len=16,
+                              dtype=torch.float32, pos_embedding="rope", seed=1)
+            tx = hvd.DistributedOptimizer(hvd.adamw(1e-3))
+            step = hvd.make_train_step(m, tx, loss_fn=hvd.lm_xent, on_phase=hook)
+            st, losses = tx.init(m.jax_params()), []
+            for _ in range(2):
+                st, loss = step(st, tok, tok.roll(-1, 1))
+                losses.append(float(loss))
+            out.append((losses, [p.detach().clone() for p in m.parameters()]))
+        assert seen == ["forward", "backward", "optimizer", "loss"] * 2
+        assert out[0][0] == out[1][0]
+        assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
     finally:
         hvd.shutdown()
