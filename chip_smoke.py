@@ -21,8 +21,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    run is logged with its shape;
 5. with ``--gpus N``: phase 4 again across N GPUs of the host (one process
    per GPU, NCCL, each rank on its own 64 rows of one global batch, 4
-   steps per mode); every rank must report the same falling losses and
-   the same parameters;
+   steps per mode), and the ZeRO-3 and Adasum runs of phase 7; every rank
+   must report the same falling losses and the same parameters;
 6. kernels: every call of one step of each run above is replayed on
    fresh inputs at its own shape (the flat buffer's quantize, the 152
    per-leaf quantizes and 76 requantizes of allreduce mode, the 161
@@ -35,7 +35,44 @@ Phases, each fatal on failure (exit code 1, no result line):
    the sum of the calls' bounds. ResNet-50's flat buffer is also checked
    with a tail that does not divide the block and with eight synthetic
    senders;
-7. the LM slice (one GPU, NCCL world of one, matmuls in full f32 where
+7. ZeRO-3 and Adasum on the ResNet-50 step, one GPU: (a) ``zero3``,
+   ``DistributedOptimizer(fused_adam(1e-3), shard_params=True)`` with the
+   int8 parameter gather (``HOROVOD_FSDP_WIRE=int8``), 10 steps: exactly
+   2 ``quantize`` and 2 ``dequantize_rows`` launches a step (the gather
+   and the backward's re-gather of the one f32 group) and 1
+   ``fused_adam``; img/s and peak memory beside ZeRO-1's. Every ResNet-50
+   run ends with one more step split at ``make_train_step``'s phase hook
+   (forward, backward, optimizer, loss allreduce) by synchronised host
+   timers. (b) ``adasum``,
+   ``DistributedOptimizer(fused_adam(1e-3), op=Adasum)``, 5 steps: at a
+   world of one the butterfly has no level, so no Adasum kernel runs.
+   (c) the Adasum level-1 replay: ResNet-50's gradient trees on the two
+   64-row halves of one 128-row batch (rank 0's and rank 1's of a world
+   of two) go through the combine rank 0 makes at level 1, by the port's
+   own functions: ``_segment_combine`` over the 25,557,032-element f32
+   group (161 segments), and ``_pair_combine`` per leaf in bf16 (what
+   ``Compression.fp16`` puts on the wire), f16 and f32. The calls are
+   logged; the grouped and bf16 ones are counted as the replay's
+   launches. Every combine is held against its plain version on these
+   same correlated operands (where the projection term is large), and
+   the grouped result must equal the per-leaf f32 one bit for bit (their
+   chunks coincide). With ``--gpus N`` ZeRO-3 int8, Adasum grouped
+   (``adasum``) and Adasum per leaf (``adasum_fp16``:
+   ``DistributedOptimizer(fused_adam(1e-3), op=Adasum,
+   compression=Compression.fp16)``, ``allreduce(g, Adasum)`` on each
+   leaf) run 4 steps each across the N GPUs: every rank the same losses
+   and the same unpacked parameters, ``adasum_segment_combine`` launched
+   log2(N) times a step by ``adasum`` and ``adasum_pair_combine``
+   161·log2(N) times a step by ``adasum_fp16``, the other combine never.
+   The kernel phase replays these calls too: ``dequantize_rows`` bit for
+   bit (NaN and infinite scale blocks included), the Adasum combines
+   within rtol 2e-5 / atol 2e-6 (a 16-bit output also within one ULP of
+   its type, the f32 value's rounding boundary) and bit-identical across
+   two launches; and shapes the path does not give: 8 synthetic senders
+   for ``dequantize_rows``, zero operands, lengths that are not a
+   multiple of any tile, an operand at an odd element offset, a segment
+   of length 1 and an empty one;
+8. the LM slice (one GPU, NCCL world of one, matmuls in full f32 where
    f32: TF32 off): TransformerLM at the flagship configuration's full
    width (vocab 32000, dim 1024, depth 12, 16 heads of 64, RoPE, flash
    attention, bf16 compute, f32 parameters, 216,643,584 of them), batch
@@ -61,14 +98,25 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
-one-GPU mode that launches it; ``by_mode`` splits them. ``launches``
-counts the one-GPU runs' launches. A bound is the larger of the bytes
+one-GPU mode that launches it; for the Adasum combines, which no run on
+one GPU launches, the level-1 replay's grouped call and its bf16
+per-leaf calls (one level of each of ``DistributedOptimizer(op=Adasum)``'s
+routes), or with ``--gpus N`` rank 0's step of ``adasum`` and
+``adasum_fp16`` across the N GPUs. ``by_mode`` splits them.
+``launches`` counts the launches of the main path's runs (with ``--gpus
+N`` rank 0's of the N-GPU runs too, as ``mode@N``); a kernel that none of
+them launched, as the Adasum combines on one GPU, takes the replay's
+grouped and bf16 counts, under ``adasum_l1_replay`` in
+``launches_by_mode``. A bound is the larger of the bytes
 over the memory rate and the operations over the peak rate for the
 inputs' type (bf16 tensor cores for ``flash_fwd``'s bf16 dots, the f32
 rate outside the tensor cores otherwise); ``flash_fwd``'s operations are
 those of the (query, key) pairs the causal mask keeps, whatever the
-kernel's tiling. The last two lines of standard output
-are that record and ``{"ok": true, "device": {...}}``.
+kernel's tiling. The Adasum combines' bytes read each
+operand once, as the bound does for every kernel; their two-pass floor
+(both operands read twice) is given beside it as ``two_pass_bound_ms``.
+The last two lines of standard output are that record and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -103,12 +151,18 @@ LM = dict(vocab=32000, dim=1024, depth=12, heads=16, kv_heads=None,
           mlp_ratio=4, max_len=2048, pos_embedding="rope")
 LM_BATCH, LM_SEQ, LM_STEPS = 8, 2048, 8
 
+#: the Adasum combines' bar against their plain versions (tests/test_pallas.py)
+ADASUM_RTOL, ADASUM_ATOL = 2e-5, 2e-6
+
 TPU_KERNELS = {
     "quantize": "horovod_tpu/ops/pallas_kernels.py:220",
     "dequant_accumulate": "horovod_tpu/ops/pallas_kernels.py:323",
     "dequant_accumulate_requantize": "horovod_tpu/ops/pallas_kernels.py:354",
     "fused_adam": "horovod_tpu/ops/pallas_kernels.py:673",
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:250",
+    "dequantize_rows": "horovod_tpu/ops/pallas_kernels.py:404",
+    "adasum_pair_combine": "horovod_tpu/ops/pallas_kernels.py:470",
+    "adasum_segment_combine": "horovod_tpu/ops/pallas_kernels.py:556",
 }
 SOURCES = {
     "quantize": "horovod_tpu_torch/ops/csrc/int8_wire.cu",
@@ -116,6 +170,9 @@ SOURCES = {
     "dequant_accumulate_requantize": "horovod_tpu_torch/ops/csrc/int8_wire.cu",
     "fused_adam": "horovod_tpu_torch/ops/csrc/fused_adam.cu",
     "flash_fwd": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
+    "dequantize_rows": "horovod_tpu_torch/ops/csrc/int8_wire.cu",
+    "adasum_pair_combine": "horovod_tpu_torch/ops/csrc/adasum.cu",
+    "adasum_segment_combine": "horovod_tpu_torch/ops/csrc/adasum.cu",
 }
 #: the public wrappers of ops.kernels the path calls, and their kernel
 WRAPPERS = {
@@ -125,12 +182,38 @@ WRAPPERS = {
     "dequant_accumulate_requantize": "dequant_accumulate_requantize",
     "fused_adam_update": "fused_adam",
     "flash_fwd": "flash_fwd",
+    "dequantize_rows": "dequantize_rows",
+    "adasum_pair_combine": "adasum_pair_combine",
+    "adasum_segment_combine": "adasum_segment_combine",
 }
-#: kernels each mode's path must launch
+#: kernels each mode's path must launch (Adasum's at a world of one: none
+#: of its own, the butterfly has no level; across N GPUs expected_launches
+#: fixes the combines' counts; adasum_fp16 runs across N GPUs only)
 NEED = {"zero1": ("quantize", "dequant_accumulate", "fused_adam"),
         "allreduce": ("quantize", "dequant_accumulate_requantize",
                       "fused_adam"),
+        "zero3": ("quantize", "dequantize_rows", "fused_adam"),
+        "adasum": ("fused_adam",),
+        "adasum_fp16": ("adasum_pair_combine", "fused_adam"),
         "lm": ("flash_fwd",)}
+#: the ResNet-50 modes across N GPUs (``--gpus N``)
+WORLD_MODES = ("zero1", "allreduce", "zero3", "adasum", "adasum_fp16")
+#: the one-GPU modes whose replayed step makes a kernel row's numbers
+ONE_GPU_MODES = ("zero1", "allreduce", "zero3", "adasum", "lm")
+#: the level-1 replay's calls that stand in for the Adasum combines' step
+#: on one GPU: the grouped route's, and the per-leaf route's in bf16
+REPLAY_MODES = ("adasum_l1_replay_grouped", "adasum_l1_replay_leaf_bfloat16")
+
+
+def main_modes(gpus: int) -> dict:
+    """Each kernel's modes whose replayed step makes its row's per-step
+    numbers: the one-GPU runs; for the Adasum combines, which no run on
+    one GPU launches, the level-1 replay's grouped and bf16 calls, or
+    with ``gpus`` > 1 rank 0's step of the two Adasum runs across them."""
+    adasum = (f"adasum@{gpus}", f"adasum_fp16@{gpus}") if gpus > 1 \
+        else REPLAY_MODES
+    return {k: adasum if k.startswith("adasum") else ONE_GPU_MODES
+            for k in TPU_KERNELS}
 
 
 def fail(msg: str) -> None:
@@ -178,7 +261,8 @@ def same_bits(a, b) -> bool:
         return False
     a, b = ab
     if a.is_floating_point():
-        itype = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        itype = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                 torch.float16: torch.int16}
         return torch.equal(a.view(itype[a.dtype]), b.view(itype[b.dtype]))
     return torch.equal(a, b)
 
@@ -223,6 +307,12 @@ def _signature(wrapper: str, args, kw) -> tuple:
         return (kernel, tuple(q.shape), tuple(k.shape),
                 str(q.dtype).replace("torch.", ""), bool(kw.get("causal")),
                 kw.get("sm_scale"), q.stride(), k.stride(), v.stride())
+    if kernel == "dequantize_rows":
+        return (kernel, *args[0].shape)
+    if kernel == "adasum_pair_combine":
+        return (kernel, args[0].numel(), str(args[0].dtype).replace("torch.", ""))
+    if kernel == "adasum_segment_combine":
+        return (kernel, tuple(int(o) for o in args[2]))
     return (kernel, args[0].numel(), args[3], tuple(sorted(kw.items())))
 
 
@@ -284,8 +374,33 @@ def call_bound(sig) -> tuple:
         # q.k and p.v: 2 + 2 operations per (q, k, d) of every needed pair
         ops = 4 * d * b * h * flash_pairs(t_q, t_k, causal)
         return nbytes, ops, (BF16_OPS_PER_S if item == 2 else F32_OPS_PER_S)
+    if kernel == "dequantize_rows":
+        n, sp = sig[1], sig[2]
+        return n * sp * (1 + 4) + n * (sp // 256) * 2, n * sp, F32_OPS_PER_S
+    if kernel.startswith("adasum"):
+        L, item = adasum_len_item(sig)
+        # a and b read once, out written once; a*b, a*a, b*b summed (6)
+        # and ca*a + cb*b (3) in f32
+        return 3 * item * L, 9 * L, F32_OPS_PER_S
     L = sig[1]
     return 24 * L, 12 * L, F32_OPS_PER_S
+
+
+def adasum_len_item(sig) -> tuple:
+    """``(elements, bytes an element)`` of an Adasum combine's call."""
+    if sig[0] == "adasum_segment_combine":
+        return sig[1][-1], 4
+    return sig[1], 4 if sig[2] == "float32" else 2
+
+
+def two_pass_bound_ms(sigs) -> float:
+    """The Adasum combines' floor when both operands are read twice (the
+    reduction, then the blend) and the output written once."""
+    total = 0.0
+    for sig in sigs:
+        L, item = adasum_len_item(sig)
+        total += 5 * item * L / HBM_BYTES_PER_S
+    return total * 1e3
 
 
 def bound_ms(sigs) -> tuple:
@@ -369,6 +484,30 @@ def make_call(sig, gen):
         return (lambda: K.dequant_accumulate_requantize(q, s, divisor=d),
                 lambda: K.dequant_accumulate_requantize_plain(q, s, divisor=d),
                 _bits)
+    if kernel == "dequantize_rows":
+        n, sp = sig[1], sig[2]
+        q = torch.randint(-127, 128, (n, sp), device=dev, generator=gen,
+                          dtype=torch.int8)
+        s = (torch.rand(n, sp // 256, device=dev, generator=gen) * 1e-2).to(
+            torch.bfloat16)
+        s[0, 0] = 0.0                           # an all-zero scale block
+        if sp // 256 >= 3:                      # a NaN and an inf scale block
+            s[0, 1], s[n - 1, 2] = math.nan, math.inf
+        return (lambda: (K.dequantize_rows(q, s),),
+                lambda: (K.dequantize_rows_plain(q, s),), _bits)
+    if kernel == "adasum_pair_combine":
+        L, dtype = sig[1], getattr(torch, sig[2])
+        a = (torch.randn(L, device=dev, generator=gen) * 1e-2).to(dtype)
+        b = (torch.randn(L, device=dev, generator=gen) * 1e-2).to(dtype)
+        return (lambda: (K.adasum_pair_combine(a, b),),
+                lambda: (K.adasum_pair_combine_plain(a, b),), _adasum_close)
+    if kernel == "adasum_segment_combine":
+        offsets = sig[1]
+        a = torch.randn(offsets[-1], device=dev, generator=gen) * 1e-2
+        b = torch.randn(offsets[-1], device=dev, generator=gen) * 1e-2
+        return (lambda: (K.adasum_segment_combine(a, b, offsets),),
+                lambda: (K.adasum_segment_combine_plain(a, b, offsets),),
+                _adasum_close)
     _, L, count, kw = sig
     kw = dict(kw)
     g = torch.randn(L, device=dev, generator=gen) * 1e-2
@@ -388,6 +527,28 @@ def _bits(out, ref):
     for i, (a, b) in enumerate(zip(out, ref)):
         if not same_bits(a, b):
             return f"output {i} differs (max abs err {max_abs(a, b)})"
+    return None
+
+
+def _adasum_close(out, ref):
+    """rtol 2e-5 / atol 2e-6 (the kernel and the plain version sum in
+    other orders); a 16-bit element may instead be one ULP of its type
+    off, where the f32 value sits on that type's rounding boundary."""
+    import torch
+
+    (o,), (r,) = out, ref
+    if o.shape != r.shape or o.dtype != r.dtype:
+        return f"shape/dtype {o.shape}/{o.dtype} vs {r.shape}/{r.dtype}"
+    of, rf = o.float(), r.float()
+    if not bool(torch.isfinite(of).all()):
+        return "non-finite output"
+    bar = ADASUM_ATOL + ADASUM_RTOL * rf.abs()
+    if o.dtype != torch.float32:             # one ULP: 8 or 11 significand bits
+        bits = 8 if o.dtype == torch.bfloat16 else 11
+        _, e = torch.frexp(torch.maximum(of.abs(), rf.abs()))
+        bar = torch.maximum(bar, torch.ldexp(torch.ones_like(of), e - bits))
+    if bool(((of - rf).abs() > bar).any()):
+        return f"off by up to {max_abs(o, r)}"
     return None
 
 
@@ -470,10 +631,11 @@ def library_flash_ms(calls) -> float:
     return cuda_ms(run)
 
 
-def kernel_phase(step_calls: dict, main_modes) -> dict:
+def kernel_phase(step_calls: dict, main_modes: dict) -> dict:
     """Replay each mode's logged step on fresh inputs: hold every call
     against its plain version, then time the kernel, plain and library
-    replays. Returns the per-kernel record."""
+    replays. Returns the per-kernel record, its per-step numbers summed
+    over ``main_modes[kernel]``."""
     import torch
 
     from horovod_tpu_torch.ops import kernels as K
@@ -492,7 +654,11 @@ def kernel_phase(step_calls: dict, main_modes) -> dict:
                 out, ref = run(), plain()
                 bad = compare(out, ref)
                 if bad:
-                    fail(f"{kernel} at {sig} ({mode}): {bad}")
+                    fail(f"{kernel} at {sig[:3]} ({mode}): {bad}")
+                if kernel.startswith("adasum") and not all(
+                        map(same_bits, out, run())):
+                    fail(f"{kernel} at {sig[:3]} ({mode}): two launches on "
+                         "the same inputs differ")
                 row["max_abs_err"] = max(
                     [row["max_abs_err"]]
                     + [max_abs(a, b) for a, b in zip(out, ref)])
@@ -515,11 +681,16 @@ def kernel_phase(step_calls: dict, main_modes) -> dict:
                 ms=cuda_ms(lambda: [c[0]() for c in calls]),
                 plain_ms=cuda_ms(lambda: [c[1]() for c in calls]),
                 bound_ms=b, bound_by=by, library_ms=lib)
+            if kernel.startswith("adasum"):
+                row["by_mode"][mode]["two_pass_bound_ms"] = two_pass_bound_ms(ks)
             del calls
             torch.cuda.empty_cache()
     for kernel, row in rows.items():
-        main = [row["by_mode"][m] for m in main_modes if m in row["by_mode"]]
-        for key in ("ms", "plain_ms", "bound_ms"):
+        main = [row["by_mode"][m] for m in main_modes[kernel]
+                if m in row["by_mode"]]
+        keys = ("ms", "plain_ms", "bound_ms") + (
+            ("two_pass_bound_ms",) if kernel.startswith("adasum") else ())
+        for key in keys:
             row[key] = sum(m[key] for m in main)
         row["bound_by"] = ("bytes" if all(m["bound_by"] == "bytes"
                                           for m in main) else "operations")
@@ -548,11 +719,59 @@ def flat_buffer_checks(L: int) -> None:
     sp = s + (-s) % 256
     for sig in (("dequant_accumulate", 8, sp),
                 ("dequant_accumulate_requantize", 8, sp, 8),
-                ("dequant_accumulate_requantize", 8, sp, None)):
+                ("dequant_accumulate_requantize", 8, sp, None),
+                ("dequantize_rows", 8, sp)):
         run, plain, compare = make_call(sig, gen)
         bad = compare(run(), plain())
         if bad:
             fail(f"{sig} (flat buffer, 8 senders): {bad}")
+
+
+def adasum_extra_checks() -> list:
+    """The Adasum combines at what the path does not give: zero operands
+    (their coefficient is 0, and combine(0, 0) is 0), lengths that are no
+    multiple of the kernel's chunk or a warp, an operand at an odd
+    element offset, every operand type, a segment of length 1 and an
+    empty one. Each within the bar and bit-identical across two
+    launches. Returns what was checked."""
+    import torch
+
+    from horovod_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dev = gen.device
+    done = []
+
+    def check(name, run, plain):
+        out, ref = run(), plain()
+        bad = _adasum_close(out, ref)
+        if bad is None and not all(map(same_bits, out, run())):
+            bad = "two launches on the same inputs differ"
+        if bad:
+            fail(f"adasum extra check {name}: {bad}")
+        done.append(name)
+
+    for L in (1, 7, 8193, 1 << 20):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            buf = torch.randn(2 * L + 1, device=dev, generator=gen).to(dtype)
+            a, b = buf[1:L + 1], buf[L + 1:]     # a at an odd element offset
+            check(f"pair L={L} {dtype} odd offset",
+                  lambda: (K.adasum_pair_combine(a, b),),
+                  lambda: (K.adasum_pair_combine_plain(a, b),))
+    z, b = torch.zeros(600, device=dev), torch.randn(600, device=dev,
+                                                     generator=gen)
+    check("pair zero a", lambda: (K.adasum_pair_combine(z, b),),
+          lambda: (K.adasum_pair_combine_plain(z, b),))
+    if bool(K.adasum_pair_combine(z, z).any()):
+        fail("adasum extra check: combine(0, 0) is not 0")
+    offsets = (0, 1000, 1001, 1001, 9500, 30000)   # length 1, empty, tails
+    a = torch.randn(offsets[-1], device=dev, generator=gen)
+    b = torch.randn(offsets[-1], device=dev, generator=gen)
+    a[1001:9500] = 0.0                                # a zero segment of a
+    check(f"segments {offsets}",
+          lambda: (K.adasum_segment_combine(a, b, offsets),),
+          lambda: (K.adasum_segment_combine_plain(a, b, offsets),))
+    return done
 
 
 def flash_extra_checks() -> list:
@@ -688,36 +907,229 @@ def run_steps(mode: str, step, st, x, y, steps: int):
     return st, losses, times, launches, calls[-1]
 
 
-def train(shard: bool, steps: int, x, y, model_seed: int = 0) -> dict:
+def phase_timer():
+    """``(marks, on_phase)``: a ``make_train_step`` phase hook that, once
+    ``marks`` holds a start time, synchronises the device and records the
+    time each part of the step ends."""
+    import torch
+
+    marks: dict = {}
+
+    def on_phase(name):                 # armed only for the split step
+        if marks:
+            torch.cuda.synchronize()
+            marks[name] = time.perf_counter()
+
+    return marks, on_phase
+
+
+def split_step(mode: str, step, st, x, y, marks) -> tuple:
+    """One more step of ``step``, split into forward / backward /
+    optimizer / loss allreduce by the phase hook: ``(st, {part: s})``."""
+    import torch
+
+    torch.cuda.synchronize()
+    marks["start"] = time.perf_counter()
+    st, loss = step(st, x, y)
+    if not math.isfinite(float(loss)):
+        fail(f"{mode}: non-finite loss {float(loss)} in the split step")
+    names = list(marks)
+    split = {b: marks[b] - marks[a] for a, b in zip(names, names[1:])}
+    marks.clear()
+    return st, split
+
+
+def build_resnet(seed: int, device):
+    """ResNet-50 at full width: bf16 compute, f32 parameters, random
+    weights from ``seed``."""
+    import torch
+
+    from horovod_tpu_torch.models import ResNet50
+
+    return ResNet50(dtype=torch.bfloat16, seed=seed, device=device)
+
+
+def make_tx(mode: str):
+    """The DistributedOptimizer of each ResNet-50 mode, fused Adam at 1e-3
+    inside: ZeRO-1 and allreduce mode with int8 + EF, ZeRO-3 (its gather
+    wire is ``HOROVOD_FSDP_WIRE``), Adasum with no compression (the
+    grouped butterfly) and with ``Compression.fp16`` (per leaf,
+    ``allreduce(g, Adasum)``)."""
+    import horovod_tpu_torch as hvd
+
+    adam = hvd.fused_adam(1e-3)
+    if mode in ("zero1", "allreduce"):
+        return hvd.DistributedOptimizer(adam, compression=hvd.Compression.int8,
+                                        error_feedback=True,
+                                        shard_optimizer=mode == "zero1")
+    if mode == "zero3":
+        return hvd.DistributedOptimizer(adam, shard_params=True)
+    if mode == "adasum_fp16":
+        return hvd.DistributedOptimizer(adam, op=hvd.Adasum,
+                                        compression=hvd.Compression.fp16)
+    return hvd.DistributedOptimizer(adam, op=hvd.Adasum)
+
+
+def expected_launches(mode: str, n: int, leaves: int) -> dict:
+    """Exact kernel launches a step where the path fixes them: ZeRO-3's
+    gather runs twice (forward, and the backward's recompute) over the
+    one f32 group; Adasum's butterfly has log2(N) levels, each one
+    grouped combine, or one combine per leaf of the ``leaves``."""
+    levels = n.bit_length() - 1
+    if mode == "zero3":
+        return {"quantize": 2, "dequantize_rows": 2, "fused_adam": 1}
+    if mode == "adasum":
+        return {"adasum_segment_combine": levels, "adasum_pair_combine": 0}
+    if mode == "adasum_fp16":
+        return {"adasum_segment_combine": 0,
+                "adasum_pair_combine": leaves * levels}
+    return {}
+
+
+def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
     """``steps`` steps of ResNet-50 on this rank's batch ``x, y`` in one
     optimizer mode; fails unless the loss is finite and falls and every
-    kernel of the mode's path launched. ``step_calls`` is the kernel
-    calls of the last step."""
+    kernel of the mode's path launched (exactly as often as
+    :func:`expected_launches` says). ``step_calls`` is the kernel calls
+    of the last step; ``split_s`` one more step split into its parts;
+    ``checksum`` sums the full parameters (unpacked from the shards under
+    ZeRO-3)."""
     import torch
 
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.models import ResNet50
 
     dev = hvd.device()
-    model = ResNet50(dtype=torch.bfloat16, seed=model_seed, device=dev)
-    tx = hvd.DistributedOptimizer(hvd.fused_adam(1e-3),
-                                  compression=hvd.Compression.int8,
-                                  error_feedback=True, shard_optimizer=shard)
-    st = tx.init(model.jax_params())
-    step = hvd.make_train_step(model, tx, shard_optimizer=shard)
-    with torch.no_grad():
+    model = build_resnet(model_seed, dev)
+    leaves = len(model.jax_params())
+    with torch.no_grad():           # before ZeRO-3 empties the parameters
         logits = model(x)
     if tuple(logits.shape) != (x.shape[0], 1000) or not bool(
             torch.isfinite(logits).all()):
         fail(f"ResNet-50 logits: shape {tuple(logits.shape)} or non-finite")
-    torch.cuda.synchronize()
-    mode = "zero1" if shard else "allreduce"
-    st, losses, times, launches, calls = run_steps(mode, step, st, x, y, steps)
+    del logits
+    zero3 = mode == "zero3"
+    wire = os.environ.pop("HOROVOD_FSDP_WIRE", None)
+    if zero3:
+        os.environ["HOROVOD_FSDP_WIRE"] = "int8"
+    try:
+        tx = make_tx(mode)
+        marks, on_phase = phase_timer()
+        step = hvd.make_train_step(model, tx, shard_optimizer=mode == "zero1",
+                                   shard_params=zero3, on_phase=on_phase)
+        st = tx.init(step.params if zero3 else model.jax_params())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st, losses, times, launches, calls = run_steps(mode, step, st, x, y,
+                                                       steps)
+        peak = torch.cuda.max_memory_allocated()
+        st, split = split_step(mode, step, st, x, y, marks)
+    finally:
+        os.environ.pop("HOROVOD_FSDP_WIRE", None)
+        if wire is not None:
+            os.environ["HOROVOD_FSDP_WIRE"] = wire
+    for k, per_step in expected_launches(mode, hvd.size(), leaves).items():
+        if launches[k] != per_step * steps:
+            fail(f"{mode}: {launches[k]} launches of {k} in {steps} steps, "
+                 f"expected {per_step} a step ({launches})")
+    params = hvd.fsdp_unpack_params(step.params) if zero3 else model.jax_params()
+    checksum = float(sum(p.detach().double().sum() for p in params.values()))
     steady = times[1:] if len(times) > 1 else times
-    checksum = float(sum(p.detach().double().sum() for p in model.parameters()))
     return dict(mode=mode, steps=steps, losses=losses, launches=launches,
                 step_s=times, img_per_s=x.shape[0] * len(steady) / sum(steady),
-                checksum=checksum, step_calls=calls)
+                peak_gib=peak / 2 ** 30, split_s=split, checksum=checksum,
+                step_calls=calls)
+
+
+def adasum_replay(x, y) -> dict:
+    """The combine rank 0 makes at level 1 of a world of two, on one GPU:
+    ResNet-50's gradient trees on ``x, y``'s two halves (rank 0's rows,
+    then rank 1's) through the port's own ``_segment_combine`` (the
+    grouped route, one f32 group) and ``_pair_combine`` per leaf in bf16,
+    f16 and f32 (the per-leaf route; ``Compression.fp16`` puts bf16 on
+    the wire). Every call is logged; the grouped and bf16 ones are the
+    replay's launches. Each combine must agree with its plain version on
+    the same operands, and the grouped result equal the per-leaf f32 one
+    bit for bit. ``projection`` is each leaf's ``|a·b| / (2 min(|a|²,
+    |b|²))`` over the leaves where both are nonzero (min, median, max):
+    how far these correlated halves put the combine from a plain sum;
+    ``zero_leaves`` counts the leaves with a zero operand."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import adasum as A
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.optim import tree_keys
+
+    model = build_resnet(0, hvd.device())
+    model.train()
+    half = x.shape[0] // 2
+    trees = []
+    for rows in (slice(0, half), slice(half, None)):
+        for p in model.parameters():
+            p.grad = None
+        hvd.softmax_xent(model(x[rows]), y[rows]).backward()
+        g = model.jax_grads()
+        # contiguous, as adasum_allreduce hands them to the combine
+        trees.append([g[k].contiguous() for k in tree_keys(g)])
+    del model
+    ga, gb = trees
+    dtypes = (torch.bfloat16, torch.float16, torch.float32)
+    names = [str(d).replace("torch.", "") for d in dtypes]
+    modes = ["adasum_l1_replay_grouped"] + [
+        f"adasum_l1_replay_leaf_{n}" for n in names]
+    calls: list = []
+    K.reset_launches()
+    with logging_calls(calls):
+        calls.append([])
+        (fa, offsets), (fb, _) = A._flatten_group(ga), A._flatten_group(gb)
+        grouped = A._segment_combine(fa, fb, offsets)
+        leaf = {}
+        for dtype, name in zip(dtypes, names):
+            if dtype == torch.float16:      # the replay's launches: grouped, bf16
+                launches = dict(K.launches)
+            calls.append([])
+            leaf[name] = [A._pair_combine(a.to(dtype), b.to(dtype))
+                          for a, b in zip(ga, gb)]
+        torch.cuda.synchronize()
+    for k in K.KERNELS:
+        logged = sum(sig[0] == k for c in calls for sig in c)
+        if logged != K.launches[k]:
+            fail(f"adasum_l1: {K.launches[k]} launches of {k} but {logged} "
+                 "logged calls")
+    want = {"adasum_segment_combine": 1, "adasum_pair_combine": len(ga)}
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"adasum_l1: launches {launches}, expected {want}")
+    err = 0.0
+    ref = K.adasum_segment_combine_plain(fa, fb, offsets)
+    bad = _adasum_close((grouped,), (ref,))
+    if bad:
+        fail(f"adasum_l1: the grouped combine against its plain version: {bad}")
+    err = max(err, max_abs(grouped, ref))
+    for dtype, name in zip(dtypes, names):
+        for i, (a, b, out) in enumerate(zip(ga, gb, leaf[name])):
+            ref = K.adasum_pair_combine_plain(a.to(dtype), b.to(dtype))
+            bad = _adasum_close((out,), (ref,))
+            if bad:
+                fail(f"adasum_l1: leaf {i} in {name} against its plain "
+                     f"version: {bad}")
+            err = max(err, max_abs(out, ref))
+    for i, (lo, hi) in enumerate(zip(offsets, offsets[1:])):
+        if not same_bits(grouped[lo:hi], leaf["float32"][i].reshape(-1)):
+            fail(f"adasum_l1: the grouped combine of leaf {i} differs from "
+                 "its per-leaf f32 combine")
+    sums = [((a.double() * b.double()).sum(), torch.minimum(
+        a.double().square().sum(), b.double().square().sum()))
+        for a, b in zip(ga, gb)]
+    # over the leaves whose operands are both nonzero (a zero-initialised
+    # BatchNorm scale zeroes the gradient of the conv before it)
+    proj = torch.stack([dot.abs() / (2 * n) for dot, n in sums if n > 0])
+    return dict(mode="adasum_l1_replay", leaves=len(ga),
+                group_elements=offsets[-1], launches=launches,
+                max_abs_err_vs_plain=err,
+                projection=[float(proj.min()), float(proj.median()),
+                            float(proj.max())],
+                zero_leaves=sum(int(n == 0) for _, n in sums),
+                step_calls=dict(zip(modes, calls)))
 
 
 def train_lm(steps: int) -> dict:
@@ -733,13 +1145,7 @@ def train_lm(steps: int) -> dict:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import TransformerLM
 
-    marks: dict = {}
-
-    def on_phase(name):                 # armed only for the split step
-        if marks:
-            torch.cuda.synchronize()
-            marks[name] = time.perf_counter()
-
+    marks, on_phase = phase_timer()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in f32
     dev = hvd.device()
     model = TransformerLM(**LM, dtype=torch.bfloat16,
@@ -766,15 +1172,7 @@ def train_lm(steps: int) -> dict:
         fail(f"lm: {launches['flash_fwd']} flash_fwd launches in {steps} "
              f"steps of a depth-{LM['depth']} model ({launches})")
     peak = torch.cuda.max_memory_allocated()
-
-    torch.cuda.synchronize()
-    marks["start"] = time.perf_counter()
-    st, loss = step(st, x, y)
-    if not math.isfinite(float(loss)):
-        fail(f"lm: non-finite loss {float(loss)} in the split step")
-    names = list(marks)
-    split = {b: marks[b] - marks[a] for a, b in zip(names, names[1:])}
-    marks.clear()
+    st, split = split_step("lm", step, st, x, y, marks)
     steady = times[1:]
     return dict(mode="lm", steps=steps, params=n_params, losses=losses,
                 launches=launches, step_s=times,
@@ -783,9 +1181,9 @@ def train_lm(steps: int) -> dict:
                 split_step_s=sum(split.values()), step_calls=calls)
 
 
-def _world_rank() -> list:
-    """One rank of the multi-GPU run: ZeRO-1 then allreduce mode, int8 +
-    EF + fused Adam, each rank on its own rows of one global batch."""
+def _world_rank(modes) -> list:
+    """One rank of the multi-GPU run: each mode in turn, 4 steps, each
+    rank on its own rows of one global batch."""
     import torch
 
     import horovod_tpu_torch as hvd
@@ -796,16 +1194,16 @@ def _world_rank() -> list:
     y = torch.randint(0, 1000, (64 * n,), generator=gen)
     xs, ys = hvd.shard_batch(x).to(hvd.device()), hvd.shard_batch(y).to(
         hvd.device())
-    return [train(True, 4, xs, ys), train(False, 4, xs, ys)]
+    return [train(mode, 4, xs, ys) for mode in modes]
 
 
-def run_gpus(n: int) -> list:
-    """Phase 5: ``[zero1, allreduce]`` results of rank 0, after checking
-    that every rank reports the same losses and parameters."""
+def run_gpus(n: int, modes) -> list:
+    """Phase 5: rank 0's results of ``modes``, after checking that every
+    rank reports the same losses and parameters."""
     from horovod_tpu_torch.testing import run_world
 
     try:
-        res = run_world(_world_rank, n, device=None, timeout=600)
+        res = run_world(_world_rank, n, modes, device=None, timeout=900)
     except RuntimeError as e:
         fail(f"{n} GPUs: {e}")
     for r, runs in enumerate(res):
@@ -879,7 +1277,11 @@ def main() -> None:
         gen = torch.Generator(device=hvd.device()).manual_seed(0)
         x = torch.randn(64, 224, 224, 3, device=hvd.device(), generator=gen)
         y = torch.randint(0, 1000, (64,), device=hvd.device(), generator=gen)
-        runs = [train(True, 10, x, y), train(False, 5, x, y)]
+        runs = [train("zero1", 10, x, y), train("allreduce", 5, x, y),
+                train("zero3", 10, x, y), train("adasum", 5, x, y)]
+        x = torch.randn(128, 224, 224, 3, device=hvd.device(), generator=gen)
+        y = torch.randint(0, 1000, (128,), device=hvd.device(), generator=gen)
+        replay = adasum_replay(x, y)
         del x, y
         torch.cuda.empty_cache()
         runs.append(train_lm(LM_STEPS))
@@ -888,23 +1290,43 @@ def main() -> None:
         hvd.shutdown()
     for run in runs:
         print(f"e2e {run['mode']}: {_summary(run)}", flush=True)
-    lm = runs[-1]
+    by_mode = {run["mode"]: run for run in runs}
+    z1, z3 = by_mode["zero1"], by_mode["zero3"]
+    print(f"e2e zero3 (int8 gather): {z3['img_per_s']:.2f} img/s per GPU, "
+          f"peak {z3['peak_gib']:.2f} GiB; zero1: {z1['img_per_s']:.2f} img/s, "
+          f"peak {z1['peak_gib']:.2f} GiB ({smi})", flush=True)
+    print(f"e2e adasum: {by_mode['adasum']['img_per_s']:.2f} img/s per GPU; "
+          "at a world of one the butterfly has no level, so no Adasum kernel "
+          "runs: the level-1 replay and --gpus N launch them", flush=True)
+    print(f"adasum level-1 replay: {_summary(replay)}", flush=True)
+    if gpus == 1:
+        print("adasum_pair_combine and adasum_segment_combine: no run on one "
+              "GPU launches them; their launches, shapes and per-step numbers "
+              "below are the level-1 replay's (grouped, and per leaf in bf16)",
+              flush=True)
+    lm = by_mode["lm"]
     print(f"e2e lm: {lm['tokens_per_s']:.1f} tokens/s per GPU over steps "
           f"2-{lm['steps']} ({smi}; TF32 off for matmuls)", flush=True)
     step_calls = {run["mode"]: run["step_calls"] for run in runs}
+    step_calls.update(replay["step_calls"])
     if gpus > 1:
         torch.cuda.empty_cache()
-        for run in run_gpus(gpus):
+        for run in run_gpus(gpus, WORLD_MODES):
+            run["mode"] = f"{run['mode']}@{gpus}"
             print(f"e2e {gpus} GPUs {run['mode']}: {_summary(run)}", flush=True)
-            step_calls[f"{run['mode']}@{gpus}"] = run["step_calls"]
+            print(f"e2e {run['mode']}: {run['img_per_s']:.2f} img/s per GPU, "
+                  f"peak {run['peak_gib']:.2f} GiB ({smi})", flush=True)
+            step_calls[run["mode"]] = run["step_calls"]
+            runs.append(run)
 
     L = sum(v.numel() for v in ResNet50(device="meta").jax_params().values())
     flat_buffer_checks(L)
-    rows = kernel_phase(step_calls, main_modes=("zero1", "allreduce", "lm"))
+    rows = kernel_phase(step_calls, main_modes(gpus))
     for name, r in rows.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
     extra = flash_extra_checks()
     print(f"flash_fwd extra shapes agree: {extra}", flush=True)
+    print(f"adasum extra checks agree: {adasum_extra_checks()}", flush=True)
     flash_sigs = [s for s in lm["step_calls"] if s[0] == "flash_fwd"]
     flash = rows["flash_fwd"]
     # the same calls' bound at the f32 rate outside the tensor cores, the
@@ -921,15 +1343,18 @@ def main() -> None:
     kernels = []
     for name in K.KERNELS:
         r = rows[name]
+        by_mode = {run["mode"]: run["launches"][name] for run in runs}
+        if not any(by_mode.values()):   # the Adasum combines on one GPU
+            by_mode[replay["mode"]] = replay["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=TPU_KERNELS[name],
-            launches=sum(run["launches"][name] for run in runs),
-            launches_by_mode={run["mode"]: run["launches"][name]
-                              for run in runs},
+            replaces=TPU_KERNELS[name], launches=sum(by_mode.values()),
+            launches_by_mode=by_mode,
             max_abs_err=r["max_abs_err"], ms=r["ms"], kernel_ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        if "two_pass_bound_ms" in r:
+            kernels[-1]["two_pass_bound_ms"] = r["two_pass_bound_ms"]
     next(k for k in kernels if k["name"] == "flash_fwd").update(
         bound_f32_ms=flash["bound_f32_ms"],
         library="F.scaled_dot_product_attention (no lse)")

@@ -147,3 +147,8 @@ def device() -> torch.device:
     _require_init()
     return _state.device
 
+
+def num_rank_is_power_2(num: int) -> bool:
+    """Is ``num`` a power of two? The Adasum precondition user scripts
+    check before opting into ``op=hvd.Adasum``."""
+    return num != 0 and (num & (num - 1)) == 0

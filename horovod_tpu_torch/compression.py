@@ -63,6 +63,14 @@ def dequantize_blockwise(q, scales, dtype, block: int = INT8_BLOCK):
     return (m * scales.to(dtype)[:, None]).reshape(-1)
 
 
+def dequantize_rows(qr, scr, dtype, block: int = INT8_BLOCK):
+    """Per-row dequantize of gathered int8 rows: ``qr [N, sp]`` + bf16
+    scales ``scr [N, sp/block]`` → ``[N, sp]`` in ``dtype``, no
+    accumulation (each row is another rank's parameter shard). The ZeRO-3
+    int8 parameter-gather epilogue, the ``dequantize_rows`` kernel."""
+    return _k.dequantize_rows(qr, scr, dtype, block)
+
+
 def quantize_chunked(flat, n: int, block: int = INT8_BLOCK):
     """The wire image of a flat packed ``[Lp]`` buffer in the layout the
     quantized reduce-scatter sends: split into ``n`` destination chunks,

@@ -87,3 +87,35 @@ def zero1_state_from_jax(count, mu: dict, nu: dict, rank: int, *,
     if residual is not None:
         state["residual"] = {k: t(v) for k, v in residual.items()}
     return state
+
+
+def _rows_tensor(a) -> torch.Tensor:
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":          # numpy has no bf16 of its own
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def fsdp_params_from_jax(shards: dict, like: dict, rank: int):
+    """One rank's port :class:`~horovod_tpu_torch.optim.FsdpParams` from
+    the JAX package's ZeRO-3 rows ``{group: [N, s]}`` (numpy): row
+    ``rank`` of each group. ``like`` is the parameter tree the rows were
+    packed from (e.g. ``model.jax_params()``; only its keys, shapes and
+    dtypes are read)."""
+    from horovod_tpu_torch.optim import (
+        FsdpParams, _fsdp_meta, tree_keys,
+    )
+
+    keys = tree_keys(like)
+    n = int(np.shape(next(iter(shards.values())))[0])
+    meta = _fsdp_meta(keys, [like[k].shape for k in keys],
+                      [like[k].dtype for k in keys], rank, n)
+    groups = meta.groups
+    if set(groups) != set(shards):
+        raise KeyError(f"groups {sorted(shards)} != the tree's {sorted(groups)}")
+    for k, g in groups.items():
+        if tuple(np.shape(shards[k])) != (n, g.Lp // n):
+            raise ValueError(f"group {k}: rows {np.shape(shards[k])} != "
+                             f"{(n, g.Lp // n)}")
+    return FsdpParams({k: _rows_tensor(v[rank]) for k, v in shards.items()},
+                      meta)

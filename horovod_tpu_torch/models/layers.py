@@ -3,7 +3,8 @@
 Parameters are kept in float32 and PyTorch's layouts (linear
 ``[out, in]``); ``jax_params(grad=...)`` returns them (or their
 ``.grad``) keyed by the flax leaf name, as views in flax's layouts
-(Dense kernel ``[in, out]``).
+(Dense kernel ``[in, out]``), and ``from_jax(leaf)`` maps leaves in
+flax's layouts back to parameters in PyTorch's (see :func:`torch_params`).
 """
 
 from __future__ import annotations
@@ -15,6 +16,25 @@ import torch.nn.functional as F
 from torch import nn
 
 _LN_EPS = 1e-6
+
+
+def torch_params(model, tree: dict) -> dict:
+    """The inverse of ``model.jax_params()``: ``{flax path: tensor in
+    flax's layout}`` → ``{parameter name: tensor in PyTorch's layout}``,
+    what ``torch.func.functional_call(model, ...)`` takes. Each tensor is
+    laid out as the model's own parameter (contiguous), and autograd flows
+    back to ``tree``."""
+    out = {}
+    for name, m in model.named_modules():
+        fn = getattr(m, "from_jax", None)
+        if fn is None or m is model:
+            continue
+        prefix = name.replace(".", "/")
+        for attr, t in fn(lambda leaf: tree[f"{prefix}/{leaf}"]).items():
+            out[f"{name}.{attr}"] = t.contiguous()
+    for name, _ in model.named_parameters(recurse=False):
+        out[name] = tree[name]
+    return out
 
 
 def lecun_normal_(w, fan_in: int, gen):
@@ -52,6 +72,12 @@ class Dense(nn.Module):
             out["bias"] = self.bias.grad if grad else self.bias
         return out
 
+    def from_jax(self, leaf):
+        out = {"weight": leaf("kernel").t()}
+        if self.bias is not None:
+            out["bias"] = leaf("bias")
+        return out
+
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=dtype)``: eps 1e-6, fast variance
@@ -82,6 +108,9 @@ class LayerNorm(nn.Module):
             return {"scale": self.scale.grad, "bias": self.bias.grad}
         return {"scale": self.scale, "bias": self.bias}
 
+    def from_jax(self, leaf):
+        return {"scale": leaf("scale"), "bias": leaf("bias")}
+
 
 class Embed(nn.Module):
     """flax ``nn.Embed(dtype=dtype)``: the table cast to ``dtype``, then
@@ -104,3 +133,6 @@ class Embed(nn.Module):
 
     def jax_params(self, grad=False):
         return {"embedding": self.embedding.grad if grad else self.embedding}
+
+    def from_jax(self, leaf):
+        return {"embedding": leaf("embedding")}

@@ -19,7 +19,9 @@ Parameters keep PyTorch's layouts (conv OIHW, linear ``[out, in]``).
 :meth:`ResNet.jax_params` / :meth:`ResNet.jax_grads` /
 :meth:`ResNet.jax_batch_stats` return them keyed by the flax path
 (``BottleneckBlock_3/Conv_1/kernel``) as views in flax's layouts (HWIO,
-``[in, out]``), which is what the optimizer packs.
+``[in, out]``), which is what the optimizer packs;
+:func:`~horovod_tpu_torch.models.layers.torch_params` maps such a tree
+back (the ZeRO-3 step feeds its gathered tree in that way).
 """
 
 from __future__ import annotations
@@ -73,6 +75,10 @@ class Conv(nn.Module):
         w = self.weight.grad if grad else self.weight
         return {"kernel": w.permute(2, 3, 1, 0)}
 
+    def from_jax(self, leaf):
+        # HWIO back to OIHW: the inverse of jax_params' permute
+        return {"weight": leaf("kernel").permute(3, 2, 0, 1)}
+
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW."""
@@ -110,6 +116,9 @@ class BatchNorm(nn.Module):
         if grad:
             return {"scale": self.scale.grad, "bias": self.bias.grad}
         return {"scale": self.scale, "bias": self.bias}
+
+    def from_jax(self, leaf):
+        return {"scale": leaf("scale"), "bias": leaf("bias")}
 
     def jax_batch_stats(self):
         return {"mean": self.mean, "var": self.var}

@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("int8_wire", "fused_adam", "flash_attention")
+SOURCES = ("int8_wire", "fused_adam", "flash_attention", "adasum")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

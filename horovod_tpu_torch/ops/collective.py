@@ -11,6 +11,10 @@ The int8 exchange (``allreduce(t, compression=Compression.int8)`` and
 wide: quantize per destination chunk, ``all_to_all`` the int8 values and
 the bf16 scales, dequantize-accumulate in f32 on the owning rank, and —
 for the allreduce — divide, requantize, and all-gather int8 + scales.
+The ZeRO-3 parameter gather (:func:`gather_shards`,
+:func:`quantized_all_gather`) is differentiable: its backward is the
+exact SUM reduce-scatter. ``allreduce(t, Adasum)`` runs the butterfly of
+:mod:`horovod_tpu_torch.ops.adasum`.
 """
 
 from __future__ import annotations
@@ -21,21 +25,25 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import basics
+from horovod_tpu_torch.ops import adasum as _adasum
 from horovod_tpu_torch.ops import kernels as _k
 
 
 class ReduceOp(enum.IntEnum):
-    """Reduction ops. ``AVERAGE``/``SUM`` keep the JAX package's values;
-    ``MIN``/``MAX`` are what ``torch.distributed`` adds."""
+    """Reduction ops. ``AVERAGE``/``SUM``/``ADASUM`` keep the JAX
+    package's values; ``MIN``/``MAX`` are what ``torch.distributed``
+    adds."""
 
     AVERAGE = 0
     SUM = 1
+    ADASUM = 2
     MIN = 3
     MAX = 4
 
 
 Average = ReduceOp.AVERAGE
 Sum = ReduceOp.SUM
+Adasum = ReduceOp.ADASUM
 Min = ReduceOp.MIN
 Max = ReduceOp.MAX
 
@@ -147,6 +155,54 @@ def _quant_allreduce_bound(v, *, op, block):
     return out[:size].reshape(shape)
 
 
+class _ShardGather(torch.autograd.Function):
+    """Tiled all-gather of this rank's flat ``[s]`` shard → ``[N*s]``,
+    over the int8 wire when ``block`` is given. The backward is the plain
+    gather's transpose whatever the wire: the exact SUM reduce-scatter of
+    the cotangent."""
+
+    @staticmethod
+    def forward(ctx, flat, block):
+        if block is None:
+            return _all_gather_flat(flat)
+        from horovod_tpu_torch.compression import (
+            dequantize_rows, quantize_blockwise,
+        )
+
+        n, s = _n(), flat.shape[0]
+        q, scales = quantize_blockwise(flat, block)          # [sp], [sp/block]
+        sp = q.shape[0]
+        qg = _all_gather_flat(q).reshape(n, sp)
+        scg = _all_gather_flat(scales).reshape(n, sp // block)
+        return dequantize_rows(qg, scg, flat.dtype, block)[:, :s].reshape(-1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        out = torch.empty(ct.shape[0] // _n(), dtype=ct.dtype, device=ct.device)
+        _reduce_scatter_single(out, ct.contiguous(), op=dist.ReduceOp.SUM)
+        return out, None
+
+
+def gather_shards(flat):
+    """Differentiable tiled all-gather of this rank's flat shard (the
+    ZeRO-3 full-precision parameter gather): ``[s]`` → ``[N*s]``; the
+    backward reduce-scatters (SUM) the cotangent."""
+    return _ShardGather.apply(flat, None)
+
+
+def quantized_all_gather(flat, *, block=None):
+    """The ZeRO-3 int8 parameter gather (``HOROVOD_FSDP_WIRE=int8``):
+    this rank's ``[s]`` shard is quantized blockwise (zero-padded to the
+    block inside), the int8 values and bf16 scales are all-gathered, and
+    the ``dequantize_rows`` kernel turns the N rows back into ``[N*s]``.
+    Differentiable: the backward is the exact f32 SUM reduce-scatter of
+    the cotangent, so a step trains on int8-rounded weights but exact
+    gradients."""
+    from horovod_tpu_torch.compression import INT8_BLOCK
+
+    return _ShardGather.apply(flat, int(block or INT8_BLOCK))
+
+
 def _quantizes(compression, tensor) -> bool:
     from horovod_tpu_torch.compression import _quantizable
 
@@ -160,28 +216,33 @@ def _quantizes(compression, tensor) -> bool:
 
 def allreduce(tensor, op: ReduceOp = Average, *, compression=None):
     """Reduce ``tensor`` across ranks (Average divides the sum by the
-    world size). A quantized ``compression`` (``Compression.int8``) sends
-    f32/f64 tensors of at least ``min_quant_elems`` elements through the
-    int8 exchange; other compressors cast around a plain allreduce."""
+    world size; Adasum runs the butterfly of :mod:`.adasum` on a
+    power-of-two world). A quantized ``compression`` (``Compression.int8``)
+    sends f32/f64 tensors of at least ``min_quant_elems`` elements through
+    the int8 exchange; other compressors cast around the reduction."""
     basics._require_init()
     _check_device(tensor)
     op = ReduceOp(op)
     if compression is not None and getattr(compression, "quantized", False) \
             and _quantizes(compression, tensor):
+        if op == Adasum:
+            raise ValueError("quantized compression does not support op=Adasum")
         if op not in (Average, Sum):
             raise ValueError(f"quantized compression supports Average/Sum, not {op!r}")
-        out = _quant_allreduce_bound(
+        return _quant_allreduce_bound(
             tensor, op=op, block=int(compression.block))
+    ctx = None
+    if compression is not None:
+        tensor, ctx = compression.compress(tensor)
+    if op == Adasum:
+        out = _adasum.adasum_allreduce(tensor)
     else:
-        ctx = None
-        if compression is not None:
-            tensor, ctx = compression.compress(tensor)
         out = tensor.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=_DIST_OP[op])
         if op == Average:
             out = _div(out, _n())
-        if compression is not None:
-            out = compression.decompress(out, ctx)
+    if compression is not None:
+        out = compression.decompress(out, ctx)
     return out
 
 

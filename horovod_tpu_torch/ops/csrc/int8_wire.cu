@@ -1,5 +1,6 @@
-// The int8 gradient wire on Hopper: blockwise quantize (+ roundtrip),
-// dequantize-accumulate, and dequantize-accumulate-requantize.
+// The int8 wire on Hopper: blockwise quantize (+ roundtrip),
+// dequantize-accumulate, dequantize-accumulate-requantize, and the
+// per-row dequantize of the ZeRO-3 parameter gather.
 //
 // Replaces (horovod_tpu/ops/pallas_kernels.py):
 //   hvd_quantize                        <- _quantize_call / _quantize_kernel
@@ -7,6 +8,7 @@
 //   hvd_dequant_accumulate              <- dequant_accumulate / _deq_acc_kernel
 //   hvd_dequant_accumulate_requantize   <- dequant_accumulate_requantize /
 //                                          _deq_acc_requant_kernel, _requant_rows
+//   hvd_dequantize_rows                 <- dequantize_rows / _deq_rows_kernel
 //
 // Bound on an H100 SXM (3.35 TB/s): all three are single memory-bound
 // passes with ~1 operation per byte, far below the card's ~20 f32
@@ -83,6 +85,28 @@ __global__ void deq_acc_requant_kernel(const int8_t* __restrict__ q,
   hvdt::store8(q2 + e, qi);
 }
 
+// The gathered rows [n, sp] with sp % 256 == 0 are one flat run of
+// n * sp / 256 scale blocks, so element e takes scale e / 256 whatever
+// its row: one thread per 8 elements, out = f32(q) * f32(scale). The
+// product of an int8 and a bf16 is exact in f32, so every element is
+// bit-equal to the reference whatever the rounding mode; a NaN or an
+// infinite scale gives NaN (0 * inf) or +-inf as IEEE says, as there.
+__global__ void deq_rows_kernel(const int8_t* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ s,
+                                float* __restrict__ out, long long total) {
+  const long long e =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * kLane;
+  if (e >= total) return;
+  union { uint2 u; int8_t b[kLane]; } pk;
+  pk.u = *reinterpret_cast<const uint2*>(q + e);
+  const float sc = __bfloat162float(s[e / kBlock]);
+  float v[kLane];
+#pragma unroll
+  for (int i = 0; i < kLane; ++i)
+    v[i] = __fmul_rn(static_cast<float>(pk.b[i]), sc);
+  hvdt::store8(out + e, v);
+}
+
 unsigned int grid_for(long long threads) {
   return static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
 }
@@ -123,6 +147,18 @@ int hvd_dequant_accumulate_requantize(const void* q, const void* s, void* q2,
       static_cast<const int8_t*>(q), static_cast<const __nv_bfloat16*>(s),
       static_cast<int8_t*>(q2), static_cast<__nv_bfloat16*>(s2), n, sp,
       divisor);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q int8 [n, sp], s bf16 [n, sp/256] -> out f32 [n, sp]; sp % 256 == 0,
+// every pointer 16-byte aligned. Row r, element j: q[r, j] * s[r, j/256].
+int hvd_dequantize_rows(const void* q, const void* s, void* out, int n,
+                        long long sp, void* stream) {
+  const long long total = static_cast<long long>(n) * sp;
+  deq_rows_kernel<<<grid_for(total / kLane), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const __nv_bfloat16*>(s),
+      static_cast<float*>(out), total);
   return static_cast<int>(cudaGetLastError());
 }
 

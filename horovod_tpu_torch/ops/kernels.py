@@ -1,6 +1,6 @@
-"""Hand-written Hopper kernels of the int8 gradient wire, the fused Adam
-update and the flash-attention forward, each beside its plain PyTorch
-version.
+"""Hand-written Hopper kernels of the int8 wire, the fused Adam update,
+the flash-attention forward and the Adasum combine, each beside its plain
+PyTorch version.
 
 Counterpart of ``horovod_tpu/ops/pallas_kernels.py`` and of the Pallas
 forward of ``horovod_tpu/ops/flash_attention.py``. Every public
@@ -24,7 +24,11 @@ those):
 - ``dequant_accumulate_requantize`` — the allreduce epilogue;
 - ``fused_adam`` — :func:`fused_adam_update`;
 - ``flash_fwd`` — :func:`flash_fwd`, attention's forward with its
-  log-sum-exp rows.
+  log-sum-exp rows;
+- ``dequantize_rows`` — the ZeRO-3 int8 parameter-gather epilogue;
+- ``adasum_pair_combine`` / ``adasum_segment_combine`` — one Adasum
+  combine of a tensor pair, or of every segment of a flat group buffer
+  (three CUDA launches, one count: reduce, finalize, blend).
 
 The plain versions divide by tensors, never by Python numbers: PyTorch's
 CUDA division by a host scalar multiplies by its reciprocal, which is not
@@ -34,6 +38,7 @@ the reference's rounding.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -41,9 +46,15 @@ import torch
 INT8_BLOCK = 256  # the block the CUDA kernels are compiled for
 
 KERNELS = ("quantize", "dequant_accumulate", "dequant_accumulate_requantize",
-           "fused_adam", "flash_fwd")
+           "fused_adam", "flash_fwd", "dequantize_rows", "adasum_pair_combine",
+           "adasum_segment_combine")
 #: head dims the flash_fwd kernel is compiled for
 FLASH_HEAD_DIMS = (64, 128)
+
+#: elements per block of the Adasum reduce and blend passes
+ADASUM_CHUNK = 8192
+#: operand types of the Adasum kernel, by the code it is passed
+_ADASUM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = dict.fromkeys(KERNELS, 0)
@@ -58,6 +69,10 @@ _ARGTYPES = {
     + [ctypes.c_int, _P],
     "hvd_flash_fwd": [_P] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
+    "hvd_dequantize_rows": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
+    "hvd_adasum_combine": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_int, _P, _P, _P, ctypes.c_int,
+                           ctypes.c_longlong, _P, _P, _P],
 }
 _fns: dict = {}
 
@@ -379,3 +394,143 @@ def flash_fwd(q, k, v, *, causal: bool = False, sm_scale=None,
             lse.data_ptr(), b, h, h_kv, t_q, t_k, d, *strides,
             float(sm_scale), int(bool(causal)), int(q.dtype == torch.bfloat16))
     return out, lse
+
+
+# --------------------------------------------------------------------------
+# per-row dequantize (the ZeRO-3 int8 parameter gather)
+
+
+def dequantize_rows_plain(qr, scr, dtype=torch.float32,
+                          block: int = INT8_BLOCK):
+    n, sp = qr.shape
+    return (qr.to(dtype).reshape(n, sp // block, block)
+            * scr.to(dtype)[:, :, None]).reshape(n, sp)
+
+
+def dequantize_rows(qr, scr, dtype=torch.float32, block: int = INT8_BLOCK):
+    """All-gather epilogue of the int8 parameter gather: the N gathered
+    int8 rows ``qr [N, sp]`` times their bf16 scales ``scr [N, sp/block]``
+    → ``[N, sp]`` in ``dtype``, row by row, with no accumulation (each row
+    is another rank's shard). The product is exact in f32, so the kernel
+    is bit-equal to the plain version."""
+    if not _on_cuda(qr, scr):
+        return dequantize_rows_plain(qr, scr, dtype, block)
+    if dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel dequantizes to float32, not {dtype}")
+    n, sp = _check_wire(qr, scr, block)
+    out = torch.empty((n, sp), dtype=torch.float32, device=qr.device)
+    if n * sp:
+        _launch("dequantize_rows", "int8_wire", "hvd_dequantize_rows",
+                qr.device, qr.data_ptr(), scr.data_ptr(), out.data_ptr(), n, sp)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Adasum pairwise combine
+
+
+def _adasum_coefficients(dot, na, nb):
+    """The reference's ``where(n == 0, 0, 1 - dot / (2 max(n, 1e-30)))``
+    for ``a`` and ``b``, in f32."""
+    floor = torch.tensor(1e-30, dtype=torch.float32, device=dot.device)
+
+    def one(n):
+        return torch.where(n == 0, torch.zeros_like(n),
+                           1.0 - dot / (2.0 * torch.maximum(n, floor)))
+
+    return one(na), one(nb)
+
+
+def adasum_pair_combine_plain(a, b):
+    af, bf = a.reshape(-1).float(), b.reshape(-1).float()
+    ca, cb = _adasum_coefficients((af * bf).sum(), (af * af).sum(),
+                                  (bf * bf).sum())
+    return (ca * af + cb * bf).to(a.dtype).reshape(a.shape)
+
+
+def adasum_segment_combine_plain(a, b, offsets):
+    offs = [int(o) for o in offsets]
+    prods = torch.stack([a * b, a * a, b * b])
+    sums = torch.stack([prods[:, lo:hi].sum(dim=1)
+                        for lo, hi in zip(offs, offs[1:])], dim=1)
+    ca, cb = _adasum_coefficients(*sums)
+    lengths = torch.tensor(np.diff(offs), device=a.device)
+    return (torch.repeat_interleave(ca, lengths) * a
+            + torch.repeat_interleave(cb, lengths) * b)
+
+
+@functools.lru_cache(maxsize=8)
+def _segment_tables(offsets: tuple, device: str):
+    """Device tables of a segment layout, built once per layout (a
+    model's gradient group): element offsets int64 ``[S+1]``, each
+    chunk's segment int32 ``[n_chunks]``, each segment's first chunk
+    int32 ``[S+1]`` (chunks of at most :data:`ADASUM_CHUNK` elements,
+    never straddling a segment), and ``n_chunks``."""
+    sizes = np.diff(np.asarray(offsets, np.int64))
+    per = -(-sizes // ADASUM_CHUNK)
+    first = np.concatenate([[0], np.cumsum(per)]).astype(np.int32)
+    chunk_seg = np.repeat(np.arange(len(sizes), dtype=np.int32), per)
+    return (torch.tensor(offsets, dtype=torch.int64, device=device),
+            torch.from_numpy(chunk_seg).to(device),
+            torch.from_numpy(first).to(device), int(first[-1]))
+
+
+def _adasum_launch(kernel, a, b, tables):
+    """Launch the three passes over contiguous ``a``, ``b`` of one shape
+    and type: ``tables`` None for one segment, else
+    :func:`_segment_tables`."""
+    for name, x in (("a", a), ("b", b)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+    out = torch.empty_like(a)
+    L = a.numel()
+    if not L:
+        return out
+    if tables is None:
+        n_seg, n_chunks, ptrs = 1, -(-L // ADASUM_CHUNK), (None, None, None)
+    else:
+        seg_off, chunk_seg, first, n_chunks = tables
+        n_seg = seg_off.numel() - 1
+        ptrs = (seg_off.data_ptr(), chunk_seg.data_ptr(), first.data_ptr())
+    partials = torch.empty(3 * n_chunks, dtype=torch.float32, device=a.device)
+    coef = torch.empty(2 * n_seg, dtype=torch.float32, device=a.device)
+    _launch(kernel, "adasum", "hvd_adasum_combine", a.device, a.data_ptr(),
+            b.data_ptr(), out.data_ptr(), _ADASUM_DTYPES[a.dtype], L, n_seg,
+            *ptrs, n_chunks, ADASUM_CHUNK, partials.data_ptr(),
+            coef.data_ptr())
+    return out
+
+
+def adasum_pair_combine(a, b):
+    """One Adasum pairwise combine of two tensors of one shape and type
+    (f32, bf16 or f16): ``ca·a + cb·b`` in that type, with ``a·b``,
+    ``|a|²``, ``|b|²`` summed in f32 and ``ca = 0 if |a|² = 0 else
+    1 - a·b / (2 max(|a|², 1e-30))`` (``cb`` alike). The kernel sums in a
+    fixed order: the same inputs give the same bits."""
+    if not _on_cuda(a, b):
+        return adasum_pair_combine_plain(a, b)
+    if a.dtype not in _ADASUM_DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"adasum_pair_combine: expected two tensors of one of "
+                        f"{sorted(map(str, _ADASUM_DTYPES))}, got {a.dtype} "
+                        f"and {b.dtype}")
+    if a.shape != b.shape:
+        raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)} differ")
+    return _adasum_launch("adasum_pair_combine", a, b, None)
+
+
+def adasum_segment_combine(a, b, offsets):
+    """:func:`adasum_pair_combine` of every segment ``[offsets[i],
+    offsets[i+1])`` of two flat f32 group buffers at once (``offsets``
+    runs from 0 to their length)."""
+    offsets = tuple(int(o) for o in offsets)
+    if not _on_cuda(a, b):
+        return adasum_segment_combine_plain(a, b, offsets)
+    if a.dtype != torch.float32 or b.dtype != torch.float32 or a.dim() != 1:
+        raise TypeError(f"adasum_segment_combine: expected flat float32 "
+                        f"buffers, got {a.dtype} {tuple(a.shape)}")
+    if a.shape != b.shape or offsets[0] != 0 or offsets[-1] != a.numel() \
+            or any(hi < lo for lo, hi in zip(offsets, offsets[1:])):
+        raise ValueError(f"segment offsets 0..{offsets[-1]} do not cover "
+                         f"a {tuple(a.shape)} / b {tuple(b.shape)}")
+    return _adasum_launch("adasum_segment_combine", a, b,
+                          _segment_tables(offsets, str(a.device)))

@@ -66,14 +66,16 @@ def assemble(flats: Dict[str, torch.Tensor], groups: Dict[str, Bucket],
     """Leaves back from per-bucket flat buffers (length >= ``L``). A leaf
     in one segment is a view of its buffer; a leaf split across segments
     is stitched in element order; a leaf no bucket covers comes back as
-    zeros."""
+    zeros. The views come from one ``torch.split`` per bucket, so under
+    autograd (the ZeRO-3 gather) the leaves' gradients are concatenated
+    into the buffer's once, not each padded to its full length and
+    summed."""
     pieces: dict = {}
     for key, b in groups.items():
-        flat = flats[key]
-        off = 0
-        for s in b.segs:
-            pieces.setdefault(s.idx, []).append((s.start, flat[off:off + s.size]))
-            off += s.size
+        sizes = [s.size for s in b.segs]
+        parts = torch.split(flats[key][:sum(sizes)], sizes)
+        for s, part in zip(b.segs, parts):
+            pieces.setdefault(s.idx, []).append((s.start, part))
     out = []
     for i, shape in enumerate(shapes):
         ps = sorted(pieces.get(i, ()), key=lambda t: t[0])

@@ -19,13 +19,16 @@ layout-dependent.
 - :func:`adamw` — optax's ``adamw`` (Adam, decoupled weight decay, then
   ``-lr``), plain PyTorch, same state;
 - :func:`DistributedOptimizer` — allreduce mode (Horovod's classic
-  gradient allreduce, optionally with error feedback) or ZeRO-1
+  gradient allreduce, optionally with error feedback, or Adasum), ZeRO-1
   (``shard_optimizer=True``: flat-packed reduce-scatter, this rank's
-  optimizer shard, all-gather of the update shards).
+  optimizer shard, all-gather of the update shards) or ZeRO-3
+  (``shard_params=True``: the parameters themselves are this rank's
+  shards, :class:`FsdpParams`, gathered on use).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -33,12 +36,13 @@ import torch
 
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.compression import (
-    Compression, _quantizable, quantize_chunked,
+    MIN_QUANT_ELEMS, Compression, _quantizable, quantize_chunked,
 )
 from horovod_tpu_torch.ops import collective as _C
 from horovod_tpu_torch.ops import kernels as _k
 from horovod_tpu_torch.ops import overlap as _ov
-from horovod_tpu_torch.ops.collective import Average, ReduceOp, Sum
+from horovod_tpu_torch.ops.adasum import grouped_adasum_allreduce
+from horovod_tpu_torch.ops.collective import Adasum, Average, ReduceOp, Sum
 
 
 class Transform(NamedTuple):
@@ -53,6 +57,7 @@ class DistributedTransform(NamedTuple):
     init: Callable
     update: Callable
     shard_optimizer: bool
+    shard_params: bool = False
 
 
 def tree_keys(tree: dict) -> list:
@@ -270,23 +275,200 @@ def _zero_update(grads, state, params, *, optimizer, compression,
 
 
 # --------------------------------------------------------------------------
+# ZeRO-3: the parameters are this rank's shards, gathered on use
+#
+# A ZeRO-3 step gathers the full tree from the shards before the forward
+# (fsdp_gather_params); the gather's backward reduce-scatters the packed
+# full gradient, so the gradient arrives as this rank's SUM shard — the
+# buffer ZeRO-1's explicit reduce-scatter produces. The update then runs
+# on the shard and comes back as a shard: no all-gather, the next step's
+# gather sees shards + updates.
+
+FSDP_WIRE_ENV = "HOROVOD_FSDP_WIRE"
+
+
+def _fsdp_wire() -> str:
+    """The parameter-gather wire (``HOROVOD_FSDP_WIRE``): ``none``
+    (full-precision all-gather) or ``int8`` (blockwise int8 + bf16
+    scales, :func:`~horovod_tpu_torch.ops.collective.quantized_all_gather`).
+    Read at every gather."""
+    wire = os.environ.get(FSDP_WIRE_ENV, "none").lower()
+    if wire not in ("none", "int8"):
+        raise ValueError(
+            f"{FSDP_WIRE_ENV} must be 'none' or 'int8', got {wire!r}")
+    return wire
+
+
+class _FsdpMeta(NamedTuple):
+    """What re-assembles the tree from the shards: the leaves' keys (in
+    JAX's flatten order), shapes and dtypes, this rank's place, and the
+    ZeRO-1 group plan at that world size. Build with :func:`_fsdp_meta`,
+    which computes the plan once."""
+
+    keys: tuple
+    shapes: tuple
+    dtypes: tuple
+    rank: int
+    size: int
+    groups: dict
+
+
+class FsdpParams:
+    """ZeRO-3 parameters of one rank: ``{group_key: [s]}``, this rank's
+    row of each ZeRO-1 group (per-dtype flat buffer ``[N, s]``), plus the
+    metadata to re-assemble the tree. Build with :func:`fsdp_pack_params`;
+    re-materialize with :func:`fsdp_gather_params` (differentiable, in a
+    step) or :func:`fsdp_unpack_params`."""
+
+    __slots__ = ("shards", "meta")
+
+    def __init__(self, shards: dict, meta: _FsdpMeta):
+        self.shards = dict(shards)
+        self.meta = meta
+
+    def __repr__(self):
+        return (f"FsdpParams(groups={sorted(self.shards)}, "
+                f"rank={self.meta.rank}, size={self.meta.size})")
+
+
+def _fsdp_meta(keys, shapes, dtypes, rank: int, size: int) -> _FsdpMeta:
+    """The :class:`_FsdpMeta` of a tree of ``shapes``/``dtypes`` packed for
+    ``rank`` of ``size``, with its ZeRO-1 group plan."""
+    shapes = tuple(tuple(s) for s in shapes)
+    dtypes = tuple(dtypes)
+    leaves = [torch.empty(s, dtype=d, device="meta")
+              for s, d in zip(shapes, dtypes)]
+    return _FsdpMeta(tuple(keys), shapes, dtypes, int(rank), int(size),
+                     _zero_groups(leaves, size))
+
+
+def _check_world(fp: FsdpParams) -> None:
+    if (fp.meta.rank, fp.meta.size) != (basics.rank(), basics.size()):
+        raise ValueError(
+            f"{fp!r} was packed for rank {fp.meta.rank} of {fp.meta.size}, "
+            f"this is rank {basics.rank()} of {basics.size()}")
+
+
+def fsdp_pack_params(params: dict) -> FsdpParams:
+    """This rank's ZeRO-3 shards of a full parameter tree (the same on
+    every rank): each per-dtype group packed flat as ZeRO-1 packs it, and
+    this rank's ``[Lp/N]`` row kept. The layout is ZeRO-1's, so
+    ``DistributedOptimizer(shard_params=True).init`` gives the ZeRO-1
+    state."""
+    n, r = basics.size(), basics.rank()
+    keys = tree_keys(params)
+    leaves = [params[k] for k in keys]
+    meta = _fsdp_meta(keys, [l.shape for l in leaves],
+                      [l.dtype for l in leaves], r, n)
+    shards = {k: _rank_shard(_ov.pack_group(leaves, g), n, r).clone()
+              for k, g in meta.groups.items()}
+    return FsdpParams(shards, meta)
+
+
+def _assemble(fp: FsdpParams, fulls: dict) -> dict:
+    groups = fp.meta.groups
+    flats = {k: fulls[k][:g.L] for k, g in groups.items()}
+    leaves = _ov.assemble(flats, groups, fp.meta.shapes, fp.meta.dtypes)
+    return dict(zip(fp.meta.keys, leaves))
+
+
+@torch.no_grad()
+def fsdp_unpack_params(fp: FsdpParams) -> dict:
+    """The full parameter tree from every rank's shards (a collective:
+    one full-precision all-gather per group), outside autograd."""
+    _check_world(fp)
+    return _assemble(fp, {k: _C.allgather(s) for k, s in fp.shards.items()})
+
+
+def fsdp_gather_params(fp: FsdpParams, *, wire=None) -> dict:
+    """The gather-on-use leg of a ZeRO-3 step: the full tree from the
+    shards, one all-gather per group, differentiable (the backward
+    reduce-scatters the packed gradient into shard gradients). A group
+    rides the int8 wire (``wire="int8"``, default ``HOROVOD_FSDP_WIRE``)
+    when its dtype is quantizable and it has at least ``MIN_QUANT_ELEMS``
+    elements; otherwise the full-precision gather."""
+    _check_world(fp)
+    wire = _fsdp_wire() if wire is None else wire
+    if wire not in ("none", "int8"):
+        raise ValueError(f"wire must be 'none' or 'int8', got {wire!r}")
+    fulls = {}
+    for key, g in fp.meta.groups.items():
+        local = fp.shards[key]
+        if wire == "int8" and _quantizable(local.dtype) \
+                and g.Lp >= MIN_QUANT_ELEMS:
+            fulls[key] = _C.quantized_all_gather(local)
+        else:
+            fulls[key] = _C.gather_shards(local)
+    return _assemble(fp, fulls)
+
+
+def _fsdp_init(optimizer, params):
+    if not isinstance(params, FsdpParams):
+        raise TypeError(
+            "DistributedOptimizer(shard_params=True).init expects the packed "
+            "FsdpParams shards: build them with fsdp_pack_params(params), got "
+            f"{type(params).__name__}")
+    _check_world(params)
+    return {"shard": {"rank": params.meta.rank, "size": params.meta.size},
+            "inner": optimizer.init(dict(params.shards))}
+
+
+def _fsdp_update(grads, state, params, *, optimizer, op):
+    """One ZeRO-3 update on this rank: the gradient shards arrive summed
+    over ranks (the gather's backward), so divide for Average, run the
+    inner optimizer on the shards, and return the update shards as
+    :class:`FsdpParams` (no all-gather)."""
+    if not isinstance(grads, FsdpParams):
+        raise TypeError(
+            "DistributedOptimizer(shard_params=True) updates FsdpParams "
+            "gradient shards (differentiate through fsdp_gather_params), got "
+            f"{type(grads).__name__}")
+    n = state["shard"]["size"]
+    gshards = dict(grads.shards)
+    if op == Average:
+        gshards = {k: _C._div(v, n) for k, v in gshards.items()}
+    pshards = dict(params.shards) if isinstance(params, FsdpParams) else None
+    upd, inner = optimizer.update(gshards, state["inner"], pshards)
+    return FsdpParams(upd, grads.meta), {"shard": state["shard"],
+                                         "inner": inner}
+
+
+# --------------------------------------------------------------------------
 # DistributedOptimizer
+
+
+def _fused_adasum_tree(grads: dict) -> dict:
+    """Adasum of the whole gradient tree through the grouped butterfly:
+    log2(N) exchanges and combine kernels a step, whatever the number of
+    leaves. Only for uncompressed gradients (the group buffer is f32);
+    compressed Adasum stays per leaf, where the 16-bit type rides end to
+    end."""
+    keys = tree_keys(grads)
+    return dict(zip(keys, grouped_adasum_allreduce([grads[k] for k in keys])))
 
 
 def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
                          compression=None, error_feedback: bool = False,
-                         shard_optimizer: bool = False) -> DistributedTransform:
+                         shard_optimizer: bool = False,
+                         shard_params: bool = False) -> DistributedTransform:
     """Wrap ``optimizer`` so each ``update`` first combines the gradients
     across ranks.
 
     - allreduce mode (default): every gradient leaf is allreduced
       (``compression=Compression.int8`` rides the int8 exchange for
       leaves of at least ``MIN_QUANT_ELEMS`` f32 elements), then the
-      inner optimizer updates the full tree on every rank.
+      inner optimizer updates the full tree on every rank. ``op=Adasum``
+      without compression runs one grouped butterfly over the whole tree;
+      with ``Compression.fp16`` each leaf is combined in its 16-bit type.
     - ``shard_optimizer=True`` (ZeRO-1): the tree is flat-packed per
       dtype and reduce-scattered; this rank updates only its shard of the
       optimizer state and the update shards are all-gathered. The state
       holds this rank's shard only (``state["shard"]`` names it).
+    - ``shard_params=True`` (ZeRO-3): ``init`` takes :class:`FsdpParams`
+      and gives the ZeRO-1 state; ``update`` takes the gradient shards
+      (the gather's backward reduce-scattered them) and returns update
+      shards. The gradient leg is exact: compression and error feedback
+      are refused (``HOROVOD_FSDP_WIRE=int8`` compresses the gather).
 
     ``error_feedback=True`` keeps what the lossy wire rounded away and
     adds it to the next step's gradient (EF-SGD); it needs a lossy
@@ -296,21 +478,60 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
         compression = Compression.none
     op = ReduceOp(op)
     quantized = getattr(compression, "quantized", False)
+    if shard_params:
+        if op not in (Average, Sum):
+            raise ValueError(
+                "shard_params=True (ZeRO-3) supports op=Average/Sum only "
+                "(Adasum's pairwise projections have no reduce-scatter "
+                "formulation)")
+        if compression is not Compression.none:
+            raise ValueError(
+                "gradient compression does not compose with "
+                "shard_params=True: the ZeRO-3 gradient leg is the parameter "
+                "gather's transpose, exact by construction. Compress the "
+                "parameter GATHER instead (HOROVOD_FSDP_WIRE=int8)")
+        if error_feedback:
+            raise ValueError(
+                "error_feedback needs a lossy gradient wire; the ZeRO-3 "
+                "gradient leg is exact (see shard_params)")
+        if shard_optimizer:
+            raise ValueError(
+                "shard_params=True already shards the optimizer state; "
+                "pass shard_optimizer=False")
     if error_feedback and compression is Compression.none:
         raise ValueError(
             "error_feedback=True needs a lossy compression (e.g. "
             "Compression.int8); with Compression.none there is no rounding "
             "error to feed back")
-    if (quantized or shard_optimizer) and op not in (Average, Sum):
+    if op == Adasum:
+        if error_feedback:
+            raise ValueError("error_feedback is not supported with op=Adasum")
+        if quantized:
+            raise ValueError(
+                "quantized compression is not supported with op=Adasum (the "
+                "scalar projections have no low-bit reduction formulation)")
+        if shard_optimizer:
+            raise ValueError(
+                "shard_optimizer=True is not supported with op=Adasum (the "
+                "pairwise projections have no reduce-scatter formulation)")
+    elif (quantized or shard_optimizer) and op not in (Average, Sum):
         raise ValueError(
-            f"op={op!r} is supported only without quantized compression "
-            "and without shard_optimizer")
+            f"op={op!r}: the reduce-scatter paths (quantized compression, "
+            "shard_optimizer) support Average/Sum only")
 
     def _roundtrip(g):
         c, ctx = compression.compress(g)
         return compression.decompress(c, ctx)
 
+    def _reduce(grads):
+        if op == Adasum and compression is Compression.none:
+            return _fused_adasum_tree(grads)
+        return {k: _C.allreduce(grads[k], op, compression=compression)
+                for k in tree_keys(grads)}
+
     def init(params):
+        if shard_params:
+            return _fsdp_init(optimizer, params)
         if shard_optimizer:
             return _zero_init(optimizer, params, basics.size(), basics.rank(),
                               error_feedback=error_feedback)
@@ -323,26 +544,27 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
         return inner
 
     def update(grads, state, params=None):
+        if shard_params:
+            return _fsdp_update(grads, state, params, optimizer=optimizer,
+                                op=op)
         if shard_optimizer:
             return _zero_update(
                 grads, state, params, optimizer=optimizer,
                 compression=compression, error_feedback=error_feedback,
                 op=op, roundtrip=_roundtrip)
-        keys = tree_keys(grads)
         if error_feedback:
-            corrected = {k: grads[k] + state["residual"][k] for k in keys}
+            corrected = {k: grads[k] + state["residual"][k]
+                         for k in tree_keys(grads)}
             # the residual is what the wire will round away: the
             # allreduce below compresses `corrected` itself
             residual = {k: c - _roundtrip(c) for k, c in corrected.items()}
-            reduced = {k: _C.allreduce(corrected[k], op, compression=compression)
-                       for k in keys}
-            updates, inner = optimizer.update(reduced, state["inner"], params)
+            updates, inner = optimizer.update(_reduce(corrected),
+                                              state["inner"], params)
             return updates, {"inner": inner, "residual": residual}
-        reduced = {k: _C.allreduce(grads[k], op, compression=compression)
-                   for k in keys}
-        return optimizer.update(reduced, state, params)
+        return optimizer.update(_reduce(grads), state, params)
 
-    return DistributedTransform(init, update, bool(shard_optimizer))
+    return DistributedTransform(init, update, bool(shard_optimizer),
+                                bool(shard_params))
 
 
 @torch.no_grad()

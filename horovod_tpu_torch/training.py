@@ -4,7 +4,9 @@ Counterpart of ``horovod_tpu/training.py``'s per-rank step
 (``make_shardmap_train_step``): forward and backward on this rank's
 batch, the gradient exchange, the optimizer update, BatchNorm running
 stats and the loss averaged across ranks. The same step trains the
-ResNets (``softmax_xent``) and the TransformerLM (``loss_fn=lm_xent``).
+ResNets (``softmax_xent``) and the TransformerLM (``loss_fn=lm_xent``),
+with the parameters replicated or, under ZeRO-3 (``shard_params=True``),
+sharded and gathered on use.
 """
 
 from __future__ import annotations
@@ -15,8 +17,12 @@ import torch
 import torch.nn.functional as F
 
 from horovod_tpu_torch import basics
+from horovod_tpu_torch.models.layers import torch_params
 from horovod_tpu_torch.ops.collective import Average, allreduce
-from horovod_tpu_torch.optim import DistributedTransform, tree_keys
+from horovod_tpu_torch.optim import (
+    DistributedTransform, FsdpParams, fsdp_gather_params, fsdp_pack_params,
+    tree_keys,
+)
 
 
 def softmax_xent(logits, labels):
@@ -32,7 +38,21 @@ def lm_xent(logits, targets):
     return -logp.gather(-1, targets.long()[..., None]).mean()
 
 
+@torch.no_grad()
+def _average_stats(stats: dict, keys: list) -> None:
+    """Keep the running stats replicated: one flat Average allreduce."""
+    if not keys:
+        return
+    flat = allreduce(torch.cat([stats[k].reshape(-1) for k in keys]), Average)
+    off = 0
+    for k in keys:
+        n = stats[k].numel()
+        stats[k].copy_(flat[off:off + n].view(stats[k].shape))
+        off += n
+
+
 def make_train_step(model, tx, *, shard_optimizer: bool = False,
+                    shard_params: bool = False, params=None,
                     compression=None, reduce_op=Average,
                     loss_fn: Callable = softmax_xent,
                     on_phase: Optional[Callable[[str], None]] = None):
@@ -51,6 +71,20 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
     gradient itself with ``reduce_op``/``compression``, as the reference
     step does. Build ``opt_state = tx.init(model.jax_params())``.
 
+    ``shard_params=True`` (ZeRO-3, ``tx = DistributedOptimizer(...,
+    shard_params=True)``): the parameters are this rank's shards,
+    ``params`` (an :class:`~horovod_tpu_torch.optim.FsdpParams`; default
+    ``fsdp_pack_params(model.jax_params())``), exposed as
+    ``step.params``; build ``opt_state = tx.init(step.params)``. The
+    model's own parameters are emptied: between steps no full-size
+    parameter storage is held. Each step gathers the tree
+    (``fsdp_gather_params``, ``HOROVOD_FSDP_WIRE``) and runs the forward
+    through ``torch.func.functional_call`` under activation
+    checkpointing, so the backward gathers it again rather than holding
+    it (the wire runs twice a step, as under the reference's
+    ``jax.checkpoint``); the gather's backward yields the gradient shards,
+    and the update shards are added to the shards in place.
+
     ``on_phase(name)``, if given, is called as each part of the step
     ends: ``"forward"`` (forward and loss), ``"backward"`` (and, with a
     plain ``tx``, the gradient allreduce), ``"optimizer"`` (the update,
@@ -66,6 +100,14 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
     if distributed and tx.shard_optimizer != shard_optimizer:
         raise ValueError("tx was built with shard_optimizer="
                          f"{tx.shard_optimizer}; pass the same here")
+    if shard_params != (distributed and tx.shard_params):
+        raise ValueError(
+            "shard_params=True and tx = DistributedOptimizer(..., "
+            "shard_params=True) go together")
+    if shard_params:
+        return _fsdp_step(model, tx, params, loss_fn, mark)
+    if params is not None:
+        raise ValueError("params= is the ZeRO-3 shards: pass shard_params=True")
     params = model.jax_params()
     stats = model.jax_batch_stats()
     stat_keys = tree_keys(stats)
@@ -86,20 +128,67 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
             updates, opt_state = tx.update(grads, opt_state, params)
             for k, u in updates.items():
                 params[k].add_(u)
-            if stat_keys:
-                # keep the running stats replicated: one flat allreduce
-                flat = torch.cat([stats[k].reshape(-1) for k in stat_keys])
-                flat = allreduce(flat, Average)
-                off = 0
-                for k in stat_keys:
-                    n = stats[k].numel()
-                    stats[k].copy_(flat[off:off + n].view(stats[k].shape))
-                    off += n
+            _average_stats(stats, stat_keys)
         mark("optimizer")
         loss = allreduce(loss.detach(), Average)
         mark("loss")
         return opt_state, loss
 
+    return step
+
+
+def _fsdp_step(model, tx, fp, loss_fn, mark):
+    """The ZeRO-3 step of :func:`make_train_step` (the reference's
+    ``fsdp_step``)."""
+    from torch.func import functional_call
+    from torch.utils.checkpoint import checkpoint
+
+    if fp is None:
+        fp = fsdp_pack_params(model.jax_params())
+    elif not isinstance(fp, FsdpParams):
+        raise TypeError(f"params must be FsdpParams, got {type(fp).__name__}")
+    keys = sorted(fp.shards)
+    shards = [fp.shards[k].requires_grad_() for k in keys]
+    with torch.no_grad():                     # the shards are the parameters
+        for p in model.parameters():
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+    stats = model.jax_batch_stats()
+    stat_keys = tree_keys(stats)
+    buffers = dict(model.named_buffers())
+
+    def step(opt_state, images, labels):
+        model.train()
+        runs = []
+
+        def loss_of(*flat_shards):
+            tree = fsdp_gather_params(
+                FsdpParams(dict(zip(keys, flat_shards)), fp.meta))
+            # the backward re-runs this forward (activation checkpointing):
+            # its BatchNorms update copies, so the running stats move once
+            bufs = buffers if not runs else {k: b.clone()
+                                             for k, b in buffers.items()}
+            runs.append(None)
+            out = functional_call(model, {**torch_params(model, tree), **bufs},
+                                  (images,), strict=True)
+            return loss_fn(out, labels)
+
+        loss = checkpoint(loss_of, *shards, use_reentrant=False,
+                          preserve_rng_state=False)
+        mark("forward")
+        gshards = torch.autograd.grad(loss, shards)
+        mark("backward")
+        with torch.no_grad():
+            updates, opt_state = tx.update(
+                FsdpParams(dict(zip(keys, gshards)), fp.meta), opt_state, fp)
+            for k, s in zip(keys, shards):
+                s.add_(updates.shards[k])
+            _average_stats(stats, stat_keys)
+        mark("optimizer")
+        loss = allreduce(loss.detach(), Average)
+        mark("loss")
+        return opt_state, loss
+
+    step.params = fp
     return step
 
 

@@ -27,7 +27,9 @@ def _modules():
 
 def test_every_module_imports_with_jax_poisoned():
     mods = list(_modules())
-    assert "horovod_tpu_torch.ops.kernels" in mods
+    assert {"horovod_tpu_torch.ops.kernels", "horovod_tpu_torch.ops.adasum",
+            "horovod_tpu_torch.optim", "horovod_tpu_torch.ops.collective",
+            "horovod_tpu_torch.training"} <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax'):\n"
@@ -35,6 +37,17 @@ def test_every_module_imports_with_jax_poisoned():
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        # the ZeRO-3 and Adasum entry points, reached as a user reaches them
+        "import horovod_tpu_torch as hvd\n"
+        "from horovod_tpu_torch.ops import adasum, collective, kernels\n"
+        "from horovod_tpu_torch.models.convert import fsdp_params_from_jax\n"
+        "assert hvd.Adasum == 2 and hvd.num_rank_is_power_2(4)\n"
+        "for f in (hvd.FsdpParams, hvd.fsdp_pack_params, hvd.fsdp_gather_params,\n"
+        "          hvd.fsdp_unpack_params, collective.quantized_all_gather,\n"
+        "          adasum.adasum_allreduce, adasum.grouped_adasum_allreduce,\n"
+        "          kernels.dequantize_rows, kernels.adasum_pair_combine,\n"
+        "          kernels.adasum_segment_combine):\n"
+        "    assert callable(f)\n"
         "import runpy\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='chip_smoke')\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -4,9 +4,12 @@ JAX package on the same numpy inputs.
 The JAX side runs both ways the JAX package's own tests run it on the
 CPU: the Pallas kernels in interpret mode (``HOROVOD_PALLAS=1``) and the
 discrete jnp path (``=0``). The bar is bit equality for the int8 wire
-(quantize, roundtrip, dequant-accumulate, dequant-accumulate-requantize)
-and 2 ULP at the operand's scale for fused Adam, as
-``tests/test_pallas.py`` pins the Pallas kernel against optax. The CUDA
+(quantize, roundtrip, dequant-accumulate, dequant-accumulate-requantize,
+the per-row dequantize of the parameter gather), 2 ULP at the operand's
+scale for fused Adam, as ``tests/test_pallas.py`` pins the Pallas kernel
+against optax, and that test's rtol 2e-5 / atol 2e-6 for the Adasum
+combines (their sums run in another order; a 16-bit output where the f32
+value sits on a rounding boundary may land one ULP off). The CUDA
 kernels themselves are held against these plain versions on the card by
 ``chip_smoke.py``; a CUDA tensor never reaches a plain version.
 """
@@ -341,14 +344,151 @@ def test_plain_adam_matches_optax_steps():
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     """A tensor on a CUDA device goes to the kernel launch, never to the
-    plain version (the launch is stubbed: this machine has no card)."""
+    plain version (the launch is stubbed: this machine has no card). The
+    Adasum kernels read operands at any element offset: a leaf sliced out
+    of a group buffer at an odd offset is launched as it is."""
     called = []
     monkeypatch.setattr(K, "_on_cuda", lambda *ts: True)
     monkeypatch.setattr(K, "_launch", lambda kernel, *a: called.append(kernel))
     q, s = K.quantize_blockwise(torch.zeros(512))
     assert called == ["quantize"] and q.dtype == torch.int8
+    out = K.dequantize_rows(torch.zeros(2, 512, dtype=torch.int8),
+                            torch.zeros(2, 2, dtype=torch.bfloat16))
+    assert called[-1] == "dequantize_rows" and out.shape == (2, 512)
+    buf = torch.zeros(1001, dtype=torch.float16)
+    a, b = buf[1:501], buf[501:]
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    assert K.adasum_pair_combine(a, b).dtype == torch.float16
+    assert called[-1] == "adasum_pair_combine"
+    flat = torch.zeros(1001)[1:]
+    K.adasum_segment_combine(flat, flat.clone(), (0, 10, 1000))
+    assert called == ["quantize", "dequantize_rows", "adasum_pair_combine",
+                      "adasum_segment_combine"]
+    with pytest.raises(TypeError):
+        K.adasum_pair_combine(a, b.float())
+    with pytest.raises(ValueError, match="cover"):
+        K.adasum_segment_combine(flat, flat, (0, 10, 999))
 
 
 def test_other_devices_raise():
     with pytest.raises(ValueError, match="device"):
         K.quantize_blockwise(torch.zeros(512, device="meta"))
+
+
+# --------------------------------------------------------------------------
+# per-row dequantize of the ZeRO-3 int8 parameter gather
+
+
+@pytest.mark.parametrize("n", [1, 2, 8])
+@pytest.mark.parametrize("sp", [256, 768, 2304])
+def test_dequantize_rows_bit_equal(mode, n, sp):
+    """``sp`` a multiple of the block but not of the Pallas kernel's
+    1024-column chunk; a NaN and an infinite scale block included."""
+    qr, _, _ = _wire_image(n, sp, seed=8 + n)
+    sc = (np.abs(_rng(sp).randn(n, sp // 256)) * 0.01).astype(np.float32)
+    sc[0, 0] = np.nan
+    sc[n - 1, -1] = np.inf
+    scj = jnp.asarray(sc).astype(jnp.bfloat16)
+    sct = torch.from_numpy(sc).to(torch.bfloat16)
+    out = K.dequantize_rows(torch.from_numpy(qr), sct)
+    want = jc.dequantize_rows(jnp.asarray(qr), scj, jnp.float32,
+                              use_pallas=(mode == "pallas_interpret"))
+    _assert_bits(out, want)
+    assert out.shape == (n, sp) and bool(torch.isnan(out[0, :256]).any())
+
+
+# --------------------------------------------------------------------------
+# Adasum combines
+
+
+def _assert_combine_close(port, ref):
+    """rtol 2e-5 / atol 2e-6; a 16-bit output may instead sit one ULP of
+    its type away (the f32 value on a rounding boundary), and rarely."""
+    p = port.float().numpy()
+    r = np.asarray(jnp.asarray(ref).astype(jnp.float32))
+    off = ~np.isclose(p, r, rtol=2e-5, atol=2e-6)
+    if port.dtype == torch.float32:
+        assert not off.any(), np.abs(p - r).max()
+        return
+    ulp = np.abs(np.asarray(jnp.asarray(ref), np.float32)) * 2.0 ** -(
+        8 if port.dtype == torch.bfloat16 else 11) + 1e-30
+    assert (np.abs(p - r)[off] <= ulp[off] * 2).all()
+    assert off.mean() < 0.01
+
+
+def _jax_pair(a, b, mode):
+    from horovod_tpu.ops import adasum as jada
+
+    if mode == "pallas_interpret":
+        return pk.adasum_pair_combine(a, b)
+    return jada._pair_combine(a, b)
+
+
+DTYPES = {"f32": (torch.float32, jnp.float32),
+          "bf16": (torch.bfloat16, jnp.bfloat16),
+          "f16": (torch.float16, jnp.float16)}
+
+
+PAIR_SHAPES = [(1200,), (40, 30), (3000,), (8,)]
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES)
+def test_adasum_pair_combine_vs_jax(mode, shape):
+    _check_pair(mode, shape, "f32")
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES)
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+def test_adasum_pair_combine_16bit_vs_pallas(monkeypatch, shape, dtype):
+    """16-bit operands against the Pallas path only, which sums in f32 as
+    the port does (the discrete ``jnp.vdot`` sums them in 16 bits)."""
+    monkeypatch.setenv("HOROVOD_PALLAS", "1")
+    _check_pair("pallas_interpret", shape, dtype)
+
+
+def _check_pair(mode, shape, dtype):
+    tt, jt = DTYPES[dtype]
+    r = _rng(11)
+    a = r.randn(*shape).astype(np.float32)
+    b = r.randn(*shape).astype(np.float32)
+    aj, bj = jnp.asarray(a).astype(jt), jnp.asarray(b).astype(jt)
+    at = torch.from_numpy(np.array(aj.astype(jnp.float32))).to(tt)
+    bt = torch.from_numpy(np.array(bj.astype(jnp.float32))).to(tt)
+    out = K.adasum_pair_combine(at, bt)
+    assert out.shape == shape and out.dtype == tt
+    _assert_combine_close(out, _jax_pair(aj, bj, mode))
+
+
+def test_adasum_pair_combine_zero_operands(mode):
+    """``|a|² == 0`` zeroes its coefficient: combine(0, b) == cb·b and
+    combine(0, 0) == 0, no NaN from 0/0."""
+    z = np.zeros(600, np.float32)
+    b = _rng(12).randn(600).astype(np.float32)
+    out = K.adasum_pair_combine(torch.from_numpy(z), torch.from_numpy(b))
+    _assert_combine_close(out, _jax_pair(jnp.asarray(z), jnp.asarray(b), mode))
+    zz = K.adasum_pair_combine(torch.zeros(600), torch.zeros(600))
+    assert bool((zz == 0).all())
+
+
+@pytest.mark.parametrize("sizes", [[1000, 1, 500, 1571], [7, 0, 3000, 1]])
+def test_adasum_segment_combine_vs_jax(mode, sizes):
+    """A length-1 segment, an empty one, segments across the Pallas
+    kernel's 1024-element chunks, and one all-zero segment."""
+    from horovod_tpu.ops import adasum as jada
+
+    L = sum(sizes)
+    r = _rng(13)
+    a = r.randn(L).astype(np.float32)
+    b = r.randn(L).astype(np.float32)
+    a[:sizes[0]] = 0.0
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    seg = jnp.asarray(np.repeat(np.arange(len(sizes)), sizes))
+    if mode == "pallas_interpret":
+        want = pk.adasum_segment_combine(jnp.asarray(a), jnp.asarray(b), seg,
+                                         len(sizes))
+    else:
+        want = jada._segment_combine(jnp.asarray(a), jnp.asarray(b), seg,
+                                     len(sizes))
+    out = K.adasum_segment_combine(torch.from_numpy(a), torch.from_numpy(b),
+                                   offsets)
+    _assert_combine_close(out, want)

@@ -241,6 +241,145 @@ def lm_slice_worker(cfg, params, tokens, targets, steps, lr):
     return {"losses": losses, "params": flatten_tree(flax_params(model))}
 
 
+# --------------------------------------------------------------------------
+# ZeRO-3 (tests/test_torch_fsdp.py)
+
+
+def _np_any(t):
+    t = t.detach()
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy().copy()
+
+
+def _narrow_resnet(params, stats):
+    from horovod_tpu_torch.models import BottleneckBlock, ResNet
+    from horovod_tpu_torch.models.convert import load_flax_variables
+
+    model = ResNet([1, 1, 1, 1], BottleneckBlock, num_classes=10,
+                   num_filters=8, dtype=torch.float32)
+    load_flax_variables(model, params, stats)
+    return model
+
+
+def _run_steps(model, tx, x, y, steps, record_at, **kw):
+    """``steps`` steps of make_train_step on this rank's rows; returns the
+    losses, the full params after each step in ``record_at`` and the final
+    BatchNorm running stats."""
+    step = hvd.make_train_step(model, tx, **kw)
+    zero3 = kw.get("shard_params", False)
+    st = tx.init(step.params if zero3 else model.jax_params())
+    xs, ys = hvd.shard_batch(torch.from_numpy(x)), hvd.shard_batch(
+        torch.from_numpy(y))
+    losses, snaps = [], {}
+    for i in range(steps):
+        st, loss = step(st, xs, ys)
+        losses.append(float(loss))
+        if i + 1 in record_at:
+            tree = (hvd.fsdp_unpack_params(step.params) if zero3
+                    else model.jax_params())
+            snaps[i + 1] = {k: _np_any(v) for k, v in tree.items()}
+    stats = {k: _np_any(v) for k, v in model.jax_batch_stats().items()}
+    return {"losses": losses, "params": snaps, "stats": stats}
+
+
+def fsdp_worker(inp, steps, lr):
+    """Every ZeRO-3 case of tests/test_torch_fsdp.py in one world."""
+    import os
+
+    from horovod_tpu_torch.models.convert import fsdp_params_from_jax
+    from horovod_tpu_torch.ops.collective import quantized_all_gather
+
+    r, n = hvd.rank(), hvd.size()
+    out = {}
+    # pack / unpack / gather of a mixed f32/bf16 tree
+    mixed = {k: torch.from_numpy(v) for k, v in inp["mixed"].items()}
+    mixed["b/c"] = mixed["b/c"].to(torch.bfloat16)
+    fp = hvd.fsdp_pack_params(mixed)
+    out["pack_rows"] = {k: _np_any(v) for k, v in fp.shards.items()}
+    un = hvd.fsdp_unpack_params(fp)
+    ga = hvd.fsdp_gather_params(fp, wire="none")
+    out["roundtrip"] = all(un[k].dtype == v.dtype and torch.equal(un[k], v)
+                           for k, v in mixed.items())
+    out["gather"] = all(torch.equal(ga[k], v) for k, v in mixed.items())
+    # the int8 gather and its backward
+    shard = torch.from_numpy(inp["gather_shard"][r]).requires_grad_()
+    full = quantized_all_gather(shard)
+    (g,) = torch.autograd.grad(full, shard, torch.from_numpy(inp["ct"][r]))
+    out["qgather"], out["qgather_grad"] = _np_any(full), _np_any(g)
+    os.environ["HOROVOD_FSDP_WIRE"] = "fp8"
+    try:
+        hvd.fsdp_gather_params(fp)
+        out["fp8"] = None
+    except ValueError as e:
+        out["fp8"] = str(e)
+    # trajectories from the JAX weights: ZeRO-1, ZeRO-3 on both wires
+    args = (inp["x"], inp["y"], steps, (3, steps))
+    model = _narrow_resnet(inp["params"], inp["stats"])
+    tx1 = hvd.DistributedOptimizer(hvd.fused_adam(lr), shard_optimizer=True)
+    st1 = tx1.init(model.jax_params())
+    out["zero1"] = _run_steps(model, tx1, *args, shard_optimizer=True)
+    for wire in ("none", "int8"):
+        os.environ["HOROVOD_FSDP_WIRE"] = wire
+        model = _narrow_resnet(inp["params"], inp["stats"])
+        fp = fsdp_params_from_jax(inp["rows"], model.jax_params(), r)
+        tx3 = hvd.DistributedOptimizer(hvd.fused_adam(lr), shard_params=True)
+        if wire == "none":
+            st3 = tx3.init(fp)
+            out["init_equal"] = (
+                st3["shard"] == st1["shard"]
+                and st3["inner"]["count"] == st1["inner"]["count"]
+                and all(torch.equal(st3["inner"][m][k], st1["inner"][m][k])
+                        for m in ("mu", "nu") for k in st1["inner"][m]))
+        out[f"zero3_{wire}"] = _run_steps(model, tx3, *args,
+                                          shard_params=True, params=fp)
+        if wire == "none":       # what the step holds between steps
+            out["storage"] = {
+                "model_params": sum(p.numel() for p in model.parameters()),
+                "shards": sum(v.numel() for v in fp.shards.values()),
+                "row": sum(v.shape[1] for v in inp["rows"].values())}
+    del os.environ["HOROVOD_FSDP_WIRE"]
+    return out
+
+
+# --------------------------------------------------------------------------
+# Adasum (tests/test_torch_adasum.py)
+
+
+def adasum_worker(inp):
+    """Adasum of this rank's rows: single tensors (f32, f16) and a group,
+    and with ``inp["train"]`` the DistributedOptimizer(op=Adasum) runs."""
+    from horovod_tpu_torch.ops.adasum import (
+        adasum_allreduce, grouped_adasum_allreduce,
+    )
+
+    out = {"pair": {k: _np_any(adasum_allreduce(_mine(v)))
+                    for k, v in inp["pair"].items()},
+           "public": _np_any(hvd.allreduce(_mine(inp["pair"]["f32"]),
+                                           hvd.Adasum)),
+           "group": [_np_any(t) for t in grouped_adasum_allreduce(
+               [_mine(v) for v in inp["group"]])]}
+    out["pair"]["f16"] = _np_any(adasum_allreduce(
+        _mine(inp["pair"]["f32"]).to(torch.float16)))
+    train = inp.get("train")
+    if train:
+        for name, comp in (("grouped", None), ("fp16", hvd.Compression.fp16)):
+            model = _narrow_resnet(train["params"], train["stats"])
+            tx = hvd.DistributedOptimizer(hvd.fused_adam(train["lr"]),
+                                          op=hvd.Adasum, compression=comp)
+            out[name] = _run_steps(model, tx, train["x"], train["y"],
+                                   train["steps"], (train["steps"],))
+    return out
+
+
+def adasum_world_error_worker():
+    from horovod_tpu_torch.ops.adasum import adasum_allreduce
+
+    try:
+        adasum_allreduce(torch.ones(4))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def test_train_step_with_a_plain_optimizer_allreduces_itself(monkeypatch):
     """make_train_step given a plain optimizer exchanges the gradients
     itself (the reference step): same result as DistributedOptimizer."""
