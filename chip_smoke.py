@@ -8,7 +8,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. versions, and the card's name and power limit from nvidia-smi;
 2. build the CUDA kernels from ``horovod_tpu_torch/ops/csrc`` (one nvcc
-   per source, started together);
+   per source, started together; nvcc's release line, and each kernel's
+   registers and spills from ``-Xptxas -v``);
 3. small-input check: three ZeRO-1 int8 + error-feedback steps of a
    narrow ResNet on the GPU agree with the same steps on the CPU (a
    child process, plain versions, gloo);
@@ -17,24 +18,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    world of one over NCCL: (a) ZeRO-1 + int8 + EF + fused Adam, 10 steps;
    (b) allreduce mode + int8 + EF + fused Adam, 5 steps. Losses must be
    finite and fall on the repeated batch, and every kernel of each run's
-   path must have launched during it. Every kernel-wrapper call of the
-   run is logged with its shape;
+   path must have launched during it; fused Adam exactly once a step
+   (one multi-tensor launch over the flat shard, or over the 161 leaves,
+   ``ops.kernels.ADAM_MAX_LEAVES`` a launch). Every kernel-wrapper call
+   of the run is logged with its shape;
 5. with ``--gpus N``: phase 4 again across N GPUs of the host (one process
    per GPU, NCCL, each rank on its own 64 rows of one global batch, 4
    steps per mode), and the ZeRO-3 and Adasum runs of phase 7; every rank
    must report the same falling losses and the same parameters;
 6. kernels: every call of one step of each run above is replayed on
    fresh inputs at its own shape (the flat buffer's quantize, the 152
-   per-leaf quantizes and 76 requantizes of allreduce mode, the 161
-   per-leaf Adam updates, ...) and held against the plain PyTorch version:
-   bit for bit for the int8 wire, within 2 ULP for fused Adam, a NaN
-   meeting a NaN. The inputs carry all-zero blocks, exact half-way
+   per-leaf quantizes and 76 requantizes of allreduce mode, the one Adam
+   launch over the 161 leaves, each gradient at its logged offset from a
+   16-byte boundary, ...) and held against the plain PyTorch version:
+   bit for bit for the int8 wire, within 2 ULP for every leaf of fused
+   Adam, a NaN meeting a NaN. The inputs carry all-zero blocks, exact half-way
    quotients, NaN and infinite blocks. Each mode's replay is timed with
    CUDA events (kernel, plain version, and for fused Adam
    ``torch._fused_adam_`` over the same tensors as a yardstick) beside
    the sum of the calls' bounds. ResNet-50's flat buffer is also checked
    with a tail that does not divide the block and with eight synthetic
-   senders;
+   senders, and fused Adam's int8 requantize epilogue (which no training
+   path calls) bit for bit at ZeRO-1's shard length, 25,557,032;
 7. ZeRO-3 and Adasum on the ResNet-50 step, one GPU: (a) ``zero3``,
    ``DistributedOptimizer(fused_adam(1e-3), shard_params=True)`` with the
    int8 parameter gather (``HOROVOD_FSDP_WIRE=int8``), 10 steps: exactly
@@ -94,7 +99,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    over the same tensors (a yardstick the port never calls; it emits no
    lse). Shapes the path does not give are checked too: GQA (16 query
    heads on 4 kv heads), non-causal, T = 1000 (not a multiple of the
-   tile), head dim 128, f32 inputs.
+   tile), head dim 128 (all four on the bf16 tensor-core kernel), f32
+   inputs (the f32 kernel). The build's ``-Xptxas -v`` report gives each
+   kernel's registers and spills (``ptxas`` in the ``kernels`` line).
 
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
@@ -180,6 +187,7 @@ WRAPPERS = {
     "quantize_roundtrip": "quantize",
     "dequant_accumulate": "dequant_accumulate",
     "dequant_accumulate_requantize": "dequant_accumulate_requantize",
+    "fused_adam_multi": "fused_adam",
     "fused_adam_update": "fused_adam",
     "flash_fwd": "flash_fwd",
     "dequantize_rows": "dequantize_rows",
@@ -313,7 +321,12 @@ def _signature(wrapper: str, args, kw) -> tuple:
         return (kernel, args[0].numel(), str(args[0].dtype).replace("torch.", ""))
     if kernel == "adasum_segment_combine":
         return (kernel, tuple(int(o) for o in args[2]))
-    return (kernel, args[0].numel(), args[3], tuple(sorted(kw.items())))
+    # fused_adam: each leaf's length and its g's offset from a 16-byte
+    # boundary in elements (Adasum's leaves are views into a group buffer)
+    gs = args[0] if wrapper == "fused_adam_multi" else [args[0]]
+    return (kernel, tuple(g.numel() for g in gs),
+            tuple(g.data_ptr() % 16 // 4 for g in gs), args[3],
+            tuple(sorted(kw.items())))
 
 
 @contextlib.contextmanager
@@ -382,7 +395,7 @@ def call_bound(sig) -> tuple:
         # a and b read once, out written once; a*b, a*a, b*b summed (6)
         # and ca*a + cb*b (3) in f32
         return 3 * item * L, 9 * L, F32_OPS_PER_S
-    L = sig[1]
+    L = sum(sig[1])
     return 24 * L, 12 * L, F32_OPS_PER_S
 
 
@@ -437,6 +450,7 @@ def make_call(sig, gen):
     """``(kernel_call, plain_call, compare)`` on fresh inputs on
     ``gen``'s device for one logged call; ``compare(out, ref)`` is None
     when they agree, else a message."""
+    import numpy as np
     import torch
 
     from horovod_tpu_torch.ops import kernels as K
@@ -508,18 +522,28 @@ def make_call(sig, gen):
         return (lambda: (K.adasum_segment_combine(a, b, offsets),),
                 lambda: (K.adasum_segment_combine_plain(a, b, offsets),),
                 _adasum_close)
-    _, L, count, kw = sig
+    _, lengths, offsets, count, kw = sig
     kw = dict(kw)
-    g = torch.randn(L, device=dev, generator=gen) * 1e-2
-    mu = torch.randn(L, device=dev, generator=gen) * 1e-3
-    nu = torch.rand(L, device=dev, generator=gen) * 1e-6
-    if L >= 8:
-        g[1], g[5] = math.nan, math.inf
+    # g: the leaves at their logged offsets in one buffer; mu, nu fresh
+    slots = [(n + 7) // 4 * 4 for n in lengths]   # 16-byte aligned, with room
+    starts = np.cumsum([0] + slots)[:-1] + np.asarray(offsets)
+    gbuf = torch.randn(int(starts[-1]) + lengths[-1], device=dev,
+                       generator=gen) * 1e-2
+    gs = [gbuf[int(a):int(a) + n] for a, n in zip(starts, lengths)]
+    mus = [torch.randn(n, device=dev, generator=gen) * 1e-3 for n in lengths]
+    nus = [torch.rand(n, device=dev, generator=gen) * 1e-6 for n in lengths]
+    big = [int(a) for a, n in zip(starts, lengths) if n >= 8]
+    if big:                                 # a NaN and an inf gradient
+        gbuf[torch.tensor([a + i for a in big for i in (1, 5)], device=dev)] = \
+            torch.tensor([math.nan, math.inf] * len(big), device=dev)
     c = K.adam_constants(kw["lr"], kw["b1"], kw["b2"], kw["eps"],
                          kw["eps_root"], count)
-    call = (lambda: K.fused_adam_update(g, mu, nu, count, **kw),
-            lambda: K.fused_adam_plain(g, mu, nu, c), _ulps)
-    call[0].tensors = (g, mu, nu)
+    call = (lambda: sum(K.fused_adam_multi(gs, mus, nus, count, **kw), []),
+            lambda: [x for out in zip(*(K.fused_adam_plain(g, m, v, c)
+                                        for g, m, v in zip(gs, mus, nus)))
+                     for x in out],
+            _ulps)
+    call[0].tensors = (gs, mus, nus)
     return call
 
 
@@ -591,10 +615,13 @@ def _flash_close(out, ref):
 
 
 def _ulps(out, ref):
-    for name, a, b in zip(("update", "mu", "nu"), out, ref):
+    """``out``/``ref``: the updates, then the mu's, then the nu's."""
+    n = len(out) // 3
+    for i, (a, b) in enumerate(zip(out, ref)):
         if not within_ulps(a, b):
-            return (f"{name} more than {ADAM_ULPS} ULP from the plain "
-                    f"version (max abs err {max_abs(a, b)})")
+            return (f"{('update', 'mu', 'nu')[i // n]} of leaf {i % n} more "
+                    f"than {ADAM_ULPS} ULP from the plain version (max abs "
+                    f"err {max_abs(a, b)})")
     return None
 
 
@@ -604,7 +631,7 @@ def library_adam_ms(calls, count: int, kw: dict) -> float:
     calls it)."""
     import torch
 
-    gs, mus, nus = zip(*(c.tensors for c in calls))
+    gs, mus, nus = ([x for c in calls for x in c.tensors[i]] for i in range(3))
     params = [torch.zeros_like(g) for g in gs]
     m2, v2 = [m.clone() for m in mus], [v.clone() for v in nus]
     steps = [torch.tensor(float(count), device=gs[0].device) for _ in gs]
@@ -672,8 +699,8 @@ def kernel_phase(step_calls: dict, main_modes: dict) -> dict:
             b, by = bound_ms(ks)
             lib = None
             if kernel == "fused_adam" and hasattr(torch, "_fused_adam_"):
-                lib = library_adam_ms([c[0] for c in calls], ks[0][2],
-                                      dict(ks[0][3]))
+                lib = library_adam_ms([c[0] for c in calls], ks[0][3],
+                                      dict(ks[0][4]))
             elif kernel == "flash_fwd":
                 lib = library_flash_ms([c[0] for c in calls])
             row["by_mode"][mode] = dict(
@@ -725,6 +752,58 @@ def flat_buffer_checks(L: int) -> None:
         bad = compare(run(), plain())
         if bad:
             fail(f"{sig} (flat buffer, 8 senders): {bad}")
+
+
+def adam_epilogue_check(L: int) -> dict:
+    """B5's int8 epilogue at ``L`` (ZeRO-1's shard of ResNet-50, whose
+    length does not divide the block) and at lengths shorter than a
+    block: ``fused_adam_update(..., requant_block=256)`` against its plain
+    version, bit for bit (update, moments, q and scales), with a NaN and
+    an infinite gradient. Returns what was checked and its time."""
+    import torch
+
+    from horovod_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    g = torch.randn(L, device=gen.device, generator=gen) * 1e-2
+    mu = torch.randn(L, device=gen.device, generator=gen) * 1e-3
+    nu = torch.rand(L, device=gen.device, generator=gen) * 1e-6
+    g[300], g[1000] = math.nan, math.inf
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0)
+    c = K.adam_constants(**kw, count=3)
+    for n in (L, 1000, 7):
+        *out, (q, sc) = K.fused_adam_update(g[:n], mu[:n], nu[:n], 3,
+                                            requant_block=256, **kw)
+        *ref, (rq, rsc) = K.fused_adam_requant_plain(g[:n], mu[:n], nu[:n], c)
+        bad = _bits((*out, q, sc), (*ref, rq, rsc))
+        if bad:
+            fail(f"fused_adam requant epilogue at [{n}]: {bad}")
+    return dict(lengths=[L, 1000, 7], bit_equal=True, ms=cuda_ms(
+        lambda: K.fused_adam_update(g, mu, nu, 3, requant_block=256, **kw)))
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers and spills of each kernel, from ``-Xptxas -v``'s report."""
+    import re
+
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            base = re.search(r"flash_fwd_(?:mma|f32)|[a-z_]+_kernel",
+                             m.group(1).split("_cu_")[-1])
+            args = re.findall(r"L[ib](\d+)E", m.group(1))
+            name = (base.group(0) if base else m.group(1)) + (
+                f"<{', '.join(args)}>" if args else "")
+            usage[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            usage[name].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
 
 
 def adasum_extra_checks() -> list:
@@ -971,19 +1050,26 @@ def make_tx(mode: str):
 
 
 def expected_launches(mode: str, n: int, leaves: int) -> dict:
-    """Exact kernel launches a step where the path fixes them: ZeRO-3's
-    gather runs twice (forward, and the backward's recompute) over the
-    one f32 group; Adasum's butterfly has log2(N) levels, each one
-    grouped combine, or one combine per leaf of the ``leaves``."""
+    """Exact kernel launches a step where the path fixes them: fused Adam
+    once over the one f32 shard (ZeRO-1, ZeRO-3) or over all ``leaves``,
+    ``ADAM_MAX_LEAVES`` a launch; ZeRO-3's gather runs twice (forward,
+    and the backward's recompute) over the one f32 group; Adasum's
+    butterfly has log2(N) levels, each one grouped combine, or one
+    combine per leaf."""
+    from horovod_tpu_torch.ops import kernels as K
+
     levels = n.bit_length() - 1
+    adam = {"fused_adam": 1 if mode in ("zero1", "zero3")
+            else -(-leaves // K.ADAM_MAX_LEAVES)}
     if mode == "zero3":
-        return {"quantize": 2, "dequantize_rows": 2, "fused_adam": 1}
+        return {"quantize": 2, "dequantize_rows": 2, **adam}
     if mode == "adasum":
-        return {"adasum_segment_combine": levels, "adasum_pair_combine": 0}
+        return {"adasum_segment_combine": levels, "adasum_pair_combine": 0,
+                **adam}
     if mode == "adasum_fp16":
         return {"adasum_segment_combine": 0,
-                "adasum_pair_combine": leaves * levels}
-    return {}
+                "adasum_pair_combine": leaves * levels, **adam}
+    return adam
 
 
 def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
@@ -1251,11 +1337,20 @@ def main() -> None:
     except ImportError as e:
         fail(f"horovod_tpu_torch is not importable next to chip_smoke.py: {e}")
 
+    try:
+        release = subprocess.run([_build.nvcc(), "--version"],
+                                 capture_output=True, text=True, timeout=60,
+                                 check=True).stdout.strip().splitlines()[-2]
+    except (OSError, RuntimeError, subprocess.SubprocessError, IndexError) as e:
+        fail(f"nvcc: {e}")
+    print(f"nvcc: {release}", flush=True)
     t0 = time.perf_counter()
     report = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           + ", ".join(f"{n} {r['seconds']:.2f} s" for n, r in report.items()),
           flush=True)
+    usage = {n: ptxas_usage(r["log"]) for n, r in report.items()}
+    print(f"ptxas: {json.dumps(usage)}", flush=True)
 
     cpu = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--cpu-reference"], capture_output=True, text=True,
@@ -1321,6 +1416,9 @@ def main() -> None:
 
     L = sum(v.numel() for v in ResNet50(device="meta").jax_params().values())
     flat_buffer_checks(L)
+    epilogue = adam_epilogue_check(L)
+    print(f"fused_adam requant epilogue agrees bit for bit: "
+          f"{json.dumps(epilogue)}", flush=True)
     rows = kernel_phase(step_calls, main_modes(gpus))
     for name, r in rows.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)
@@ -1357,7 +1455,13 @@ def main() -> None:
             kernels[-1]["two_pass_bound_ms"] = r["two_pass_bound_ms"]
     next(k for k in kernels if k["name"] == "flash_fwd").update(
         bound_f32_ms=flash["bound_f32_ms"],
-        library="F.scaled_dot_product_attention (no lse)")
+        library="F.scaled_dot_product_attention (no lse)",
+        tensor_core_route="mma.sync (m16n8k16 bf16, P split hi/lo; "
+                          "cp.async double buffer; bf16 inputs)",
+        ptxas=usage["flash_attention"])
+    next(k for k in kernels if k["name"] == "fused_adam").update(
+        launch_cap=K.ADAM_MAX_LEAVES, requant_epilogue=epilogue,
+        ptxas=usage["fused_adam"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

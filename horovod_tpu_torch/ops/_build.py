@@ -30,7 +30,7 @@ CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("int8_wire", "fused_adam", "flash_attention", "adasum")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -90,22 +90,34 @@ def _finish(name: str, path: str, fd: int, proc) -> None:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed building {name}.cu (rc {proc.returncode}):\n{out}")
+        with open(f"{path}.log", "w") as fh:  # ptxas: registers, spills
+            fh.write(out)
         os.replace(proc.tmp, path)
     finally:
         fcntl.flock(fd, fcntl.LOCK_UN)
         os.close(fd)
 
 
+def _read(path: str) -> str:
+    try:
+        with open(path) as fh:
+            return fh.read()
+    except OSError:
+        return ""
+
+
 def build_all(names: Iterable[str] = SOURCES) -> dict:
     """Build every named library that is missing, one ``nvcc`` each, all
-    started together. Returns ``{name: {"path", "seconds"}}`` (seconds
-    since the call began, when that library was ready)."""
+    started together. Returns ``{name: {"path", "seconds", "log"}}``
+    (seconds since the call began, when that library was ready; ``log``
+    what nvcc and ptxas printed when it was built)."""
     t0 = time.perf_counter()
     started = {n: _start(n) for n in names}
     report = {}
     for n, (path, fd, proc) in started.items():
         _finish(n, path, fd, proc)
-        report[n] = {"path": path, "seconds": time.perf_counter() - t0}
+        report[n] = {"path": path, "seconds": time.perf_counter() - t0,
+                     "log": _read(f"{path}.log")}
     return report
 
 

@@ -55,15 +55,27 @@ def lse_from_state(m, l):
                        torch.full_like(m, LSE_MASKED))
 
 
+def bf16_split(p):
+    """``p`` (f32) as the two bf16-valued parts the ``flash_fwd`` kernel
+    feeds its tensor cores for ``P.V``: ``hi = bf16(p)``, ``lo = bf16(p -
+    hi)``, both returned in f32."""
+    hi = p.to(torch.bfloat16).float()
+    return hi, (p - hi).to(torch.bfloat16).float()
+
+
 def _attention_scan(q, k, v, *, causal: bool, sm_scale: float,
-                    q_offset: int, kv_offset: int, block_k: int):
+                    q_offset: int, kv_offset: int, block_k: int,
+                    p_parts=None):
     """Online-softmax attention over K/V blocks.
 
     q: [B, Tq, H, D]; k, v: [B, Tk, H, D] (already broadcast to H heads).
     Returns the online-softmax state ``(m, l, acc)`` in f32 with m/l
     ``[B, H, Tq]`` and acc ``[B, H, Tq, D]``. ``q`` is scaled by
     ``sm_scale`` in f32 before the dot, and masked scores are ``NEG_INF``
-    (a true ``-inf`` would give NaN in ``m_prev - m_new``)."""
+    (a true ``-inf`` would give NaN in ``m_prev - m_new``). ``p_parts``
+    maps the probabilities to the parts whose products with ``v`` are
+    summed (``l`` is always summed from ``p`` itself): None is the
+    reference's f32 ``p``; :func:`bf16_split` what the kernel computes."""
     b, t_q, h, d = q.shape
     t_k = k.shape[1]
     _, bk = _block_sizes(t_q, t_k, t_q, block_k)
@@ -87,7 +99,9 @@ def _attention_scan(q, k, v, *, causal: bool, sm_scale: float,
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, v_blk)
+        pv = sum(torch.einsum("bhqk,bhkd->bhqd", part, v_blk)
+                 for part in (p_parts(p) if p_parts else (p,)))
+        acc = acc * alpha[..., None] + pv
         m = m_new
     return m, l, acc
 

@@ -22,7 +22,9 @@ those):
   :func:`quantize_roundtrip`);
 - ``dequant_accumulate`` — the reduce-scatter epilogue;
 - ``dequant_accumulate_requantize`` — the allreduce epilogue;
-- ``fused_adam`` — :func:`fused_adam_update`;
+- ``fused_adam`` — :func:`fused_adam_multi`, every tensor of a step in
+  one launch (:func:`fused_adam_update` is its one-tensor case, with the
+  optional int8 requantize epilogue);
 - ``flash_fwd`` — :func:`flash_fwd`, attention's forward with its
   log-sum-exp rows;
 - ``dequantize_rows`` — the ZeRO-3 int8 parameter-gather epilogue;
@@ -39,6 +41,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
+import operator
 
 import numpy as np
 import torch
@@ -50,6 +54,12 @@ KERNELS = ("quantize", "dequant_accumulate", "dequant_accumulate_requantize",
            "adasum_segment_combine")
 #: head dims the flash_fwd kernel is compiled for
 FLASH_HEAD_DIMS = (64, 128)
+
+#: elements of one chunk of a fused_adam launch (csrc/fused_adam.cu kChunk)
+ADAM_CHUNK = 2048
+#: tensors one fused_adam launch takes (csrc/fused_adam.cu kMaxLeaves: its
+#: table of pointers is the kernel's parameter, at most 32,764 bytes)
+ADAM_MAX_LEAVES = 256
 
 #: elements per block of the Adasum reduce and blend passes
 ADASUM_CHUNK = 8192
@@ -65,8 +75,8 @@ _ARGTYPES = {
     "hvd_dequant_accumulate": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
     "hvd_dequant_accumulate_requantize": [
         _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P],
-    "hvd_fused_adam": [_P] * 6 + [ctypes.c_longlong] + [ctypes.c_float] * 9
-    + [ctypes.c_int, _P],
+    "hvd_fused_adam": [_P, _P, _P, ctypes.c_int, _P, _P]
+    + [ctypes.c_float] * 9 + [_P],
     "hvd_flash_fwd": [_P] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
     "hvd_dequantize_rows": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
@@ -106,6 +116,9 @@ def _launch(kernel: str, lib: str, sym: str, device, *args) -> None:
 def _on_cuda(*ts) -> bool:
     """True when every tensor lies on one CUDA device, False when all lie
     on the CPU; anything else raises."""
+    index = set(map(torch.Tensor.get_device, ts))  # no device objects: cheap
+    if len(index) == 1 and index.pop() >= 0 and ts[0].is_cuda:
+        return True
     devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
@@ -306,29 +319,150 @@ def fused_adam_plain(g, mu, nu, c: dict):
     return u, mu2, nu2
 
 
+def fused_adam_requant_plain(g, mu, nu, c: dict, block: int = INT8_BLOCK):
+    """:func:`fused_adam_plain` and the update's blockwise int8 wire image
+    ``(q [ceil(L/block)*block], scales [ceil(L/block)])``: the tail block
+    is the update of zero ``g``, ``mu``, ``nu``, as the reference pads."""
+    L = g.shape[0]
+    pad = (-L) % block
+    u, mu2, nu2 = fused_adam_plain(
+        *(torch.cat([x, x.new_zeros(pad)]) for x in (g, mu, nu)), c)
+    return u[:L], mu2[:L], nu2[:L], quantize_plain(u, block)
+
+
+@functools.lru_cache(maxsize=64)
+def adam_launch_plan(lengths: tuple, cap: int = ADAM_MAX_LEAVES) -> tuple:
+    """The ``fused_adam`` launches of one call over leaves of ``lengths``:
+    ``((leaf indices, first), ...)``, one launch per ``cap`` non-empty
+    leaves, in order. A launch cuts its leaves into chunks of
+    :data:`ADAM_CHUNK` elements: ``first[j]`` is the first chunk of its
+    ``j``-th leaf and ``first[-1]`` the number of chunks; chunk ``c`` is
+    chunk ``c - first[j]`` of the last leaf ``j`` with ``first[j] <= c``."""
+    live = [i for i, n in enumerate(lengths) if n]
+    plan = []
+    for s in range(0, len(live), cap):
+        idx = live[s:s + cap]
+        per = [-(-lengths[i] // ADAM_CHUNK) for i in idx]
+        plan.append((tuple(idx), np.cumsum([0] + per, dtype=np.int32)))
+    return tuple(plan)
+
+
+@functools.lru_cache(maxsize=64)
+def _adam_layout(lengths: tuple) -> tuple:
+    """Where each leaf's outputs lie in the flat output buffers: every leaf
+    at a 4-element (16-byte) boundary, so the kernel's float4 path takes
+    it. ``(split sizes, the leaves' places among the split pieces or None
+    when there is no gap, offsets int64, total)``."""
+    offs, sizes, take, at = [], [], [], 0
+    for n in lengths:
+        offs.append(at)
+        take.append(len(sizes))
+        sizes.append(n)
+        if n % 4:
+            sizes.append(4 - n % 4)
+        at += n + (-n) % 4
+    return (tuple(sizes), None if len(sizes) == len(lengths) else tuple(take),
+            np.asarray(offs, dtype=np.int64), at)
+
+
+def _contiguous(xs):
+    if all(map(torch.Tensor.is_contiguous, xs)):
+        return xs
+    return [x if x.is_contiguous() else x.contiguous() for x in xs]
+
+
+def _adam_launch(gs, mus, nus, c: dict, wire=None):
+    """Launch the ``fused_adam`` kernel over f32 leaves (a strided one is
+    copied contiguous first): the updates and moments as views of the
+    leaves' shapes into three flat buffers; with ``wire = (q, scales)``
+    (one leaf) also the update's int8 image. Per-leaf work is one pass of
+    ``map`` per attribute: it is the host's share of a step's update."""
+    T = torch.Tensor
+    gs, mus, nus = _contiguous(gs), _contiguous(mus), _contiguous(nus)
+    lengths = tuple(map(T.numel, gs))
+    if tuple(map(T.numel, mus)) != lengths or \
+            tuple(map(T.numel, nus)) != lengths:
+        raise ValueError("g, mu and nu must have the same lengths")
+    dtypes = set(map(operator.attrgetter("dtype"), itertools.chain(gs, mus, nus)))
+    if dtypes != {torch.float32}:
+        raise TypeError(f"fused_adam takes float32 tensors, got {dtypes}")
+    sizes, take, offs, total = _adam_layout(lengths)
+    dev = gs[0].device
+    flats = [torch.empty(total, dtype=torch.float32, device=dev)
+             for _ in range(3)]
+    shaped = [(j, gs[j].shape) for j, d in enumerate(map(T.dim, gs)) if d != 1]
+    outs = []
+    for flat in flats:
+        views = [flat] if len(sizes) == 1 else flat.split_with_sizes(sizes)
+        views = list(views) if take is None else [views[j] for j in take]
+        for j, shape in shaped:
+            views[j] = views[j].view(shape)
+        outs.append(views)
+    ptrs = np.empty((len(gs), 6), dtype=np.int64)
+    for j, xs in enumerate((gs, mus, nus)):
+        ptrs[:, j] = list(map(T.data_ptr, xs))
+    for j, flat in enumerate(flats):
+        ptrs[:, 3 + j] = flat.data_ptr() + 4 * offs
+    n = np.asarray(lengths, dtype=np.int64)
+    q, s = wire if wire is not None else (None, None)
+    plan = adam_launch_plan(lengths)
+    for idx, first in plan:
+        if len(plan) == 1 and len(idx) == len(lengths):
+            tp, tn = ptrs, n                    # every leaf, in order
+        else:
+            tp, tn = ptrs[list(idx)], n[list(idx)]
+        _launch("fused_adam", "fused_adam", "hvd_fused_adam", dev,
+                tp.ctypes.data, tn.ctypes.data, first.ctypes.data, len(idx),
+                None if q is None else q.data_ptr(),
+                None if s is None else s.data_ptr(),
+                c["omb1"], c["b1"], c["omb2"], c["b2"], c["b1c"], c["b2c"],
+                c["eps"], c["eps_root"], c["neg_lr"])
+    return outs
+
+
+def fused_adam_multi(gs, mus, nus, count: int, *, lr, b1=0.9, b2=0.999,
+                     eps=1e-8, eps_root=0.0):
+    """One Adam step over many f32 tensors at once, bias corrections taken
+    at step ``count`` (the incremented count): ``(updates, mus', nus')``,
+    lists of tensors of the inputs' shapes in optax's ``scale_by_adam ->
+    scale(-lr)`` order. On the card, one ``fused_adam`` launch for every
+    :data:`ADAM_MAX_LEAVES` non-empty tensors (:func:`adam_launch_plan`);
+    the outputs are views into three flat buffers."""
+    c = adam_constants(lr, b1, b2, eps, eps_root, count)
+    if len(mus) != len(gs) or len(nus) != len(gs):
+        raise ValueError("gs, mus and nus must hold as many tensors")
+    if not gs:
+        return [], [], []
+    if not _on_cuda(*gs, *mus, *nus):
+        outs = [fused_adam_plain(g, m, v, c) for g, m, v in zip(gs, mus, nus)]
+        return [list(o) for o in zip(*outs)]
+    return _adam_launch(gs, mus, nus, c)
+
+
 def fused_adam_update(g, mu, nu, count: int, *, lr, b1=0.9, b2=0.999,
-                      eps=1e-8, eps_root=0.0):
-    """One Adam step over a flat f32 shard, bias corrections taken at step
-    ``count`` (the incremented count): ``(update, mu', nu')`` in optax's
-    ``scale_by_adam -> scale(-lr)`` order."""
+                      eps=1e-8, eps_root=0.0, requant_block=None):
+    """One Adam step over a flat f32 shard: :func:`fused_adam_multi` of one
+    tensor, ``(update, mu', nu')``. With ``requant_block`` also the
+    update's blockwise int8 wire image from the same pass, ``(update, mu',
+    nu', (q int8 [ceil(L/block)*block], scales bf16 [ceil(L/block)]))``,
+    the tail block zero-padded as the reference pads (no training path
+    consumes it, as in the reference)."""
     c = adam_constants(lr, b1, b2, eps, eps_root, count)
     if not _on_cuda(g, mu, nu):
-        return fused_adam_plain(g, mu, nu, c)
-    for name, x in (("g", g), ("mu", mu), ("nu", nu)):
-        if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous 1-D float32 tensor")
-    L = g.shape[0]
-    if mu.shape[0] != L or nu.shape[0] != L:
-        raise ValueError("g, mu and nu must have the same length")
-    u, mu2, nu2 = (torch.empty_like(g) for _ in range(3))
-    vec = int(all(x.data_ptr() % 16 == 0 for x in (g, mu, nu, u, mu2, nu2)))
-    if L:
-        _launch("fused_adam", "fused_adam", "hvd_fused_adam", g.device,
-                g.data_ptr(), mu.data_ptr(), nu.data_ptr(), u.data_ptr(),
-                mu2.data_ptr(), nu2.data_ptr(), L,
-                c["omb1"], c["b1"], c["omb2"], c["b2"], c["b1c"], c["b2c"],
-                c["eps"], c["eps_root"], c["neg_lr"], vec)
-    return u, mu2, nu2
+        if requant_block is None:
+            return fused_adam_plain(g, mu, nu, c)
+        return fused_adam_requant_plain(g, mu, nu, c, requant_block)
+    if requant_block is None:
+        (u,), (m,), (v,) = _adam_launch([g], [mu], [nu], c)
+        return u, m, v
+    _need_block(requant_block)
+    if g.dim() != 1:
+        raise ValueError(f"g: expected a flat shard, got {tuple(g.shape)}")
+    nb = -(-g.shape[0] // requant_block)
+    q = torch.empty(nb * requant_block, dtype=torch.int8, device=g.device)
+    s = torch.empty(nb, dtype=torch.bfloat16, device=g.device)
+    (u,), (m,), (v,) = _adam_launch([g], [mu], [nu], c, wire=(q, s))
+    return u, m, v, (q, s)
 
 
 # --------------------------------------------------------------------------
@@ -352,10 +486,10 @@ def flash_fwd(q, k, v, *, causal: bool = False, sm_scale=None,
               block_k: int = 128):
     """Attention forward over ``q [B, Tq, H, D]``, ``k``/``v``
     ``[B, Tk, H_kv, D]`` (``H % H_kv == 0``): ``(out [B, Tq, H, D],
-    lse [B, H, Tq] f32)``. The kernel takes bf16 (or f32) inputs of head
-    dim 64 or 128 with a contiguous last dim, any other strides, and
-    tiles by its own 64-row blocks; ``block_k`` is the plain version's
-    K blocking."""
+    lse [B, H, Tq] f32)``. The kernel takes bf16 (tensor cores) or f32
+    inputs of head dim 64 or 128 with a contiguous last dim, any other
+    strides, and tiles by its own 64-row blocks; ``block_k`` is the plain
+    version's K blocking."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if not _on_cuda(q, k, v):
@@ -385,6 +519,13 @@ def flash_fwd(q, k, v, *, causal: bool = False, sm_scale=None,
     if min(b, t_q, t_k) < 1 or b * h > 65535:
         raise ValueError(f"flash_fwd: unsupported sizes B={b} H={h} "
                          f"Tq={t_q} Tk={t_k}")
+    if q.dtype == torch.bfloat16:
+        # the kernel's asynchronous copies move 16 bytes: rows that do not
+        # start 16-byte aligned are copied into a fresh contiguous tensor
+        q, k, v = (x if x.data_ptr() % 16 == 0 and not any(
+            st % 8 for st in x.stride()[:3]) else
+            torch.empty_like(x, memory_format=torch.contiguous_format).copy_(x)
+            for x in (q, k, v))
     out = torch.empty((b, t_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
     strides = [s for x in (q, k, v) for s in (x.stride(0), x.stride(1),

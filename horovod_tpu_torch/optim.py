@@ -14,8 +14,9 @@ layout-dependent.
 
 - :func:`adam` — plain PyTorch Adam in optax's ``scale_by_adam ->
   scale(-lr)`` expression order;
-- :func:`fused_adam` — the same update through the ``fused_adam`` kernel
-  (plain version on CPU tensors); states are interchangeable;
+- :func:`fused_adam` — the same update through the ``fused_adam`` kernel,
+  all leaves in one launch (plain version on CPU tensors); states are
+  interchangeable;
 - :func:`adamw` — optax's ``adamw`` (Adam, decoupled weight decay, then
   ``-lr``), plain PyTorch, same state;
 - :func:`DistributedOptimizer` — allreduce mode (Horovod's classic
@@ -79,12 +80,13 @@ def _tree_map(fn, tree):
 # Adam
 
 
-def _adam(lr, b1, b2, eps, eps_root, step: Callable) -> Transform:
-    def init(params):
-        z = lambda p: torch.zeros(p.shape, dtype=p.dtype, device=p.device)  # noqa: E731
-        return {"count": 0, "mu": {k: z(p) for k, p in params.items()},
-                "nu": {k: z(p) for k, p in params.items()}}
+def _adam_init(params):
+    z = lambda p: torch.zeros(p.shape, dtype=p.dtype, device=p.device)  # noqa: E731
+    return {"count": 0, "mu": {k: z(p) for k, p in params.items()},
+            "nu": {k: z(p) for k, p in params.items()}}
 
+
+def _adam(lr, b1, b2, eps, eps_root, step: Callable) -> Transform:
     def update(grads, state, params=None):
         count = state["count"] + 1
         ups, mus, nus = {}, {}, {}
@@ -94,7 +96,7 @@ def _adam(lr, b1, b2, eps, eps_root, step: Callable) -> Transform:
                 None if params is None else params[k])
         return ups, {"count": count, "mu": mus, "nu": nus}
 
-    return Transform(init, update)
+    return Transform(_adam_init, update)
 
 
 def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -137,22 +139,30 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
 
 def fused_adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
                eps: float = 1e-8, eps_root: float = 0.0) -> Transform:
-    """Adam as one ``fused_adam`` kernel launch per leaf (per shard under
-    ZeRO-1): moments, bias correction and the ``-lr`` step in one pass.
-    Same state as :func:`adam`; on CPU tensors it runs the kernel's plain
+    """Adam through the ``fused_adam`` kernel: moments, bias correction and
+    the ``-lr`` step of every leaf in one pass, one launch a step (the
+    leaves in :func:`tree_keys` order; ZeRO-1 and ZeRO-3 update one flat
+    shard a dtype). The new moments are per-leaf views into two flat
+    buffers, the updates into a third: the state is :func:`adam`'s and
+    interchangeable with it. On CPU tensors it runs the kernel's plain
     version, which is :func:`adam`'s arithmetic. Only a static float
     learning rate."""
     if callable(learning_rate):
         raise ValueError("fused_adam requires a static float learning_rate")
     lr = float(learning_rate)
 
-    def step(g, mu, nu, count, p):
-        u, m, v = _k.fused_adam_update(
-            g.reshape(-1), mu.reshape(-1), nu.reshape(-1), count,
+    def update(grads, state, params=None):
+        count = state["count"] + 1
+        keys = tree_keys(grads)
+        ups, mus, nus = _k.fused_adam_multi(
+            [grads[k] for k in keys], [state["mu"][k] for k in keys],
+            [state["nu"][k] for k in keys], count,
             lr=lr, b1=b1, b2=b2, eps=eps, eps_root=eps_root)
-        return u.view(g.shape), m.view(mu.shape), v.view(nu.shape)
+        return dict(zip(keys, ups)), {"count": count,
+                                      "mu": dict(zip(keys, mus)),
+                                      "nu": dict(zip(keys, nus))}
 
-    return _adam(lr, b1, b2, eps, eps_root, step)
+    return Transform(_adam_init, update)
 
 
 # --------------------------------------------------------------------------

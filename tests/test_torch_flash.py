@@ -181,3 +181,72 @@ def test_public_op_validates_shapes():
         tfa.flash_attention(q, k, v[:, :32])
     with pytest.raises(ValueError, match="no kernel or plain version"):
         K.flash_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def _card_bar():
+    """``chip_smoke._flash_close``: the bar the kernel is held to on the
+    card (one bf16 ULP on ``out``, floored at 2^-8; 1e-5 on ``lse``)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._flash_close
+
+
+@pytest.mark.parametrize("pv", ["bf16", "hi_lo"])
+def test_pv_operand_needs_the_bf16_split(pv):
+    """Why the tensor-core kernel splits P: at [1, 2048, 2, 64] bf16,
+    causal, P rounded to bf16 for ``P.V`` breaks the card's bar (in the
+    early causal rows a few keys cancel, and P's rounding error is relative
+    to |v|, not to |out|); P as ``bf16_split``'s hi + lo parts, two
+    products summed in f32, keeps within it. Both against the reference
+    scan's f32 P, on the same bf16 inputs, the scores of bf16 operands
+    summed in f32 as the tensor cores do."""
+    r = np.random.RandomState(61)
+    q, k, v = (torch.from_numpy(r.randn(1, 2048, 2, 64).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+
+    def scan(parts):
+        m, l, acc = tfa._attention_scan(
+            q, k, v, causal=True, sm_scale=64 ** -0.5, q_offset=0,
+            kv_offset=0, block_k=128, p_parts=parts)
+        return tfa._finalize(m, l, acc, q.dtype), tfa.lse_from_state(m, l)
+
+    parts = (lambda p: (p.to(torch.bfloat16).float(),)) if pv == "bf16" \
+        else tfa.bf16_split
+    verdict = _card_bar()(scan(parts), scan(None))
+    if pv == "bf16":
+        assert verdict is not None and "ULP" in verdict
+    else:
+        assert verdict is None
+    hi, lo = tfa.bf16_split(torch.tensor([1 / 3, 2.0 ** -20 + 2.0 ** -30]))
+    assert bool((hi == hi.to(torch.bfloat16).float()).all())
+    assert bool((lo == lo.to(torch.bfloat16).float()).all())
+
+
+def test_kernel_gets_16_byte_aligned_bf16_rows(monkeypatch):
+    """The bf16 kernel copies rows 16 bytes at a time: a q/k/v whose rows
+    do not start on a 16-byte boundary (an odd element offset, or a row
+    stride that is no multiple of 8) reaches it as a contiguous copy; the
+    model's views of its fused qkv projection go in place."""
+    seen = []
+    monkeypatch.setattr(K, "_on_cuda", lambda *ts: True)
+    monkeypatch.setattr(K, "_launch", lambda kernel, lib, sym, dev, *a:
+                        seen.append(a))
+    buf = torch.zeros(1 + 2 * 64 * 3 * 2 * 64, dtype=torch.bfloat16)
+    fused = buf[:-1].view(2, 64, 3, 2, 64)
+    q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+    K.flash_fwd(q, k, v, causal=True)
+    odd = buf[1:].view(2, 64, 3, 2, 64)
+    K.flash_fwd(odd[:, :, 0], odd[:, :, 1], odd[:, :, 2], causal=True)
+    narrow = torch.zeros(2, 64, 2, 70, dtype=torch.bfloat16)[..., :64]
+    K.flash_fwd(narrow, narrow, narrow, causal=False)
+    (p0, s0), (p1, s1), (p2, s2) = [(a[:3], a[11:20]) for a in seen]
+    assert p0 == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert s0 == (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    for ptrs, strides in ((p1, s1), (p2, s2)):
+        assert all(p % 16 == 0 for p in ptrs)
+        assert all(st % 8 == 0 for st in strides)

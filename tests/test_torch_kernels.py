@@ -24,6 +24,8 @@ from horovod_tpu.ops import pallas_kernels as pk
 from horovod_tpu_torch import compression as tc
 from horovod_tpu_torch.ops import kernels as K
 
+import test_torch_workers as W
+
 pytestmark = pytest.mark.torch_port
 
 MODES = ["pallas_interpret", "discrete"]
@@ -492,3 +494,204 @@ def test_adasum_segment_combine_vs_jax(mode, sizes):
     out = K.adasum_segment_combine(torch.from_numpy(a), torch.from_numpy(b),
                                    offsets)
     _assert_combine_close(out, want)
+
+
+# --------------------------------------------------------------------------
+# fused Adam as one multi-tensor launch, and its int8 epilogue
+
+ADAM_LEAVES = {
+    "ragged": {"a": (1,), "b": (3,), "c": (257,), "d": (4099,), "e": (0,)},
+    "shaped": {"conv/kernel": (3, 3, 4, 8), "conv/bias": (8,),
+               "dense/kernel": (40, 30), "dense/bias": (30,)},
+}
+
+
+@pytest.mark.parametrize("leaves", list(ADAM_LEAVES))
+def test_fused_adam_multi_vs_jax_fused_adam(monkeypatch, leaves):
+    """Three steps of ``fused_adam_multi`` over every leaf at once against
+    the JAX package's ``optim.fused_adam`` (its CPU path, the optax chain
+    op by op): bit-equal per leaf, update and moments, an empty leaf
+    included."""
+    from horovod_tpu import optim as jo
+    from horovod_tpu_torch.optim import tree_keys
+
+    monkeypatch.setenv("HOROVOD_PALLAS", "0")
+    shapes = ADAM_LEAVES[leaves]
+    keys = tree_keys(shapes)
+    r = _rng(51)
+    tx = jo.fused_adam(1e-3)
+    sj = tx.init({k: jnp.zeros(s, jnp.float32) for k, s in shapes.items()})
+    mus = [torch.zeros(shapes[k]) for k in keys]
+    nus = [torch.zeros(shapes[k]) for k in keys]
+    for count in (1, 2, 3):
+        g = {k: r.randn(*s).astype(np.float32) for k, s in shapes.items()}
+        uj, sj = tx.update({k: jnp.asarray(v) for k, v in g.items()}, sj)
+        us, mus, nus = K.fused_adam_multi(
+            [torch.from_numpy(g[k]) for k in keys], mus, nus, count, lr=1e-3)
+        for k, u, m, v in zip(keys, us, mus, nus):
+            assert u.shape == shapes[k]
+            _assert_bits(u, np.asarray(uj[k]))
+            _assert_bits(m, np.asarray(sj[0].mu[k]))
+            _assert_bits(v, np.asarray(sj[0].nu[k]))
+
+
+@pytest.mark.parametrize("cap", [1, 2, 3, K.ADAM_MAX_LEAVES])
+@pytest.mark.parametrize("lengths", [
+    (1, 3, 257, 4099, 0), (K.ADAM_CHUNK, K.ADAM_CHUNK + 1, 0, 0, 5),
+    tuple(range(0, 40000, 997))])
+def test_adam_launch_plan_covers_every_element_once(cap, lengths):
+    """The launch plan (chunks per leaf, the prefix table, the split at
+    ``cap`` leaves a launch): every element of every leaf lies in exactly
+    one chunk of one launch, in ``ceil(non-empty leaves / cap)``
+    launches."""
+    plan = K.adam_launch_plan(lengths, cap)
+    live = [i for i, n in enumerate(lengths) if n]
+    assert len(plan) == -(-len(live) // cap)
+    cover = [np.zeros(n, np.int64) for n in lengths]
+    for idx, first in plan:
+        assert 1 <= len(idx) <= cap and first[0] == 0
+        assert first.dtype == np.int32 and len(first) == len(idx) + 1
+        for c in range(int(first[-1])):
+            j = W.plan_leaf(first, c)
+            lo = (c - int(first[j])) * K.ADAM_CHUNK
+            assert lo < lengths[idx[j]]
+            cover[idx[j]][lo:lo + K.ADAM_CHUNK] += 1
+    assert [i for idx, _ in plan for i in idx] == live
+    assert all((c == 1).all() for c in cover)
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset_views", "strided"])
+def test_fused_adam_multi_launch_table(monkeypatch, layout):
+    """The CUDA path of ``fused_adam_multi`` up to the launch: one launch
+    for every ``ADAM_MAX_LEAVES`` leaves, outputs as views of the leaves'
+    shapes into three flat buffers at 16-byte boundaries, and a table
+    that makes the kernel's rule write exactly the plain version's bits.
+    Gradients may be views at any offset of one group buffer (Adasum) or
+    strided (copied first)."""
+    r = _rng(52)
+    shapes = [(3,), (257,), (5, 7), (K.ADAM_CHUNK + 3,), (0,), (2, 3, 4)] * 50
+    sizes = [int(np.prod(s)) for s in shapes]
+    if layout == "offset_views":
+        flat = torch.from_numpy(r.randn(sum(sizes) + len(sizes)).astype(np.float32))
+        starts = np.cumsum([1] + [n + 1 for n in sizes])[:-1]
+        gs = [flat[a:a + n].view(s) for a, n, s in zip(starts, sizes, shapes)]
+    else:
+        gs = [torch.from_numpy(r.randn(*s).astype(np.float32)) for s in shapes]
+        if layout == "strided":
+            gs = [g.t() if g.dim() == 2 else g for g in gs]
+    mus = [torch.from_numpy((r.randn(*g.shape) * 0.01).astype(np.float32))
+           for g in gs]
+    nus = [torch.from_numpy((np.abs(r.randn(*g.shape)) * 1e-4).astype(
+        np.float32)) for g in gs]
+    want = K.fused_adam_multi(gs, mus, nus, 4, lr=1e-3)
+    launched = []
+    W.emulate_fused_adam(monkeypatch.setattr, launched)
+    got = K.fused_adam_multi(gs, mus, nus, 4, lr=1e-3)
+    live = sum(n > 0 for n in sizes)
+    assert launched == [(min(K.ADAM_MAX_LEAVES, live - i), False)
+                        for i in range(0, live, K.ADAM_MAX_LEAVES)]
+    for outs, refs in zip(got, want):
+        bases = {o.untyped_storage().data_ptr() for o in outs}
+        assert len(bases) == 1                    # one flat buffer
+        for o, ref in zip(outs, refs):
+            assert o.shape == ref.shape and o.is_contiguous()
+            assert o.data_ptr() % 16 == 0
+            _assert_bits(o, ref)
+
+
+@pytest.mark.parametrize("L", [3, 257, 1000, 4099])
+def test_fused_adam_requant_epilogue_vs_jax(mode, L):
+    """``fused_adam_update(..., requant_block=256)``: the update's
+    blockwise int8 wire image, zero-padded to whole blocks, bit-equal to
+    the JAX package's (the Pallas kernel's epilogue, or the optax chain
+    on the padded shard quantized by the discrete path); the update within
+    the bar of ``test_fused_adam_vs_jax``. Through the launch path too."""
+    g, mu, nu = _adam_inputs(L, 53 + L)
+    b1, b2, eps, lr, count = 0.9, 0.999, 1e-8, 1e-3, 3
+    b1c, b2c = _bias_corrections(b1, b2, count)
+    u, m, v, (q, s) = K.fused_adam_update(
+        torch.from_numpy(g), torch.from_numpy(mu), torch.from_numpy(nu),
+        count, lr=lr, requant_block=256)
+    nb = -(-L // 256)
+    assert q.shape == (nb * 256,) and s.shape == (nb,) and u.shape == (L,)
+    if mode == "pallas_interpret":
+        uj, _, _, (qj, sj) = pk.fused_adam_update(
+            jnp.asarray(g), jnp.asarray(mu), jnp.asarray(nu), b1c, b2c,
+            lr=lr, b1=b1, b2=b2, eps=eps, requant_block=256)
+        np.testing.assert_allclose(u.numpy(), np.asarray(uj), rtol=1e-6,
+                                   atol=2 * np.spacing(np.float32(lr)))
+    else:
+        pad = nb * 256 - L
+        gp, mp, vp = (np.concatenate([x, np.zeros(pad, np.float32)])
+                      for x in (g, mu, nu))
+        mj = (1 - b1) * gp + b1 * mp
+        vj = (1 - b2) * (gp ** 2) + b2 * vp
+        uj = -lr * ((mj / b1c) / (jnp.sqrt(vj / b2c) + eps))
+        qj, sj = _jax_quantize(np.asarray(uj), mode)
+        _assert_bits(u, np.asarray(uj)[:L])
+    _assert_bits(q, np.asarray(qj).reshape(-1))
+    _assert_bits(s, np.asarray(sj).reshape(-1))
+
+
+def test_fused_adam_update_is_the_one_tensor_launch(monkeypatch):
+    """``fused_adam_update`` on the card is one launch of the same kernel
+    over one leaf, with or without the epilogue (the epilogue's q and
+    scales come back from that launch)."""
+    g, mu, nu = (torch.from_numpy(x) for x in _adam_inputs(1000, 54))
+    ref = K.fused_adam_update(g, mu, nu, 2, lr=1e-3, requant_block=256)
+    launched = []
+    W.emulate_fused_adam(monkeypatch.setattr, launched)
+    u, m, v = K.fused_adam_update(g, mu, nu, 2, lr=1e-3)
+    out = K.fused_adam_update(g, mu, nu, 2, lr=1e-3, requant_block=256)
+    assert launched == [(1, False), (1, True)]
+    for a, b in zip((u, m, v), ref[:3]):
+        _assert_bits(a, b)
+    for a, b in zip((*out[:3], *out[3]), (*ref[:3], *ref[3])):
+        _assert_bits(a, b)
+    with pytest.raises(ValueError, match="block"):
+        K.fused_adam_update(g, mu, nu, 2, lr=1e-3, requant_block=128)
+
+
+def test_every_launch_matches_its_c_signature(monkeypatch):
+    """Each wrapper hands its C function exactly the arguments its
+    ``argtypes`` declare, the stream last: an argument ctypes does not
+    know the type of is passed as a 32-bit int and cuts a pointer."""
+    import contextlib
+    import ctypes
+
+    calls = []
+
+    def fn(lib, sym):
+        def c_function(*args):
+            types = K._ARGTYPES[sym]
+            assert len(args) == len(types), (sym, len(args), len(types))
+            for a, t in zip(args, types):
+                t.from_param(a)          # raises where ctypes cannot convert
+            calls.append(sym)
+            return 0
+        return c_function
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(K, "_on_cuda", lambda *ts: True)
+    monkeypatch.setattr(K, "_fn", fn)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream())
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    x = torch.zeros(512)
+    q8, sc = torch.zeros(2, 512, dtype=torch.int8), torch.zeros(2, 2, dtype=torch.bfloat16)
+    K.quantize_roundtrip(x)
+    K.dequant_accumulate(q8, sc)
+    K.dequant_accumulate_requantize(q8, sc, divisor=2)
+    K.fused_adam_multi([x, torch.zeros(3, 4)], [x, torch.zeros(12)],
+                       [x, torch.zeros(12)], 1, lr=1e-3)
+    K.fused_adam_update(x, x, x, 1, lr=1e-3, requant_block=256)
+    qkv = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
+    K.flash_fwd(qkv, qkv, qkv, causal=True)
+    K.dequantize_rows(q8, sc)
+    K.adasum_pair_combine(x, x)
+    K.adasum_segment_combine(x, x, (0, 100, 512))
+    assert calls == ["hvd_quantize", "hvd_dequant_accumulate",
+                     "hvd_dequant_accumulate_requantize", "hvd_fused_adam",
+                     "hvd_fused_adam", "hvd_flash_fwd", "hvd_dequantize_rows",
+                     "hvd_adasum_combine", "hvd_adasum_combine"]

@@ -189,3 +189,81 @@ def test_six_step_trajectory(port, mesh2, case):
     # both ranks hold the same parameters: the exchange crossed processes
     for k in ("w", "b"):
         assert np.array_equal(res[0]["params"][k], res[1]["params"][k])
+
+
+# --------------------------------------------------------------------------
+# fused_adam's state: per-leaf views into flat buffers, interchangeable
+
+
+def _jax_adam_allreduce(mesh, ax, steps):
+    """``steps`` allreduce-mode steps (no compression) of the linear
+    problem with the JAX package's ``fused_adam``: params, and the
+    ``ScaleByAdamState`` count, mu and nu."""
+    from horovod_tpu import optim as jo
+
+    dtx = jhvd.DistributedOptimizer(jo.fused_adam(1e-2))
+    p = {k: jnp.asarray(v) for k, v in _params().items()}
+    s = dtx.init(p)
+
+    def loss_fn(pp, xx, yy):
+        return jnp.mean((xx @ pp["w"] + pp["b"][None] - yy) ** 2)
+
+    def step(pp, ss, xx, yy):
+        g = jax.grad(loss_fn)(pp, xx, yy)
+        u, ss = dtx.update(g, ss, pp)
+        return optax.apply_updates(pp, u), ss
+
+    sm = jax.jit(_smap(step, mesh, (P(), P(), P(ax), P(ax)), (P(), P())))
+    x, y = (jnp.asarray(a) for a in _batch())
+    out = []
+    for _ in range(steps + 1):
+        out.append((p, s))
+        p, s = sm(p, s, x, y)
+    return [({k: np.asarray(v) for k, v in pp.items()}, int(ss[0].count),
+             {k: np.asarray(v) for k, v in ss[0].mu.items()},
+             {k: np.asarray(v) for k, v in ss[0].nu.items()})
+            for pp, ss in out[1:] + [(p, s)]]
+
+
+def test_fused_adam_state_is_interchangeable(mesh2):
+    """Allreduce mode over a gloo world of 2: the fused optimizer's state
+    (per-leaf views into one flat buffer per moment) is ``adam``'s
+    format: 3 steps alternating fused_adam and adam on each other's state
+    equal 3 fused steps bit for bit, and both hold the JAX package's
+    params and ``ScaleByAdamState`` after those steps (jitted optax
+    contracts the moment updates into FMAs: 1e-5, as the fp32 trajectory
+    above). One fused step from the JAX package's state after 3 steps
+    lands on its 4th."""
+    mesh, ax = mesh2
+    steps = 3
+    traj = _jax_adam_allreduce(mesh, ax, steps)
+    pj, cj, muj, nuj = traj[steps - 1]
+    x, y = _batch()
+    inp = dict(_params(), x=x, y=y,
+               jax={"params": pj, "count": cj, "mu": muj, "nu": nuj})
+    res = run_world(W.fused_adam_state_worker, N, inp, steps, 1e-2)
+    for r in range(N):
+        got = res[r]
+        assert got["storages"] == {"mu": 1, "nu": 1}
+        for k in ("w", "b"):
+            for part in ("mu", "nu"):
+                assert np.array_equal(got["fused"][part][k].view(np.uint32),
+                                      got["alternating"][part][k].view(np.uint32))
+            assert np.array_equal(got["fused"]["params"][k].view(np.uint32),
+                                  got["alternating"]["params"][k].view(np.uint32))
+            np.testing.assert_allclose(got["fused"]["params"][k], pj[k],
+                                       rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(got["fused"]["mu"][k], muj[k],
+                                       rtol=1e-5, atol=1e-7)
+            np.testing.assert_allclose(got["fused"]["nu"][k], nuj[k],
+                                       rtol=1e-5, atol=1e-9)
+            pj4, cj4, muj4, nuj4 = traj[steps]
+            np.testing.assert_allclose(got["from_jax"]["params"][k], pj4[k],
+                                       rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(got["from_jax"]["mu"][k], muj4[k],
+                                       rtol=1e-5, atol=1e-7)
+        assert got["fused"]["count"] == got["alternating"]["count"] == cj
+        assert got["from_jax"]["count"] == cj4
+    for k in ("w", "b"):
+        assert np.array_equal(res[0]["fused"]["params"][k],
+                              res[1]["fused"]["params"][k])

@@ -185,6 +185,108 @@ def optim_worker(one_update_cases, trajectory_cases):
     }
 
 
+def plan_leaf(first, c):
+    """The kernel's rule: chunk ``c`` belongs to the last leaf ``j`` with
+    ``first[j] <= c``."""
+    import bisect
+
+    return bisect.bisect_right(list(first[:-1]), c) - 1
+
+
+def emulate_fused_adam(setattr_, launched):
+    """Send CPU tensors down ``ops.kernels``' CUDA path (``setattr_``:
+    ``monkeypatch.setattr``, or ``setattr`` in a world's child) and run
+    the ``fused_adam`` launches through a Python model of the kernel: it
+    reads the table the wrapper passes (pointers, lengths, prefix), walks
+    every chunk by the kernel's rule and writes the plain version's update
+    (and the int8 epilogue) through the pointers. ``launched`` collects
+    ``(leaves, epilogue)`` per launch."""
+    import ctypes
+
+    from horovod_tpu_torch.ops import kernels as K
+
+    def at(ptr, n, ctype):
+        return np.ctypeslib.as_array((ctype * n).from_address(ptr)) if n \
+            else np.zeros(0)
+
+    def launch(kernel, lib, sym, device, ptrs, n, first, k, q, s, *consts):
+        assert sym == "hvd_fused_adam" and len(consts) == 9
+        c = dict(zip(("omb1", "b1", "omb2", "b2", "b1c", "b2c", "eps",
+                      "eps_root", "neg_lr"), consts))
+        tp = at(ptrs, 6 * k, ctypes.c_longlong).reshape(k, 6)
+        tn, tf = at(n, k, ctypes.c_longlong), at(first, k + 1, ctypes.c_int)
+        for ch in range(int(tf[k])):
+            j = plan_leaf(tf, ch)
+            lo = (ch - int(tf[j])) * K.ADAM_CHUNK
+            hi = min(lo + K.ADAM_CHUNK, int(tn[j]))
+            io = [torch.from_numpy(at(int(tp[j, i]) + 4 * lo, hi - lo,
+                                      ctypes.c_float)) for i in range(6)]
+            for dst, val in zip(io[3:], K.fused_adam_plain(*io[:3], c)):
+                dst.copy_(val)
+        if q is not None:           # the epilogue: one leaf, whole blocks
+            L = int(tn[0])
+            g, mu, nu = (torch.from_numpy(at(int(tp[0, i]), L, ctypes.c_float))
+                         for i in range(3))
+            *_, (qq, ss) = K.fused_adam_requant_plain(g, mu, nu, c)
+            torch.from_numpy(at(q, qq.numel(), ctypes.c_int8)).copy_(qq)
+            torch.from_numpy(at(s, ss.numel(), ctypes.c_int16)).copy_(
+                ss.view(torch.int16))
+        launched.append((k, q is not None))
+
+    setattr_(K, "_on_cuda", lambda *ts: True)
+    setattr_(K, "_launch", launch)
+
+
+def fused_adam_state_worker(inp, steps, lr):
+    """Allreduce mode (no compression) on the linear problem of
+    :func:`trajectory_worker`, fused Adam through its launch path with the
+    kernel modelled (:func:`emulate_fused_adam`): ``steps`` steps of
+    ``DistributedOptimizer(fused_adam)``, and the same steps alternating
+    fused_adam and adam on each other's state; then one fused step from
+    the JAX package's state after ``steps`` steps (``inp["jax"]``)."""
+    from horovod_tpu_torch.training import shard_batch
+
+    emulate_fused_adam(setattr, [])  # the flat-buffer path, kernel modelled
+    x = shard_batch(torch.from_numpy(inp["x"]))
+    y = shard_batch(torch.from_numpy(inp["y"]))
+    txs = {"fused": hvd.DistributedOptimizer(hvd.fused_adam(lr)),
+           "adam": hvd.DistributedOptimizer(hvd.adam(lr))}
+
+    def grads(params):
+        w = params["w"].clone().requires_grad_()
+        b = params["b"].clone().requires_grad_()
+        gw, gb = torch.autograd.grad(((x @ w + b[None] - y) ** 2).mean(),
+                                     [w, b])
+        return {"w": gw, "b": gb}
+
+    def run(params, st, names):
+        for name in names:
+            u, st = txs[name].update(grads(params), st, params)
+            params = {k: params[k] + u[k] for k in params}
+        return params, st
+
+    def numpy(params, st):
+        return {"params": {k: v.numpy() for k, v in params.items()},
+                "count": st["count"],
+                **{m: {k: v.numpy() for k, v in st[m].items()}
+                   for m in ("mu", "nu")}}
+
+    p0 = {k: torch.from_numpy(inp[k].copy()) for k in ("w", "b")}
+    pf, sf = run(p0, txs["fused"].init(p0), ["fused"] * steps)
+    pa, sa = run(p0, txs["adam"].init(p0), [("fused", "adam")[i % 2]
+                                            for i in range(steps)])
+    j = inp["jax"]
+    pj = {k: torch.from_numpy(j["params"][k].copy()) for k in ("w", "b")}
+    sj = {"count": int(j["count"]),
+          **{m: {k: torch.from_numpy(j[m][k].copy()) for k in ("w", "b")}
+             for m in ("mu", "nu")}}
+    pj, sj = run(pj, sj, ["fused"])
+    storages = {m: len({v.untyped_storage().data_ptr() for v in sf[m].values()})
+                for m in ("mu", "nu")}
+    return {"fused": numpy(pf, sf), "alternating": numpy(pa, sa),
+            "from_jax": numpy(pj, sj), "storages": storages}
+
+
 def slice_worker(params, stats, x, y, steps, lr):
     """The slice end to end: a narrow f32 ResNet, weights carried across,
     ZeRO-1 + int8 + EF + fused Adam through make_train_step."""
