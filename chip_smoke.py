@@ -20,23 +20,37 @@ Phases, each fatal on failure (exit code 1, no result line):
    finite and fall on the repeated batch, and every kernel of each run's
    path must have launched during it; fused Adam exactly once a step
    (one multi-tensor launch over the flat shard, or over the 161 leaves,
-   ``ops.kernels.ADAM_MAX_LEAVES`` a launch). Every kernel-wrapper call
-   of the run is logged with its shape;
+   ``ops.kernels.ADAM_MAX_LEAVES`` a launch). Allreduce mode exchanges the
+   tree fused: exactly one ``quantize`` (its roundtrip serves the error
+   feedback and the wire), one ``dequant_accumulate_requantize`` and one
+   ``dequantize_rows`` a step over the 76 quantizable leaves laid side by
+   side as ``[N, S]``, and exactly 5 NCCL calls in the optimizer update
+   (two ``all_to_all`` and two ``all_gather`` of the int8 group, one
+   ``all_reduce`` of the 85 small f32 leaves; the step's running-stats
+   and loss allreduces are counted apart), counted by wrapping the
+   ``torch.distributed`` functions ``ops/collective.py`` calls. Every
+   kernel-wrapper call of the run is logged with its shape;
 5. with ``--gpus N``: phase 4 again across N GPUs of the host (one process
    per GPU, NCCL, each rank on its own 64 rows of one global batch, 4
    steps per mode), and the ZeRO-3 and Adasum runs of phase 7; every rank
    must report the same falling losses and the same parameters;
 6. kernels: every call of one step of each run above is replayed on
-   fresh inputs at its own shape (the flat buffer's quantize, the 152
-   per-leaf quantizes and 76 requantizes of allreduce mode, the one Adam
-   launch over the 161 leaves, each gradient at its logged offset from a
-   16-byte boundary, ...) and held against the plain PyTorch version:
+   fresh inputs at its own shape (the flat buffer's quantize, allreduce
+   mode's one quantize, requantize and dequantize over its ``[N, S]``
+   buffer, the one Adam launch over the 161 leaves, each gradient at its
+   logged offset from a 16-byte boundary, ...) and held against the
+   plain PyTorch version:
    bit for bit for the int8 wire, within 2 ULP for every leaf of fused
    Adam, a NaN meeting a NaN. The inputs carry all-zero blocks, exact half-way
    quotients, NaN and infinite blocks. Each mode's replay is timed with
    CUDA events (kernel, plain version, and for fused Adam
    ``torch._fused_adam_`` over the same tensors as a yardstick) beside
-   the sum of the calls' bounds. ResNet-50's flat buffer is also checked
+   the sum of the calls' bounds. The 152 quantizes and 76 requantizes
+   allreduce mode made a step before its exchange was fused (two per
+   quantizable leaf, one per leaf) are replayed and timed the same way,
+   as the yardstick of the fused calls (``per_leaf_yardstick`` of the
+   ``quantize`` and ``dequant_accumulate_requantize`` rows, outside
+   their ``ms``). ResNet-50's flat buffer is also checked
    with a tail that does not divide the block and with eight synthetic
    senders, and fused Adam's int8 requantize epilogue (which no training
    path calls) bit for bit at ZeRO-1's shard length, 25,557,032;
@@ -199,11 +213,19 @@ WRAPPERS = {
 #: fixes the combines' counts; adasum_fp16 runs across N GPUs only)
 NEED = {"zero1": ("quantize", "dequant_accumulate", "fused_adam"),
         "allreduce": ("quantize", "dequant_accumulate_requantize",
-                      "fused_adam"),
+                      "dequantize_rows", "fused_adam"),
         "zero3": ("quantize", "dequantize_rows", "fused_adam"),
         "adasum": ("fused_adam",),
         "adasum_fp16": ("adasum_pair_combine", "fused_adam"),
         "lm": ("flash_fwd",)}
+#: the torch.distributed functions ops/collective.py calls through its
+#: ``dist`` name (one of each renamed pair exists)
+DIST_CALLS = ("all_reduce", "all_to_all_single", "all_gather_single",
+              "all_gather_into_tensor", "reduce_scatter_single",
+              "reduce_scatter_tensor", "broadcast")
+#: the replay of allreduce mode's per-leaf int8 calls before the fused
+#: exchange (a yardstick, outside every row's per-step numbers)
+PER_LEAF = "allreduce_per_leaf"
 #: the ResNet-50 modes across N GPUs (``--gpus N``)
 WORLD_MODES = ("zero1", "allreduce", "zero3", "adasum", "adasum_fp16")
 #: the one-GPU modes whose replayed step makes a kernel row's numbers
@@ -337,22 +359,58 @@ def logging_calls(steps: list):
     module's attributes sees every call; :func:`train` checks that the
     log and the launch counters agree."""
     from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.testing import watching_calls
 
-    saved = {w: getattr(K, w) for w in WRAPPERS}
-
-    def logged(w, f):
-        def call(*args, **kw):
-            steps[-1].append(_signature(w, args, kw))
-            return f(*args, **kw)
-        return call
-
-    for w, f in saved.items():
-        setattr(K, w, logged(w, f))
-    try:
+    with watching_calls(K, WRAPPERS, lambda w, args, kw: steps[-1].append(
+            _signature(w, args, kw))):
         yield
-    finally:
-        for w, f in saved.items():
-            setattr(K, w, f)
+
+
+@contextlib.contextmanager
+def counting_collectives(counts: dict, where: list):
+    """Count every call of the :data:`DIST_CALLS` functions into
+    ``counts[where[-1]]`` (the caller pushes a label while inside a part
+    of the step). ``ops/collective.py`` looks them up through its
+    ``dist`` name at each call, so wrapping the module's attributes sees
+    every call."""
+    from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.testing import watching_calls
+
+    def count(name, args, kw):
+        part = counts.setdefault(where[-1], {})
+        part[name] = part.get(name, 0) + 1
+
+    with watching_calls(C.dist, DIST_CALLS, count):
+        yield
+
+
+def allreduce_nccl_calls(params) -> int:
+    """NCCL calls of one allreduce-mode int8 update of ``params``: four
+    for each quantizable dtype's exchange (two ``all_to_all``, two
+    ``all_gather``), one ``all_reduce`` for each dtype of the rest."""
+    from horovod_tpu_torch.compression import Compression
+
+    quant = [Compression.int8.quantizes(p.shape, p.dtype) for p in params]
+    return (4 * len({p.dtype for p, q in zip(params, quant) if q})
+            + len({p.dtype for p, q in zip(params, quant) if not q}))
+
+
+def per_leaf_calls(params, n: int) -> list:
+    """The int8 kernel calls allreduce mode + EF made a step when it
+    exchanged leaf by leaf, for a world of ``n``: per quantizable leaf,
+    the residual's quantize (padded to the block), the wire's quantize
+    (padded to ``n`` blocks) and one requantize of its ``[n, Lp/n]`` rows."""
+    from horovod_tpu_torch.compression import INT8_BLOCK, Compression
+
+    sigs = []
+    for p in params:
+        if Compression.int8.quantizes(p.shape, p.dtype):
+            L = p.numel()
+            lp = L + (-L) % (n * INT8_BLOCK)
+            sigs += [("quantize", False, L + (-L) % INT8_BLOCK),
+                     ("quantize", False, lp),
+                     ("dequant_accumulate_requantize", n, lp // n, n)]
+    return sigs
 
 
 def flash_pairs(t_q: int, t_k: int, causal: bool) -> int:
@@ -1053,7 +1111,8 @@ def expected_launches(mode: str, n: int, leaves: int) -> dict:
     """Exact kernel launches a step where the path fixes them: fused Adam
     once over the one f32 shard (ZeRO-1, ZeRO-3) or over all ``leaves``,
     ``ADAM_MAX_LEAVES`` a launch; ZeRO-3's gather runs twice (forward,
-    and the backward's recompute) over the one f32 group; Adasum's
+    and the backward's recompute) over the one f32 group; allreduce
+    mode's fused int8 exchange runs once over its one f32 group; Adasum's
     butterfly has log2(N) levels, each one grouped combine, or one
     combine per leaf."""
     from horovod_tpu_torch.ops import kernels as K
@@ -1063,6 +1122,10 @@ def expected_launches(mode: str, n: int, leaves: int) -> dict:
             else -(-leaves // K.ADAM_MAX_LEAVES)}
     if mode == "zero3":
         return {"quantize": 2, "dequantize_rows": 2, **adam}
+    if mode == "allreduce":
+        return {"quantize": 1, "dequant_accumulate": 0,
+                "dequant_accumulate_requantize": 1, "dequantize_rows": 1,
+                **adam}
     if mode == "adasum":
         return {"adasum_segment_combine": levels, "adasum_pair_combine": 0,
                 **adam}
@@ -1076,7 +1139,11 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
     """``steps`` steps of ResNet-50 on this rank's batch ``x, y`` in one
     optimizer mode; fails unless the loss is finite and falls and every
     kernel of the mode's path launched (exactly as often as
-    :func:`expected_launches` says). ``step_calls`` is the kernel calls
+    :func:`expected_launches` says) and, in allreduce mode, the optimizer
+    update made exactly :func:`allreduce_nccl_calls` NCCL calls a step.
+    ``nccl_calls`` is the collective calls a step, in the optimizer update
+    and in the rest of the step (running stats, loss);
+    ``step_calls`` is the kernel calls
     of the last step; ``split_s`` one more step split into its parts;
     ``checksum`` sums the full parameters (unpacked from the shards under
     ZeRO-3)."""
@@ -1087,6 +1154,7 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
     dev = hvd.device()
     model = build_resnet(model_seed, dev)
     leaves = len(model.jax_params())
+    nccl_want = allreduce_nccl_calls(list(model.jax_params().values()))
     with torch.no_grad():           # before ZeRO-3 empties the parameters
         logits = model(x)
     if tuple(logits.shape) != (x.shape[0], 1000) or not bool(
@@ -1097,16 +1165,28 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
     wire = os.environ.pop("HOROVOD_FSDP_WIRE", None)
     if zero3:
         os.environ["HOROVOD_FSDP_WIRE"] = "int8"
+    nccl, where = {}, ["step"]
     try:
         tx = make_tx(mode)
+        update = tx.update
+
+        def counted_update(*args, **kw):    # the optimizer update's calls
+            where.append("update")
+            try:
+                return update(*args, **kw)
+            finally:
+                where.pop()
+
+        tx = tx._replace(update=counted_update)
         marks, on_phase = phase_timer()
         step = hvd.make_train_step(model, tx, shard_optimizer=mode == "zero1",
                                    shard_params=zero3, on_phase=on_phase)
         st = tx.init(step.params if zero3 else model.jax_params())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        st, losses, times, launches, calls = run_steps(mode, step, st, x, y,
-                                                       steps)
+        with counting_collectives(nccl, where):
+            st, losses, times, launches, calls = run_steps(mode, step, st, x,
+                                                           y, steps)
         peak = torch.cuda.max_memory_allocated()
         st, split = split_step(mode, step, st, x, y, marks)
     finally:
@@ -1117,13 +1197,19 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
         if launches[k] != per_step * steps:
             fail(f"{mode}: {launches[k]} launches of {k} in {steps} steps, "
                  f"expected {per_step} a step ({launches})")
+    if mode == "allreduce" and \
+            sum(nccl.get("update", {}).values()) != nccl_want * steps:
+        fail(f"allreduce: the optimizer update made {nccl.get('update')} NCCL "
+             f"calls in {steps} steps, expected {nccl_want} a step")
+    nccl = {part: {k: v / steps for k, v in c.items()}
+            for part, c in nccl.items()}
     params = hvd.fsdp_unpack_params(step.params) if zero3 else model.jax_params()
     checksum = float(sum(p.detach().double().sum() for p in params.values()))
     steady = times[1:] if len(times) > 1 else times
     return dict(mode=mode, steps=steps, losses=losses, launches=launches,
                 step_s=times, img_per_s=x.shape[0] * len(steady) / sum(steady),
                 peak_gib=peak / 2 ** 30, split_s=split, checksum=checksum,
-                step_calls=calls)
+                nccl_calls=nccl, nccl_update_want=nccl_want, step_calls=calls)
 
 
 def adasum_replay(x, y) -> dict:
@@ -1386,6 +1472,13 @@ def main() -> None:
     for run in runs:
         print(f"e2e {run['mode']}: {_summary(run)}", flush=True)
     by_mode = {run["mode"]: run for run in runs}
+    ar = by_mode["allreduce"]
+    print(f"e2e allreduce: NCCL calls a step in the optimizer update "
+          f"{json.dumps(ar['nccl_calls']['update'])}, "
+          f"{sum(ar['nccl_calls']['update'].values()):g} in all (expected "
+          f"{ar['nccl_update_want']}); in the rest of the step (running "
+          f"stats, loss) {json.dumps(ar['nccl_calls'].get('step', {}))}",
+          flush=True)
     z1, z3 = by_mode["zero1"], by_mode["zero3"]
     print(f"e2e zero3 (int8 gather): {z3['img_per_s']:.2f} img/s per GPU, "
           f"peak {z3['peak_gib']:.2f} GiB; zero1: {z1['img_per_s']:.2f} img/s, "
@@ -1414,7 +1507,9 @@ def main() -> None:
             step_calls[run["mode"]] = run["step_calls"]
             runs.append(run)
 
-    L = sum(v.numel() for v in ResNet50(device="meta").jax_params().values())
+    meta = list(ResNet50(device="meta").jax_params().values())
+    step_calls[PER_LEAF] = per_leaf_calls(meta, 1)
+    L = sum(v.numel() for v in meta)
     flat_buffer_checks(L)
     epilogue = adam_epilogue_check(L)
     print(f"fused_adam requant epilogue agrees bit for bit: "
@@ -1453,6 +1548,8 @@ def main() -> None:
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
         if "two_pass_bound_ms" in r:
             kernels[-1]["two_pass_bound_ms"] = r["two_pass_bound_ms"]
+        if PER_LEAF in r["by_mode"]:      # allreduce mode's per-leaf calls
+            kernels[-1]["per_leaf_yardstick"] = r["by_mode"][PER_LEAF]
     next(k for k in kernels if k["name"] == "flash_fwd").update(
         bound_f32_ms=flash["bound_f32_ms"],
         library="F.scaled_dot_product_attention (no lse)",

@@ -31,6 +31,7 @@ from horovod_tpu_torch.ops.collective import (  # noqa: F401
     allreduce,
     alltoall,
     broadcast,
+    grouped_allreduce,
     reducescatter,
 )
 from horovod_tpu_torch.optim import (  # noqa: F401

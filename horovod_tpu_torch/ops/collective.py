@@ -11,6 +11,11 @@ The int8 exchange (``allreduce(t, compression=Compression.int8)`` and
 wide: quantize per destination chunk, ``all_to_all`` the int8 values and
 the bf16 scales, dequantize-accumulate in f32 on the owning rank, and —
 for the allreduce — divide, requantize, and all-gather int8 + scales.
+:func:`grouped_allreduce` is Horovod's fusion buffer: one flat
+``all_reduce`` per dtype, and for the int8 wire one exchange (one
+quantize, two ``all_to_all``, one requantize, two ``all_gather``, one
+dequantize) for every quantizable leaf of a dtype at once, in a layout
+that keeps each leaf's scale blocks as its own allreduce cuts them.
 The ZeRO-3 parameter gather (:func:`gather_shards`,
 :func:`quantized_all_gather`) is differentiable: its backward is the
 exact SUM reduce-scatter. ``allreduce(t, Adasum)`` runs the butterfly of
@@ -20,6 +25,8 @@ exact SUM reduce-scatter. ``allreduce(t, Adasum)`` runs the butterfly of
 from __future__ import annotations
 
 import enum
+import functools
+import itertools
 
 import torch
 import torch.distributed as dist
@@ -55,11 +62,20 @@ _DIST_OP = {
 }
 
 
-# torch renamed the flat-tensor collectives; take whichever this one has
-_all_gather_single = (getattr(dist, "all_gather_single", None)
-                      or dist.all_gather_into_tensor)
-_reduce_scatter_single = (getattr(dist, "reduce_scatter_single", None)
-                          or dist.reduce_scatter_tensor)
+# torch renamed the flat-tensor collectives; take whichever this one has,
+# looked up through ``dist`` at each call, as every other collective here
+_AG = ("all_gather_single" if hasattr(dist, "all_gather_single")
+       else "all_gather_into_tensor")
+_RS = ("reduce_scatter_single" if hasattr(dist, "reduce_scatter_single")
+       else "reduce_scatter_tensor")
+
+
+def _all_gather_single(out, t):
+    getattr(dist, _AG)(out, t)
+
+
+def _reduce_scatter_single(out, t, op):
+    getattr(dist, _RS)(out, t, op=op)
 
 
 def _n() -> int:
@@ -134,25 +150,72 @@ def quantized_psum_scatter(flat, *, block=None, pre=None):
     return _k.dequant_accumulate(qr, scr, flat.dtype, block)[:s]
 
 
-def _quant_allreduce_bound(v, *, op, block):
-    """int8 allreduce: quantized reduce-scatter, f32 accumulate, divide
-    (Average), requantize — one ``dequant_accumulate_requantize`` kernel
-    — then all-gather int8 + scales and dequantize."""
-    from horovod_tpu_torch.compression import dequantize_blockwise
+@functools.lru_cache(maxsize=64)
+def _quant_rows_layout(sizes: tuple, n: int, block: int) -> tuple:
+    """The ``[N, S]`` layout of the fused int8 exchange of leaves of
+    ``sizes``: leaf ``i``, zero-padded to ``N * cols[i]`` (a multiple of
+    ``N * block``, as its own allreduce pads it), takes columns
+    ``[offs[i], offs[i] + cols[i])`` of every row; row ``j`` is what goes
+    to rank ``j``. Every ``cols[i]`` and ``offs[i]`` is a multiple of
+    ``block``, so no scale block holds two leaves' elements, and each
+    leaf's blocks are the ones its own allreduce quantizes. Returns
+    ``(cols, offs, S)``."""
+    cols = tuple((sz + (-sz) % (n * block)) // n for sz in sizes)
+    offs = tuple(itertools.accumulate((0,) + cols[:-1]))
+    return cols, offs, sum(cols)
 
+
+def _pack_quant_rows(leaves, n: int, cols) -> torch.Tensor:
+    """The ``[N, S]`` buffer of :func:`_quant_rows_layout`: one
+    ``torch.cat`` of each leaf's zero-padded ``[N, cols[i]]`` rows."""
+    rows = []
+    for leaf, s in zip(leaves, cols):
+        flat = leaf.reshape(-1)
+        pad = n * s - flat.shape[0]
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        rows.append(flat.view(n, s))
+    return torch.cat(rows, dim=1)
+
+
+def _unpack_quant_rows(buf, cols, sizes, shapes) -> list:
+    """The leaves back from an ``[N, S]`` buffer: views at N = 1 (the
+    columns of one row are each leaf's elements), a copy a leaf at N > 1."""
+    parts = buf.split(list(cols), dim=1)
+    return [p.reshape(-1)[:sz].view(shape)
+            for p, sz, shape in zip(parts, sizes, shapes)]
+
+
+def _grouped_quant_allreduce(leaves, *, op, block, residuals=False):
+    """int8 allreduce of several leaves of one float dtype in one
+    exchange: the leaves laid side by side as ``[N, S]``
+    (:func:`_quant_rows_layout`), one quantize over it, one
+    ``all_to_all`` each of the int8 values and the bf16 scales, one
+    ``dequant_accumulate_requantize`` (divide by N for Average), one
+    ``all_gather`` each, one ``dequantize_rows``. Every scale, quotient and
+    sender-order sum is the one the leaf's own allreduce computes, so each
+    result is bit-equal to it. With ``residuals`` the quantize also emits
+    its roundtrip, and each leaf's ``c - roundtrip(c)`` (what error
+    feedback keeps) comes from that same pass. Returns ``(outs,
+    residuals or None)``."""
     n = _n()
-    shape, size, dtype = v.shape, v.numel(), v.dtype
-    flat = v.reshape(-1)
-    pad = (-size) % (n * block)
-    if pad:
-        flat = torch.nn.functional.pad(flat, (0, pad))
-    qr, scr, n, _s, _sp = _quant_exchange(flat, block)
+    sizes = tuple(l.numel() for l in leaves)
+    shapes = [l.shape for l in leaves]
+    dtype = leaves[0].dtype
+    cols, _offs, S = _quant_rows_layout(sizes, n, block)
+    buf = _pack_quant_rows(leaves, n, cols)
+    pre = res = None
+    if residuals:
+        q, scales, rt = _k.quantize_roundtrip(buf.view(-1), block)
+        res = _unpack_quant_rows(buf - rt.view(n, S), cols, sizes, shapes)
+        pre = (q, scales)
+    qr, scr, n, _s, _sp = _quant_exchange(buf.view(-1), block, pre=pre)
     q2, sc2 = _k.dequant_accumulate_requantize(
         qr, scr, dtype, block, divisor=(n if op == Average else None))
-    qg = _all_gather_flat(q2)
-    scg = _all_gather_flat(sc2)
-    out = dequantize_blockwise(qg, scg, dtype, block)
-    return out[:size].reshape(shape)
+    qg = _all_gather_flat(q2).view(n, S)
+    scg = _all_gather_flat(sc2).view(n, S // block)
+    out = _k.dequantize_rows(qg, scg, dtype, block)
+    return _unpack_quant_rows(out, cols, sizes, shapes), res
 
 
 class _ShardGather(torch.autograd.Function):
@@ -210,6 +273,69 @@ def _quantizes(compression, tensor) -> bool:
         tensor.numel() >= int(getattr(compression, "min_quant_elems", 0))
 
 
+def _grouped_flat_allreduce(tensors, op):
+    """The fusion buffer: per dtype, the tensors raveled into one flat
+    buffer, one ``all_reduce`` (Average divides it by :func:`_div`), and
+    split back into views."""
+    outs = [None] * len(tensors)
+    groups: dict = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    for idxs in groups.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
+        dist.all_reduce(flat, op=_DIST_OP[op])
+        if op == Average:
+            flat = _div(flat, _n())
+        parts = flat.split([tensors[i].numel() for i in idxs])
+        for i, part in zip(idxs, parts):
+            outs[i] = part.view(tensors[i].shape)
+    return outs
+
+
+def _grouped_allreduce(tensors, op, compression=None, *, residuals=False):
+    """``allreduce(t, op, compression=compression)`` of every tensor, in a
+    number of collectives that does not depend on how many there are: the
+    quantizable tensors of each dtype (a quantized ``compression``, at
+    least ``min_quant_elems`` elements) through one int8 exchange
+    (:func:`_grouped_quant_allreduce`), the rest compressed one by one and
+    reduced by :func:`_grouped_flat_allreduce`. ``residuals``: also each
+    tensor's ``t - decompress(compress(t))``, the rounding error feedback
+    keeps (``t - t`` for a tensor the wire carries exactly, so a NaN or
+    an infinity stays NaN). Returns ``(outs, residuals or None)``."""
+    from horovod_tpu_torch.compression import Compression
+
+    compression = compression or Compression.none
+    tensors = list(tensors)
+    outs = [None] * len(tensors)
+    res = [None] * len(tensors) if residuals else None
+    quantized = getattr(compression, "quantized", False)
+    qgroups: dict = {}
+    rest = []
+    for i, t in enumerate(tensors):
+        if quantized and _quantizes(compression, t):
+            qgroups.setdefault(t.dtype, []).append(i)
+        else:
+            rest.append(i)
+    if qgroups and op not in (Average, Sum):
+        raise ValueError(f"quantized compression supports Average/Sum, not {op!r}")
+    for idxs in qgroups.values():
+        o, r = _grouped_quant_allreduce([tensors[i] for i in idxs], op=op,
+                                        block=int(compression.block),
+                                        residuals=residuals)
+        for j, i in enumerate(idxs):
+            outs[i] = o[j]
+            if residuals:
+                res[i] = r[j]
+    if rest:
+        wire = [compression.compress(tensors[i]) for i in rest]
+        red = _grouped_flat_allreduce([c for c, _ in wire], op)
+        for i, (c, ctx), o in zip(rest, wire, red):
+            outs[i] = compression.decompress(o, ctx)
+            if residuals:
+                res[i] = tensors[i] - compression.decompress(c, ctx)
+    return outs, res
+
+
 # --------------------------------------------------------------------------
 # the public collectives
 
@@ -223,27 +349,35 @@ def allreduce(tensor, op: ReduceOp = Average, *, compression=None):
     basics._require_init()
     _check_device(tensor)
     op = ReduceOp(op)
-    if compression is not None and getattr(compression, "quantized", False) \
-            and _quantizes(compression, tensor):
-        if op == Adasum:
-            raise ValueError("quantized compression does not support op=Adasum")
-        if op not in (Average, Sum):
-            raise ValueError(f"quantized compression supports Average/Sum, not {op!r}")
-        return _quant_allreduce_bound(
-            tensor, op=op, block=int(compression.block))
-    ctx = None
-    if compression is not None:
-        tensor, ctx = compression.compress(tensor)
+    if op != Adasum:
+        return _grouped_allreduce([tensor], op, compression)[0][0]
+    if getattr(compression, "quantized", False) and \
+            _quantizes(compression, tensor):
+        raise ValueError("quantized compression does not support op=Adasum")
+    if compression is None:
+        return _adasum.adasum_allreduce(tensor)
+    wire, ctx = compression.compress(tensor)
+    return compression.decompress(_adasum.adasum_allreduce(wire), ctx)
+
+
+def grouped_allreduce(tensors, op: ReduceOp = Average):
+    """Fused allreduce of a list of tensors (Horovod's fusion buffer,
+    ``MemcpyInFusionBuffer`` -> one reduction -> ``MemcpyOutFusionBuffer``):
+    one flat ``all_reduce`` per dtype, split back into views of each
+    tensor's shape. ``op=Adasum`` runs one grouped butterfly
+    (:func:`~horovod_tpu_torch.ops.adasum.grouped_adasum_allreduce`).
+    As the JAX package's ``grouped_allreduce``, every other op sums:
+    ``Min`` and ``Max`` are summed, not reduced by min or max."""
+    basics._require_init()
+    tensors = list(tensors)
+    for t in tensors:
+        _check_device(t)
+    op = ReduceOp(op)
     if op == Adasum:
-        out = _adasum.adasum_allreduce(tensor)
-    else:
-        out = tensor.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=_DIST_OP[op])
-        if op == Average:
-            out = _div(out, _n())
-    if compression is not None:
-        out = compression.decompress(out, ctx)
-    return out
+        return _adasum.grouped_adasum_allreduce(tensors)
+    if op not in (Average, Sum):
+        op = Sum
+    return _grouped_allreduce(tensors, op)[0]
 
 
 def allgather(tensor):

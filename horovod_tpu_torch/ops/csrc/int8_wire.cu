@@ -75,7 +75,8 @@ __global__ void deq_acc_requant_kernel(const int8_t* __restrict__ q,
   float acc[kLane], dv[kLane];
   int8_t qi[kLane];
   hvdt::accumulate_lane(q, s, n, sp, e, acc);
-  if (divisor > 0) {
+  // Average's divide (x / 1 is x: a world of one skips it)
+  if (divisor > 1) {
     const float dd = static_cast<float>(divisor);
 #pragma unroll
     for (int i = 0; i < kLane; ++i) acc[i] = __fdiv_rn(acc[i], dd);

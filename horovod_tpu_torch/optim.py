@@ -464,10 +464,13 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
     """Wrap ``optimizer`` so each ``update`` first combines the gradients
     across ranks.
 
-    - allreduce mode (default): every gradient leaf is allreduced
-      (``compression=Compression.int8`` rides the int8 exchange for
-      leaves of at least ``MIN_QUANT_ELEMS`` f32 elements), then the
-      inner optimizer updates the full tree on every rank. ``op=Adasum``
+    - allreduce mode (default): the gradient tree is allreduced in one
+      fused exchange (:func:`~horovod_tpu_torch.ops.collective.grouped_allreduce`:
+      one flat ``all_reduce`` per dtype; ``compression=Compression.int8``
+      takes the leaves of at least ``MIN_QUANT_ELEMS`` f32 elements
+      through one int8 exchange, each leaf bit-equal to its own int8
+      allreduce), then the inner optimizer updates the full tree on
+      every rank. ``op=Adasum``
       without compression runs one grouped butterfly over the whole tree;
       with ``Compression.fp16`` each leaf is combined in its 16-bit type.
     - ``shard_optimizer=True`` (ZeRO-1): the tree is flat-packed per
@@ -533,11 +536,21 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
         c, ctx = compression.compress(g)
         return compression.decompress(c, ctx)
 
-    def _reduce(grads):
-        if op == Adasum and compression is Compression.none:
-            return _fused_adasum_tree(grads)
-        return {k: _C.allreduce(grads[k], op, compression=compression)
-                for k in tree_keys(grads)}
+    def _reduce(grads, residuals=False):
+        """The reduced tree (and with ``residuals`` each leaf's ``g -
+        roundtrip(g)`` from the same quantize pass): one int8 exchange per
+        quantizable dtype and one flat ``all_reduce`` per other dtype a
+        step, or Adasum's butterfly."""
+        keys = tree_keys(grads)
+        if op == Adasum:
+            if compression is Compression.none:
+                return _fused_adasum_tree(grads), None
+            return {k: _C.allreduce(grads[k], op, compression=compression)
+                    for k in keys}, None
+        outs, res = _C._grouped_allreduce([grads[k] for k in keys], op,
+                                          compression, residuals=residuals)
+        return dict(zip(keys, outs)), (dict(zip(keys, res)) if residuals
+                                       else None)
 
     def init(params):
         if shard_params:
@@ -565,13 +578,12 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
         if error_feedback:
             corrected = {k: grads[k] + state["residual"][k]
                          for k in tree_keys(grads)}
-            # the residual is what the wire will round away: the
-            # allreduce below compresses `corrected` itself
-            residual = {k: c - _roundtrip(c) for k, c in corrected.items()}
-            updates, inner = optimizer.update(_reduce(corrected),
-                                              state["inner"], params)
+            # the residual is what the wire rounds away: the exchange
+            # quantizes `corrected` once, for the wire and the residual
+            reduced, residual = _reduce(corrected, residuals=True)
+            updates, inner = optimizer.update(reduced, state["inner"], params)
             return updates, {"inner": inner, "residual": residual}
-        return optimizer.update(_reduce(grads), state, params)
+        return optimizer.update(_reduce(grads)[0], state, params)
 
     return DistributedTransform(init, update, bool(shard_optimizer),
                                 bool(shard_params))

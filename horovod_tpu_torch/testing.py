@@ -6,10 +6,13 @@ calls ``fn(*args)`` and returns the per-rank results, rank-ordered.
 ``device=None`` gives each rank its GPU instead (``cuda:<rank>``, NCCL).
 ``fn`` must be importable by the children (a module-level function of a
 module that does not import JAX keeps the spawn cheap).
+``watching_calls(module, names, on_call)`` reports every call of some of
+a module's functions (kernel wrappers, collectives) while it is open.
 """
 
 from __future__ import annotations
 
+import contextlib
 import socket
 import traceback
 
@@ -20,6 +23,29 @@ def free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def watching_calls(module, names, on_call):
+    """While open, every call of ``module``'s attributes ``names`` (those
+    it has) first runs ``on_call(name, args, kwargs)``. It sees the calls
+    that reach a function through the module's attribute, not those made
+    through a reference taken before."""
+    saved = {n: getattr(module, n) for n in names if hasattr(module, n)}
+
+    def watched(name, f):
+        def call(*args, **kw):
+            on_call(name, args, kw)
+            return f(*args, **kw)
+        return call
+
+    for n, f in saved.items():
+        setattr(module, n, watched(n, f))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(module, n, f)
 
 
 def _child(rank, n, port, device, fn, args, q):

@@ -482,6 +482,93 @@ def adasum_world_error_worker():
     return None
 
 
+# --------------------------------------------------------------------------
+# the fused exchange (tests/test_torch_grouped.py)
+
+#: the kernel wrappers the int8 exchange reaches, counted per update
+INT8_WRAPPERS = ("quantize_roundtrip", "quantize_blockwise",
+                 "dequant_accumulate_requantize", "dequantize_rows")
+
+
+def _tree(spec, seed):
+    """This rank's leaves of ``spec`` (``{key: (shape, dtype name)}``),
+    random from ``seed`` and the rank."""
+    gen = torch.Generator().manual_seed(seed * 100 + hvd.rank())
+    return {k: torch.randn(shape, generator=gen).to(getattr(torch, dt))
+            for k, (shape, dt) in spec.items()}
+
+
+def dispatch_counts(spec, error_feedback):
+    """Kernel-wrapper and collective calls of one allreduce-mode int8
+    update (identity inner optimizer) of a tree of ``spec``; also whether
+    the new residual keeps the parameters' keys, shapes and dtypes."""
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.testing import watching_calls
+
+    params = _tree(spec, 1)
+    tx = hvd.DistributedOptimizer(_identity(), compression=hvd.Compression.int8,
+                                  error_feedback=error_feedback)
+    st = tx.init(params)
+    counts: dict = {}
+
+    def count(name, args, kw):
+        counts[name] = counts.get(name, 0) + 1
+
+    with watching_calls(K, INT8_WRAPPERS, count), watching_calls(
+            C.dist, ("all_to_all_single", "all_gather_single",
+                     "all_gather_into_tensor", "all_reduce"), count):
+        _, st = tx.update(_tree(spec, 2), st, params)
+    res = st["residual"] if error_feedback else params
+    layout = set(res) == set(params) and all(
+        res[k].shape == p.shape and res[k].dtype == p.dtype
+        for k, p in params.items())
+    return {"counts": counts, "layout": layout}
+
+
+def residual_worker(inp):
+    """Two allreduce-mode int8 + EF updates (identity inner optimizer) on
+    ``inp["g1"]``, ``inp["g2"]``: each step's new residual."""
+    keys = list(inp["g1"])
+    params = {k: torch.zeros(inp["g1"][k].shape[1:]) for k in keys}
+    tx = hvd.DistributedOptimizer(_identity(), compression=hvd.Compression.int8,
+                                  error_feedback=True)
+    st = tx.init(params)
+    out = []
+    for g in (inp["g1"], inp["g2"]):
+        _, st = tx.update({k: _mine(g[k]) for k in keys}, st, params)
+        out.append({k: v.numpy().copy() for k, v in st["residual"].items()})
+    return out
+
+
+def grouped_worker(inp):
+    """Every case of tests/test_torch_grouped.py on this world: the fused
+    int8 exchange (``ops.collective._grouped_allreduce``, which allreduce
+    mode calls) and grouped_allreduce of this rank's rows, and (where
+    ``inp`` asks) the allreduce-mode trajectory, the residual steps and
+    the dispatch counts."""
+    int8 = hvd.Compression.int8
+    leaves = [_mine(x) for x in inp["int8"]]
+    mixed = [_mine(x).to(getattr(torch, dt)) for x, dt in inp["mixed"]]
+    out = {}
+    for name, op in (("avg", hvd.Average), ("sum", hvd.Sum)):
+        out[f"int8_{name}"] = [_np_any(t) for t in C._grouped_allreduce(
+            leaves, op, int8)[0]]
+        out[f"mixed_{name}"] = [_np_any(t) for t in hvd.grouped_allreduce(
+            mixed, op)]
+        out[f"mixed_int8_{name}"] = [_np_any(t) for t in C._grouped_allreduce(
+            mixed, op, int8)[0]]
+    out["mixed_min"] = [_np_any(t) for t in hvd.grouped_allreduce(mixed, hvd.Min)]
+    if "traj" in inp:
+        out["traj"] = trajectory_worker(inp["traj"], False, "int8", True,
+                                        inp["traj_steps"])
+    if "residual" in inp:
+        out["residual"] = residual_worker(inp["residual"])
+    if "dispatch" in inp:
+        out["dispatch"] = {name: dispatch_counts(spec, ef)
+                           for name, (spec, ef) in inp["dispatch"].items()}
+    return out
+
+
 def test_train_step_with_a_plain_optimizer_allreduces_itself(monkeypatch):
     """make_train_step given a plain optimizer exchanges the gradients
     itself (the reference step): same result as DistributedOptimizer."""
