@@ -69,20 +69,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    64-row halves of one 128-row batch (rank 0's and rank 1's of a world
    of two) go through the combine rank 0 makes at level 1, by the port's
    own functions: ``_segment_combine`` over the 25,557,032-element f32
-   group (161 segments), and ``_pair_combine`` per leaf in bf16 (what
-   ``Compression.fp16`` puts on the wire), f16 and f32. The calls are
-   logged; the grouped and bf16 ones are counted as the replay's
-   launches. Every combine is held against its plain version on these
-   same correlated operands (where the projection term is large), and
-   the grouped result must equal the per-leaf f32 one bit for bit (their
-   chunks coincide). With ``--gpus N`` ZeRO-3 int8, Adasum grouped
-   (``adasum``) and Adasum per leaf (``adasum_fp16``:
-   ``DistributedOptimizer(fused_adam(1e-3), op=Adasum,
-   compression=Compression.fp16)``, ``allreduce(g, Adasum)`` on each
-   leaf) run 4 steps each across the N GPUs: every rank the same losses
-   and the same unpacked parameters, ``adasum_segment_combine`` launched
-   log2(N) times a step by ``adasum`` and ``adasum_pair_combine``
-   161·log2(N) times a step by ``adasum_fp16``, the other combine never.
+   group (161 segments); ``adasum_pair_combine_packed`` over the 161
+   leaves packed (``_leaf_table``, ``_pack``) in bf16 (what ``Compression.fp16`` puts
+   on the wire) and in f16, one call each; and ``_pair_combine`` per leaf
+   in bf16, f16 and f32. The calls are logged; the grouped and the packed
+   bf16 ones are counted as the replay's launches, and the 161 per-leaf
+   bf16 calls (the compressed route's combines when it ran leaf by leaf)
+   are timed as
+   the ``per_leaf_yardstick`` of the ``adasum_pair_combine`` row, outside
+   its per-step numbers. Every combine is held against its plain version
+   on these same correlated operands (where the projection term is
+   large); each leaf of the packed combine must equal its per-leaf
+   combine bit for bit, in bf16 and f16, and the grouped result the
+   per-leaf f32 one (their chunks coincide). With ``--gpus N`` ZeRO-3
+   int8, Adasum grouped (``adasum``) and Adasum compressed
+   (``adasum_fp16``: ``DistributedOptimizer(fused_adam(1e-3), op=Adasum,
+   compression=Compression.fp16)``, the leaves packed in bf16) run 4
+   steps each across the N GPUs: every rank the same losses and the same
+   unpacked parameters, ``adasum_segment_combine`` launched log2(N) times
+   a step by ``adasum`` and ``adasum_pair_combine`` log2(N) times a step
+   by ``adasum_fp16``, the other combine never, and each update making
+   log2(N) point-to-point exchanges (``batch_isend_irecv``).
    The kernel phase replays these calls too: ``dequantize_rows`` bit for
    bit (NaN and infinite scale blocks included), the Adasum combines
    within rtol 2e-5 / atol 2e-6 (a 16-bit output also within one ULP of
@@ -120,14 +127,14 @@ Phases, each fatal on failure (exit code 1, no result line):
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
 one-GPU mode that launches it; for the Adasum combines, which no run on
-one GPU launches, the level-1 replay's grouped call and its bf16
-per-leaf calls (one level of each of ``DistributedOptimizer(op=Adasum)``'s
+one GPU launches, the level-1 replay's grouped call and its packed bf16
+call (one level of each of ``DistributedOptimizer(op=Adasum)``'s
 routes), or with ``--gpus N`` rank 0's step of ``adasum`` and
 ``adasum_fp16`` across the N GPUs. ``by_mode`` splits them.
 ``launches`` counts the launches of the main path's runs (with ``--gpus
 N`` rank 0's of the N-GPU runs too, as ``mode@N``); a kernel that none of
 them launched, as the Adasum combines on one GPU, takes the replay's
-grouped and bf16 counts, under ``adasum_l1_replay`` in
+grouped and packed bf16 counts, under ``adasum_l1_replay`` in
 ``launches_by_mode``. A bound is the larger of the bytes
 over the memory rate and the operations over the peak rate for the
 inputs' type (bf16 tensor cores for ``flash_fwd``'s bf16 dots, the f32
@@ -206,6 +213,7 @@ WRAPPERS = {
     "flash_fwd": "flash_fwd",
     "dequantize_rows": "dequantize_rows",
     "adasum_pair_combine": "adasum_pair_combine",
+    "adasum_pair_combine_packed": "adasum_pair_combine",
     "adasum_segment_combine": "adasum_segment_combine",
 }
 #: kernels each mode's path must launch (Adasum's at a world of one: none
@@ -222,17 +230,21 @@ NEED = {"zero1": ("quantize", "dequant_accumulate", "fused_adam"),
 #: ``dist`` name (one of each renamed pair exists)
 DIST_CALLS = ("all_reduce", "all_to_all_single", "all_gather_single",
               "all_gather_into_tensor", "reduce_scatter_single",
-              "reduce_scatter_tensor", "broadcast")
-#: the replay of allreduce mode's per-leaf int8 calls before the fused
-#: exchange (a yardstick, outside every row's per-step numbers)
+              "reduce_scatter_tensor", "broadcast", "batch_isend_irecv")
+#: the replays of what a kernel's calls were before they were fused, each
+#: a yardstick outside every row's per-step numbers: allreduce mode's
+#: per-leaf int8 calls, and the compressed Adasum route's 161 per-leaf
+#: bf16 combines of one level
 PER_LEAF = "allreduce_per_leaf"
+ADASUM_PER_LEAF = "adasum_l1_replay_leaf_bfloat16"
+YARDSTICKS = (PER_LEAF, ADASUM_PER_LEAF)
 #: the ResNet-50 modes across N GPUs (``--gpus N``)
 WORLD_MODES = ("zero1", "allreduce", "zero3", "adasum", "adasum_fp16")
 #: the one-GPU modes whose replayed step makes a kernel row's numbers
 ONE_GPU_MODES = ("zero1", "allreduce", "zero3", "adasum", "lm")
 #: the level-1 replay's calls that stand in for the Adasum combines' step
-#: on one GPU: the grouped route's, and the per-leaf route's in bf16
-REPLAY_MODES = ("adasum_l1_replay_grouped", "adasum_l1_replay_leaf_bfloat16")
+#: on one GPU: the grouped route's, and the compressed route's in bf16
+REPLAY_MODES = ("adasum_l1_replay_grouped", "adasum_l1_replay_packed_bfloat16")
 
 
 def main_modes(gpus: int) -> dict:
@@ -339,6 +351,9 @@ def _signature(wrapper: str, args, kw) -> tuple:
                 kw.get("sm_scale"), q.stride(), k.stride(), v.stride())
     if kernel == "dequantize_rows":
         return (kernel, *args[0].shape)
+    if wrapper == "adasum_pair_combine_packed":
+        return (kernel, tuple(int(o) for o in args[2]),
+                str(args[0].dtype).replace("torch.", ""))
     if kernel == "adasum_pair_combine":
         return (kernel, args[0].numel(), str(args[0].dtype).replace("torch.", ""))
     if kernel == "adasum_segment_combine":
@@ -458,10 +473,12 @@ def call_bound(sig) -> tuple:
 
 
 def adasum_len_item(sig) -> tuple:
-    """``(elements, bytes an element)`` of an Adasum combine's call."""
+    """``(elements, bytes an element)`` of an Adasum combine's call (a
+    packed leaf table's elements include its pads)."""
     if sig[0] == "adasum_segment_combine":
         return sig[1][-1], 4
-    return sig[1], 4 if sig[2] == "float32" else 2
+    L = sig[1][-1] if isinstance(sig[1], tuple) else sig[1]
+    return L, 4 if sig[2] == "float32" else 2
 
 
 def two_pass_bound_ms(sigs) -> float:
@@ -567,6 +584,15 @@ def make_call(sig, gen):
             s[0, 1], s[n - 1, 2] = math.nan, math.inf
         return (lambda: (K.dequantize_rows(q, s),),
                 lambda: (K.dequantize_rows_plain(q, s),), _bits)
+    if kernel == "adasum_pair_combine" and isinstance(sig[1], tuple):
+        offsets, dtype = sig[1], getattr(torch, sig[2])
+        a = (torch.randn(offsets[-1], device=dev, generator=gen) * 1e-2).to(
+            dtype)
+        b = (torch.randn(offsets[-1], device=dev, generator=gen) * 1e-2).to(
+            dtype)
+        return (lambda: (K.adasum_pair_combine_packed(a, b, offsets),),
+                lambda: (K.adasum_segment_combine_plain(a, b, offsets),),
+                _adasum_close)
     if kernel == "adasum_pair_combine":
         L, dtype = sig[1], getattr(torch, sig[2])
         a = (torch.randn(L, device=dev, generator=gen) * 1e-2).to(dtype)
@@ -868,9 +894,11 @@ def adasum_extra_checks() -> list:
     """The Adasum combines at what the path does not give: zero operands
     (their coefficient is 0, and combine(0, 0) is 0), lengths that are no
     multiple of the kernel's chunk or a warp, an operand at an odd
-    element offset, every operand type, a segment of length 1 and an
-    empty one. Each within the bar and bit-identical across two
-    launches. Returns what was checked."""
+    element offset (bit-equal to its aligned copy, which the kernel reads
+    in vectors), every operand type, a segment of length 1 and an empty
+    one, and packed 16-bit leaf tables whose leaves do not start on 16
+    bytes. Each within the bar and bit-identical across two launches.
+    Returns what was checked."""
     import torch
 
     from horovod_tpu_torch.ops import kernels as K
@@ -895,6 +923,12 @@ def adasum_extra_checks() -> list:
             check(f"pair L={L} {dtype} odd offset",
                   lambda: (K.adasum_pair_combine(a, b),),
                   lambda: (K.adasum_pair_combine_plain(a, b),))
+            # element loads at the odd offset, vector loads on the aligned
+            # copies: the same groups, so the same bits
+            if not same_bits(K.adasum_pair_combine(a, b),
+                             K.adasum_pair_combine(a.clone(), b.clone())):
+                fail(f"adasum extra check: pair L={L} {dtype} at an odd "
+                     "offset differs from its aligned copy")
     z, b = torch.zeros(600, device=dev), torch.randn(600, device=dev,
                                                      generator=gen)
     check("pair zero a", lambda: (K.adasum_pair_combine(z, b),),
@@ -908,6 +942,11 @@ def adasum_extra_checks() -> list:
     check(f"segments {offsets}",
           lambda: (K.adasum_segment_combine(a, b, offsets),),
           lambda: (K.adasum_segment_combine_plain(a, b, offsets),))
+    for dtype in (torch.bfloat16, torch.float16):  # leaves off 16 bytes
+        a16, b16 = a.to(dtype), b.to(dtype)
+        check(f"packed {dtype} {offsets}",
+              lambda: (K.adasum_pair_combine_packed(a16, b16, offsets),),
+              lambda: (K.adasum_segment_combine_plain(a16, b16, offsets),))
     return done
 
 
@@ -1090,8 +1129,8 @@ def make_tx(mode: str):
     """The DistributedOptimizer of each ResNet-50 mode, fused Adam at 1e-3
     inside: ZeRO-1 and allreduce mode with int8 + EF, ZeRO-3 (its gather
     wire is ``HOROVOD_FSDP_WIRE``), Adasum with no compression (the
-    grouped butterfly) and with ``Compression.fp16`` (per leaf,
-    ``allreduce(g, Adasum)``)."""
+    grouped butterfly) and with ``Compression.fp16`` (the leaves packed
+    in bf16, one combine of the leaf table a level)."""
     import horovod_tpu_torch as hvd
 
     adam = hvd.fused_adam(1e-3)
@@ -1113,8 +1152,8 @@ def expected_launches(mode: str, n: int, leaves: int) -> dict:
     ``ADAM_MAX_LEAVES`` a launch; ZeRO-3's gather runs twice (forward,
     and the backward's recompute) over the one f32 group; allreduce
     mode's fused int8 exchange runs once over its one f32 group; Adasum's
-    butterfly has log2(N) levels, each one grouped combine, or one
-    combine per leaf."""
+    butterfly has log2(N) levels, each one grouped combine (``adasum``)
+    or one combine of the packed bf16 leaf table (``adasum_fp16``)."""
     from horovod_tpu_torch.ops import kernels as K
 
     levels = n.bit_length() - 1
@@ -1130,17 +1169,24 @@ def expected_launches(mode: str, n: int, leaves: int) -> dict:
         return {"adasum_segment_combine": levels, "adasum_pair_combine": 0,
                 **adam}
     if mode == "adasum_fp16":
-        return {"adasum_segment_combine": 0,
-                "adasum_pair_combine": leaves * levels, **adam}
+        return {"adasum_segment_combine": 0, "adasum_pair_combine": levels,
+                **adam}
     return adam
+
+
+def expected_exchanges(mode: str, n: int) -> int:
+    """Point-to-point exchanges (``batch_isend_irecv``) of one optimizer
+    update: one a butterfly level in the Adasum modes, none elsewhere."""
+    return n.bit_length() - 1 if mode.startswith("adasum") else 0
 
 
 def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
     """``steps`` steps of ResNet-50 on this rank's batch ``x, y`` in one
     optimizer mode; fails unless the loss is finite and falls and every
     kernel of the mode's path launched (exactly as often as
-    :func:`expected_launches` says) and, in allreduce mode, the optimizer
-    update made exactly :func:`allreduce_nccl_calls` NCCL calls a step.
+    :func:`expected_launches` says), the optimizer update made exactly
+    :func:`expected_exchanges` point-to-point exchanges a step and, in
+    allreduce mode, exactly :func:`allreduce_nccl_calls` NCCL calls.
     ``nccl_calls`` is the collective calls a step, in the optimizer update
     and in the rest of the step (running stats, loss);
     ``step_calls`` is the kernel calls
@@ -1197,6 +1243,11 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
         if launches[k] != per_step * steps:
             fail(f"{mode}: {launches[k]} launches of {k} in {steps} steps, "
                  f"expected {per_step} a step ({launches})")
+    p2p = nccl.get("update", {}).get("batch_isend_irecv", 0)
+    if p2p != expected_exchanges(mode, hvd.size()) * steps:
+        fail(f"{mode}: the optimizer update made {p2p} point-to-point "
+             f"exchanges in {steps} steps, expected "
+             f"{expected_exchanges(mode, hvd.size())} a step")
     if mode == "allreduce" and \
             sum(nccl.get("update", {}).values()) != nccl_want * steps:
         fail(f"allreduce: the optimizer update made {nccl.get('update')} NCCL "
@@ -1215,13 +1266,15 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
 def adasum_replay(x, y) -> dict:
     """The combine rank 0 makes at level 1 of a world of two, on one GPU:
     ResNet-50's gradient trees on ``x, y``'s two halves (rank 0's rows,
-    then rank 1's) through the port's own ``_segment_combine`` (the
-    grouped route, one f32 group) and ``_pair_combine`` per leaf in bf16,
-    f16 and f32 (the per-leaf route; ``Compression.fp16`` puts bf16 on
-    the wire). Every call is logged; the grouped and bf16 ones are the
-    replay's launches. Each combine must agree with its plain version on
-    the same operands, and the grouped result equal the per-leaf f32 one
-    bit for bit. ``projection`` is each leaf's ``|a·b| / (2 min(|a|²,
+    then rank 1's) through the port's own functions: ``_segment_combine``
+    (the grouped route, one f32 group); ``adasum_pair_combine_packed``
+    over the leaves packed (``_leaf_table``, ``_pack``) in bf16 (the compressed route; ``Compression.fp16``
+    puts bf16 on the wire) and in f16; ``_pair_combine`` per leaf in
+    bf16, f16 and f32. Every call is logged; the grouped and the packed
+    bf16 ones are the replay's launches. Each combine must agree with its
+    plain version on the same operands, each packed leaf equal its
+    per-leaf combine bit for bit, and the grouped result the per-leaf
+    f32 one. ``projection`` is each leaf's ``|a·b| / (2 min(|a|²,
     |b|²))`` over the leaves where both are nonzero (min, median, max):
     how far these correlated halves put the combine from a plain sum;
     ``zero_leaves`` counts the leaves with a zero operand."""
@@ -1245,30 +1298,42 @@ def adasum_replay(x, y) -> dict:
         trees.append([g[k].contiguous() for k in tree_keys(g)])
     del model
     ga, gb = trees
-    dtypes = (torch.bfloat16, torch.float16, torch.float32)
-    names = [str(d).replace("torch.", "") for d in dtypes]
-    modes = ["adasum_l1_replay_grouped"] + [
-        f"adasum_l1_replay_leaf_{n}" for n in names]
+    sizes = tuple(a.numel() for a in ga)
+    wires = (torch.bfloat16, torch.float16)
+    dtypes = wires + (torch.float32,)
+    name = {d: str(d).replace("torch.", "") for d in dtypes}
     calls: list = []
+    modes = []
     K.reset_launches()
     with logging_calls(calls):
         calls.append([])
+        modes.append("adasum_l1_replay_grouped")
         (fa, offsets), (fb, _) = A._flatten_group(ga), A._flatten_group(gb)
         grouped = A._segment_combine(fa, fb, offsets)
-        leaf = {}
-        for dtype, name in zip(dtypes, names):
-            if dtype == torch.float16:      # the replay's launches: grouped, bf16
-                launches = dict(K.launches)
+        packed = {}
+        for dtype in wires:
             calls.append([])
-            leaf[name] = [A._pair_combine(a.to(dtype), b.to(dtype))
-                          for a, b in zip(ga, gb)]
+            modes.append(f"adasum_l1_replay_packed_{name[dtype]}")
+            starts, table = A._leaf_table(sizes, dtype.itemsize)
+            pa, pb = (A._pack([t.to(dtype) for t in tree], table)
+                      for tree in (ga, gb))
+            packed[dtype] = (K.adasum_pair_combine_packed(pa, pb, table), pa,
+                             pb, table, starts)
+            if dtype == torch.bfloat16:  # the replay's launches
+                launches = dict(K.launches)
+        leaf = {}
+        for dtype in dtypes:
+            calls.append([])
+            modes.append(f"adasum_l1_replay_leaf_{name[dtype]}")
+            leaf[dtype] = [A._pair_combine(a.to(dtype), b.to(dtype))
+                           for a, b in zip(ga, gb)]
         torch.cuda.synchronize()
     for k in K.KERNELS:
         logged = sum(sig[0] == k for c in calls for sig in c)
         if logged != K.launches[k]:
             fail(f"adasum_l1: {K.launches[k]} launches of {k} but {logged} "
                  "logged calls")
-    want = {"adasum_segment_combine": 1, "adasum_pair_combine": len(ga)}
+    want = {"adasum_segment_combine": 1, "adasum_pair_combine": 1}
     if any(launches[k] != v for k, v in want.items()):
         fail(f"adasum_l1: launches {launches}, expected {want}")
     err = 0.0
@@ -1277,16 +1342,27 @@ def adasum_replay(x, y) -> dict:
     if bad:
         fail(f"adasum_l1: the grouped combine against its plain version: {bad}")
     err = max(err, max_abs(grouped, ref))
-    for dtype, name in zip(dtypes, names):
-        for i, (a, b, out) in enumerate(zip(ga, gb, leaf[name])):
+    for dtype, (out, pa, pb, table, starts) in packed.items():
+        ref = K.adasum_segment_combine_plain(pa, pb, table)
+        bad = _adasum_close((out,), (ref,))
+        if bad:
+            fail(f"adasum_l1: the packed {name[dtype]} combine against its "
+                 f"plain version: {bad}")
+        err = max(err, max_abs(out, ref))
+        for i, (lo, own) in enumerate(zip(starts, leaf[dtype])):
+            if not same_bits(out[lo:lo + own.numel()], own.reshape(-1)):
+                fail(f"adasum_l1: leaf {i} of the packed {name[dtype]} "
+                     "combine differs from its per-leaf combine")
+    for dtype in dtypes:
+        for i, (a, b, out) in enumerate(zip(ga, gb, leaf[dtype])):
             ref = K.adasum_pair_combine_plain(a.to(dtype), b.to(dtype))
             bad = _adasum_close((out,), (ref,))
             if bad:
-                fail(f"adasum_l1: leaf {i} in {name} against its plain "
+                fail(f"adasum_l1: leaf {i} in {name[dtype]} against its plain "
                      f"version: {bad}")
             err = max(err, max_abs(out, ref))
     for i, (lo, hi) in enumerate(zip(offsets, offsets[1:])):
-        if not same_bits(grouped[lo:hi], leaf["float32"][i].reshape(-1)):
+        if not same_bits(grouped[lo:hi], leaf[torch.float32][i].reshape(-1)):
             fail(f"adasum_l1: the grouped combine of leaf {i} differs from "
                  "its per-leaf f32 combine")
     sums = [((a.double() * b.double()).sum(), torch.minimum(
@@ -1297,6 +1373,7 @@ def adasum_replay(x, y) -> dict:
     proj = torch.stack([dot.abs() / (2 * n) for dot, n in sums if n > 0])
     return dict(mode="adasum_l1_replay", leaves=len(ga),
                 group_elements=offsets[-1], launches=launches,
+                packed_bit_equal_per_leaf=[name[d] for d in wires],
                 max_abs_err_vs_plain=err,
                 projection=[float(proj.min()), float(proj.median()),
                             float(proj.max())],
@@ -1548,8 +1625,9 @@ def main() -> None:
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
         if "two_pass_bound_ms" in r:
             kernels[-1]["two_pass_bound_ms"] = r["two_pass_bound_ms"]
-        if PER_LEAF in r["by_mode"]:      # allreduce mode's per-leaf calls
-            kernels[-1]["per_leaf_yardstick"] = r["by_mode"][PER_LEAF]
+        for mode in YARDSTICKS:           # the calls before they were fused
+            if mode in r["by_mode"]:
+                kernels[-1]["per_leaf_yardstick"] = r["by_mode"][mode]
     next(k for k in kernels if k["name"] == "flash_fwd").update(
         bound_f32_ms=flash["bound_f32_ms"],
         library="F.scaled_dot_product_attention (no lse)",

@@ -31,6 +31,7 @@ from horovod_tpu_torch.ops.collective import (  # noqa: F401
     allreduce,
     alltoall,
     broadcast,
+    broadcast_object,
     grouped_allreduce,
     reducescatter,
 )

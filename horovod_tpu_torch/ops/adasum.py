@@ -13,13 +13,20 @@ tensor and one combine.
   kernel per level;
 - :func:`grouped_adasum_allreduce` — a group of tensors flattened into
   one f32 buffer: one exchange and one ``adasum_segment_combine`` kernel
-  per level, each tensor still combined with its own scalars.
+  per level, each tensor still combined with its own scalars;
+- :func:`_compressed_adasum` — ``DistributedOptimizer(op=Adasum,
+  compression=...)``'s tree: the wire tensors packed into one buffer of
+  their (16-bit) type, one exchange and one ``adasum_pair_combine`` over
+  the leaf table per level, each leaf bit-equal to its own
+  ``allreduce(g, Adasum, compression=...)``.
 
 Power-of-two worlds only, as in the reference
 (``torch/mpi_ops.py:117-118``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.distributed as dist
@@ -128,3 +135,62 @@ def grouped_adasum_allreduce(tensors):
         flat = _grouped_butterfly(flat, offsets)
     return _split_group(flat, offsets, [t.shape for t in tensors],
                         [t.dtype for t in tensors])
+
+
+#: each leaf of a packed buffer starts on this many bytes: the combine's
+#: vector width
+LEAF_ALIGN_BYTES = 16
+
+
+@functools.lru_cache(maxsize=16)
+def _leaf_table(sizes: tuple, itemsize: int) -> tuple:
+    """The layout of leaves of ``sizes`` packed into one flat buffer of a
+    type of ``itemsize`` bytes: leaf ``i`` at ``starts[i]``, a multiple of
+    :data:`LEAF_ALIGN_BYTES`, then zeros up to the next leaf. The
+    combine's segments ``offsets`` are each leaf, then its pad (maybe
+    empty), so a leaf is combined with its own scalars over exactly its
+    elements, its chunks cut from its first element. Returns ``(starts,
+    offsets)``; ``offsets[-1]`` is the buffer's length."""
+    step = LEAF_ALIGN_BYTES // itemsize
+    offsets = [0]
+    for s in sizes:
+        offsets += [offsets[-1] + s, offsets[-1] + s + (-s) % step]
+    return tuple(offsets[:-1:2]), tuple(offsets)
+
+
+def _pack(leaves, offsets):
+    """``leaves`` (one type) raveled into one flat buffer at
+    :func:`_leaf_table`'s ``offsets``, the pads zero: one ``torch.cat``."""
+    zeros = leaves[0].new_zeros(LEAF_ALIGN_BYTES)
+    parts = []
+    for leaf, end, nxt in zip(leaves, offsets[1::2], offsets[2::2]):
+        parts += [leaf.reshape(-1), zeros[:nxt - end]]
+    return torch.cat(parts)
+
+
+def _compressed_adasum(tensors, compression):
+    """Adasum of every tensor with ``compression`` on the wire, each
+    bit-equal to its own ``allreduce(t, Adasum, compression=compression)``:
+    every tensor is compressed, the wire tensors of each type are packed
+    into one flat buffer (:func:`_leaf_table`, :func:`_pack`), and the
+    butterfly runs once over the buffer. Per level that is one exchange
+    and one ``adasum_pair_combine`` over the leaf table in the wire type,
+    narrowed to it after the level as each tensor's own combine narrows
+    it; the pads are zero and segments of their own, so they change no
+    sum. Returns the decompressed tensors."""
+    _world()
+    wires = [compression.compress(t) for t in tensors]
+    outs = [w for w, _ in wires]
+    by_type: dict = {}
+    for i, (w, _) in enumerate(wires):
+        by_type.setdefault(w.dtype, []).append(i)
+    for idxs in by_type.values():
+        leaves = [outs[i] for i in idxs]
+        starts, offsets = _leaf_table(tuple(l.numel() for l in leaves),
+                                      leaves[0].element_size())
+        flat = _adasum_butterfly(
+            _pack(leaves, offsets),
+            lambda a, b: _k.adasum_pair_combine_packed(a, b, offsets))
+        for i, lo, leaf in zip(idxs, starts, leaves):
+            outs[i] = flat[lo:lo + leaf.numel()].view(leaf.shape)
+    return [compression.decompress(o, ctx) for o, (_, ctx) in zip(outs, wires)]

@@ -27,6 +27,7 @@ from __future__ import annotations
 import enum
 import functools
 import itertools
+import pickle
 
 import torch
 import torch.distributed as dist
@@ -403,6 +404,30 @@ def broadcast(tensor, root_rank: int = 0):
         out = out.to(torch.int8)
     dist.broadcast(out, src=root_rank)
     return out.to(torch.bool) if was_bool else out
+
+
+def broadcast_object(obj, root_rank: int = 0):
+    """Every rank gets a copy of ``root_rank``'s picklable ``obj``
+    (reference ``torch/__init__.py:609-648``): root pickles it into a
+    ``uint8`` tensor, and its length, then the bytes, are broadcast over
+    the process group. Floats, ints and strings arrive exact."""
+    basics._require_init()
+    if not 0 <= root_rank < _n():
+        raise ValueError(
+            f"broadcast_object root_rank {root_rank} out of range [0, {_n()})")
+    if _n() == 1:
+        return pickle.loads(pickle.dumps(obj))
+    dev = basics.device()
+    root = basics.rank() == root_rank
+    blob = pickle.dumps(obj) if root else b""
+    length = torch.tensor([len(blob)], dtype=torch.int64, device=dev)
+    dist.broadcast(length, src=root_rank)
+    if root:
+        buf = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(dev)
+    else:
+        buf = torch.empty(int(length.item()), dtype=torch.uint8, device=dev)
+    dist.broadcast(buf, src=root_rank)
+    return pickle.loads(buf.cpu().numpy().tobytes())
 
 
 def _pad_rows(tensor, n: int):

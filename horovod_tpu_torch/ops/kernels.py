@@ -28,9 +28,12 @@ those):
 - ``flash_fwd`` — :func:`flash_fwd`, attention's forward with its
   log-sum-exp rows;
 - ``dequantize_rows`` — the ZeRO-3 int8 parameter-gather epilogue;
-- ``adasum_pair_combine`` / ``adasum_segment_combine`` — one Adasum
-  combine of a tensor pair, or of every segment of a flat group buffer
-  (three CUDA launches, one count: reduce, finalize, blend).
+- ``adasum_pair_combine`` — one Adasum combine of a tensor pair
+  (:func:`adasum_pair_combine`), or of every leaf of a packed leaf table
+  (:func:`adasum_pair_combine_packed`, the compressed route);
+  ``adasum_segment_combine`` — of every segment of the f32 group buffer
+  (the grouped route). Two CUDA launches, one count: reduce (with the
+  finalize), blend.
 
 The plain versions divide by tensors, never by Python numbers: PyTorch's
 CUDA division by a host scalar multiplies by its reciprocal, which is not
@@ -61,7 +64,9 @@ ADAM_CHUNK = 2048
 #: table of pointers is the kernel's parameter, at most 32,764 bytes)
 ADAM_MAX_LEAVES = 256
 
-#: elements per block of the Adasum reduce and blend passes
+#: elements per block of the Adasum reduce and blend passes, one constant
+#: for every route: a leaf's chunks are the same alone, in a packed leaf
+#: table and in the group buffer (a multiple of 8: 16-byte groups)
 ADASUM_CHUNK = 8192
 #: operand types of the Adasum kernel, by the code it is passed
 _ADASUM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -82,7 +87,7 @@ _ARGTYPES = {
     "hvd_dequantize_rows": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
     "hvd_adasum_combine": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_int, _P, _P, _P, ctypes.c_int,
-                           ctypes.c_longlong, _P, _P, _P],
+                           ctypes.c_longlong, _P, _P, _P, _P],
 }
 _fns: dict = {}
 
@@ -590,14 +595,12 @@ def adasum_pair_combine_plain(a, b):
 
 
 def adasum_segment_combine_plain(a, b, offsets):
+    """:func:`adasum_pair_combine_plain` of each segment ``[offsets[i],
+    offsets[i+1])`` in turn: every segment's output is that function's
+    for the segment alone, bit for bit, in any operand type."""
     offs = [int(o) for o in offsets]
-    prods = torch.stack([a * b, a * a, b * b])
-    sums = torch.stack([prods[:, lo:hi].sum(dim=1)
-                        for lo, hi in zip(offs, offs[1:])], dim=1)
-    ca, cb = _adasum_coefficients(*sums)
-    lengths = torch.tensor(np.diff(offs), device=a.device)
-    return (torch.repeat_interleave(ca, lengths) * a
-            + torch.repeat_interleave(cb, lengths) * b)
+    return torch.cat([adasum_pair_combine_plain(a[lo:hi], b[lo:hi])
+                      for lo, hi in zip(offs, offs[1:])] or [a[:0]])
 
 
 @functools.lru_cache(maxsize=8)
@@ -606,8 +609,12 @@ def _segment_tables(offsets: tuple, device: str):
     model's gradient group): element offsets int64 ``[S+1]``, each
     chunk's segment int32 ``[n_chunks]``, each segment's first chunk
     int32 ``[S+1]`` (chunks of at most :data:`ADASUM_CHUNK` elements,
-    never straddling a segment), and ``n_chunks``."""
+    never straddling a segment), and ``n_chunks``. Checks, once per
+    layout, that the offsets start at 0 and never decrease."""
     sizes = np.diff(np.asarray(offsets, np.int64))
+    if offsets[0] != 0 or (sizes < 0).any():
+        raise ValueError(f"segment offsets must start at 0 and not decrease, "
+                         f"got {offsets[:4]}...")
     per = -(-sizes // ADASUM_CHUNK)
     first = np.concatenate([[0], np.cumsum(per)]).astype(np.int32)
     chunk_seg = np.repeat(np.arange(len(sizes), dtype=np.int32), per)
@@ -616,8 +623,18 @@ def _segment_tables(offsets: tuple, device: str):
             torch.from_numpy(first).to(device), int(first[-1]))
 
 
+@functools.lru_cache(maxsize=16)
+def _adasum_counters(n_seg: int, device: str):
+    """The kernel's per-segment tickets, zeroed once: each launch leaves
+    them zero again, so the launches on a device share them, one after
+    another on the stream they are made on (the port launches on the
+    current stream; two combines running at once on two streams would
+    share tickets)."""
+    return torch.zeros(n_seg, dtype=torch.int32, device=device)
+
+
 def _adasum_launch(kernel, a, b, tables):
-    """Launch the three passes over contiguous ``a``, ``b`` of one shape
+    """Launch the two passes over contiguous ``a``, ``b`` of one shape
     and type: ``tables`` None for one segment, else
     :func:`_segment_tables`."""
     for name, x in (("a", a), ("b", b)):
@@ -635,11 +652,19 @@ def _adasum_launch(kernel, a, b, tables):
         ptrs = (seg_off.data_ptr(), chunk_seg.data_ptr(), first.data_ptr())
     partials = torch.empty(3 * n_chunks, dtype=torch.float32, device=a.device)
     coef = torch.empty(2 * n_seg, dtype=torch.float32, device=a.device)
+    counters = _adasum_counters(n_seg, str(a.device))
     _launch(kernel, "adasum", "hvd_adasum_combine", a.device, a.data_ptr(),
             b.data_ptr(), out.data_ptr(), _ADASUM_DTYPES[a.dtype], L, n_seg,
             *ptrs, n_chunks, ADASUM_CHUNK, partials.data_ptr(),
-            coef.data_ptr())
+            coef.data_ptr(), counters.data_ptr())
     return out
+
+
+def _check_types(name, a, b):
+    if a.dtype not in _ADASUM_DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"{name}: expected two tensors of one of "
+                        f"{sorted(map(str, _ADASUM_DTYPES))}, got {a.dtype} "
+                        f"and {b.dtype}")
 
 
 def adasum_pair_combine(a, b):
@@ -647,31 +672,42 @@ def adasum_pair_combine(a, b):
     (f32, bf16 or f16): ``ca·a + cb·b`` in that type, with ``a·b``,
     ``|a|²``, ``|b|²`` summed in f32 and ``ca = 0 if |a|² = 0 else
     1 - a·b / (2 max(|a|², 1e-30))`` (``cb`` alike). The kernel sums in a
-    fixed order: the same inputs give the same bits."""
+    fixed order: the same inputs give the same bits, wherever they lie."""
     if not _on_cuda(a, b):
         return adasum_pair_combine_plain(a, b)
-    if a.dtype not in _ADASUM_DTYPES or b.dtype != a.dtype:
-        raise TypeError(f"adasum_pair_combine: expected two tensors of one of "
-                        f"{sorted(map(str, _ADASUM_DTYPES))}, got {a.dtype} "
-                        f"and {b.dtype}")
+    _check_types("adasum_pair_combine", a, b)
     if a.shape != b.shape:
         raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)} differ")
     return _adasum_launch("adasum_pair_combine", a, b, None)
 
 
-def adasum_segment_combine(a, b, offsets):
-    """:func:`adasum_pair_combine` of every segment ``[offsets[i],
-    offsets[i+1])`` of two flat f32 group buffers at once (``offsets``
-    runs from 0 to their length)."""
-    offsets = tuple(int(o) for o in offsets)
+def _segmented(kernel, a, b, offsets):
+    offsets = tuple(map(int, offsets))
     if not _on_cuda(a, b):
         return adasum_segment_combine_plain(a, b, offsets)
-    if a.dtype != torch.float32 or b.dtype != torch.float32 or a.dim() != 1:
-        raise TypeError(f"adasum_segment_combine: expected flat float32 "
-                        f"buffers, got {a.dtype} {tuple(a.shape)}")
-    if a.shape != b.shape or offsets[0] != 0 or offsets[-1] != a.numel() \
-            or any(hi < lo for lo, hi in zip(offsets, offsets[1:])):
+    _check_types(kernel, a, b)
+    if a.dim() != 1 or a.shape != b.shape or offsets[-1] != a.numel():
         raise ValueError(f"segment offsets 0..{offsets[-1]} do not cover "
                          f"a {tuple(a.shape)} / b {tuple(b.shape)}")
-    return _adasum_launch("adasum_segment_combine", a, b,
+    # the layout's own checks run once, where its tables are built
+    return _adasum_launch(kernel, a, b,
                           _segment_tables(offsets, str(a.device)))
+
+
+def adasum_segment_combine(a, b, offsets):
+    """:func:`adasum_pair_combine` of every segment ``[offsets[i],
+    offsets[i+1])`` of two flat buffers of one type at once (``offsets``
+    runs from 0 to their length): the grouped route's combine, over the
+    f32 group buffer."""
+    return _segmented("adasum_segment_combine", a, b, offsets)
+
+
+def adasum_pair_combine_packed(a, b, offsets):
+    """:func:`adasum_pair_combine` of every leaf of a leaf table: two
+    flat buffers of one type (the compressed route's 16-bit wire type)
+    holding the leaves as segments ``[offsets[i], offsets[i+1])``, in one
+    call of the ``adasum_pair_combine`` kernel. Each leaf gets the bits of
+    its own :func:`adasum_pair_combine`: its chunks and 16-byte groups are
+    cut from its first element, as there (a leaf starting on a 16-byte
+    boundary reads its groups as vectors)."""
+    return _segmented("adasum_pair_combine", a, b, offsets)

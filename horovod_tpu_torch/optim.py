@@ -42,7 +42,9 @@ from horovod_tpu_torch.compression import (
 from horovod_tpu_torch.ops import collective as _C
 from horovod_tpu_torch.ops import kernels as _k
 from horovod_tpu_torch.ops import overlap as _ov
-from horovod_tpu_torch.ops.adasum import grouped_adasum_allreduce
+from horovod_tpu_torch.ops.adasum import (
+    _compressed_adasum, grouped_adasum_allreduce,
+)
 from horovod_tpu_torch.ops.collective import Adasum, Average, ReduceOp, Sum
 
 
@@ -68,12 +70,6 @@ def tree_keys(tree: dict) -> list:
 
 def _dtype_key(dtype) -> str:
     return str(dtype).replace("torch.", "")
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 # --------------------------------------------------------------------------
@@ -447,14 +443,18 @@ def _fsdp_update(grads, state, params, *, optimizer, op):
 # DistributedOptimizer
 
 
-def _fused_adasum_tree(grads: dict) -> dict:
-    """Adasum of the whole gradient tree through the grouped butterfly:
-    log2(N) exchanges and combine kernels a step, whatever the number of
-    leaves. Only for uncompressed gradients (the group buffer is f32);
-    compressed Adasum stays per leaf, where the 16-bit type rides end to
-    end."""
+def _adasum_tree(grads: dict, compression) -> dict:
+    """Adasum of the whole gradient tree in log2(N) exchanges and combine
+    kernels a step, whatever the number of leaves: uncompressed, the
+    grouped butterfly over one f32 group buffer; compressed, the butterfly
+    over the wire tensors packed in their own (16-bit) type, where each
+    leaf is bit-equal to its own ``allreduce(g, Adasum,
+    compression=compression)``."""
     keys = tree_keys(grads)
-    return dict(zip(keys, grouped_adasum_allreduce([grads[k] for k in keys])))
+    leaves = [grads[k] for k in keys]
+    if compression is Compression.none:
+        return dict(zip(keys, grouped_adasum_allreduce(leaves)))
+    return dict(zip(keys, _compressed_adasum(leaves, compression)))
 
 
 def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
@@ -472,7 +472,9 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
       allreduce), then the inner optimizer updates the full tree on
       every rank. ``op=Adasum``
       without compression runs one grouped butterfly over the whole tree;
-      with ``Compression.fp16`` each leaf is combined in its 16-bit type.
+      with ``Compression.fp16`` one butterfly over the leaves packed in
+      their 16-bit wire type, each leaf combined in that type as its own
+      ``allreduce(g, Adasum, compression=...)`` combines it.
     - ``shard_optimizer=True`` (ZeRO-1): the tree is flat-packed per
       dtype and reduce-scattered; this rank updates only its shard of the
       optimizer state and the update shards are all-gathered. The state
@@ -543,10 +545,7 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
         step, or Adasum's butterfly."""
         keys = tree_keys(grads)
         if op == Adasum:
-            if compression is Compression.none:
-                return _fused_adasum_tree(grads), None
-            return {k: _C.allreduce(grads[k], op, compression=compression)
-                    for k in keys}, None
+            return _adasum_tree(grads, compression), None
         outs, res = _C._grouped_allreduce([grads[k] for k in keys], op,
                                           compression, residuals=residuals)
         return dict(zip(keys, outs)), (dict(zip(keys, res)) if residuals
@@ -598,21 +597,31 @@ def broadcast_parameters(params: dict, root_rank: int = 0) -> dict:
     return params
 
 
+def _map_state(fn, x):
+    """``fn`` of every leaf of a state tree: dicts, lists and tuples
+    (named ones included) are descended into and rebuilt with their own
+    type; everything else is a leaf."""
+    if isinstance(x, dict):
+        return type(x)((k, _map_state(fn, v)) for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        items = [_map_state(fn, v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    return fn(x)
+
+
 def broadcast_optimizer_state(state, root_rank: int = 0):
-    """``root_rank``'s optimizer state on every rank. A ZeRO-1 state
-    (``state["shard"]``) is returned as it is: each rank's shard is its
-    own authoritative state, and broadcasting root's row would corrupt
-    the others."""
+    """``root_rank``'s optimizer state on every rank, as the JAX package
+    maps it: tensors through :func:`broadcast`, every other leaf (ints,
+    floats, strings, ``None``, ...) through :func:`broadcast_object`, so
+    it arrives exact. A ZeRO-1 state (``state["shard"]``) is returned as
+    it is: each rank's shard is its own authoritative state, and
+    broadcasting root's row would corrupt the others."""
     if isinstance(state, dict) and "shard" in state:
         return state
-    dev = basics.device()
 
     def one(x):
         if isinstance(x, torch.Tensor):
             return _C.broadcast(x, root_rank)
-        if isinstance(x, (int, float)):
-            t = torch.tensor(x, device=dev)
-            return type(x)(_C.broadcast(t, root_rank).item())
-        return x
+        return _C.broadcast_object(x, root_rank)
 
-    return _tree_map(one, state)
+    return _map_state(one, state)

@@ -20,6 +20,11 @@ per-rank values), same inputs.
   allreduce-mode step takes a plain optimizer; the per-leaf combine is
   the grouped one's function, ``tests/test_ops.py`` pins that), under
   ``HOROVOD_PALLAS=1`` for fp16.
+- the compressed route packs the wire tensors into one buffer of their
+  16-bit type: every leaf bit-equal to its own ``allreduce(g, Adasum,
+  compression=...)`` (bf16 and f16 wires; sizes 1 to 3·8192+5, an
+  all-zero leaf, a NaN), in log2(N) exchanges and log2(N) combine calls
+  an update.
 """
 
 import concurrent.futures
@@ -48,12 +53,24 @@ pytestmark = pytest.mark.torch_port
 RTOL, ATOL = 2e-5, 2e-6
 STEPS, LR = 3, 1e-3
 GROUP_SHAPES = [(40, 30), (7,), (1,), (3, 5, 2)]
+#: the compressed route's tree: sizes across the combine's 16-byte groups
+#: and 8192-element chunks, a leaf zero on every rank, one zero on rank 0
+#: only, and one with a NaN on rank 1
+PACKED_SHAPES = {"a": (1,), "b": (7,), "c": (64,), "d": (3 * 8192 + 5,),
+                 "e_zero": (5, 3), "f_nan": (9,), "g": (40, 30),
+                 "h_zero_rank0": (33,)}
 
 
 def _inputs(n, seed):
     r = np.random.RandomState(seed)
-    return {"pair": {"f32": r.randn(n, 1000).astype(np.float32)},
-            "group": [r.randn(n, *s).astype(np.float32) for s in GROUP_SHAPES]}
+    inp = {"pair": {"f32": r.randn(n, 1000).astype(np.float32)},
+           "group": [r.randn(n, *s).astype(np.float32) for s in GROUP_SHAPES]}
+    packed = inp["packed"] = {k: r.randn(n, *s).astype(np.float32)
+                              for k, s in PACKED_SHAPES.items()}
+    packed["e_zero"][:] = 0.0
+    packed["f_nan"][1, 4] = np.nan
+    packed["h_zero_rank0"][0] = 0.0
+    return inp
 
 
 @pytest.fixture(scope="module")
@@ -209,6 +226,62 @@ def test_distributed_optimizer_adasum_tracks_jax(runs, name):
             assert np.array_equal(g, port[2][0][name]["params"][STEPS][k])
         assert off <= 1e-3 * total, (off, total)
     assert port[2][0][name]["losses"][-1] < port[2][0][name]["losses"][0]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("wire", ["bf16", "f16"])
+def test_packed_compressed_adasum_is_bit_equal_to_per_leaf(runs, n, wire):
+    """DistributedOptimizer(op=Adasum, compression=...) on the packed
+    buffer gives every leaf the bits of its own allreduce(g, Adasum,
+    compression=...), on every rank; the NaN stays in its leaf."""
+    _, port, _ = runs
+    for r in range(n):
+        got = port[n][r]["packed"][wire]
+        for k, shape in PACKED_SHAPES.items():
+            p, own = got["packed"][k], got["own"][k]
+            assert p.shape == own.shape == shape, k
+            assert p.dtype == own.dtype == np.float32, k
+            assert np.array_equal(p.view(np.uint32), own.view(np.uint32)), (k, r)
+            _same_on_every_rank([port[n][q]["packed"][wire]["packed"][k]
+                                 for q in range(n)])
+            assert np.isnan(p).all() == (k == "f_nan"), k
+            if k != "f_nan":
+                assert np.isfinite(p).all(), k
+        assert not got["packed"]["e_zero"].any()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_packed_compressed_adasum_calls_per_step(runs, n):
+    """log2(N) exchanges and log2(N) combine calls an update, whatever the
+    number of leaves; no per-leaf combine."""
+    _, port, _ = runs
+    levels = n.bit_length() - 1
+    for wire in ("bf16", "f16"):
+        assert port[n][0]["packed"][wire]["counts"] == {
+            "_exchange": levels, "adasum_pair_combine_packed": levels}, wire
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_leaf_table_aligns_every_leaf(itemsize):
+    """Every leaf starts on 16 bytes, its pad is a segment of its own
+    (shorter than 16 bytes) and zero in the packed buffer."""
+    from horovod_tpu_torch.ops import adasum as A
+
+    sizes = (1, 7, 64, 0, 3 * 8192 + 5, 8)
+    starts, offsets = A._leaf_table(sizes, itemsize)
+    step = 16 // itemsize
+    assert len(offsets) == 2 * len(sizes) + 1 and offsets[0] == 0
+    for i, (size, lo) in enumerate(zip(sizes, starts)):
+        assert lo % step == 0 and offsets[2 * i] == lo
+        assert offsets[2 * i + 1] == lo + size
+        assert 0 <= offsets[2 * i + 2] - lo - size < step
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    leaves = [torch.full((s,), 1.0 + i, dtype=dtype) for i, s in enumerate(sizes)]
+    flat = A._pack(leaves, offsets)
+    assert flat.dtype == dtype and flat.numel() == offsets[-1]
+    for i, (leaf, lo) in enumerate(zip(leaves, starts)):
+        assert torch.equal(flat[lo:lo + leaf.numel()], leaf)
+        assert not flat[offsets[2 * i + 1]:offsets[2 * i + 2]].any()
 
 
 def test_num_rank_is_power_2():

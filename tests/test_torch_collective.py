@@ -1,7 +1,12 @@
 """horovod_tpu_torch.ops.collective on a gloo world of 2 against the JAX
 package's bound-axis collectives on a 2-device CPU mesh, same per-rank
 inputs: the int8 reduce-scatter and allreduce bit for bit, the plain
-collectives exactly (reducescatter's zero-padding quirk included)."""
+collectives exactly (reducescatter's zero-padding quirk included).
+``broadcast_object`` and ``broadcast_optimizer_state`` on worlds of 2 and
+4: root's Python values arrive exact, containers keep their types, as
+the JAX package's ``broadcast_optimizer_state`` returns them."""
+
+import concurrent.futures
 
 import numpy as np
 import pytest
@@ -140,3 +145,79 @@ def test_broadcast_parameters_and_optimizer_state(results):
         assert np.array_equal(port[r]["bcast_params"], inp["x"][1])
         assert np.array_equal(port[r]["bcast_state_mu"], inp["x"][1])
         assert int(port[r]["bcast_state_count"]) == 4
+
+
+# --------------------------------------------------------------------------
+# broadcast_object and broadcast_optimizer_state
+
+
+@pytest.fixture(scope="module")
+def bcast():
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        port = {n: pool.submit(run_world, W.broadcast_worker, n)
+                for n in (2, 4)}
+        jhvd.init(devices=jax.devices()[:N])
+        try:
+            state = W._tree_out(W.bcast_state(0))
+            ref = jhvd.broadcast_optimizer_state(jax.tree_util.tree_map(
+                lambda x: jnp.asarray(x) if isinstance(x, np.ndarray) else x,
+                state))
+        finally:
+            jhvd.shutdown()
+        port = {n: f.result() for n, f in port.items()}
+    return port, state, ref
+
+
+def _assert_same_tree(got, want):
+    """Equal leaves of equal types in containers of equal types; arrays
+    equal in value and dtype."""
+    if isinstance(want, (dict, list, tuple)):
+        assert type(got) is type(want), (type(got), type(want))
+        assert len(got) == len(want)
+        if isinstance(want, dict):
+            assert list(got) == list(want)
+            got, want = got.values(), want.values()
+        for g, w in zip(got, want):
+            _assert_same_tree(g, w)
+    elif isinstance(want, (np.ndarray, jax.Array)):
+        want = np.asarray(want)
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype
+        assert np.array_equal(got, want)
+    else:
+        assert type(got) is type(want) and got == want, (got, want)
+
+
+def test_broadcast_optimizer_state_is_exact(bcast):
+    """Every rank ends with rank 0's state: 0.1 stays 0.1 (not f32's
+    0.10000000149011612), strings, ints, bools and None arrive, tensors
+    inside a list, a tuple and a named tuple are broadcast."""
+    port, state, _ = bcast
+    assert state["lr"] == 0.1
+    for r in range(2):
+        _assert_same_tree(port[2][r]["state"], state)
+
+
+def test_broadcast_optimizer_state_matches_jax(bcast):
+    """The JAX package's broadcast_optimizer_state of rank 0's state (on a
+    2-device mesh: arrays replicated, scalars through broadcast_object)
+    is what every rank of the port returns."""
+    port, _, ref = bcast
+    for r in range(2):
+        got = port[2][r]["state"]
+        assert set(got) == set(ref)     # JAX rebuilds a dict in key order
+        _assert_same_tree(got, {k: ref[k] for k in got})
+
+
+def test_broadcast_optimizer_state_leaves_zero1(bcast):
+    """A ZeRO-1 state comes back as the same object: each rank's shard is
+    its own."""
+    port, _, _ = bcast
+    assert all(out["zero1_untouched"] for out in port[2])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_broadcast_object(bcast, n):
+    port, _, _ = bcast
+    want = {"x": [1.5 + (n - 1), f"s{n - 1}", None], "y": (n - 1, 0.1 * (n - 1))}
+    for r in range(n):
+        _assert_same_tree(port[n][r]["object"], want)

@@ -496,6 +496,50 @@ def test_adasum_segment_combine_vs_jax(mode, sizes):
     _assert_combine_close(out, want)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+def test_segment_plain_is_the_pair_plain_of_each_segment(dtype):
+    """The plain segmented combine widens to f32 before every product and
+    narrows the blend to the operands' type, segment by segment: each
+    segment's output is ``adasum_pair_combine_plain`` of that segment
+    alone, bit for bit (a length-1, an empty, a zero and a chunk-crossing
+    segment)."""
+    tt = DTYPES[dtype][0]
+    sizes = [1000, 1, 0, 8197, 7, 300]
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    r = _rng(14)
+    a = torch.from_numpy(r.randn(offsets[-1]).astype(np.float32)).to(tt)
+    b = torch.from_numpy(r.randn(offsets[-1]).astype(np.float32)).to(tt)
+    a[1001:9198] = 0.0
+    out = K.adasum_segment_combine_plain(a, b, offsets)
+    assert out.dtype == tt and out.shape == a.shape
+    for lo, hi in zip(offsets, offsets[1:]):
+        _assert_bits(out[lo:hi], K.adasum_pair_combine_plain(
+            a[lo:hi].clone(), b[lo:hi].clone()))
+
+
+def test_packed_combine_reaches_the_kernel_in_16_bits(monkeypatch):
+    """A CUDA leaf table in bf16 or f16 goes to one launch counted as
+    ``adasum_pair_combine``; the segmented wrappers take every operand
+    type and refuse mixed ones, offsets that miss the buffer's end and
+    (once per layout) offsets that decrease (the launch is stubbed: no
+    card here)."""
+    called = []
+    monkeypatch.setattr(K, "_on_cuda", lambda *ts: True)
+    monkeypatch.setattr(K, "_launch", lambda kernel, *a: called.append(kernel))
+    offsets = (0, 7, 8, 72, 72)
+    for tt in (torch.bfloat16, torch.float16):
+        flat = torch.zeros(72, dtype=tt)
+        assert K.adasum_pair_combine_packed(flat, flat, offsets).dtype == tt
+        assert K.adasum_segment_combine(flat, flat, offsets).dtype == tt
+    assert called == ["adasum_pair_combine", "adasum_segment_combine"] * 2
+    with pytest.raises(TypeError):
+        K.adasum_pair_combine_packed(flat, flat.float(), offsets)
+    with pytest.raises(ValueError, match="cover"):
+        K.adasum_pair_combine_packed(flat, flat, (0, 7, 70))
+    with pytest.raises(ValueError, match="decrease"):
+        K.adasum_pair_combine_packed(flat, flat, (0, 40, 8, 72))
+
+
 # --------------------------------------------------------------------------
 # fused Adam as one multi-tensor launch, and its int8 epilogue
 
@@ -691,7 +735,10 @@ def test_every_launch_matches_its_c_signature(monkeypatch):
     K.dequantize_rows(q8, sc)
     K.adasum_pair_combine(x, x)
     K.adasum_segment_combine(x, x, (0, 100, 512))
+    xh = x.to(torch.bfloat16)
+    K.adasum_pair_combine_packed(xh, xh, (0, 100, 104, 512, 512))
     assert calls == ["hvd_quantize", "hvd_dequant_accumulate",
                      "hvd_dequant_accumulate_requantize", "hvd_fused_adam",
                      "hvd_fused_adam", "hvd_flash_fwd", "hvd_dequantize_rows",
-                     "hvd_adasum_combine", "hvd_adasum_combine"]
+                     "hvd_adasum_combine", "hvd_adasum_combine",
+                     "hvd_adasum_combine"]

@@ -7,6 +7,8 @@ each child imports it to unpickle its function. Inputs arrive as numpy
 arrays stacked ``[N, ...]`` (row r is rank r's), results go back as numpy.
 """
 
+from typing import NamedTuple
+
 import numpy as np
 import pytest
 import torch
@@ -461,6 +463,8 @@ def adasum_worker(inp):
                [_mine(v) for v in inp["group"]])]}
     out["pair"]["f16"] = _np_any(adasum_allreduce(
         _mine(inp["pair"]["f32"]).to(torch.float16)))
+    if "packed" in inp:
+        out["packed"] = packed_adasum_worker(inp["packed"])
     train = inp.get("train")
     if train:
         for name, comp in (("grouped", None), ("fp16", hvd.Compression.fp16)):
@@ -469,6 +473,52 @@ def adasum_worker(inp):
                                           op=hvd.Adasum, compression=comp)
             out[name] = _run_steps(model, tx, train["x"], train["y"],
                                    train["steps"], (train["steps"],))
+    return out
+
+
+class F16Compressor(hvd.Compression.fp16):
+    """A 16-bit wire in float16 (``Compression.fp16`` puts bfloat16 on
+    it): the packed route in the other 16-bit type."""
+
+    @staticmethod
+    def compress(tensor):
+        return tensor.to(torch.float16), tensor.dtype
+
+
+#: the combine wrappers and the exchange a compressed-Adasum update may
+#: reach, counted per update
+ADASUM_CALLS = ("adasum_pair_combine", "adasum_pair_combine_packed",
+                "adasum_segment_combine")
+
+
+def packed_adasum_worker(leaves):
+    """``DistributedOptimizer(op=Adasum, compression=...)`` (identity
+    inner optimizer) on this rank's rows of ``leaves`` against each
+    leaf's own ``allreduce(g, Adasum, compression=...)``, for
+    ``Compression.fp16`` (bf16 wire) and :class:`F16Compressor`; with the
+    kernel-wrapper and exchange calls of each update."""
+    from horovod_tpu_torch.ops import adasum as A
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.testing import watching_calls
+
+    grads = {k: _mine(v) for k, v in leaves.items()}
+    out = {}
+    for name, comp in (("bf16", hvd.Compression.fp16), ("f16", F16Compressor)):
+        tx = hvd.DistributedOptimizer(_identity(), op=hvd.Adasum,
+                                      compression=comp)
+        counts: dict = {}
+
+        def count(fn, args, kw):
+            counts[fn] = counts.get(fn, 0) + 1
+
+        with watching_calls(K, ADASUM_CALLS, count), \
+                watching_calls(A, ("_exchange",), count):
+            packed, _ = tx.update(grads, tx.init(grads))
+        own = {k: hvd.allreduce(g, hvd.Adasum, compression=comp)
+               for k, g in grads.items()}
+        out[name] = {"packed": {k: _np_any(v) for k, v in packed.items()},
+                     "own": {k: _np_any(v) for k, v in own.items()},
+                     "counts": counts}
     return out
 
 
@@ -625,3 +675,45 @@ def test_train_step_phase_hook_sees_each_part_and_changes_nothing(monkeypatch):
         assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
     finally:
         hvd.shutdown()
+
+
+# --------------------------------------------------------------------------
+# broadcast_object and broadcast_optimizer_state (tests/test_torch_collective.py)
+
+
+class Moments(NamedTuple):
+    mu: object
+    nu: object
+
+
+def bcast_state(r):
+    """An optimizer state whose every leaf depends on the rank ``r``:
+    floats, ints, a bool, strings, ``None``, tensors inside a list, a
+    tuple and a named tuple."""
+    return {"count": 3 + r, "lr": 0.1 + 0.2 * r, "name": f"adam{r}",
+            "flag": r == 0, "none": None,
+            "list": [torch.full((3,), float(r)), 7 + r],
+            "tuple": (torch.arange(4.0) * (r + 1), f"t{r}"),
+            "moments": Moments(torch.full((2, 2), r + 0.5), 1e-8 * (r + 1))}
+
+
+def _tree_out(x):
+    """``x`` with its tensors as numpy arrays, containers and types kept."""
+    if isinstance(x, dict):
+        return type(x)((k, _tree_out(v)) for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        items = [_tree_out(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    return _np_any(x) if isinstance(x, torch.Tensor) else x
+
+
+def broadcast_worker():
+    """Rank 0's state through broadcast_optimizer_state, a ZeRO-1 state
+    through it, and the last rank's object through broadcast_object."""
+    r, n = hvd.rank(), hvd.size()
+    zero = {"shard": {"rank": r, "size": n}, "inner": bcast_state(r)}
+    return {"state": _tree_out(hvd.broadcast_optimizer_state(bcast_state(r))),
+            "zero1_untouched": hvd.broadcast_optimizer_state(zero) is zero,
+            "object": hvd.broadcast_object(
+                {"x": [1.5 + r, f"s{r}", None], "y": (r, 0.1 * r)},
+                root_rank=n - 1)}
