@@ -45,14 +45,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    quotients, NaN and infinite blocks. Each mode's replay is timed with
    CUDA events (kernel, plain version, and for fused Adam
    ``torch._fused_adam_`` over the same tensors as a yardstick) beside
-   the sum of the calls' bounds. The 152 quantizes and 76 requantizes
+   the sum of the calls' bounds; the kernel's replay also as
+   ``device_ms``, queued behind a sleep of the card so that the wrappers'
+   host time drops out (back to back, ``ms`` reads the slower of the
+   host and the card). The 152 quantizes and 76 requantizes
    allreduce mode made a step before its exchange was fused (two per
    quantizable leaf, one per leaf) are replayed and timed the same way,
    as the yardstick of the fused calls (``per_leaf_yardstick`` of the
    ``quantize`` and ``dequant_accumulate_requantize`` rows, outside
-   their ``ms``). ResNet-50's flat buffer is also checked
-   with a tail that does not divide the block and with eight synthetic
-   senders, and fused Adam's int8 requantize epilogue (which no training
+   their ``ms``). The requantize's inputs at two or more senders also
+   carry a block whose sum has exact half-way quotients. ResNet-50's flat
+   buffer is also checked with a tail that does not divide the block and
+   with eight synthetic senders (the requantize dividing by none, 3, 6
+   and 8), and fused Adam's int8 requantize epilogue (which no training
    path calls) bit for bit at ZeRO-1's shard length, 25,557,032;
 7. ZeRO-3 and Adasum on the ResNet-50 step, one GPU: (a) ``zero3``,
    ``DistributedOptimizer(fused_adam(1e-3), shard_params=True)`` with the
@@ -271,6 +276,29 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def cuda_device_ms(fn, iters: int = 10) -> float:
+    """The card's time for ``fn``: as :func:`cuda_ms`, with the calls
+    queued behind a sleep of the card that outlasts their enqueueing, so
+    that the host's time a call drops out of the reading."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * iters * host + 1e-3)))
     s.record()
     for _ in range(iters):
         fn()
@@ -521,6 +549,22 @@ def _special_blocks(x, gen) -> None:
         x[i * 256:(i + 1) * 256] = block
 
 
+def _half_way_block(q, s, b) -> None:
+    """Senders' block ``b`` whose sum has exact half-way quotients: rows 0
+    and 1 at scale 1, both 127 at the block's first element and row 0 odd
+    elsewhere, the other rows zero. The sum's max is 254, so its scale is
+    2 / divisor for a power-of-two divisor (or none), and every odd sum
+    over it lies on a half-integer."""
+    import torch
+
+    i = torch.arange(255, device=q.device)
+    q[:, b * 256:(b + 1) * 256] = 0
+    s[:, b] = 1.0
+    q[:2, b * 256] = 127
+    q[0, b * 256 + 1:(b + 1) * 256] = ((i % 63 * 2 + 1)
+                                      * (1 - 2 * (i % 2))).to(torch.int8)
+
+
 def make_call(sig, gen):
     """``(kernel_call, plain_call, compare)`` on fresh inputs on
     ``gen``'s device for one logged call; ``compare(out, ref)`` is None
@@ -566,6 +610,8 @@ def make_call(sig, gen):
         q[:, :256], s[:, 0] = 0, 0.0           # an all-zero block
         if nb >= 4:                             # a sender's NaN / inf block
             s[0, 1], s[n - 1, 2] = math.nan, math.inf
+        if n >= 2 and nb >= 5:                  # exact half-way quotients
+            _half_way_block(q, s, 3)
         if kernel == "dequant_accumulate":
             return (lambda: (K.dequant_accumulate(q, s),),
                     lambda: (K.dequant_accumulate_plain(q, s),), _bits)
@@ -790,6 +836,7 @@ def kernel_phase(step_calls: dict, main_modes: dict) -> dict:
             row["by_mode"][mode] = dict(
                 calls=len(ks), shapes=len(set(ks)),
                 ms=cuda_ms(lambda: [c[0]() for c in calls]),
+                device_ms=cuda_device_ms(lambda: [c[0]() for c in calls]),
                 plain_ms=cuda_ms(lambda: [c[1]() for c in calls]),
                 bound_ms=b, bound_by=by, library_ms=lib)
             if kernel.startswith("adasum"):
@@ -799,7 +846,7 @@ def kernel_phase(step_calls: dict, main_modes: dict) -> dict:
     for kernel, row in rows.items():
         main = [row["by_mode"][m] for m in main_modes[kernel]
                 if m in row["by_mode"]]
-        keys = ("ms", "plain_ms", "bound_ms") + (
+        keys = ("ms", "device_ms", "plain_ms", "bound_ms") + (
             ("two_pass_bound_ms",) if kernel.startswith("adasum") else ())
         for key in keys:
             row[key] = sum(m[key] for m in main)
@@ -830,6 +877,8 @@ def flat_buffer_checks(L: int) -> None:
     sp = s + (-s) % 256
     for sig in (("dequant_accumulate", 8, sp),
                 ("dequant_accumulate_requantize", 8, sp, 8),
+                ("dequant_accumulate_requantize", 8, sp, 6),
+                ("dequant_accumulate_requantize", 8, sp, 3),
                 ("dequant_accumulate_requantize", 8, sp, None),
                 ("dequantize_rows", 8, sp)):
         run, plain, compare = make_call(sig, gen)
@@ -1621,6 +1670,7 @@ def main() -> None:
             replaces=TPU_KERNELS[name], launches=sum(by_mode.values()),
             launches_by_mode=by_mode,
             max_abs_err=r["max_abs_err"], ms=r["ms"], kernel_ms=r["ms"],
+            device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
         if "two_pass_bound_ms" in r:
@@ -1634,6 +1684,9 @@ def main() -> None:
         tensor_core_route="mma.sync (m16n8k16 bf16, P split hi/lo; "
                           "cp.async double buffer; bf16 inputs)",
         ptxas=usage["flash_attention"])
+    next(k for k in kernels
+         if k["name"] == "dequant_accumulate_requantize").update(
+        ptxas=usage["int8_wire"])
     next(k for k in kernels if k["name"] == "fused_adam").update(
         launch_cap=K.ADAM_MAX_LEAVES, requant_epilogue=epilogue,
         ptxas=usage["fused_adam"])

@@ -117,9 +117,9 @@ __device__ __forceinline__ void adam_requant(const AdamTable& t, long long b0,
 #pragma unroll
     for (int k = 0; k < hvdt::kLane; ++k) x[k] = adam_elem(x[k], m[k], v[k], t.c);
     if (whole) {
-      hvdt::store8(u + e, x);
-      hvdt::store8(mu2 + e, m);
-      hvdt::store8(nu2 + e, v);
+      hvdt::store(u + e, x);
+      hvdt::store(mu2 + e, m);
+      hvdt::store(nu2 + e, v);
     } else {
 #pragma unroll
       for (int k = 0; k < hvdt::kLane; ++k) {
@@ -130,10 +130,10 @@ __device__ __forceinline__ void adam_requant(const AdamTable& t, long long b0,
         }
       }
     }
-    int8_t q[hvdt::kLane];
+    uint2 q;
     float d[hvdt::kLane];
     const __nv_bfloat16 sc = hvdt::requant_lane(x, q, d);  // the whole warp
-    hvdt::store8(t.q + e, q);
+    *reinterpret_cast<uint2*>(t.q + e) = q;
     if (lane == 0) t.s[blk / hvdt::kBlock] = sc;
   }
 }

@@ -207,22 +207,52 @@ def test_dequant_accumulate_bit_equal(mode, n, sp):
     _assert_bits(out, _jax_deq_acc(qr, scj, mode))
 
 
-@pytest.mark.parametrize("divisor", [None, 8])
+def _jax_deq_acc_requant(qr, scj, mode, divisor):
+    if mode == "pallas_interpret":
+        return pk.dequant_accumulate_requantize(
+            jnp.asarray(qr), scj, jnp.float32, 256, divisor=divisor)
+    shard = _jax_deq_acc(qr, scj, mode)
+    if divisor is not None:
+        shard = shard / divisor
+    return jc.quantize_blockwise(shard, use_pallas=False)
+
+
+@pytest.mark.parametrize("divisor", [None, 1, 2, 3, 4, 6, 8])
 def test_dequant_accumulate_requantize_bit_equal(mode, divisor):
     n, sp = 8, 2048
     qr, scj, sct = _wire_image(n, sp, seed=4)
     q2, s2 = K.dequant_accumulate_requantize(
         torch.from_numpy(qr), sct, divisor=divisor)
-    if mode == "pallas_interpret":
-        qj, sj = pk.dequant_accumulate_requantize(
-            jnp.asarray(qr), scj, jnp.float32, 256, divisor=divisor)
-    else:
-        shard = _jax_deq_acc(qr, scj, mode)
-        if divisor is not None:
-            shard = shard / divisor
-        qj, sj = jc.quantize_blockwise(shard, use_pallas=False)
+    qj, sj = _jax_deq_acc_requant(qr, scj, mode, divisor)
     _assert_bits(q2, qj)
     _assert_bits(s2, sj)
+
+
+@pytest.mark.parametrize("divisor", [None, 2])
+def test_dequant_accumulate_requantize_half_way(mode, divisor):
+    """Exact half-way quotients after the divide: two senders at scale 1,
+    127 + 127 at a block's first element (the sum's max, so the scale is
+    2 / divisor) and odd sums elsewhere, each on a half-integer; they
+    round half to even as jnp.round does."""
+    n, sp = 2, 512
+    qr, _, _ = _wire_image(n, sp, seed=9)
+    sc = np.full((n, sp // 256), 0.01, np.float32)
+    sc[:, 0] = 1.0
+    qr[:, :256] = 0
+    qr[:, 0] = 127
+    qr[0, 1:256] = (np.arange(255) % 63 * 2 + 1) * (1 - 2 * (np.arange(255) % 2))
+    scj = jnp.asarray(sc).astype(jnp.bfloat16)
+    sct = torch.from_numpy(sc).to(torch.bfloat16)
+    acc = qr[:, :256].astype(np.float32).sum(axis=0) / np.float32(divisor or 1)
+    sf = np.float32(2.0 / (divisor or 1))
+    assert np.all(np.abs(acc[1:] / sf) % 1 == 0.5)
+    q2, s2 = K.dequant_accumulate_requantize(
+        torch.from_numpy(qr), sct, divisor=divisor)
+    assert s2[0].item() == sf
+    qj, sj = _jax_deq_acc_requant(qr, scj, mode, divisor)
+    _assert_bits(q2, qj)
+    _assert_bits(s2, sj)
+    assert np.array_equal(q2[:256].numpy(), np.clip(np.rint(acc / sf), -127, 127))
 
 
 def test_dequant_accumulate_requantize_nonfinite(mode):
