@@ -127,7 +127,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    heads on 4 kv heads), non-causal, T = 1000 (not a multiple of the
    tile), head dim 128 (all four on the bf16 tensor-core kernel), f32
    inputs (the f32 kernel). The build's ``-Xptxas -v`` report gives each
-   kernel's registers and spills (``ptxas`` in the ``kernels`` line).
+   kernel's registers and spills (``ptxas`` in the ``kernels`` line);
+9. the reference's other scaling models (``bench.py --model``), one GPU,
+   batch 64, bf16 compute, f32 parameters, random weights, 5 steps each:
+   VGG-16 (224x224x3, 32 leaves, 138,357,544 parameters; ``fc0/kernel``
+   alone 102,760,448) in ZeRO-1 and in allreduce mode, Inception V3
+   (299x299x3, 284 leaves) in ZeRO-1, all int8 + EF + fused Adam (at
+   3e-5 for VGG-16, which has no BatchNorm, :data:`ZOO_RUNS`; 1e-3
+   elsewhere) (``vgg16_zero1``, ``vgg16_allreduce``,
+   ``inception3_zero1``): losses
+   finite and falling, the launches :func:`expected_launches` gives for
+   their leaf counts, img/s and peak memory; their logged calls go
+   through the kernel phase (VGG-16's 138.4 M-element flat buffer,
+   the largest any kernel sees, bit for bit) under their own name in
+   each row's ``by_mode``, outside the per-step sums;
+10. checkpoint save and restore, one GPU, in a child process
+   (``torch.use_deterministic_algorithms(True)``, ``CUBLAS_WORKSPACE_
+   CONFIG`` set before CUDA starts): ResNet-50 ZeRO-1 + int8 + EF, batch
+   64, 3 steps; ``CheckpointManager.save(asynchronous=True)``, one more
+   step while it writes, ``wait_until_finished``; a restore into a model
+   of other random weights and a fresh state (``consolidate_opt_state``)
+   bit-equal, leaf for leaf (params, running stats, count, mu, nu,
+   residual), to the state at the save call; 3 steps from it and 3 from
+   the saved state kept in memory, losses and every leaf bit-equal; the
+   bytes written (``state_nbytes``), the seconds of a synchronous save,
+   of the asynchronous save's block of its caller and of a restore; a
+   truncated copy and a copy with a NaN leaf skipped by ``latest_step``.
+   With ``--gpus N``: a ZeRO-1 state of the N ranks saved, each rank
+   into its own directory of which only rank 0's is written (the rows
+   gathered to ``[N, s]``), restored on the N bit for bit, and restored
+   in a world of one through ``consolidate_opt_state(to_size=1)`` for 2
+   steps with finite losses. The checkpoints live in the git-ignored
+   ``_smoke_ckpt/`` of the checkout, removed at the end.
 
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
@@ -183,6 +214,20 @@ FLASH_TOL = 1e-5
 LM = dict(vocab=32000, dim=1024, depth=12, heads=16, kv_heads=None,
           mlp_ratio=4, max_len=2048, pos_embedding="rope")
 LM_BATCH, LM_SEQ, LM_STEPS = 8, 2048, 8
+
+#: the models trained at full width: the port's class and the input's side
+MODELS = {"resnet50": ("ResNet50", 224), "vgg16": ("VGG16", 224),
+          "inception3": ("InceptionV3", 299)}
+#: the reference's other scaling models (bench.py's --model), one GPU, 5
+#: steps each at batch 64: (model, optimizer mode, Adam's learning rate).
+#: VGG-16 has no BatchNorm: at 1e-3 Adam's first sign-sized steps throw
+#: its loss from 6.91 to 55.9 and back (measured on the card); at 3e-5 it
+#: falls step by step
+ZOO_RUNS = (("vgg16", "zero1", 3e-5), ("vgg16", "allreduce", 3e-5),
+            ("inception3", "zero1", 1e-3))
+#: the checkpoint phase's directory, inside the checkout (git-ignored),
+#: removed when the smoke ends
+CKPT_DIR = os.path.join(ROOT, "_smoke_ckpt")
 
 #: the Adasum combines' bar against their plain versions (tests/test_pallas.py)
 ADASUM_RTOL, ADASUM_ATOL = 2e-5, 2e-6
@@ -1097,13 +1142,17 @@ def cpu_reference() -> None:
 # phases 4 and 5: ResNet-50 end to end
 
 
-def run_steps(mode: str, step, st, x, y, steps: int):
+def run_steps(mode: str, step, st, x, y, steps: int, label=None):
     """``steps`` calls of ``step(st, x, y)`` with every kernel-wrapper
     call logged, launch counts set to 0 just before; fails unless the
     loss is finite and falls on the repeated batch, the logged calls
-    match the launch counts and every kernel of the mode's path launched.
-    Returns ``(st, losses, step seconds, launches, last step's calls)``."""
+    match the launch counts and every kernel of the mode's path launched
+    (``NEED[mode]``; ``label`` names the run in messages, default
+    ``mode``). Returns ``(st, losses, step seconds, launches, last step's
+    calls)``."""
     from horovod_tpu_torch.ops import kernels as K
+
+    need, mode = mode, label or mode
 
     calls: list = []
     K.reset_launches()                  # count the main path's run only
@@ -1125,7 +1174,7 @@ def run_steps(mode: str, step, st, x, y, steps: int):
         if logged != launches[k]:
             fail(f"{mode}: {launches[k]} launches of {k} but {logged} "
                  "logged calls: a caller bypasses ops.kernels' wrappers")
-    for k in NEED[mode]:
+    for k in NEED[need]:
         if launches[k] < 1:
             fail(f"{mode}: kernel {k} was not launched on the main path "
                  f"({launches})")
@@ -1164,25 +1213,26 @@ def split_step(mode: str, step, st, x, y, marks) -> tuple:
     return st, split
 
 
-def build_resnet(seed: int, device):
-    """ResNet-50 at full width: bf16 compute, f32 parameters, random
-    weights from ``seed``."""
+def build_model(name: str, seed: int, device):
+    """One of :data:`MODELS` at full width: bf16 compute, f32 parameters
+    (and head), 1000 classes, random weights from ``seed``."""
     import torch
 
-    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch import models
 
-    return ResNet50(dtype=torch.bfloat16, seed=seed, device=device)
+    return getattr(models, MODELS[name][0])(dtype=torch.bfloat16, seed=seed,
+                                            device=device)
 
 
-def make_tx(mode: str):
-    """The DistributedOptimizer of each ResNet-50 mode, fused Adam at 1e-3
+def make_tx(mode: str, lr: float = 1e-3):
+    """The DistributedOptimizer of each mode, fused Adam at ``lr``
     inside: ZeRO-1 and allreduce mode with int8 + EF, ZeRO-3 (its gather
     wire is ``HOROVOD_FSDP_WIRE``), Adasum with no compression (the
     grouped butterfly) and with ``Compression.fp16`` (the leaves packed
     in bf16, one combine of the leaf table a level)."""
     import horovod_tpu_torch as hvd
 
-    adam = hvd.fused_adam(1e-3)
+    adam = hvd.fused_adam(lr)
     if mode in ("zero1", "allreduce"):
         return hvd.DistributedOptimizer(adam, compression=hvd.Compression.int8,
                                         error_feedback=True,
@@ -1229,9 +1279,12 @@ def expected_exchanges(mode: str, n: int) -> int:
     return n.bit_length() - 1 if mode.startswith("adasum") else 0
 
 
-def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
-    """``steps`` steps of ResNet-50 on this rank's batch ``x, y`` in one
-    optimizer mode; fails unless the loss is finite and falls and every
+def train(mode: str, steps: int, x, y, model_seed: int = 0,
+          model_name: str = "resnet50", lr: float = 1e-3) -> dict:
+    """``steps`` steps of ``model_name`` (:data:`MODELS`; ResNet-50 by
+    default, the run then named ``mode``, else ``<model>_<mode>``) on
+    this rank's batch ``x, y`` in one optimizer mode; fails unless the
+    loss is finite and falls and every
     kernel of the mode's path launched (exactly as often as
     :func:`expected_launches` says), the optimizer update made exactly
     :func:`expected_exchanges` point-to-point exchanges a step and, in
@@ -1247,14 +1300,16 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
     import horovod_tpu_torch as hvd
 
     dev = hvd.device()
-    model = build_resnet(model_seed, dev)
+    label = mode if model_name == "resnet50" else f"{model_name}_{mode}"
+    model = build_model(model_name, model_seed, dev)
     leaves = len(model.jax_params())
     nccl_want = allreduce_nccl_calls(list(model.jax_params().values()))
     with torch.no_grad():           # before ZeRO-3 empties the parameters
         logits = model(x)
     if tuple(logits.shape) != (x.shape[0], 1000) or not bool(
             torch.isfinite(logits).all()):
-        fail(f"ResNet-50 logits: shape {tuple(logits.shape)} or non-finite")
+        fail(f"{model_name} logits: shape {tuple(logits.shape)} or "
+             "non-finite")
     del logits
     zero3 = mode == "zero3"
     wire = os.environ.pop("HOROVOD_FSDP_WIRE", None)
@@ -1262,7 +1317,7 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
         os.environ["HOROVOD_FSDP_WIRE"] = "int8"
     nccl, where = {}, ["step"]
     try:
-        tx = make_tx(mode)
+        tx = make_tx(mode, lr)
         update = tx.update
 
         def counted_update(*args, **kw):    # the optimizer update's calls
@@ -1280,33 +1335,35 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with counting_collectives(nccl, where):
-            st, losses, times, launches, calls = run_steps(mode, step, st, x,
-                                                           y, steps)
+            st, losses, times, launches, calls = run_steps(
+                mode, step, st, x, y, steps, label=label)
         peak = torch.cuda.max_memory_allocated()
-        st, split = split_step(mode, step, st, x, y, marks)
+        st, split = split_step(label, step, st, x, y, marks)
     finally:
         os.environ.pop("HOROVOD_FSDP_WIRE", None)
         if wire is not None:
             os.environ["HOROVOD_FSDP_WIRE"] = wire
     for k, per_step in expected_launches(mode, hvd.size(), leaves).items():
         if launches[k] != per_step * steps:
-            fail(f"{mode}: {launches[k]} launches of {k} in {steps} steps, "
+            fail(f"{label}: {launches[k]} launches of {k} in {steps} steps, "
                  f"expected {per_step} a step ({launches})")
     p2p = nccl.get("update", {}).get("batch_isend_irecv", 0)
     if p2p != expected_exchanges(mode, hvd.size()) * steps:
-        fail(f"{mode}: the optimizer update made {p2p} point-to-point "
+        fail(f"{label}: the optimizer update made {p2p} point-to-point "
              f"exchanges in {steps} steps, expected "
              f"{expected_exchanges(mode, hvd.size())} a step")
     if mode == "allreduce" and \
             sum(nccl.get("update", {}).values()) != nccl_want * steps:
-        fail(f"allreduce: the optimizer update made {nccl.get('update')} NCCL "
+        fail(f"{label}: the optimizer update made {nccl.get('update')} NCCL "
              f"calls in {steps} steps, expected {nccl_want} a step")
     nccl = {part: {k: v / steps for k, v in c.items()}
             for part, c in nccl.items()}
     params = hvd.fsdp_unpack_params(step.params) if zero3 else model.jax_params()
     checksum = float(sum(p.detach().double().sum() for p in params.values()))
     steady = times[1:] if len(times) > 1 else times
-    return dict(mode=mode, steps=steps, losses=losses, launches=launches,
+    return dict(mode=label, model=model_name, leaves=leaves,
+                params=sum(p.numel() for p in params.values()),
+                steps=steps, losses=losses, launches=launches,
                 step_s=times, img_per_s=x.shape[0] * len(steady) / sum(steady),
                 peak_gib=peak / 2 ** 30, split_s=split, checksum=checksum,
                 nccl_calls=nccl, nccl_update_want=nccl_want, step_calls=calls)
@@ -1334,7 +1391,7 @@ def adasum_replay(x, y) -> dict:
     from horovod_tpu_torch.ops import kernels as K
     from horovod_tpu_torch.optim import tree_keys
 
-    model = build_resnet(0, hvd.device())
+    model = build_model("resnet50", 0, hvd.device())
     model.train()
     half = x.shape[0] // 2
     trees = []
@@ -1479,7 +1536,284 @@ def train_lm(steps: int) -> dict:
                 split_step_s=sum(split.values()), step_calls=calls)
 
 
-def _world_rank(modes) -> list:
+# --------------------------------------------------------------------------
+# phase 10: checkpoint save and restore
+
+
+def _zero1_resnet(seed: int, device):
+    """ResNet-50 with ZeRO-1 + int8 + EF + fused Adam: ``(model, tx,
+    step)``."""
+    import horovod_tpu_torch as hvd
+
+    model = build_model("resnet50", seed, device)
+    tx = make_tx("zero1")
+    return model, tx, hvd.make_train_step(model, tx, shard_optimizer=True)
+
+
+def _state_of(model, st) -> dict:
+    return {"params": model.jax_params(),
+            "batch_stats": model.jax_batch_stats(), "opt": st}
+
+
+def _clone(tree):
+    import torch
+
+    from horovod_tpu_torch.optim import _map_state
+
+    return _map_state(lambda v: v.detach().clone()
+                      if isinstance(v, torch.Tensor) else v, tree)
+
+
+def _tree_mismatch(a, b) -> list:
+    """Where two state trees differ: structure, or a leaf's bits."""
+    import torch
+
+    from horovod_tpu_torch import pytree
+
+    (la, ta), (lb, tb) = pytree.flatten(a), pytree.flatten(b)
+    if ta != tb:
+        return ["structure"]
+    bad = []
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.shape == y.shape
+                    and x.dtype == y.dtype and same_bits(x, y)):
+                bad.append(i)
+        elif x != y:
+            bad.append(i)
+    return bad
+
+
+def _load_state(model, saved: dict) -> None:
+    """Copy a state tree's parameters and running stats into ``model``."""
+    import torch
+
+    with torch.no_grad():
+        for part, views in (("params", model.jax_params()),
+                            ("batch_stats", model.jax_batch_stats())):
+            for k, v in views.items():
+                v.copy_(saved[part][k])
+
+
+def _restore_into(model, tree, **kw):
+    """A restored tree into ``model`` (weights, running stats) and this
+    rank's optimizer state, as a user resumes."""
+    from horovod_tpu_torch import checkpoint as ck
+    from horovod_tpu_torch.models.convert import load_flax_variables
+
+    load_flax_variables(model, tree["params"], tree["batch_stats"])
+    return ck.consolidate_opt_state(tree["opt"], model.jax_params(), **kw)
+
+
+def _skipped_copies(root: str, step: int) -> dict:
+    """A truncated copy of ``step_<step>`` (as ``step_1000``) and one with
+    a NaN in its first f32 array (``step_1001``): the reason each is
+    rejected, and what ``latest_step`` then finds."""
+    import shutil
+
+    import numpy as np
+
+    from horovod_tpu_torch import checkpoint as ck
+
+    src = os.path.join(root, f"step_{step}")
+    trunc, nan = (os.path.join(root, f"step_{s}") for s in (1000, 1001))
+    shutil.copytree(src, trunc)
+    npz = os.path.join(trunc, "arrays.npz")
+    with open(npz, "r+b") as f:
+        f.truncate(os.path.getsize(npz) // 2)
+    shutil.copytree(src, nan)
+    npz = os.path.join(nan, "arrays.npz")
+    with np.load(npz) as z:
+        arrays = {k: z[k] for k in z.files}
+    k = next(k for k, v in arrays.items() if v.dtype == np.float32)
+    arrays[k] = arrays[k].copy()
+    arrays[k].reshape(-1)[0] = np.nan
+    np.savez(npz, **arrays)
+    return {"truncated": ck._checkpoint_invalid_reason(trunc),
+            "nan_leaf": ck._checkpoint_invalid_reason(nan),
+            "latest_step": ck.latest_step(root),
+            "valid_steps": ck.valid_steps(root)}
+
+
+def checkpoint_child(directory: str) -> None:
+    """Phase 10 on one GPU, in a child process whose determinism settings
+    (``torch.use_deterministic_algorithms(True)``, ``CUBLAS_WORKSPACE_
+    CONFIG`` from its environment, set before CUDA starts) touch no timed
+    phase. ResNet-50, ZeRO-1 + int8 + EF, batch 64: 3 steps; an
+    asynchronous save with one more step while it writes; a restore into
+    a model of other random weights and a fresh state, bit-equal to the
+    state at the save call; then 3 steps of each, from the restored state
+    and from the saved state kept in memory, bit-equal; a synchronous
+    save's time; and a truncated and a NaN copy skipped by
+    ``latest_step``. Prints one JSON line."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint as ck
+
+    if not os.environ.get("CUBLAS_WORKSPACE_CONFIG"):
+        fail("checkpoint: CUBLAS_WORKSPACE_CONFIG must be set before CUDA "
+             "starts")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    hvd.init()
+    try:
+        dev = hvd.device()
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(64, 224, 224, 3, device=dev, generator=gen)
+        y = torch.randint(0, 1000, (64,), device=dev, generator=gen)
+        model, tx, step = _zero1_resnet(0, dev)
+        st = tx.init(model.jax_params())
+        losses = []
+        for _ in range(3):
+            st, loss = step(st, x, y)
+            losses.append(float(loss))
+        saved = _clone(_state_of(model, st))
+        mgr = ck.CheckpointManager(os.path.join(directory, "async"),
+                                   max_to_keep=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(3, _state_of(model, st), asynchronous=True)
+        block_s = time.perf_counter() - t0
+        st, loss = step(st, x, y)           # trains on while it writes
+        overlap_loss = float(loss)
+        t0 = time.perf_counter()
+        mgr.wait_until_finished()
+        wait_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(os.path.join(directory, "sync"), 4, _state_of(model, st))
+        sync_s = time.perf_counter() - t0
+
+        model_b, _, step_b = _zero1_resnet(1, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = mgr.restore(3)
+        st_b = _restore_into(model_b, tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bad = _tree_mismatch(_state_of(model_b, st_b), saved)
+        if bad:
+            fail(f"checkpoint: the restored state differs from the state at "
+                 f"the save call in leaves {bad[:8]} ({len(bad)} in all)")
+        _load_state(model, saved)           # the run without the save
+        st = _clone(saved["opt"])
+        resumed, uninterrupted = [], []
+        for _ in range(3):
+            st, loss = step(st, x, y)
+            uninterrupted.append(float(loss))
+            st_b, loss = step_b(st_b, x, y)
+            resumed.append(float(loss))
+        if resumed != uninterrupted:
+            fail(f"checkpoint: resumed losses {resumed} != uninterrupted "
+                 f"{uninterrupted}")
+        bad = _tree_mismatch(_state_of(model_b, st_b), _state_of(model, st))
+        if bad:
+            fail(f"checkpoint: after 3 steps the resumed state differs in "
+                 f"leaves {bad[:8]} ({len(bad)} in all)")
+        skipped = _skipped_copies(os.path.join(directory, "async"), 3)
+        if skipped["latest_step"] != 3 or skipped["valid_steps"] != [3] or \
+                (skipped["truncated"], skipped["nan_leaf"]) != ("corrupt",
+                                                                "nonfinite"):
+            fail(f"checkpoint: a bad copy was not skipped: {skipped}")
+        print(json.dumps(dict(
+            losses=losses, overlap_loss=overlap_loss,
+            bytes=ck.state_nbytes(tree), leaves=len(tree["params"]),
+            opt_rows={k: list(v.shape) for k, v in
+                      tree["opt"]["inner"]["mu"].items()},
+            sync_save_s=sync_s, async_save_blocks_s=block_s,
+            async_wait_s=wait_s, restore_s=restore_s,
+            restored_bit_equal=True, resumed_losses=resumed,
+            uninterrupted_losses=uninterrupted, resumed_bit_equal=True,
+            skipped=skipped, deterministic=True)), flush=True)
+    finally:
+        hvd.shutdown()
+
+
+def checkpoint_phase() -> dict:
+    """Run :func:`checkpoint_child` in its own process and return its
+    record."""
+    import shutil
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    try:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--checkpoint", CKPT_DIR], capture_output=True,
+                             text=True, timeout=600, env=env)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if out.returncode != 0:
+        fail(f"checkpoint phase failed:\n{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def checkpoint_world(directory: str, x, y) -> dict:
+    """``--gpus N``: a ZeRO-1 + EF state of N ranks (2 steps of
+    ResNet-50) saved, each rank into its own directory, of which only
+    rank 0's is written (the rows gathered to ``[N, s]``), and restored
+    on the same world: each rank's state must come back bit-equal to
+    what it held, though the others' directories are empty."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint as ck
+
+    r, n = hvd.rank(), hvd.size()
+    model, tx, step = _zero1_resnet(0, hvd.device())
+    st = tx.init(model.jax_params())
+    losses = []
+    for _ in range(2):
+        st, loss = step(st, x, y)
+        losses.append(float(loss))
+    held = _clone(st)
+    mine = os.path.join(directory, f"rank{r}")
+    os.makedirs(mine, exist_ok=True)
+    ck.save(mine, 2, _state_of(model, st))
+    tree = ck.restore(mine, 2)
+    rows = {k: list(v.shape) for k, v in tree["opt"]["inner"]["mu"].items()}
+    if any(v[0] != n for v in rows.values()):
+        fail(f"checkpoint at {n} GPUs: the saved rows are {rows}")
+    bad = _tree_mismatch(_restore_into(model, tree), held)
+    if bad:
+        fail(f"checkpoint at {n} GPUs, rank {r}: the restored state differs "
+             f"in leaves {bad[:8]}")
+    return dict(losses=losses, rows=rows, bit_equal=True,
+                mine_empty=r > 0 and not os.listdir(mine))
+
+
+def restore_world_of_one(directory: str) -> dict:
+    """``--gpus N``, after the world of N: rank 0's checkpoint restored
+    in a world of one through ``consolidate_opt_state(to_size=1)`` (the
+    EF residuals of the N ranks summed into the one), then 2 steps with
+    finite losses."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint as ck
+
+    hvd.init()
+    try:
+        dev = hvd.device()
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn(64, 224, 224, 3, device=dev, generator=gen)
+        y = torch.randint(0, 1000, (64,), device=dev, generator=gen)
+        model, tx, step = _zero1_resnet(2, dev)
+        tree = ck.restore(os.path.join(directory, "rank0"), 2)
+        n_old = tree["opt"]["shard"]["size"]
+        st = _restore_into(model, tree, to_size=1)
+        if st["shard"] != {"rank": 0, "size": 1}:
+            fail(f"restore at one GPU: state of {st['shard']}")
+        losses = []
+        for _ in range(2):
+            st, loss = step(st, x, y)
+            losses.append(float(loss))
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"restore at one GPU: non-finite losses {losses}")
+        return dict(from_ranks=n_old, losses=losses)
+    finally:
+        hvd.shutdown()
+
+
+def _world_rank(modes, ckpt_dir) -> dict:
     """One rank of the multi-GPU run: each mode in turn, 4 steps, each
     rank on its own rows of one global batch."""
     import torch
@@ -1492,23 +1826,30 @@ def _world_rank(modes) -> list:
     y = torch.randint(0, 1000, (64 * n,), generator=gen)
     xs, ys = hvd.shard_batch(x).to(hvd.device()), hvd.shard_batch(y).to(
         hvd.device())
-    return [train(mode, 4, xs, ys) for mode in modes]
+    runs = [train(mode, 4, xs, ys) for mode in modes]
+    return dict(runs=runs, checkpoint=checkpoint_world(ckpt_dir, xs, ys))
 
 
-def run_gpus(n: int, modes) -> list:
-    """Phase 5: rank 0's results of ``modes``, after checking that every
-    rank reports the same losses and parameters."""
+def run_gpus(n: int, modes) -> tuple:
+    """Phases 5 and 10 across ``n`` GPUs: rank 0's results of ``modes``,
+    after checking that every rank reports the same losses and
+    parameters, and the checkpoint record of every rank."""
     from horovod_tpu_torch.testing import run_world
 
     try:
-        res = run_world(_world_rank, n, modes, device=None, timeout=900)
+        res = run_world(_world_rank, n, modes, CKPT_DIR, device=None,
+                        timeout=900)
     except RuntimeError as e:
         fail(f"{n} GPUs: {e}")
-    for r, runs in enumerate(res):
-        for o, o0 in zip(runs, res[0]):
+    for r, out in enumerate(res):
+        for o, o0 in zip(out["runs"], res[0]["runs"]):
             if o["losses"] != o0["losses"] or o["checksum"] != o0["checksum"]:
                 fail(f"{n} GPUs, {o['mode']}: rank {r} diverged from rank 0")
-    return res[0]
+        if out["checkpoint"]["losses"] != res[0]["checkpoint"]["losses"]:
+            fail(f"{n} GPUs, checkpoint run: rank {r} diverged from rank 0")
+        if r > 0 and not out["checkpoint"]["mine_empty"]:
+            fail(f"{n} GPUs, checkpoint: rank {r}'s directory was written")
+    return res[0]["runs"], [out["checkpoint"] for out in res]
 
 
 def _summary(run: dict) -> str:
@@ -1519,6 +1860,10 @@ def main() -> None:
     if len(sys.argv) > 1 and sys.argv[1] == "--cpu-reference":
         sys.path.insert(0, ROOT)
         cpu_reference()
+        return
+    if len(sys.argv) > 2 and sys.argv[1] == "--checkpoint":
+        sys.path.insert(0, ROOT)
+        checkpoint_child(sys.argv[2])
         return
     gpus = 1
     if len(sys.argv) > 2 and sys.argv[1] == "--gpus":
@@ -1586,6 +1931,13 @@ def main() -> None:
         y = torch.randint(0, 1000, (64,), device=hvd.device(), generator=gen)
         runs = [train("zero1", 10, x, y), train("allreduce", 5, x, y),
                 train("zero3", 10, x, y), train("adasum", 5, x, y)]
+        for name, mode, lr in ZOO_RUNS:     # the other scaling models
+            side = MODELS[name][1]
+            xm = x if side == 224 else torch.randn(
+                64, side, side, 3, device=hvd.device(), generator=gen)
+            runs.append(train(mode, 5, xm, y, model_name=name, lr=lr))
+            del xm
+            torch.cuda.empty_cache()
         x = torch.randn(128, 224, 224, 3, device=hvd.device(), generator=gen)
         y = torch.randint(0, 1000, (128,), device=hvd.device(), generator=gen)
         replay = adasum_replay(x, y)
@@ -1598,6 +1950,17 @@ def main() -> None:
     for run in runs:
         print(f"e2e {run['mode']}: {_summary(run)}", flush=True)
     by_mode = {run["mode"]: run for run in runs}
+    for name, mode, _ in ZOO_RUNS:
+        run = by_mode[f"{name}_{mode}"]
+        print(f"e2e {run['mode']}: {run['img_per_s']:.2f} img/s per GPU, "
+              f"peak {run['peak_gib']:.2f} GiB, {run['leaves']} leaves, "
+              f"{run['params']} parameters, launches a step "
+              f"{json.dumps({k: v / run['steps'] for k, v in run['launches'].items() if v})} "
+              f"({smi})", flush=True)
+    torch.cuda.empty_cache()
+    ckpt = checkpoint_phase()
+    print(f"checkpoint (one GPU, ResNet-50 ZeRO-1 + int8 + EF): "
+          f"{json.dumps(ckpt)} ({smi})", flush=True)
     ar = by_mode["allreduce"]
     print(f"e2e allreduce: NCCL calls a step in the optimizer update "
           f"{json.dumps(ar['nccl_calls']['update'])}, "
@@ -1625,7 +1988,16 @@ def main() -> None:
     step_calls.update(replay["step_calls"])
     if gpus > 1:
         torch.cuda.empty_cache()
-        for run in run_gpus(gpus, WORLD_MODES):
+        try:
+            world_runs, world_ckpt = run_gpus(gpus, WORLD_MODES)
+            one = restore_world_of_one(CKPT_DIR)
+        finally:
+            import shutil
+
+            shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        print(f"checkpoint at {gpus} GPUs: {json.dumps(world_ckpt)}; restored "
+              f"in a world of one: {json.dumps(one)}", flush=True)
+        for run in world_runs:
             run["mode"] = f"{run['mode']}@{gpus}"
             print(f"e2e {gpus} GPUs {run['mode']}: {_summary(run)}", flush=True)
             print(f"e2e {run['mode']}: {run['img_per_s']:.2f} img/s per GPU, "

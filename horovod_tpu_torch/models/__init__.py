@@ -10,6 +10,10 @@ from horovod_tpu_torch.models.resnet import (  # noqa: F401
     ResNet152,
     ResNetBlock,
 )
+from horovod_tpu_torch.models.vgg import VGG, VGG16, VGG19  # noqa: F401
+from horovod_tpu_torch.models.inception import InceptionV3  # noqa: F401
+from horovod_tpu_torch.models.mnist import MnistCNN  # noqa: F401
+from horovod_tpu_torch.models.mlp import MLP  # noqa: F401
 from horovod_tpu_torch.models.transformer import (  # noqa: F401
     TransformerBlock,
     TransformerLM,

@@ -4,7 +4,10 @@ The JAX package's ``params`` / ``batch_stats`` are nested dicts keyed by
 flax module names; the port keys the same leaves by their ``/``-joined
 path (:meth:`ResNet.jax_params`), as views in flax's layouts, so loading
 is a copy through those views. Arrays arrive as numpy (the two
-frameworks exchange data only through numpy).
+frameworks exchange data only through numpy). :func:`port_model` builds
+the port's counterpart of a flax model of the JAX package (ResNet, VGG,
+Inception V3, MLP, MNIST CNN; the TransformerLM's configuration is
+mapped by hand, its attention function being a choice of the port's).
 """
 
 from __future__ import annotations
@@ -13,6 +16,36 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+
+def port_model(flax_model, *, seed: int = 0, device=None, **inferred):
+    """The port's model of the same configuration as ``flax_model``, a
+    flax module of the JAX package, built from its fields (read, never
+    imported). ``inferred`` gives what flax infers at init from the
+    input: VGG's and the MNIST CNN's ``input_size``, the MLP's
+    ``in_features``. Load the weights with :func:`load_flax_variables`."""
+    from horovod_tpu_torch import models as M
+
+    f, name = flax_model, type(flax_model).__name__
+    kw = dict(seed=seed, device=device, **inferred)
+    dtype = getattr(torch, np.dtype(getattr(f, "dtype", None) or
+                                    np.float32).name)
+    if name == "ResNet":
+        block = {"BottleneckBlock": M.BottleneckBlock,
+                 "ResNetBlock": M.ResNetBlock}[f.block_cls.__name__]
+        return M.ResNet(list(f.stage_sizes), block, num_classes=f.num_classes,
+                        num_filters=f.num_filters, dtype=dtype, **kw)
+    if name == "VGG":
+        return M.VGG(tuple(map(tuple, f.stages)), num_classes=f.num_classes,
+                     hidden_dim=f.hidden_dim, use_bn=f.use_bn, dtype=dtype,
+                     **kw)
+    if name == "InceptionV3":
+        return M.InceptionV3(num_classes=f.num_classes, dtype=dtype, **kw)
+    if name == "MLP":
+        return M.MLP(tuple(f.features), **kw)
+    if name == "MnistCNN":
+        return M.MnistCNN(f.num_classes, **kw)
+    raise ValueError(f"no port model for {name}")
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -77,7 +110,7 @@ def zero1_state_from_jax(count, mu: dict, nu: dict, rank: int, *,
     with error feedback, ``residual`` ``{dtype: [N, Lp]}`` (numpy)."""
     count = np.asarray(count)
     n = int(count.shape[0])
-    t = lambda a: torch.from_numpy(np.array(a[rank]))  # noqa: E731
+    t = lambda a: _rows_tensor(np.asarray(a)[rank])  # noqa: E731
     state = {
         "shard": {"rank": int(rank), "size": n},
         "inner": {"count": int(count[rank]),
@@ -90,10 +123,11 @@ def zero1_state_from_jax(count, mu: dict, nu: dict, rank: int, *,
 
 
 def _rows_tensor(a) -> torch.Tensor:
-    a = np.array(a)
-    if a.dtype.name == "bfloat16":          # numpy has no bf16 of its own
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
+    # numpy has no bf16 of its own: ml_dtypes' bfloat16, or the |V2 bits a
+    # checkpoint restores
+    from horovod_tpu_torch.training import host_tensor
+
+    return host_tensor(a)
 
 
 def fsdp_params_from_jax(shards: dict, like: dict, rank: int):

@@ -37,6 +37,45 @@ def torch_params(model, tree: dict) -> dict:
     return out
 
 
+class FlaxModel(nn.Module):
+    """A model whose layers expose their flax-named views
+    (``jax_params(grad=...)``, ``jax_batch_stats()``): collects them
+    keyed by the flax path (the module path, ``/``-joined), and resets
+    every layer's parameters from one generator seeded with ``seed``."""
+
+    def init_parameters(self, seed: int, device) -> None:
+        if torch.device(device or "cpu").type != "meta":
+            self.reset_parameters(seed)
+
+    def reset_parameters(self, seed: int = 0):
+        dev = next(self.parameters()).device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for m in self.modules():
+            if m is not self and hasattr(m, "reset_parameters"):
+                m.reset_parameters(gen)
+
+    def _collect(self, method: str, **kw) -> dict:
+        out = {}
+        for name, m in self.named_modules():
+            fn = getattr(m, method, None)
+            if fn is not None and m is not self:
+                for leaf, t in fn(**kw).items():
+                    out[f"{name.replace('.', '/')}/{leaf}"] = t
+        return out
+
+    def jax_params(self) -> dict:
+        """Parameters keyed by flax path, as views in flax's layouts."""
+        return self._collect("jax_params")
+
+    def jax_grads(self) -> dict:
+        """The parameters' ``.grad`` in the same keys and layouts."""
+        return self._collect("jax_params", grad=True)
+
+    def jax_batch_stats(self) -> dict:
+        """BatchNorm running stats keyed by flax path (the buffers)."""
+        return self._collect("jax_batch_stats")
+
+
 def lecun_normal_(w, fan_in: int, gen):
     """flax's lecun_normal: variance_scaling(1, fan_in, truncated_normal)."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978

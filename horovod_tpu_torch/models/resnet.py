@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from horovod_tpu_torch.models.layers import Dense, lecun_normal_
+from horovod_tpu_torch.models.layers import Dense, FlaxModel, lecun_normal_
 
 _BN_MOMENTUM = 0.9
 _BN_EPS = 1e-5
@@ -47,46 +47,69 @@ def same_pads(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
+def _pair(v) -> tuple:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
 class Conv(nn.Module):
-    """Bias-free 2-D conv, flax ``nn.Conv`` semantics (``SAME`` by
-    default). Weight ``[out, in, kh, kw]``; flax kernel view HWIO."""
+    """2-D conv, flax ``nn.Conv`` semantics: ``padding`` ``"SAME"`` (the
+    default), ``"VALID"`` or explicit ``((lo, hi), (lo, hi))``; kernel
+    and stride an int or ``(h, w)``; bias-free unless ``bias=True``.
+    Weight ``[out, in, kh, kw]``; flax kernel view HWIO."""
 
     def __init__(self, cin, cout, k, stride=1, padding="SAME", *,
-                 dtype=torch.bfloat16, device=None):
+                 bias: bool = False, dtype=torch.bfloat16, device=None):
         super().__init__()
-        self.k, self.stride, self.padding, self.dtype = k, stride, padding, dtype
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k, device=device))
+        self.k, self.stride = _pair(k), _pair(stride)
+        self.padding, self.dtype = padding, dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin, *self.k,
+                                               device=device))
+        self.bias = (nn.Parameter(torch.empty(cout, device=device))
+                     if bias else None)
 
     def reset_parameters(self, gen):
         lecun_normal_(self.weight.data, self.weight[0].numel(), gen)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def forward(self, x):
         if self.padding == "SAME":
-            ph = same_pads(x.shape[2], self.k, self.stride)
-            pw = same_pads(x.shape[3], self.k, self.stride)
+            ph = same_pads(x.shape[2], self.k[0], self.stride[0])
+            pw = same_pads(x.shape[3], self.k[1], self.stride[1])
+        elif self.padding == "VALID":
+            ph = pw = (0, 0)
         else:
             ph, pw = self.padding
         if any(ph) or any(pw):
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+        b = self.bias.to(self.dtype) if self.bias is not None else None
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
                         stride=self.stride)
 
     def jax_params(self, grad=False):
         w = self.weight.grad if grad else self.weight
-        return {"kernel": w.permute(2, 3, 1, 0)}
+        out = {"kernel": w.permute(2, 3, 1, 0)}
+        if self.bias is not None:
+            out["bias"] = self.bias.grad if grad else self.bias
+        return out
 
     def from_jax(self, leaf):
         # HWIO back to OIHW: the inverse of jax_params' permute
-        return {"weight": leaf("kernel").permute(3, 2, 0, 1)}
+        out = {"weight": leaf("kernel").permute(3, 2, 0, 1)}
+        if self.bias is not None:
+            out["bias"] = leaf("bias")
+        return out
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW."""
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=eps)`` over NCHW (eps
+    1e-5 by default, Inception's 1e-3)."""
 
-    def __init__(self, c, *, zero_scale=False, dtype=torch.bfloat16,
-                 device=None):
+    def __init__(self, c, *, zero_scale=False, eps: float = _BN_EPS,
+                 dtype=torch.bfloat16, device=None):
         super().__init__()
-        self.dtype, self.zero_scale = dtype, zero_scale
+        self.dtype, self.zero_scale, self.eps = dtype, zero_scale, eps
         self.scale = nn.Parameter(torch.empty(c, device=device))
         self.bias = nn.Parameter(torch.empty(c, device=device))
         self.register_buffer("mean", torch.zeros(c, device=device))
@@ -108,7 +131,7 @@ class BatchNorm(nn.Module):
                 self.var.copy_(_BN_MOMENTUM * self.var + m * var)
         else:
             mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + _BN_EPS) * self.scale
+        mul = torch.rsqrt(var + self.eps) * self.scale
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.dtype)
 
@@ -175,7 +198,7 @@ class BottleneckBlock(nn.Module):
         return F.relu(r + y)
 
 
-class ResNet(nn.Module):
+class ResNet(FlaxModel):
     def __init__(self, stage_sizes: Sequence[int], block_cls, *,
                  num_classes: int = 1000, num_filters: int = 64,
                  in_channels: int = 3, dtype=torch.bfloat16, seed: int = 0,
@@ -197,14 +220,7 @@ class ResNet(nn.Module):
                 self.blocks.append(name)
                 cin, k = num_filters * 2 ** i * block_cls.expansion, k + 1
         self.head = Dense(cin, num_classes, device=device)
-        if torch.device(device or "cpu").type != "meta":
-            self.reset_parameters(seed)
-
-    def reset_parameters(self, seed: int = 0):
-        gen = torch.Generator(device=self.head.weight.device).manual_seed(seed)
-        for m in self.modules():
-            if m is not self and hasattr(m, "reset_parameters"):
-                m.reset_parameters(gen)
+        self.init_parameters(seed, device)
 
     def forward(self, x):
         """``x`` NHWC ``[B, H, W, C]`` → f32 logits ``[B, classes]``."""
@@ -218,27 +234,6 @@ class ResNet(nn.Module):
             x = getattr(self, name)(x)
         x = x.float().mean(dim=(2, 3)).to(self.dtype)
         return self.head(x)
-
-    def _collect(self, method: str, **kw) -> dict:
-        out = {}
-        for name, m in self.named_modules():
-            fn = getattr(m, method, None)
-            if fn is not None and m is not self:
-                for leaf, t in fn(**kw).items():
-                    out[f"{name.replace('.', '/')}/{leaf}"] = t
-        return out
-
-    def jax_params(self) -> dict:
-        """Parameters keyed by flax path, as views in flax's layouts."""
-        return self._collect("jax_params")
-
-    def jax_grads(self) -> dict:
-        """The parameters' ``.grad`` in the same keys and layouts."""
-        return self._collect("jax_params", grad=True)
-
-    def jax_batch_stats(self) -> dict:
-        """BatchNorm running stats keyed by flax path (the buffers)."""
-        return self._collect("jax_batch_stats")
 
 
 def _partial(stage_sizes, block_cls):

@@ -281,6 +281,151 @@ def _zero_update(grads, state, params, *, optimizer, compression,
 
 
 # --------------------------------------------------------------------------
+# ZeRO-1 state across world sizes
+#
+# A rank's ZeRO-1 state is its own row: {"shard": {"rank", "size"},
+# "inner": {"count", "mu": {dtype: [s]}, "nu"}, "residual": {dtype: [Lp]}}.
+# checkpoint.save writes the consolidated view, every rank's row stacked
+# as the JAX package holds it: {"shard": {"size": N}, "inner": {"count":
+# [N], "mu": {dtype: [N, s]}, ...}, "residual": {dtype: [N, Lp]}}.
+
+
+def is_zero1_rows(state) -> bool:
+    """Is ``state`` a consolidated ZeRO-1 state (``shard`` names only the
+    world size: the rows of every rank)?"""
+    return (isinstance(state, dict) and "inner" in state
+            and isinstance(state.get("shard"), dict)
+            and set(state["shard"]) == {"size"})
+
+
+def _group_lengths(params) -> dict:
+    """``{dtype: L}``, the true packed length of each ZeRO-1 group of
+    ``params``: a flat dict of tensors or host arrays (``|V2`` is bf16),
+    or :class:`FsdpParams`, whose groups are known."""
+    if isinstance(params, FsdpParams):
+        return {k: g.L for k, g in params.meta.groups.items()}
+    lengths: dict = {}
+    for k in tree_keys(params):
+        p = params[k]
+        if isinstance(p, torch.Tensor):
+            key, n = _dtype_key(p.dtype), p.numel()
+        else:
+            p = np.asarray(p)
+            key = "bfloat16" if p.dtype == np.dtype("V2") else str(p.dtype)
+            n = p.size
+        lengths[key] = lengths.get(key, 0) + int(n)
+    return lengths
+
+
+def _is_bucket_key(k) -> bool:
+    """The JAX package's bucketed (overlap) group keys, ``dtype#k``."""
+    return isinstance(k, str) and "#" in k and k.rpartition("#")[2].isdigit()
+
+
+def _sum_rows(x: np.ndarray, n_new: int) -> np.ndarray:
+    """``x.sum(axis=0) / n_new`` as the JAX package computes it: rows
+    added in order in f32 (bf16 rows widened, the sum rounded back), then
+    the divide in f32 (for bf16, rounded again)."""
+    from horovod_tpu_torch.training import host_array, host_tensor
+
+    bf16 = x.dtype == np.dtype("V2")
+    rows = host_tensor(x).float().numpy() if bf16 else x
+    total = np.zeros(rows.shape[1], rows.dtype)
+    for row in rows:
+        total = total + row
+    if bf16:
+        total = torch.from_numpy(total).bfloat16().float().numpy()
+    total = total / np.asarray(n_new, total.dtype)
+    return host_array(torch.from_numpy(total).bfloat16()) if bf16 else total
+
+
+def reshard_optimizer_state(state, params, *, to_size=None):
+    """Re-pack a consolidated ZeRO-1 state (:func:`is_zero1_rows`, host
+    arrays as :func:`~horovod_tpu_torch.checkpoint.restore` returns them)
+    for ``to_size`` ranks (default the world's size), as the JAX package's
+    ``reshard_optimizer_state`` does: each ``[N, s]`` row buffer of a
+    group is unpadded to the group's true length (from ``params``, the
+    tree the state was built on), re-padded for ``to_size`` and reshaped
+    ``[to_size, s']``; a per-rank scalar (``count``, ``[N]``) is re-tiled
+    from row 0; the error-feedback residuals ``[N, Lp]`` are summed over
+    the old ranks and the sum spread evenly over the new ones (the
+    gradient mass the old ranks still owed is kept); other leaves pass
+    through. Any other state is returned as it is. The JAX package's
+    bucketed (``dtype#k``) states raise: the bucketed ZeRO-1 path is not
+    ported."""
+    if not is_zero1_rows(state):
+        return state
+    from horovod_tpu_torch.training import host_snapshot
+
+    n_new = int(to_size) if to_size is not None else basics.size()
+    n_old = int(state["shard"]["size"])
+    lengths = _group_lengths(params)
+    buckets = sorted({k for k in _dict_keys(state) if _is_bucket_key(k)})
+    if buckets:
+        raise ValueError(
+            f"bucketed ZeRO-1 state (groups {buckets[:4]}): the bucketed "
+            "(overlap) ZeRO-1 path is not ported, its state cannot be "
+            "re-packed")
+    unknown = sorted(set(state.get("residual", {})) - set(lengths))
+    if unknown:
+        raise ValueError(f"residual groups {unknown} are not groups of params "
+                         f"{sorted(lengths)}")
+    if n_old == n_new:
+        return state
+    state = host_snapshot(state)
+
+    def repad(flat, L):
+        pad = (-L) % n_new
+        if pad:
+            flat = np.concatenate([flat, np.zeros(pad, flat.dtype)])
+        return flat
+
+    def one(x, group):
+        shape = np.shape(x)
+        if group is not None and len(shape) == 2 and shape[0] == n_old:
+            L = lengths[group]
+            if n_old * shape[1] == L + (-L) % n_old:
+                return repad(x.reshape(-1)[:L], L).reshape(n_new, -1)
+        if len(shape) == 1 and shape[0] == n_old:
+            return np.broadcast_to(x[:1], (n_new,)).copy()
+        return x
+
+    def walk(x, group=None):        # the innermost group key names x's group
+        if isinstance(x, dict):
+            return {k: walk(v, k if k in lengths else group)
+                    for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            items = [walk(v, group) for v in x]
+            return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+        return one(x, group)
+
+    out = {k: (v if k in ("shard", "residual") else walk(v))
+           for k, v in state.items()}
+    out["shard"] = {"size": n_new}
+    if "residual" in state:
+        out["residual"] = {}
+        for k, x in state["residual"].items():
+            L = lengths[k]
+            total = repad(_sum_rows(x, n_new)[:L], L)
+            out["residual"][k] = np.broadcast_to(
+                total, (n_new, total.shape[0])).copy()
+    return out
+
+
+def _dict_keys(tree) -> set:
+    keys: set = set()
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            keys.update(node)
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+    return keys
+
+
+# --------------------------------------------------------------------------
 # ZeRO-3: the parameters are this rank's shards, gathered on use
 #
 # A ZeRO-3 step gathers the full tree from the shards before the forward

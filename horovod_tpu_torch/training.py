@@ -13,10 +13,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from horovod_tpu_torch import basics
+from horovod_tpu_torch import basics, pytree
 from horovod_tpu_torch.models.layers import torch_params
 from horovod_tpu_torch.ops.collective import Average, allreduce
 from horovod_tpu_torch.optim import (
@@ -190,6 +191,45 @@ def _fsdp_step(model, tx, fp, loss_fn, mark):
 
     step.params = fp
     return step
+
+
+#: what a bf16 leaf is on the host: numpy has no bf16, and the JAX
+#: package's ``np.savez`` of one writes its two bytes as ``V2``
+BF16_ON_HOST = np.dtype("V2")
+
+
+def host_array(x) -> np.ndarray:
+    """An owned, C-ordered host copy of a tensor (a bf16 tensor as its
+    2-byte ``|V2`` bits, what the JAX package's checkpoints hold for
+    bf16), an ``np.ndarray`` or an ``np.generic`` (a 0-d array)."""
+    if not isinstance(x, torch.Tensor):
+        return np.array(x, order="C")
+    t = x.detach()
+    t = t.contiguous().cpu() if t.device.type != "cpu" else t.contiguous().clone()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_ON_HOST)
+    return t.numpy()
+
+
+def host_tensor(a) -> torch.Tensor:
+    """The inverse of :func:`host_array`: a CPU tensor of a host array's
+    values, a bf16 one for ``|V2`` bits (or ``ml_dtypes``' bfloat16)."""
+    a = np.array(a, order="C")
+    if a.dtype == BF16_ON_HOST or a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def host_snapshot(tree):
+    """Host copy of a state tree: every tensor, ``np.ndarray`` and
+    ``np.generic`` leaf becomes an owned ``np.ndarray``
+    (:func:`host_array`); other leaves pass through. The copy is taken at
+    the call, so later in-place steps do not reach it (the asynchronous
+    checkpoint writes it on a thread)."""
+    leaves, treedef = pytree.flatten(tree)
+    return pytree.unflatten(treedef, [
+        host_array(x) if isinstance(x, (torch.Tensor, np.ndarray, np.generic))
+        else x for x in leaves])
 
 
 def shard_batch(batch: torch.Tensor) -> torch.Tensor:

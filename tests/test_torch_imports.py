@@ -1,6 +1,7 @@
-"""The port stands alone: with JAX made unimportable, every module of
-horovod_tpu_torch (and chip_smoke.py) imports, and nothing of the JAX
-package is loaded."""
+"""The port stands alone: with JAX (and flax, optax, ml_dtypes) made
+unimportable, every module of horovod_tpu_torch (and chip_smoke.py)
+imports, a checkpoint the JAX package wrote restores, and nothing of the
+JAX package is loaded."""
 
 import os
 import pathlib
@@ -29,10 +30,14 @@ def test_every_module_imports_with_jax_poisoned():
     mods = list(_modules())
     assert {"horovod_tpu_torch.ops.kernels", "horovod_tpu_torch.ops.adasum",
             "horovod_tpu_torch.optim", "horovod_tpu_torch.ops.collective",
-            "horovod_tpu_torch.training"} <= set(mods)
+            "horovod_tpu_torch.training", "horovod_tpu_torch.checkpoint",
+            "horovod_tpu_torch.pytree", "horovod_tpu_torch.data.sampler",
+            "horovod_tpu_torch.models.vgg", "horovod_tpu_torch.models.inception",
+            "horovod_tpu_torch.models.mlp",
+            "horovod_tpu_torch.models.mnist"} <= set(mods)
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
@@ -47,6 +52,13 @@ def test_every_module_imports_with_jax_poisoned():
         "          adasum.adasum_allreduce, adasum.grouped_adasum_allreduce,\n"
         "          kernels.dequantize_rows, kernels.adasum_pair_combine,\n"
         "          kernels.adasum_segment_combine):\n"
+        "    assert callable(f)\n"
+        # checkpoint and the new models, as a user reaches them
+        "import horovod_tpu_torch.checkpoint as ck\n"
+        "from horovod_tpu_torch.models import VGG16, InceptionV3, MLP, MnistCNN\n"
+        "from horovod_tpu_torch.training import host_snapshot\n"
+        "for f in (ck.save, ck.restore, ck.CheckpointManager, host_snapshot,\n"
+        "          ck.consolidate_opt_state, VGG16, InceptionV3, MLP, MnistCNN):\n"
         "    assert callable(f)\n"
         "import runpy\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='chip_smoke')\n"
@@ -63,9 +75,58 @@ def test_every_module_imports_with_jax_poisoned():
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():
-    pat = re.compile(r"^\s*(import|from) (jax|flax|optax|horovod_tpu)\b")
+    pat = re.compile(
+        r"^\s*(import|from) (jax|flax|optax|ml_dtypes|horovod_tpu)\b")
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]
     assert not hits, hits
+
+
+def test_a_jax_checkpoint_restores_with_jax_poisoned(tmp_path):
+    """The JAX package writes a checkpoint (an optax Adam state, an
+    ``_EFState``, a bf16 leaf); a process that cannot import JAX, flax,
+    optax or ml_dtypes restores it through the port, writes it back, and
+    never loads the JAX package."""
+    import numpy as np
+    import jax.numpy as jnp
+    import optax
+
+    from horovod_tpu import checkpoint as jck
+    from horovod_tpu.optim import _EFState
+
+    params = {"w": np.arange(6, dtype=np.float32).reshape(2, 3),
+              "h": np.asarray(jnp.arange(4, dtype=jnp.bfloat16))}
+    state = {"params": params, "step": 3,
+             "opt": _EFState(optax.adam(1e-3).init(params),
+                             {"float32": np.ones(4, np.float32)})}
+    jck.save(str(tmp_path / "jax"), 3, state)
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes'):\n"
+        "    sys.modules[name] = None\n"
+        "from horovod_tpu_torch import checkpoint as ck\n"
+        "from horovod_tpu_torch.training import host_tensor\n"
+        f"d = {str(tmp_path)!r}\n"
+        "t = ck.restore(d + '/jax', 3)\n"
+        "adam = t['opt'].inner[0]\n"
+        "assert type(adam).__name__ == 'ScaleByAdamState' and int(adam.count) == 0\n"
+        "assert t['params']['h'].dtype.str == '|V2'\n"
+        "assert host_tensor(t['params']['h']).float().tolist() == [0, 1, 2, 3]\n"
+        "ck.save(d + '/port', 3, t)\n"
+        "assert ck.latest_step(d + '/port') == 3\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('horovod_tpu', 'jax', 'optax', 'flax', 'ml_dtypes')\n"
+        "             and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "ok"
+    back = jck.restore(str(tmp_path / "port"), 3)
+    assert type(back["opt"]).__name__ == "_EFState"
+    np.testing.assert_array_equal(back["params"]["w"], params["w"])

@@ -293,13 +293,31 @@ def slice_worker(params, stats, x, y, steps, lr):
     """The slice end to end: a narrow f32 ResNet, weights carried across,
     ZeRO-1 + int8 + EF + fused Adam through make_train_step."""
     from horovod_tpu_torch.models import BottleneckBlock, ResNet
+
+    model = ResNet([1, 1, 1, 1], BottleneckBlock, num_classes=10,
+                   num_filters=8, dtype=torch.float32)
+    return _zero1_int8_steps(model, params, stats, x, y, steps, lr)
+
+
+def model_slice_worker(spec, params, stats, x, y, steps, lr):
+    """:func:`slice_worker`'s steps on another f32 model: ``spec`` names
+    the family and its configuration (``{"family": "vgg", ...}``)."""
+    from horovod_tpu_torch import models as M
+
+    spec = dict(spec)
+    family = spec.pop("family")
+    if family != "vgg":
+        raise ValueError(family)
+    model = M.VGG(spec.pop("stages"), dtype=torch.float32, **spec)
+    return _zero1_int8_steps(model, params, stats, x, y, steps, lr)
+
+
+def _zero1_int8_steps(model, params, stats, x, y, steps, lr):
     from horovod_tpu_torch.models.convert import (
         flatten_tree, flax_params, load_flax_variables,
     )
 
-    model = ResNet([1, 1, 1, 1], BottleneckBlock, num_classes=10,
-                   num_filters=8, dtype=torch.float32)
-    load_flax_variables(model, params, stats)
+    load_flax_variables(model, params, stats or None)
     tx = hvd.DistributedOptimizer(hvd.fused_adam(lr),
                                   compression=hvd.Compression.int8,
                                   error_feedback=True, shard_optimizer=True)
@@ -717,3 +735,86 @@ def broadcast_worker():
             "object": hvd.broadcast_object(
                 {"x": [1.5 + r, f"s{r}", None], "y": (r, 0.1 * r)},
                 root_rank=n - 1)}
+
+
+# --------------------------------------------------------------------------
+# checkpoint across ranks (tests/test_torch_checkpoint.py)
+
+
+def ckpt_state(r=0):
+    """A state of tensors (f32, int32, bf16), a numpy array and objects;
+    ``r`` makes a rank's state its own."""
+    return {"params": {"w": torch.arange(6.0).reshape(2, 3) + 10 * r,
+                       "h": torch.tensor([1.5, -2.25, 3.0]).bfloat16() + r},
+            "ids": torch.arange(5, dtype=torch.int32) * (r + 1),
+            "host": np.full((2, 2), 0.5 + r, np.float32),
+            "step": 7 + r, "meta": ("adam", None, [0.1 * (r + 1)])}
+
+
+def ckpt_root_worker(base):
+    """Every rank saves its own state into its own directory (only rank
+    0 writes, so only rank 0's holds the step), restores from it, and
+    reports what it got and whether the others' directories stayed
+    empty."""
+    import os
+
+    from horovod_tpu_torch import checkpoint as ck
+    from horovod_tpu_torch.training import host_snapshot
+
+    r = hvd.rank()
+    mine = os.path.join(base, f"rank{r}")
+    ck.save(mine, 3, ckpt_state(r))
+    hvd.broadcast_object(None)                    # every save has returned
+    others_empty = all(not os.path.exists(os.path.join(base, f"rank{q}"))
+                       for q in range(1, hvd.size()))
+    return {"restored": host_snapshot(ck.restore(mine, 3)),
+            "others_empty": others_empty}
+
+
+def ckpt_writer_failure_worker(base):
+    """A second save of the same step without ``force``: rank 0's write
+    fails, and every rank must raise. Async too, at the fence."""
+    from horovod_tpu_torch import checkpoint as ck
+
+    ck.save(base, 1, ckpt_state())
+    out = []
+    try:
+        ck.save(base, 1, ckpt_state())
+        out.append(None)
+    except (FileExistsError, RuntimeError) as e:
+        out.append(type(e).__name__)
+    mgr = ck.CheckpointManager(base)
+    mgr.save(1, ckpt_state(), asynchronous=True)
+    try:
+        mgr.wait_until_finished()
+        out.append(None)
+    except (FileExistsError, RuntimeError) as e:
+        out.append(type(e).__name__)
+    return out
+
+
+def zero1_save_worker(base, count, mu, nu, residual, params):
+    """This rank's ZeRO-1 + EF state from the JAX package's ``[N, s]``
+    rows, saved (gathered back to the rows), then restored at the same
+    size: returns the rank's state as it held it and as it came back."""
+    from horovod_tpu_torch import checkpoint as ck
+    from horovod_tpu_torch.models.convert import zero1_state_from_jax
+    from horovod_tpu_torch.training import host_snapshot
+
+    st = zero1_state_from_jax(count, mu, nu, hvd.rank(), residual=residual)
+    ck.save(base, 5, {"opt": st, "step": 5})
+    back = ck.consolidate_opt_state(
+        ck.restore(base, 5)["opt"],
+        {k: torch.from_numpy(v) for k, v in params.items()})
+    return {"held": host_snapshot(st), "back": host_snapshot(back)}
+
+
+def zero1_restore_worker(base, params):
+    """Restore a ZeRO-1 state saved by another world and make it this
+    rank's state in this world."""
+    from horovod_tpu_torch import checkpoint as ck
+    from horovod_tpu_torch.training import host_snapshot
+
+    tree = ck.restore(base, 5)
+    return host_snapshot(ck.consolidate_opt_state(
+        tree["opt"], {k: torch.from_numpy(v) for k, v in params.items()}))
