@@ -158,7 +158,44 @@ Phases, each fatal on failure (exit code 1, no result line):
    gathered to ``[N, s]``), restored on the N bit for bit, and restored
    in a world of one through ``consolidate_opt_state(to_size=1)`` for 2
    steps with finite losses. The checkpoints live in the git-ignored
-   ``_smoke_ckpt/`` of the checkout, removed at the end.
+   ``_smoke_ckpt/`` of the checkout, removed at the end;
+11. Horovod's own PyTorch API (``import horovod_tpu_torch.torch as hvd``)
+   with the native core, one GPU: the core (``csrc/`` built with g++
+   beside the kernels) attached by ``hvd.init(native_core=True)``;
+   one forward and backward of ResNet-50 (full width and depth, batch
+   64), each of its 161 gradients enqueued by name with
+   ``allreduce_async_`` from its post-accumulate-grad hook. Each result
+   bit-equal to a sync ``allreduce`` of a copy saved in the hook; NCCL
+   ``all_reduce`` calls equal to the plans the core ran, at least 2
+   (102.2 MB over the 64 MB threshold); named allgather, broadcast,
+   alltoall and reducescatter equal to their sync forms; ``join()`` 0;
+   a duplicate name refused. Prints the plans, the cycles the run
+   spanned and the time from the last hook to the last completion, and
+   the img/s of phase 12's Average steps at this world of one (no hooks,
+   no exchange: their baseline);
+12. with ``--gpus N``: the frontend trains ResNet-50 across the N GPUs,
+   64 rows each, ``hvd.DistributedOptimizer(torch.optim.SGD(lr=0.01,
+   momentum=0.9))``, 5 steps in each of Average, Average with
+   ``Compression.fp16`` and error feedback, and Adasum, in one world
+   without the core and one with it: every rank's parameters
+   bit-identical, losses finite and falling, NCCL calls exactly 161 a
+   step without the core (one per gradient; Adasum 161 log2(N)
+   exchanges) and one per plan with it, plus the 9 unnamed
+   ``all_reduce`` calls of the norms below, ``adasum_pair_combine`` 161
+   log2(N) times a step without the core and ``adasum_segment_combine``
+   log2(N) times a plan with it (their calls replayed in phase 6 under
+   the run's name); img/s per GPU beside the functional optimizer's
+   allreduce mode. ``SyncBatchNorm`` at ResNet-50's first BatchNorm
+   shape, ``[64, 64, 112, 112]`` a GPU, against ``BatchNorm2d`` over
+   the gathered batch: output, input grad, summed weight and bias
+   grads, running statistics within 1e-4 of the reference's largest
+   magnitude, in both worlds. During each backward every 20th
+   parameter's hook also allreduces its gradient's squared norm without
+   a name, on the default process group beside the core's plans on its
+   own (two communicators at once); every rank's norms agree, each the
+   sum of the ranks' local values. The core world's parameters after
+   each mode's first step lie within 5e-2 of the update of the world
+   without the core, per tensor.
 
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
@@ -185,6 +222,7 @@ The last two lines of standard output are that record and
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -1813,6 +1851,422 @@ def restore_world_of_one(directory: str) -> dict:
         hvd.shutdown()
 
 
+# --------------------------------------------------------------------------
+# phases 11 and 12: Horovod's own PyTorch API (horovod_tpu_torch.torch)
+
+
+def frontend_core_phase() -> dict:
+    """One GPU, the native core attached (``init(native_core=True)``):
+    one forward and backward of ResNet-50 at full width, batch 64, each
+    of the 161 gradients enqueued by name with ``allreduce_async_`` from
+    its post-accumulate-grad hook (so the core's stream waits on each
+    gradient's ReadyEvent). Every result must equal, bit for bit, a sync
+    ``allreduce`` of a copy of the gradient saved in the hook; the NCCL
+    ``all_reduce`` calls must equal the plans the core ran (at least 2:
+    the 102.2 MB of gradients exceed the 64 MB fusion threshold); named
+    allgather, broadcast, alltoall and reducescatter must equal their
+    sync forms; ``join()`` must return 0 and a duplicate name raise. Then
+    5 steps of phase 12's Average run at this world of one, where the
+    hook optimizer exchanges nothing: the steps' baseline."""
+    import torch
+
+    import horovod_tpu_torch.torch as thvd
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.training import softmax_xent
+
+    thvd.init(native_core=True)
+    try:
+        core, dev = basics.core(), basics.device()
+        model = build_model("resnet50", 0, dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        side = MODELS["resnet50"][1]
+        x = torch.randn(FRONTEND_BATCH, side, side, 3, device=dev,
+                        generator=gen)
+        y = torch.randint(0, 1000, (FRONTEND_BATCH,), device=dev,
+                          generator=gen)
+        named = list(model.named_parameters())
+        saved, handles, last_hook = {}, {}, []
+
+        def hook_for(name):
+            def hook(p):
+                saved[name] = p.grad.clone()
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                last_hook[:] = [ev]
+                handles[name] = thvd.allreduce_async_(
+                    p.grad, name=f"grad.{name}", op=thvd.Average)
+            return hook
+
+        hooks = [p.register_post_accumulate_grad_hook(hook_for(n))
+                 for n, p in named]
+        nccl, where = {}, ["backward"]
+        responses0, t0 = core.responses, time.perf_counter()
+        with counting_collectives(nccl, where):
+            softmax_xent(model(x), y).backward()
+            outs = {n: thvd.synchronize(h) for n, h in handles.items()}
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.synchronize()
+        span_s = time.perf_counter() - t0
+        responses = core.responses - responses0
+        for h in hooks:
+            h.remove()
+        calls = nccl.get("backward", {}).get("all_reduce", 0)
+        if len(outs) != len(named) or len(named) != 161:
+            fail(f"frontend core: {len(outs)} of {len(named)} gradients "
+                 "came back")
+        bad = [n for n, out in outs.items()
+               if not same_bits(out, C.allreduce(saved[n], C.Average))]
+        if bad:
+            fail(f"frontend core: named results differ from the sync "
+                 f"allreduce in {bad[:5]}")
+        if calls != responses or responses < 2:
+            fail(f"frontend core: {calls} NCCL all_reduce calls for "
+                 f"{responses} plans (expected equal, at least 2)")
+        t = saved[named[0][0]]
+        pairs = {
+            "allgather": (thvd.allgather_async(t, name="ag"),
+                          thvd.allgather(t)),
+            "broadcast": (thvd.broadcast_async(t, 0, name="bc"),
+                          thvd.broadcast(t, 0)),
+            "alltoall": (thvd.alltoall_async(t, name="a2a"),
+                         thvd.alltoall(t)),
+            "reducescatter": (thvd.reducescatter_async(t, name="rs"),
+                              thvd.reducescatter(t)),
+        }
+        for op, (h, want) in pairs.items():
+            if not same_bits(thvd.synchronize(h), want):
+                fail(f"frontend core: named {op} differs from its sync form")
+        h = thvd.allreduce_async(t, name="dup")
+        try:
+            thvd.allreduce_async(t, name="dup")
+            fail("frontend core: a duplicate outstanding name was accepted")
+        except ValueError:
+            pass
+        thvd.synchronize(h)
+        joined = thvd.join()
+        if joined != 0:
+            fail(f"frontend core: join() returned {joined}")
+        del saved, outs, handles
+        # the no-exchange baseline of phase 12's steps: at a world of one
+        # the hook optimizer registers no hooks
+        alone = frontend_train("average", 5, x, y)
+        return dict(leaves=len(named), plans=responses, all_reduce=calls,
+                    world1_img_per_s=alone["img_per_s"],
+                    world1_step_s=alone["step_s"],
+                    cycle_ms=core.cycle_time_ms,
+                    fusion_threshold=core.fusion_threshold,
+                    span_s=span_s, cycles_spanned=span_s * 1e3 /
+                    core.cycle_time_ms,
+                    last_hook_to_done_ms=last_hook[0].elapsed_time(end),
+                    named_ops_checked=["allreduce"] + list(pairs))
+    finally:
+        thvd.shutdown()
+
+
+#: the frontend's modes across N GPUs: (compression, error feedback, op)
+FRONTEND_MODES = ("average", "fp16_ef", "adasum")
+#: the frontend phases' rows a GPU, and SyncBatchNorm's input a GPU
+#: (ResNet-50's first BatchNorm at batch 64)
+FRONTEND_BATCH = 64
+SYNC_BN_SHAPE = (64, 64, 112, 112)
+#: SyncBatchNorm against BatchNorm2d over the gathered batch: every
+#: difference within this share of the reference's largest magnitude
+SYNC_BN_RTOL = 1e-4
+#: across N GPUs every NORM_EVERY-th parameter's hook also allreduces its
+#: gradient's squared norm without a name: a collective on the default
+#: process group during the backward, beside the core's on its own
+NORM_EVERY = 20
+#: the world with the core against the world without it, per parameter
+#: tensor: the norm of the difference of their parameters after a mode's
+#: first step within this share of the norm of the direct world's
+#: update. From the same parameters and rows the two differ only by
+#: rounding (fused against per-tensor sums, the Adasum dot products,
+#: cuDNN's own order); a stale, missing or wrongly combined gradient is
+#: off by the order of the update itself. After the last step the
+#: distance is printed, not held: the bf16 activations carry each
+#: rounding difference into the next steps' gradients
+WORLDS_RTOL = 5e-2
+
+
+def frontend_optimizer(thvd, mode: str, model):
+    """``hvd.DistributedOptimizer`` over ``torch.optim.SGD(lr=0.01,
+    momentum=0.9)``: Average uncompressed, Average with
+    ``Compression.fp16`` and error feedback, or Adasum."""
+    import torch
+
+    kw = dict(named_parameters=model.named_parameters())
+    if mode == "fp16_ef":
+        kw.update(compression=thvd.Compression.fp16, error_feedback=True)
+    elif mode == "adasum":
+        kw.update(op=thvd.Adasum)
+    return thvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9), **kw)
+
+
+def frontend_expected(mode: str, n: int, leaves: int, plans,
+                      norms: int = 0) -> tuple:
+    """Exact NCCL calls and Adasum launches of the frontend's steps: per
+    gradient (no core, ``plans`` None) one ``all_reduce``, or for Adasum
+    log2(N) exchanges and ``adasum_pair_combine`` launches; with the core
+    the same per fused plan, Adasum's combine ``adasum_segment_combine``;
+    and one ``all_reduce`` for each of the ``norms`` unnamed squared
+    norms. At a world of one the Average optimizer registers no hooks
+    and exchanges nothing, as the reference's."""
+    levels = n.bit_length() - 1
+    units = leaves if plans is None else plans
+    if n == 1:          # no hooks at a world of one: nothing to exchange
+        units = 0 if mode != "adasum" else units
+    if mode != "adasum":
+        return ({"all_reduce": units + norms, "batch_isend_irecv": 0},
+                {"adasum_pair_combine": 0, "adasum_segment_combine": 0})
+    kernel = "adasum_pair_combine" if plans is None else \
+        "adasum_segment_combine"
+    return ({"all_reduce": norms, "batch_isend_irecv": units * levels},
+            {"adasum_pair_combine": 0, "adasum_segment_combine": 0,
+             kernel: units * levels})
+
+
+def frontend_train(mode: str, steps: int, x, y) -> dict:
+    """``steps`` steps of ResNet-50 (full width, random weights from a
+    seed) under the frontend's ``DistributedOptimizer`` in ``mode`` on
+    this rank's batch; fails unless the loss is finite and falls, and the
+    NCCL calls and Adasum launches are exactly what
+    :func:`frontend_expected` says. ``params_sha`` hashes the
+    parameters' bytes (every rank must agree). Across GPUs every
+    :data:`NORM_EVERY`-th parameter's hook, run after the optimizer's,
+    also allreduces its gradient's squared norm without a name, on the
+    default process group while the core (if attached) runs its plans on
+    its own: ``norms`` holds the last step's local and global values,
+    and rank 0 returns its parameters after the first and the last step
+    (``params``, keyed by step, with ``sizes``)."""
+    import hashlib
+
+    import torch
+
+    import horovod_tpu_torch.torch as thvd
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.training import softmax_xent
+
+    core, n = basics.core(), thvd.size()
+    label = f"frontend_{mode}{'_core' if core else ''}@{n}"
+    model = build_model("resnet50", 0, basics.device())
+    leaves = len(list(model.parameters()))
+    opt = frontend_optimizer(thvd, mode, model)
+    norms = []
+
+    def norm_hook(p):
+        local = p.grad.detach().float().pow(2).sum()
+        norms.append((local, thvd.allreduce(local, op=thvd.Sum)))
+
+    hooked = list(model.parameters())[::NORM_EVERY] if n > 1 else []
+    for p in hooked:
+        p.register_post_accumulate_grad_hook(norm_hook)
+    thvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    torch.cuda.synchronize()
+    nccl, where, calls, losses, times = {}, ["step"], [], [], []
+    kept = {}                           # rank 0's parameters after step 1
+    keep = n > 1 and thvd.rank() == 0
+    plans0 = core.responses if core else 0
+    K.reset_launches()                  # count the main path's run only
+    with counting_collectives(nccl, where), logging_calls(calls):
+        for _ in range(steps):
+            calls.append([])
+            del norms[:]
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = softmax_xent(model(x), y)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+            times.append(time.perf_counter() - t0)
+            if keep and not kept:
+                kept[1] = torch.cat([p.detach().reshape(-1) for p in
+                                     model.parameters()]).cpu().numpy()
+    launches = dict(K.launches)
+    plans = core.responses - plans0 if core else None
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"{label}: losses {losses} not finite and falling")
+    want_calls, want_launches = frontend_expected(
+        mode, n, leaves * steps, plans, norms=len(hooked) * steps)
+    got_calls = {k: nccl.get("step", {}).get(k, 0) for k in want_calls}
+    if got_calls != want_calls:
+        fail(f"{label}: NCCL calls {got_calls} in {steps} steps, expected "
+             f"{want_calls} ({plans} plans)")
+    got_launches = {k: launches[k] for k in want_launches}
+    if got_launches != want_launches:
+        fail(f"{label}: launches {got_launches} in {steps} steps, expected "
+             f"{want_launches}")
+    for k in K.KERNELS:
+        if sum(sig[0] == k for c in calls for sig in c) != launches[k]:
+            fail(f"{label}: logged calls of {k} disagree with its launches")
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    flat = flat.cpu().numpy()
+    sha = hashlib.sha256(flat.tobytes()).hexdigest()
+    steady = times[1:]
+    out = dict(mode=label, leaves=leaves, steps=steps, losses=losses,
+               launches=launches, plans=plans, nccl_calls=got_calls,
+               step_s=times, img_per_s=x.shape[0] * len(steady) / sum(steady),
+               params_sha=sha, step_calls=calls[-1],
+               norms=[(float(a), float(b)) for a, b in norms])
+    if keep:
+        kept[steps] = flat
+        out.update(params=kept,
+                   sizes=[p.numel() for p in model.parameters()])
+    return out
+
+
+def sync_bn_check() -> dict:
+    """``hvd.SyncBatchNorm(64)`` at ResNet-50's first BatchNorm shape,
+    ``[64, 64, 112, 112]`` a rank, against ``torch.nn.BatchNorm2d`` over
+    the gathered batch on every rank, loss ``sum(bn(x) * w)``: this
+    rank's output and input-grad rows, the weight and bias grads summed
+    over ranks, the running mean and variance. Returns each quantity's
+    largest difference over the reference's largest magnitude, each
+    within :data:`SYNC_BN_RTOL`."""
+    import torch
+
+    import horovod_tpu_torch.torch as thvd
+    from horovod_tpu_torch import basics
+
+    dev, n, r = basics.device(), thvd.size(), thvd.rank()
+    b, c, h, w_ = SYNC_BN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(b * n, c, h, w_, device=dev, generator=gen)
+    w = torch.randn(b * n, c, h, w_, device=dev, generator=gen)
+    rows = slice(b * r, b * (r + 1))
+
+    def run(bn, xi, wi):
+        xi = xi.clone().requires_grad_(True)
+        bn.train()
+        y = bn(xi)
+        (y * wi).sum().backward()
+        return [y.detach(), xi.grad, bn.weight.grad, bn.bias.grad,
+                bn.running_mean, bn.running_var]
+
+    got = run(thvd.SyncBatchNorm(c).to(dev), x[rows], w[rows])
+    want = run(torch.nn.BatchNorm2d(c).to(dev), x, w)
+    got[2] = thvd.allreduce(got[2], op=thvd.Sum)
+    got[3] = thvd.allreduce(got[3], op=thvd.Sum)
+    want[0], want[1] = want[0][rows], want[1][rows]
+    names = ("out", "grad_input", "grad_weight", "grad_bias", "running_mean",
+             "running_var")
+    err = {k: max_abs(a, b) / float(b.abs().max())
+           for k, a, b in zip(names, got, want)}
+    bad = {k: v for k, v in err.items() if not v <= SYNC_BN_RTOL}
+    if bad:
+        fail(f"SyncBatchNorm at [64, 64, 112, 112] a rank: relative "
+             f"differences {bad} over {SYNC_BN_RTOL}")
+    return err
+
+
+def _frontend_rank(modes) -> dict:
+    """One rank of a frontend world: each mode 5 steps on this rank's 64
+    rows of one global batch, then the SyncBatchNorm check. Rank 0 also
+    returns the parameters the steps start from (``init``)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    gen = torch.Generator().manual_seed(0)
+    n, side = hvd.size(), MODELS["resnet50"][1]
+    x = torch.randn(FRONTEND_BATCH * n, side, side, 3, generator=gen)
+    y = torch.randint(0, 1000, (FRONTEND_BATCH * n,), generator=gen)
+    xs, ys = hvd.shard_batch(x).to(hvd.device()), hvd.shard_batch(y).to(
+        hvd.device())
+    del x
+    init = None
+    if hvd.rank() == 0:
+        init = torch.cat([p.detach().reshape(-1) for p in build_model(
+            "resnet50", 0, hvd.device()).parameters()]).cpu().numpy()
+    runs = []
+    for mode in modes:
+        runs.append(frontend_train(mode, 5, xs, ys))
+        torch.cuda.empty_cache()
+    return dict(runs=runs, sync_bn=sync_bn_check(), init=init)
+
+
+def _check_norms(label: str, res: list) -> None:
+    """The unnamed squared norms of the last step: on every rank the same
+    global values, each the sum of the ranks' local values (rtol 1e-5:
+    NCCL sums in its own order)."""
+    import numpy as np
+
+    norms = [out["norms"] for out in res]
+    globs = [[b for _, b in v] for v in norms]
+    if not globs[0] or any(g != globs[0] for g in globs):
+        fail(f"{label}: the unnamed norms differ across ranks: {norms}")
+    for i, (_, glob) in enumerate(norms[0]):
+        want = sum(v[i][0] for v in norms)
+        if not (math.isfinite(glob) and glob > 0
+                and np.isclose(glob, want, rtol=1e-5, atol=0)):
+            fail(f"{label}: unnamed norm {i} is {glob}, the ranks' local "
+                 f"values sum to {want}")
+
+
+def _worlds_rel(run, direct, init, step: int) -> list:
+    """For each parameter tensor, the norm of one world's parameters
+    less another's after ``step`` steps, over the norm of the second
+    world's update."""
+    import numpy as np
+
+    rel, at = [], 0
+    for size in run["sizes"]:
+        a, b, z = (v[at:at + size].astype(np.float64) for v in (
+            run["params"][step], direct["params"][step], init))
+        at += size
+        den, num = np.linalg.norm(b - z), np.linalg.norm(a - b)
+        rel.append(num / den if den > 0 else (0.0 if num == 0 else math.inf))
+    return rel
+
+
+def run_frontend_gpus(n: int) -> tuple:
+    """Phase 12 across ``n`` GPUs: the frontend's modes without and with
+    the native core (one world each), every rank's parameters identical
+    after each run, the unnamed norms agreeing, the SyncBatchNorm check
+    in both worlds, and the core world's parameters after each mode
+    within :data:`WORLDS_RTOL` of the direct world's. Returns rank 0's
+    runs and the SyncBatchNorm records of the two worlds."""
+    import numpy as np
+
+    from horovod_tpu_torch.testing import run_world
+
+    runs, sync_bn, rank0 = [], {}, {}
+    for core in (False, True):
+        try:
+            res = run_world(_frontend_rank, n, FRONTEND_MODES, device=None,
+                            timeout=600, native_core=core)
+        except RuntimeError as e:
+            fail(f"frontend at {n} GPUs (core {core}): {e}")
+        for r, out in enumerate(res):
+            for o, o0 in zip(out["runs"], res[0]["runs"]):
+                if o["params_sha"] != o0["params_sha"]:
+                    fail(f"{o['mode']}: rank {r}'s parameters differ from "
+                         "rank 0's")
+        for i, run in enumerate(res[0]["runs"]):
+            _check_norms(run["mode"], [out["runs"][i] for out in res])
+        rank0[core] = res[0]
+        sync_bn["core" if core else "direct"] = res[0]["sync_bn"]
+    init = rank0[False]["init"]
+    if not np.array_equal(init, rank0[True]["init"]):
+        fail("frontend: the two worlds start from different parameters")
+    for run, direct in zip(rank0[True]["runs"], rank0[False]["runs"]):
+        run["vs_direct_world"] = {
+            step: max(_worlds_rel(run, direct, init, step))
+            for step in sorted(run["params"])}
+        if not run["vs_direct_world"][1] <= WORLDS_RTOL:
+            fail(f"{run['mode']}: parameters after one step "
+                 f"{run['vs_direct_world'][1]} of the update away from the "
+                 f"world without the core (bar {WORLDS_RTOL})")
+    for core in (False, True):
+        for run in rank0[core]["runs"]:
+            del run["params"], run["sizes"]
+            runs.append(run)
+    return runs, sync_bn
+
+
 def _world_rank(modes, ckpt_dir) -> dict:
     """One rank of the multi-GPU run: each mode in turn, 4 steps, each
     rank on its own rows of one global batch."""
@@ -1902,10 +2356,17 @@ def main() -> None:
         fail(f"nvcc: {e}")
     print(f"nvcc: {release}", flush=True)
     t0 = time.perf_counter()
-    report = _build.build_all()
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        core_build = ex.submit(lambda: (_build.core_library(),
+                                        time.perf_counter() - t0))
+        report = _build.build_all()
+        try:
+            _, core_s = core_build.result()
+        except (OSError, RuntimeError) as e:
+            fail(f"native core build: {e}")
     print(f"build: {time.perf_counter() - t0:.2f} s "
-          + ", ".join(f"{n} {r['seconds']:.2f} s" for n, r in report.items()),
-          flush=True)
+          + ", ".join(f"{n} {r['seconds']:.2f} s" for n, r in report.items())
+          + f", native core (g++) {core_s:.2f} s", flush=True)
     usage = {n: ptxas_usage(r["log"]) for n, r in report.items()}
     print(f"ptxas: {json.dumps(usage)}", flush=True)
 
@@ -1961,6 +2422,11 @@ def main() -> None:
     ckpt = checkpoint_phase()
     print(f"checkpoint (one GPU, ResNet-50 ZeRO-1 + int8 + EF): "
           f"{json.dumps(ckpt)} ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    front = frontend_core_phase()
+    print(f"frontend named ops through the native core (one GPU, ResNet-50 "
+          f"batch 64, 161 gradients from post-accumulate-grad hooks): "
+          f"{json.dumps(front)} ({smi})", flush=True)
     ar = by_mode["allreduce"]
     print(f"e2e allreduce: NCCL calls a step in the optimizer update "
           f"{json.dumps(ar['nccl_calls']['update'])}, "
@@ -2004,6 +2470,28 @@ def main() -> None:
                   f"peak {run['peak_gib']:.2f} GiB ({smi})", flush=True)
             step_calls[run["mode"]] = run["step_calls"]
             runs.append(run)
+        torch.cuda.empty_cache()
+        front_runs, sync_bn = run_frontend_gpus(gpus)
+        functional = next(r for r in runs if r["mode"] == f"allreduce@{gpus}")
+        for run in front_runs:
+            print(f"e2e {run['mode']}: {_summary(run)}", flush=True)
+            print(f"e2e {run['mode']}: {run['img_per_s']:.2f} img/s per GPU "
+                  f"(SGD momentum, hook DistributedOptimizer; the functional "
+                  f"DistributedOptimizer's allreduce mode, int8 + EF + fused "
+                  f"Adam, in the same run: {functional['img_per_s']:.2f}); "
+                  f"plans a step {run['plans'] and run['plans'] / run['steps']}"
+                  f", NCCL calls a step "
+                  f"{json.dumps({k: v / run['steps'] for k, v in run['nccl_calls'].items()})} "
+                  f"({smi})", flush=True)
+            if any(run["launches"][k] for k in ("adasum_pair_combine",
+                                                "adasum_segment_combine")):
+                step_calls[run["mode"]] = run["step_calls"]
+            runs.append(run)
+        print(f"SyncBatchNorm at [64, 64, 112, 112] per GPU against "
+              f"BatchNorm2d over the gathered batch, largest difference over "
+              f"the reference's largest magnitude (bar {SYNC_BN_RTOL}), in "
+              f"the world without the core and the world with it: "
+              f"{json.dumps(sync_bn)} ({smi})", flush=True)
 
     meta = list(ResNet50(device="meta").jax_params().values())
     step_calls[PER_LEAF] = per_leaf_calls(meta, 1)

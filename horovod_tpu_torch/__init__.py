@@ -5,19 +5,38 @@
 asks for ``hvd.init(device="cpu")``). The int8 wire, the fused Adam
 update, the flash-attention forward and the Adasum combine run on
 hand-written Hopper kernels (:mod:`horovod_tpu_torch.ops.kernels`),
-built at first use.
+built at first use. ``init(native_core=True)`` attaches the native
+control-plane core, which negotiates and fuses the named async ops.
+Horovod's own PyTorch API (``DistributedOptimizer`` over a
+``torch.optim`` optimizer, ``SyncBatchNorm``) is
+``horovod_tpu_torch.torch``.
 """
 
 from horovod_tpu_torch.basics import (  # noqa: F401
+    ccl_built,
+    cross_rank,
+    cross_size,
+    ddl_built,
     device,
+    gloo_built,
+    gloo_enabled,
+    gpu_available,
     init,
+    is_homogeneous,
     is_initialized,
     local_rank,
     local_size,
+    mpi_built,
+    mpi_enabled,
+    mpi_threads_supported,
+    nccl_built,
     num_rank_is_power_2,
+    process_rank,
+    process_size,
     rank,
     shutdown,
     size,
+    xla_built,
 )
 from horovod_tpu_torch.compression import Compression  # noqa: F401
 from horovod_tpu_torch.ops.collective import (  # noqa: F401
@@ -28,12 +47,27 @@ from horovod_tpu_torch.ops.collective import (  # noqa: F401
     ReduceOp,
     Sum,
     allgather,
+    allgather_async,
+    allgather_object,
     allreduce,
+    allreduce_,
+    allreduce_async,
+    allreduce_async_,
     alltoall,
+    alltoall_async,
     broadcast,
+    broadcast_,
+    broadcast_async,
+    broadcast_async_,
     broadcast_object,
+    grouped_allgather,
     grouped_allreduce,
+    grouped_allreduce_async,
+    join,
+    poll,
     reducescatter,
+    reducescatter_async,
+    synchronize,
 )
 from horovod_tpu_torch.optim import (  # noqa: F401
     DistributedOptimizer,

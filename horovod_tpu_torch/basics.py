@@ -12,6 +12,11 @@ Identity comes from the environment, first ``HOROVOD_RANK`` /
 ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``; with neither the world is this one
 process. A multi-process world rendezvous at ``init_method`` (default
 ``env://``, i.e. ``MASTER_ADDR``/``MASTER_PORT``).
+
+``init(native_core=True)`` (or ``HOROVOD_NATIVE_CORE=1``) also attaches
+the native control-plane core (:mod:`horovod_tpu_torch.core`): named
+async collectives are then negotiated across ranks and fused before they
+run. It is off by default, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ class _State:
     local_rank: int = 0
     local_size: int = 1
     device: Optional[torch.device] = None
+    core: Optional[object] = None
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
@@ -49,7 +55,8 @@ def _env_int(*names: str) -> Optional[int]:
 
 def init(device=None, *, init_method: Optional[str] = None,
          rank: Optional[int] = None, size: Optional[int] = None,
-         local_rank: Optional[int] = None) -> None:
+         local_rank: Optional[int] = None,
+         native_core: Optional[bool] = None) -> None:
     """Initialize the framework (``hvd.init()``).
 
     With no ``device`` the process takes ``cuda:<local_rank>`` and the
@@ -57,7 +64,13 @@ def init(device=None, *, init_method: Optional[str] = None,
     carries on on the CPU unasked. ``device="cpu"`` selects the CPU and
     the gloo backend (what the CPU tests use). ``rank``/``size``/
     ``local_rank`` override the environment. Calling ``init`` again
-    before :func:`shutdown` is a no-op, as in the reference."""
+    before :func:`shutdown` is a no-op, as in the reference.
+
+    ``native_core`` (default ``HOROVOD_NATIVE_CORE=1``) attaches the
+    native core, built at first use; across processes its coordinator is
+    rank 0 at ``HVD_CORE_COORD_ADDR``:``HVD_CORE_COORD_PORT`` (default
+    ``MASTER_PORT`` + 1: the process group's store holds ``MASTER_PORT``
+    itself). A core that cannot be built or started raises."""
     with _state.lock:
         if _state.initialized:
             return
@@ -99,14 +112,48 @@ def init(device=None, *, init_method: Optional[str] = None,
         _state.local_size = ls if ls is not None else (
             min(n, torch.cuda.device_count()) if dev.type == "cuda" else n)
         _state.device = dev
+        use_core = native_core
+        if use_core is None:
+            use_core = os.environ.get("HOROVOD_NATIVE_CORE", "0") == "1"
+        if use_core:
+            from horovod_tpu_torch.core import NativeCore
+
+            try:
+                _state.core = NativeCore(
+                    rank=r, size=n, device=dev,
+                    coordinator_host=os.environ.get("HVD_CORE_COORD_ADDR"),
+                    coordinator_port=_coordinator_port(n))
+            except BaseException:
+                dist.destroy_process_group()
+                raise
         _state.initialized = True
 
 
+def _coordinator_port(n: int) -> int:
+    """The core's coordinator port: ``HVD_CORE_COORD_PORT``, else the
+    port above ``MASTER_PORT`` (which rank 0's rendezvous store already
+    binds under ``env://``). A world of one negotiates alone and needs
+    none; a larger one with neither variable set raises."""
+    if "HVD_CORE_COORD_PORT" in os.environ:
+        return int(os.environ["HVD_CORE_COORD_PORT"])
+    if "MASTER_PORT" in os.environ:
+        return int(os.environ["MASTER_PORT"]) + 1
+    if n > 1:
+        raise ValueError(
+            "the native core's coordinator needs a port: set "
+            "HVD_CORE_COORD_PORT (or MASTER_PORT, whose next port it takes)")
+    return 0
+
+
 def shutdown() -> None:
-    """Tear the process group down; a later :func:`init` starts afresh."""
+    """Shut the native core down (if attached), then tear the process
+    group down; a later :func:`init` starts afresh."""
     with _state.lock:
         if not _state.initialized:
             return
+        if _state.core is not None:
+            _state.core.shutdown()
+            _state.core = None
         dist.destroy_process_group()
         _state.initialized = False
         _state.device = None
@@ -142,6 +189,41 @@ def local_size() -> int:
     return _state.local_size
 
 
+def cross_rank() -> int:
+    """This process's host among the hosts (``rank // local_size``)."""
+    _require_init()
+    return _state.rank // _state.local_size
+
+
+def cross_size() -> int:
+    """The number of hosts (``size // local_size``, at least 1)."""
+    _require_init()
+    return max(_state.size // _state.local_size, 1)
+
+
+def process_rank() -> int:
+    """One process per rank: the rank."""
+    return rank()
+
+
+def process_size() -> int:
+    """One process per rank: the world size."""
+    return size()
+
+
+def is_homogeneous() -> bool:
+    """Every host runs ``local_size`` ranks."""
+    _require_init()
+    return _state.size % _state.local_size == 0
+
+
+def core():
+    """The attached native core, or None (``init(native_core=True)``
+    attaches it)."""
+    _require_init()
+    return _state.core
+
+
 def device() -> torch.device:
     """The device this process computes on (``cuda:<local_rank>`` or cpu)."""
     _require_init()
@@ -152,3 +234,52 @@ def num_rank_is_power_2(num: int) -> bool:
     """Is ``num`` a power of two? The Adasum precondition user scripts
     check before opting into ``op=hvd.Adasum``."""
     return num != 0 and (num & (num - 1)) == 0
+
+
+# --- build and availability flags, for this installation
+
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def mpi_built() -> bool:
+    """The port never runs over MPI."""
+    return False
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def xla_built() -> bool:
+    """The port's data plane is PyTorch, not XLA."""
+    return False
+
+
+def gpu_available(ext_base_name: str = None, verbose: bool = False) -> bool:
+    """Is a CUDA device visible to this process?"""
+    del ext_base_name, verbose
+    return torch.cuda.is_available()
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def gloo_enabled() -> bool:
+    """Does the process group run on gloo (the CPU backend)?"""
+    _require_init()
+    return dist.get_backend() == "gloo"

@@ -61,9 +61,12 @@ def _segment_combine(a, b, offsets):
 
 def _exchange(v, peer: int):
     """Send ``v`` to ``peer`` and receive its tensor of the same shape."""
+    from horovod_tpu_torch.ops.collective import _group
+
     got = torch.empty_like(v)
-    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, v, peer),
-                                   dist.P2POp(dist.irecv, got, peer)])
+    g = _group()
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, v, peer, g),
+                                   dist.P2POp(dist.irecv, got, peer, g)])
     for r in reqs:
         r.wait()
     return got

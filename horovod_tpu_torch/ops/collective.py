@@ -20,14 +20,27 @@ The ZeRO-3 parameter gather (:func:`gather_shards`,
 :func:`quantized_all_gather`) is differentiable: its backward is the
 exact SUM reduce-scatter. ``allreduce(t, Adasum)`` runs the butterfly of
 :mod:`horovod_tpu_torch.ops.adasum`.
+
+The ``*_async`` ops return a :class:`Handle` (``synchronize``, ``poll``)
+and register their ``name`` among the outstanding ones, where a
+duplicate raises (the reference's ``DUPLICATE_NAME_ERROR``). With the
+native core attached (``init(native_core=True)``) a named async op is
+queued to the core instead (:func:`_core_enqueue`), which negotiates it
+across ranks, fuses it with others ready in the same cycle and runs it
+on the core's thread and process group (:func:`on_group`); otherwise it
+is ``torch.distributed``'s ``async_op=True``, and each sync op is its
+async op waited on at once, so the two agree bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
 import functools
 import itertools
 import pickle
+import threading
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -71,12 +84,34 @@ _RS = ("reduce_scatter_single" if hasattr(dist, "reduce_scatter_single")
        else "reduce_scatter_tensor")
 
 
-def _all_gather_single(out, t):
-    getattr(dist, _AG)(out, t)
+_local = threading.local()
 
 
-def _reduce_scatter_single(out, t, op):
-    getattr(dist, _RS)(out, t, op=op)
+def _group():
+    """The process group this thread's collectives run on: the default
+    one, or the native core's inside :func:`on_group`."""
+    return getattr(_local, "group", None)
+
+
+@contextlib.contextmanager
+def on_group(group):
+    """Run this thread's collectives on ``group`` while open (the native
+    core's thread, on the core's own process group)."""
+    saved = _group()
+    _local.group = group
+    try:
+        yield
+    finally:
+        _local.group = saved
+
+
+def _all_gather_single(out, t, async_op=False):
+    return getattr(dist, _AG)(out, t, group=_group(), async_op=async_op)
+
+
+def _reduce_scatter_single(out, t, op, async_op=False):
+    return getattr(dist, _RS)(out, t, op=op, group=_group(),
+                              async_op=async_op)
 
 
 def _n() -> int:
@@ -107,10 +142,24 @@ def _all_gather_flat(t):
     return out
 
 
-def _all_to_all(t):
+def _start_all_to_all(t):
     out = torch.empty_like(t)
-    dist.all_to_all_single(out, t.contiguous())
-    return out
+    work = dist.all_to_all_single(out, t.contiguous(), group=_group(),
+                                  async_op=True)
+    return [work], lambda: out
+
+
+def _all_to_all(t):
+    return _run(_start_all_to_all(t))
+
+
+def _run(started):
+    """A started op ``(works, finish)`` waited on at once: its result."""
+    works, finish = started
+    for w in works:
+        if w is not None:
+            w.wait()
+    return finish()
 
 
 # --------------------------------------------------------------------------
@@ -274,23 +323,36 @@ def _quantizes(compression, tensor) -> bool:
         tensor.numel() >= int(getattr(compression, "min_quant_elems", 0))
 
 
-def _grouped_flat_allreduce(tensors, op):
+def _start_flat_allreduce(tensors, op):
     """The fusion buffer: per dtype, the tensors raveled into one flat
-    buffer, one ``all_reduce`` (Average divides it by :func:`_div`), and
-    split back into views."""
-    outs = [None] * len(tensors)
+    buffer and one ``all_reduce`` started on it. Returns ``(works,
+    finish)``; ``finish()`` divides for Average (:func:`_div`) and splits
+    each buffer back into views of the tensors' shapes."""
     groups: dict = {}
     for i, t in enumerate(tensors):
         groups.setdefault(t.dtype, []).append(i)
+    works, flats = [], []
     for idxs in groups.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
-        dist.all_reduce(flat, op=_DIST_OP[op])
-        if op == Average:
-            flat = _div(flat, _n())
-        parts = flat.split([tensors[i].numel() for i in idxs])
-        for i, part in zip(idxs, parts):
-            outs[i] = part.view(tensors[i].shape)
-    return outs
+        works.append(dist.all_reduce(flat, op=_DIST_OP[op], group=_group(),
+                                     async_op=True))
+        flats.append((idxs, flat))
+
+    def finish():
+        outs = [None] * len(tensors)
+        for idxs, flat in flats:
+            if op == Average:
+                flat = _div(flat, _n())
+            parts = flat.split([tensors[i].numel() for i in idxs])
+            for i, part in zip(idxs, parts):
+                outs[i] = part.view(tensors[i].shape)
+        return outs
+
+    return works, finish
+
+
+def _grouped_flat_allreduce(tensors, op):
+    return _run(_start_flat_allreduce(tensors, op))
 
 
 def _grouped_allreduce(tensors, op, compression=None, *, residuals=False):
@@ -341,24 +403,40 @@ def _grouped_allreduce(tensors, op, compression=None, *, residuals=False):
 # the public collectives
 
 
-def allreduce(tensor, op: ReduceOp = Average, *, compression=None):
+def allreduce(tensor, op: ReduceOp = Average, *, compression=None,
+              prescale_factor: float = 1.0, postscale_factor: float = 1.0):
     """Reduce ``tensor`` across ranks (Average divides the sum by the
     world size; Adasum runs the butterfly of :mod:`.adasum` on a
     power-of-two world). A quantized ``compression`` (``Compression.int8``)
     sends f32/f64 tensors of at least ``min_quant_elems`` elements through
-    the int8 exchange; other compressors cast around the reduction."""
+    the int8 exchange; other compressors cast around the reduction.
+    ``prescale_factor`` multiplies the tensor before the reduction,
+    ``postscale_factor`` the result after it, as in the JAX package."""
     basics._require_init()
     _check_device(tensor)
     op = ReduceOp(op)
+    if prescale_factor != 1.0:
+        tensor = tensor * prescale_factor
     if op != Adasum:
-        return _grouped_allreduce([tensor], op, compression)[0][0]
-    if getattr(compression, "quantized", False) and \
+        out = _grouped_allreduce([tensor], op, compression)[0][0]
+    elif getattr(compression, "quantized", False) and \
             _quantizes(compression, tensor):
         raise ValueError("quantized compression does not support op=Adasum")
-    if compression is None:
-        return _adasum.adasum_allreduce(tensor)
-    wire, ctx = compression.compress(tensor)
-    return compression.decompress(_adasum.adasum_allreduce(wire), ctx)
+    elif compression is None:
+        out = _adasum.adasum_allreduce(tensor)
+    else:
+        wire, ctx = compression.compress(tensor)
+        out = compression.decompress(_adasum.adasum_allreduce(wire), ctx)
+    return out * postscale_factor if postscale_factor != 1.0 else out
+
+
+def allreduce_(tensor, op: ReduceOp = Average, **kw):
+    """In-place :func:`allreduce`: the result is copied into ``tensor``,
+    which is returned."""
+    out = allreduce(tensor, op, **kw)
+    with torch.no_grad():
+        tensor.copy_(out)
+    return tensor
 
 
 def grouped_allreduce(tensors, op: ReduceOp = Average):
@@ -381,18 +459,32 @@ def grouped_allreduce(tensors, op: ReduceOp = Average):
     return _grouped_allreduce(tensors, op)[0]
 
 
-def allgather(tensor):
-    """Concatenate every rank's tensor along dim 0 (equal dim 0 on every
-    rank, as the reference's static-shape path requires)."""
+def _start_allgather(tensor):
     basics._require_init()
     _check_device(tensor)
     if tensor.dim() == 0:
         raise ValueError("allgather needs a tensor with a leading dimension")
-    return _all_gather_flat(tensor)
+    t = tensor.contiguous()
+    out = torch.empty((_n() * t.shape[0],) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    return [_all_gather_single(out, t, async_op=True)], lambda: out
 
 
-def broadcast(tensor, root_rank: int = 0):
-    """Every rank gets ``root_rank``'s tensor."""
+def allgather(tensor):
+    """Concatenate every rank's tensor along dim 0 (equal dim 0 on every
+    rank, as the reference's static-shape path requires)."""
+    return _run(_start_allgather(tensor))
+
+
+def grouped_allgather(tensors):
+    """:func:`allgather` of each tensor of a list, all started before any
+    is waited on (the reference fuses allgather responses too; mixed
+    dtypes welcome)."""
+    started = [_start_allgather(t) for t in tensors]
+    return [_run(s) for s in started]
+
+
+def _start_broadcast(tensor, root_rank: int):
     basics._require_init()
     _check_device(tensor)
     if not 0 <= root_rank < _n():
@@ -402,8 +494,22 @@ def broadcast(tensor, root_rank: int = 0):
     was_bool = out.dtype == torch.bool
     if was_bool:
         out = out.to(torch.int8)
-    dist.broadcast(out, src=root_rank)
-    return out.to(torch.bool) if was_bool else out
+    work = dist.broadcast(out, src=root_rank, group=_group(), async_op=True)
+    return [work], lambda: out.to(torch.bool) if was_bool else out
+
+
+def broadcast(tensor, root_rank: int = 0):
+    """Every rank gets ``root_rank``'s tensor."""
+    return _run(_start_broadcast(tensor, root_rank))
+
+
+def broadcast_(tensor, root_rank: int = 0):
+    """In-place :func:`broadcast`: root's value is copied into ``tensor``,
+    which is returned."""
+    out = broadcast(tensor, root_rank)
+    with torch.no_grad():
+        tensor.copy_(out)
+    return tensor
 
 
 def broadcast_object(obj, root_rank: int = 0):
@@ -421,13 +527,31 @@ def broadcast_object(obj, root_rank: int = 0):
     root = basics.rank() == root_rank
     blob = pickle.dumps(obj) if root else b""
     length = torch.tensor([len(blob)], dtype=torch.int64, device=dev)
-    dist.broadcast(length, src=root_rank)
+    dist.broadcast(length, src=root_rank, group=_group())
     if root:
         buf = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(dev)
     else:
         buf = torch.empty(int(length.item()), dtype=torch.uint8, device=dev)
-    dist.broadcast(buf, src=root_rank)
+    dist.broadcast(buf, src=root_rank, group=_group())
     return pickle.loads(buf.cpu().numpy().tobytes())
+
+
+def allgather_object(obj) -> list:
+    """Every rank's picklable ``obj``, rank-ordered (reference pattern
+    ``torch/__init__.py:609-648``): each rank pickles its object into a
+    ``uint8`` tensor; the lengths are gathered, then the bytes, each
+    padded to the longest."""
+    basics._require_init()
+    if _n() == 1:
+        return [pickle.loads(pickle.dumps(obj))]
+    dev = basics.device()
+    blob = pickle.dumps(obj)
+    lengths = allgather(torch.tensor([len(blob)], dtype=torch.int64,
+                                     device=dev)).tolist()
+    buf = torch.zeros(max(lengths), dtype=torch.uint8, device=dev)
+    buf[:len(blob)] = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+    rows = allgather(buf).view(_n(), -1).cpu().numpy()
+    return [pickle.loads(row[:n].tobytes()) for row, n in zip(rows, lengths)]
 
 
 def _pad_rows(tensor, n: int):
@@ -439,29 +563,318 @@ def _pad_rows(tensor, n: int):
     return torch.cat([tensor, tensor.new_zeros((pad,) + tuple(tensor.shape[1:]))])
 
 
-def reducescatter(tensor, op: ReduceOp = Average):
-    """Reduce along dim 0 and give rank r the r-th of N equal row blocks.
-    A dim 0 that N does not divide is zero-padded first."""
-    basics._require_init()
-    _check_device(tensor)
+def _check_rs_op(op) -> ReduceOp:
     op = ReduceOp(op)
     if op not in (Average, Sum):
         raise ValueError(f"reducescatter supports Average/Sum, got {op!r}")
+    return op
+
+
+def _start_reducescatter(tensor, op):
+    basics._require_init()
+    _check_device(tensor)
+    op = _check_rs_op(op)
     n = _n()
     t = _pad_rows(tensor, n).contiguous()
     out = torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]),
                       dtype=t.dtype, device=t.device)
-    _reduce_scatter_single(out, t, op=dist.ReduceOp.SUM)
-    return _div(out, n) if op == Average else out
+    work = _reduce_scatter_single(out, t, op=dist.ReduceOp.SUM, async_op=True)
+    return [work], lambda: _div(out, n) if op == Average else out
 
 
-def alltoall(tensor):
-    """Rank i sends row block j of its tensor to rank j; dim 0 must be a
-    multiple of the world size."""
+def reducescatter(tensor, op: ReduceOp = Average):
+    """Reduce along dim 0 and give rank r the r-th of N equal row blocks.
+    A dim 0 that N does not divide is zero-padded first."""
+    return _run(_start_reducescatter(tensor, op))
+
+
+def _start_alltoall(tensor):
     basics._require_init()
     _check_device(tensor)
     if tensor.dim() == 0 or tensor.shape[0] % _n():
         raise ValueError(
             f"alltoall needs dim 0 divisible by the world size {_n()}, "
             f"got shape {tuple(tensor.shape)}")
-    return _all_to_all(tensor)
+    return _start_all_to_all(tensor)
+
+
+def alltoall(tensor):
+    """Rank i sends row block j of its tensor to rank j; dim 0 must be a
+    multiple of the world size."""
+    return _run(_start_alltoall(tensor))
+
+
+# --------------------------------------------------------------------------
+# async ops and their handles
+
+
+class Handle:
+    """An async op without the native core (reference
+    ``torch/handle_manager.{h,cc}``, poll/wait ``torch/mpi_ops.py:475-524``):
+    owns the started ``torch.distributed`` works and the op's output."""
+
+    __slots__ = ("_works", "_finish", "_name", "_result")
+
+    def __init__(self, works, finish, name=None):
+        self._works = [w for w in works if w is not None]
+        self._finish = finish
+        self._name = name
+        self._result = None
+
+    def done(self) -> bool:
+        """Have the works completed? On the card a work's completion is
+        the query of the event NCCL records after the collective."""
+        return self._finish is None or all(w.is_completed()
+                                           for w in self._works)
+
+    def wait(self, timeout=None):
+        """The op's output; the caller's stream waits on the collective
+        (on the CPU the host blocks until it is done). ``timeout`` is for
+        the signature of :meth:`CoreHandle.wait` and not enforced."""
+        del timeout
+        if self._finish is not None:
+            try:
+                for w in self._works:
+                    w.wait()
+                self._result = self._finish()
+            finally:
+                self._finish = None
+                self._works = []
+                _release_name(self._name)
+        return self._result
+
+
+_outstanding_lock = threading.Lock()
+_outstanding_names = set()
+
+
+def _register_name(name: Optional[str]):
+    """Duplicate outstanding names are an error, as in the reference
+    (``DUPLICATE_NAME_ERROR``, ``common/common.h:161-164``)."""
+    if name is None:
+        return
+    with _outstanding_lock:
+        if name in _outstanding_names:
+            raise ValueError(
+                f"Duplicate tensor name '{name}' in outstanding collective; "
+                "synchronize the previous op first (reference "
+                "DUPLICATE_NAME_ERROR).")
+        _outstanding_names.add(name)
+
+
+def _release_name(name: Optional[str]):
+    if name is None:
+        return
+    with _outstanding_lock:
+        _outstanding_names.discard(name)
+
+
+def _async(start, name):
+    """Register ``name``, start the op, and release the name if starting
+    it fails (else the name would be poisoned for good)."""
+    _register_name(name)
+    try:
+        works, finish = start()
+    except BaseException:
+        _release_name(name)
+        raise
+    return Handle(works, finish, name=name)
+
+
+def _done(value):
+    """A started op that has already run: ``value`` is its output."""
+    return [], lambda: value
+
+
+def synchronize(handle):
+    """Block until the handle's op completed and return its output
+    (reference ``torch/mpi_ops.py:491-508``)."""
+    return handle.wait()
+
+
+def poll(handle) -> bool:
+    """Nonblocking completion check (reference ``torch/mpi_ops.py:475-489``)."""
+    return handle.done()
+
+
+def join() -> int:
+    """Uneven-data join (reference ``torch/mpi_ops.py:511-524``,
+    ``controller.cc:219-307``): with the native core attached this rank
+    keeps taking part in the other ranks' negotiated reductions with zero
+    contributions until every rank has joined, and the result is the last
+    rank to join. Without the core there is no negotiation to backfill
+    from, and, as the JAX package's, it returns this rank."""
+    basics._require_init()
+    core = basics._state.core
+    if core is not None:
+        from horovod_tpu_torch.core import JOIN_TENSOR_NAME, REQUEST_JOIN
+
+        h = core.enqueue(JOIN_TENSOR_NAME,
+                         torch.zeros(0, device=basics.device()), REQUEST_JOIN)
+        return int(h.wait())
+    return basics.rank()
+
+
+def _core_enqueue(name, tensor, request_type, **kw):
+    """Queue a named async op to the native core when one is attached
+    (``init(native_core=True)``); None when the op should start here. The
+    name stays outstanding until the handle is waited on, as on the
+    direct path (the core's own check sees only the names it still
+    queues)."""
+    core = basics._state.core
+    if core is None or name is None:
+        return None
+    basics._require_init()
+    _check_device(tensor)
+    _register_name(name)
+    try:
+        handle = core.enqueue(name, tensor, request_type, **kw)
+    except BaseException:
+        _release_name(name)
+        raise
+    handle.on_wait = lambda: _release_name(name)
+    return handle
+
+
+def _start_allreduce(tensor, op, prescale_factor, postscale_factor):
+    basics._require_init()
+    _check_device(tensor)
+    op = ReduceOp(op)
+    if op == Adasum:        # the butterfly's exchanges wait as they go
+        return _done(allreduce(tensor, op, prescale_factor=prescale_factor,
+                               postscale_factor=postscale_factor))
+    if prescale_factor != 1.0:
+        tensor = tensor * prescale_factor
+    works, finish = _start_flat_allreduce([tensor], op)
+    if postscale_factor == 1.0:
+        return works, lambda: finish()[0]
+    return works, lambda: finish()[0] * postscale_factor
+
+
+def allreduce_async(tensor, op: ReduceOp = Average, *, name=None,
+                    prescale_factor: float = 1.0,
+                    postscale_factor: float = 1.0):
+    """Async :func:`allreduce` returning a handle (reference
+    ``torch/mpi_ops.py:94-129``). With the native core attached and a
+    ``name`` given it is negotiated and fused by the core."""
+    from horovod_tpu_torch.core import REQUEST_ADASUM, REQUEST_ALLREDUCE
+
+    h = _core_enqueue(
+        name, tensor, REQUEST_ADASUM if op == Adasum else REQUEST_ALLREDUCE,
+        op=ReduceOp(op), prescale=prescale_factor, postscale=postscale_factor)
+    if h is not None:
+        return h
+    return _async(lambda: _start_allreduce(tensor, op, prescale_factor,
+                                           postscale_factor), name)
+
+
+class _InPlaceHandle:
+    """Handle of an in-place async op: ``wait`` copies the op's output
+    into the tensor it was given and returns that tensor."""
+
+    __slots__ = ("_inner", "_tensor", "_copied")
+
+    def __init__(self, inner, tensor):
+        self._inner = inner
+        self._tensor = tensor
+        self._copied = False
+
+    def done(self) -> bool:
+        return self._inner.done()
+
+    def wait(self, timeout=None):
+        out = self._inner.wait(timeout)
+        if not self._copied:
+            with torch.no_grad():
+                self._tensor.copy_(out)
+            self._copied = True
+        return self._tensor
+
+
+def allreduce_async_(tensor, op: ReduceOp = Average, *, name=None,
+                     prescale_factor: float = 1.0,
+                     postscale_factor: float = 1.0):
+    """In-place :func:`allreduce_async`: on ``wait`` the result is copied
+    into ``tensor``, which ``wait`` returns."""
+    return _InPlaceHandle(
+        allreduce_async(tensor, op, name=name,
+                        prescale_factor=prescale_factor,
+                        postscale_factor=postscale_factor), tensor)
+
+
+def grouped_allreduce_async(tensors, op: ReduceOp = Average, *, name=None):
+    """Async :func:`grouped_allreduce` (never through the core: the group
+    is fused already)."""
+    op = ReduceOp(op)
+
+    def start():
+        basics._require_init()
+        for t in tensors:
+            _check_device(t)
+        if op == Adasum:
+            return _done(grouped_allreduce(tensors, op))
+        return _start_flat_allreduce(list(tensors),
+                                     op if op in (Average, Sum) else Sum)
+
+    return _async(start, name)
+
+
+def allgather_async(tensor, *, name=None):
+    from horovod_tpu_torch.core import REQUEST_ALLGATHER
+
+    h = _core_enqueue(name, tensor, REQUEST_ALLGATHER)
+    if h is not None:
+        return h
+    return _async(lambda: _start_allgather(tensor), name)
+
+
+def broadcast_async(tensor, root_rank: int = 0, *, name=None):
+    from horovod_tpu_torch.core import REQUEST_BROADCAST
+
+    if not 0 <= root_rank < _n():
+        raise ValueError(
+            f"broadcast root_rank {root_rank} out of range [0, {_n()})")
+    h = _core_enqueue(name, tensor, REQUEST_BROADCAST, root_rank=root_rank)
+    if h is not None:
+        return h
+    return _async(lambda: _start_broadcast(tensor, root_rank), name)
+
+
+def broadcast_async_(tensor, root_rank: int = 0, *, name=None):
+    """In-place :func:`broadcast_async`: on ``wait`` root's value is
+    copied into ``tensor``, which ``wait`` returns."""
+    return _InPlaceHandle(broadcast_async(tensor, root_rank, name=name),
+                          tensor)
+
+
+def alltoall_async(tensor, *, name=None):
+    from horovod_tpu_torch.core import REQUEST_ALLTOALL
+
+    h = _core_enqueue(name, tensor, REQUEST_ALLTOALL)
+    if h is not None:
+        return h
+    return _async(lambda: _start_alltoall(tensor), name)
+
+
+def reducescatter_async(tensor, op: ReduceOp = Average, *, name=None):
+    """Async :func:`reducescatter`; with the core attached and a ``name``
+    it rides the negotiation as ``REQUEST_REDUCESCATTER``."""
+    from horovod_tpu_torch.core import REQUEST_REDUCESCATTER
+
+    op = _check_rs_op(op)
+    h = _core_enqueue(name, tensor, REQUEST_REDUCESCATTER, op=op)
+    if h is not None:
+        return h
+    return _async(lambda: _start_reducescatter(tensor, op), name)
+
+
+def handle_average_backwards_compatibility(op, average):
+    """Resolve the deprecated ``average=`` kwarg against ``op=`` (reference
+    ``horovod/common/util.py``): exactly one may be given; ``average``
+    defaults to True, i.e. Average."""
+    if op is not None:
+        if average is not None:
+            raise ValueError(
+                "The op parameter supersedes average; provide only one.")
+        return op
+    return Average if (average is None or average) else Sum

@@ -34,7 +34,10 @@ def test_every_module_imports_with_jax_poisoned():
             "horovod_tpu_torch.pytree", "horovod_tpu_torch.data.sampler",
             "horovod_tpu_torch.models.vgg", "horovod_tpu_torch.models.inception",
             "horovod_tpu_torch.models.mlp",
-            "horovod_tpu_torch.models.mnist"} <= set(mods)
+            "horovod_tpu_torch.models.mnist", "horovod_tpu_torch.core",
+            "horovod_tpu_torch.torch", "horovod_tpu_torch.torch.mpi_ops",
+            "horovod_tpu_torch.torch.compression",
+            "horovod_tpu_torch.torch.sync_batch_norm"} <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes'):\n"
@@ -60,6 +63,18 @@ def test_every_module_imports_with_jax_poisoned():
         "for f in (ck.save, ck.restore, ck.CheckpointManager, host_snapshot,\n"
         "          ck.consolidate_opt_state, VGG16, InceptionV3, MLP, MnistCNN):\n"
         "    assert callable(f)\n"
+        # the frontend and the native core, driven in a world of one
+        "import torch\n"
+        "import horovod_tpu_torch.torch as thvd\n"
+        "thvd.init(device='cpu', native_core=True)\n"
+        "from horovod_tpu_torch import basics\n"
+        "assert basics.core() is not None\n"
+        "h = thvd.allreduce_async(torch.ones(3), name='g', op=thvd.Sum)\n"
+        "assert thvd.synchronize(h).tolist() == [1.0, 1.0, 1.0]\n"
+        "for f in (thvd.DistributedOptimizer, thvd.SyncBatchNorm,\n"
+        "          thvd.broadcast_parameters, thvd.broadcast_optimizer_state):\n"
+        "    assert callable(f)\n"
+        "thvd.shutdown()\n"
         "import runpy\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='chip_smoke')\n"
         "bad = sorted(m for m in sys.modules\n"
