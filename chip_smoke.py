@@ -197,6 +197,37 @@ Phases, each fatal on failure (exit code 1, no result line):
    each mode's first step lie within 5e-2 of the update of the world
    without the core, per tensor.
 
+13. bucketed overlap (ResNet-50 at full width, batch 64, int8 + EF,
+   fused Adam, 5 steps, one GPU and with ``--gpus N`` across them, 4
+   steps): allreduce mode and ZeRO-1 at ``bucket_bytes`` 25 MiB (4
+   buckets of ResNet-50's 102.2 MB of f32) and 64 MiB (2), each bucket's
+   exchange started from the backward's gradient hooks
+   (``make_train_step``'s hook route). Exact launches a step: K of
+   ``quantize``, ``dequant_accumulate_requantize`` and
+   ``dequantize_rows`` and one ``fused_adam`` pass over the leaves in
+   allreduce mode; K of ``quantize`` and ``dequant_accumulate`` and one
+   ``fused_adam`` over the K shards in ZeRO-1; NCCL calls in the update
+   (the hooks' included) 4K and 2K + 1 (the one trailing all-gather of
+   the f32 dtype). One more step compares the hook route's buckets,
+   reduced values and new residuals, bit for bit with the same exchange
+   re-run after the backward on the same gradients (allreduce mode:
+   ``ops.overlap.bucketed_allreduce``), and times the last gradient hook
+   to the last bucket's completion with CUDA events; printed with the
+   buckets started from the backward (and how many while gradients were
+   still to come) and the img/s beside the same mode without overlap;
+14. PowerSGD (rank 4, EF): ``lm_flagship`` 4 steps with ``adamw(1e-4)``
+   on one GPU (``lm_powersgd``: the factorized leaves exactly those
+   the wire-cost rule ``(d0 + m) r < d0 m`` names, the other float
+   leaves' grouped int8 exchange once a step, 12 ``flash_fwd`` a step);
+   with ``--gpus N`` ResNet-50 ``powersgd`` across them (only the stem
+   conv and the head factorize under HWIO; NCCL calls in the update are
+   allreduce mode's plus the two factor allreduces); the wire bytes a
+   step beside f32's;
+15. ``backward_passes_per_step=2`` on ResNet-50 (allreduce mode, int8 +
+   EF, fused Adam), one GPU, 4 steps (``multisteps``): a step that does
+   not emit makes no NCCL call in the update and launches no kernel,
+   one that emits allreduce mode's 5 calls and its launches.
+
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
 one-GPU mode that launches it; for the Adasum combines, which no run on
@@ -313,7 +344,11 @@ NEED = {"zero1": ("quantize", "dequant_accumulate", "fused_adam"),
         "zero3": ("quantize", "dequantize_rows", "fused_adam"),
         "adasum": ("fused_adam",),
         "adasum_fp16": ("adasum_pair_combine", "fused_adam"),
-        "lm": ("flash_fwd",)}
+        "powersgd": ("quantize", "dequant_accumulate_requantize",
+                     "dequantize_rows", "fused_adam"),
+        "lm": ("flash_fwd",),
+        "lm_powersgd": ("flash_fwd", "quantize",
+                        "dequant_accumulate_requantize", "dequantize_rows")}
 #: the torch.distributed functions ops/collective.py calls through its
 #: ``dist`` name (one of each renamed pair exists)
 DIST_CALLS = ("all_reduce", "all_to_all_single", "all_gather_single",
@@ -326,8 +361,16 @@ DIST_CALLS = ("all_reduce", "all_to_all_single", "all_gather_single",
 PER_LEAF = "allreduce_per_leaf"
 ADASUM_PER_LEAF = "adasum_l1_replay_leaf_bfloat16"
 YARDSTICKS = (PER_LEAF, ADASUM_PER_LEAF)
+#: the bucketed overlap runs (ResNet-50, int8 + EF, fused Adam): mode and
+#: bucket bytes; 25 MiB cuts ResNet-50's 102.2 MB of f32 into 4 buckets,
+#: the 64 MiB default into 2
+OVERLAP_RUNS = (("allreduce", 25 << 20), ("zero1", 25 << 20),
+                ("allreduce", 64 << 20), ("zero1", 64 << 20))
+#: PowerSGD's rank in both of its runs
+PSGD_RANK = 4
 #: the ResNet-50 modes across N GPUs (``--gpus N``)
-WORLD_MODES = ("zero1", "allreduce", "zero3", "adasum", "adasum_fp16")
+WORLD_MODES = ("zero1", "allreduce", "zero3", "adasum", "adasum_fp16",
+               "powersgd")
 #: the one-GPU modes whose replayed step makes a kernel row's numbers
 ONE_GPU_MODES = ("zero1", "allreduce", "zero3", "adasum", "lm")
 #: the level-1 replay's calls that stand in for the Adasum combines' step
@@ -1262,19 +1305,26 @@ def build_model(name: str, seed: int, device):
                                             device=device)
 
 
-def make_tx(mode: str, lr: float = 1e-3):
+def make_tx(mode: str, lr: float = 1e-3, bucket_bytes=None):
     """The DistributedOptimizer of each mode, fused Adam at ``lr``
-    inside: ZeRO-1 and allreduce mode with int8 + EF, ZeRO-3 (its gather
-    wire is ``HOROVOD_FSDP_WIRE``), Adasum with no compression (the
-    grouped butterfly) and with ``Compression.fp16`` (the leaves packed
-    in bf16, one combine of the leaf table a level)."""
+    inside: ZeRO-1 and allreduce mode with int8 + EF (bucketed overlap
+    with ``bucket_bytes``), ZeRO-3 (its gather wire is
+    ``HOROVOD_FSDP_WIRE``), Adasum with no compression (the grouped
+    butterfly) and with ``Compression.fp16`` (the leaves packed in bf16,
+    one combine of the leaf table a level), PowerSGD (rank
+    :data:`PSGD_RANK`, EF)."""
     import horovod_tpu_torch as hvd
 
     adam = hvd.fused_adam(lr)
     if mode in ("zero1", "allreduce"):
         return hvd.DistributedOptimizer(adam, compression=hvd.Compression.int8,
                                         error_feedback=True,
-                                        shard_optimizer=mode == "zero1")
+                                        shard_optimizer=mode == "zero1",
+                                        bucket_bytes=bucket_bytes)
+    if mode == "powersgd":
+        return hvd.DistributedOptimizer(
+            adam, compression=hvd.Compression.powersgd(PSGD_RANK),
+            error_feedback=True)
     if mode == "zero3":
         return hvd.DistributedOptimizer(adam, shard_params=True)
     if mode == "adasum_fp16":
@@ -1283,12 +1333,16 @@ def make_tx(mode: str, lr: float = 1e-3):
     return hvd.DistributedOptimizer(adam, op=hvd.Adasum)
 
 
-def expected_launches(mode: str, n: int, leaves: int) -> dict:
+def expected_launches(mode: str, n: int, leaves: int, buckets: int = 0
+                      ) -> dict:
     """Exact kernel launches a step where the path fixes them: fused Adam
-    once over the one f32 shard (ZeRO-1, ZeRO-3) or over all ``leaves``,
-    ``ADAM_MAX_LEAVES`` a launch; ZeRO-3's gather runs twice (forward,
-    and the backward's recompute) over the one f32 group; allreduce
-    mode's fused int8 exchange runs once over its one f32 group; Adasum's
+    once over the one f32 shard (ZeRO-1, ZeRO-3; under overlap over the
+    ``buckets`` shards) or over all ``leaves``, ``ADAM_MAX_LEAVES`` a
+    launch; ZeRO-3's gather runs twice (forward, and the backward's
+    recompute) over the one f32 group; allreduce mode's fused int8
+    exchange runs once over its one f32 group (PowerSGD's fallback leaves
+    too), and under overlap once a bucket; ZeRO-1 quantizes and
+    dequant-accumulates once a bucket (once without overlap); Adasum's
     butterfly has log2(N) levels, each one grouped combine (``adasum``)
     or one combine of the packed bf16 leaf table (``adasum_fp16``)."""
     from horovod_tpu_torch.ops import kernels as K
@@ -1298,9 +1352,15 @@ def expected_launches(mode: str, n: int, leaves: int) -> dict:
             else -(-leaves // K.ADAM_MAX_LEAVES)}
     if mode == "zero3":
         return {"quantize": 2, "dequantize_rows": 2, **adam}
-    if mode == "allreduce":
-        return {"quantize": 1, "dequant_accumulate": 0,
-                "dequant_accumulate_requantize": 1, "dequantize_rows": 1,
+    if mode == "zero1":
+        k = buckets or 1
+        return {"quantize": k, "dequant_accumulate": k,
+                "dequant_accumulate_requantize": 0, "dequantize_rows": 0,
+                **adam}
+    if mode in ("allreduce", "powersgd"):
+        k = buckets or 1
+        return {"quantize": k, "dequant_accumulate": 0,
+                "dequant_accumulate_requantize": k, "dequantize_rows": k,
                 **adam}
     if mode == "adasum":
         return {"adasum_segment_combine": levels, "adasum_pair_combine": 0,
@@ -1317,8 +1377,102 @@ def expected_exchanges(mode: str, n: int) -> int:
     return n.bit_length() - 1 if mode.startswith("adasum") else 0
 
 
+def overlap_label(mode: str, bucket_bytes: int) -> str:
+    return f"{mode}_overlap_{bucket_bytes >> 20}MiB"
+
+
+def counted_exchange(tx, where: list):
+    """``tx`` whose bucket exchanges count their collectives as the
+    optimizer update's (the backward's hooks start them)."""
+    exchange = tx.exchange
+
+    def start(*args, **kw):
+        ex = exchange(*args, **kw)
+        launch = ex._launch
+
+        def counted_launch(key):
+            where.append("update")
+            try:
+                return launch(key)
+            finally:
+                where.pop()
+
+        ex._launch = counted_launch
+        return ex
+
+    return tx._replace(exchange=start)
+
+
+def overlap_checks(mode: str, model, step, st, x, y, bucket_bytes: int
+                   ) -> tuple:
+    """One more step through the gradient hooks, then the same exchange
+    re-run after the backward on the same captured gradients: allreduce
+    mode through the public ``bucketed_allreduce``, ZeRO-1 through the
+    exchange's own per-bucket function; every bucket's reduced values and
+    new residual bit for bit. Also times, with CUDA events, the last
+    gradient hook to the last bucket's completion, and counts the buckets
+    started from the backward. Returns ``(st, record)``."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import optim as O
+    from horovod_tpu_torch.ops import overlap as ov
+
+    events: dict = {}
+    ready, launch = O.BucketExchange.ready, O.BucketExchange._launch
+
+    def timed_ready(self, i, g):
+        events["last_hook"] = torch.cuda.Event(enable_timing=True)
+        events["last_hook"].record()
+        return ready(self, i, g)
+
+    def timed_launch(self, key):
+        launch(self, key)
+        events["last_done"] = torch.cuda.Event(enable_timing=True)
+        events["last_done"].record(self.stream)
+
+    before = st
+    O.BucketExchange.ready, O.BucketExchange._launch = timed_ready, timed_launch
+    try:
+        st, loss = step(st, x, y)
+    finally:
+        O.BucketExchange.ready, O.BucketExchange._launch = ready, launch
+    torch.cuda.synchronize()
+    if not math.isfinite(float(loss)):
+        fail(f"{mode}: non-finite loss in the overlap check step")
+    ex = step.last_exchange
+    done = ex.results()
+    grads = model.jax_grads()
+    keys = O.tree_keys(grads)
+    if mode.startswith("allreduce"):
+        red, res = ov.bucketed_allreduce(
+            grads, hvd.Average, compression=hvd.Compression.int8,
+            bucket_bytes=bucket_bytes, residual=before["residual"])
+        hooked = ov.assemble({k: v[0] for k, v in done.items()}, ex.groups,
+                             [tuple(grads[k].shape) for k in keys],
+                             [grads[k].dtype for k in keys])
+        pairs = [(a, red[k]) for a, k in zip(hooked, keys)]
+        pairs += [(done[k][1], res[k]) for k in done]
+    else:
+        pairs = []
+        leaves = [grads[k] for k in keys]
+        for key, b in ex.groups.items():
+            again = ex.run(key, ov.pack_group(leaves, b))
+            pairs += [(done[key][0], again[0]), (done[key][1], again[1])]
+    for a, b in pairs:
+        if not same_bits(a, b):
+            fail(f"{mode}: the hook route's exchange differs from the one "
+                 "re-run after the backward on the same gradients")
+    return st, dict(buckets=len(ex.order), started_in_backward=ex.in_backward,
+                    started_with_leaves_pending=ex.early,
+                    last_hook_to_done_ms=events["last_hook"].elapsed_time(
+                        events["last_done"]),
+                    hook_route_bit_equal=True)
+
+
 def train(mode: str, steps: int, x, y, model_seed: int = 0,
-          model_name: str = "resnet50", lr: float = 1e-3) -> dict:
+          model_name: str = "resnet50", lr: float = 1e-3,
+          bucket_bytes=None) -> dict:
     """``steps`` steps of ``model_name`` (:data:`MODELS`; ResNet-50 by
     default, the run then named ``mode``, else ``<model>_<mode>``) on
     this rank's batch ``x, y`` in one optimizer mode; fails unless the
@@ -1339,6 +1493,8 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0,
 
     dev = hvd.device()
     label = mode if model_name == "resnet50" else f"{model_name}_{mode}"
+    if bucket_bytes:
+        label = overlap_label(label, bucket_bytes)
     model = build_model(model_name, model_seed, dev)
     leaves = len(model.jax_params())
     nccl_want = allreduce_nccl_calls(list(model.jax_params().values()))
@@ -1355,7 +1511,9 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0,
         os.environ["HOROVOD_FSDP_WIRE"] = "int8"
     nccl, where = {}, ["step"]
     try:
-        tx = make_tx(mode, lr)
+        tx = make_tx(mode, lr, bucket_bytes)
+        if tx.exchange is not None:
+            tx = counted_exchange(tx, where)
         update = tx.update
 
         def counted_update(*args, **kw):    # the optimizer update's calls
@@ -1377,11 +1535,21 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0,
                 mode, step, st, x, y, steps, label=label)
         peak = torch.cuda.max_memory_allocated()
         st, split = split_step(label, step, st, x, y, marks)
+        overlap = None
+        if bucket_bytes:
+            st, overlap = overlap_checks(label, model, step, st, x, y,
+                                         bucket_bytes)
     finally:
         os.environ.pop("HOROVOD_FSDP_WIRE", None)
         if wire is not None:
             os.environ["HOROVOD_FSDP_WIRE"] = wire
-    for k, per_step in expected_launches(mode, hvd.size(), leaves).items():
+    buckets = len(step.last_exchange.order) if bucket_bytes else 0
+    if bucket_bytes and buckets != -(-sum(
+            p.numel() * p.element_size()
+            for p in model.jax_params().values()) // bucket_bytes):
+        fail(f"{label}: {buckets} buckets of {bucket_bytes} bytes")
+    for k, per_step in expected_launches(mode, hvd.size(), leaves,
+                                         buckets).items():
         if launches[k] != per_step * steps:
             fail(f"{label}: {launches[k]} launches of {k} in {steps} steps, "
                  f"expected {per_step} a step ({launches})")
@@ -1390,10 +1558,23 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0,
         fail(f"{label}: the optimizer update made {p2p} point-to-point "
              f"exchanges in {steps} steps, expected "
              f"{expected_exchanges(mode, hvd.size())} a step")
-    if mode == "allreduce" and \
-            sum(nccl.get("update", {}).values()) != nccl_want * steps:
-        fail(f"{label}: the optimizer update made {nccl.get('update')} NCCL "
-             f"calls in {steps} steps, expected {nccl_want} a step")
+    if bucket_bytes:    # per bucket; ZeRO-1's gather once for the dtype
+        nccl_want = 4 * buckets if mode == "allreduce" else 2 * buckets + 1
+    elif mode == "powersgd":    # every P, every Q', then allreduce mode's
+        nccl_want += 2
+    if mode in ("allreduce", "powersgd") or bucket_bytes:
+        if sum(nccl.get("update", {}).values()) != nccl_want * steps:
+            fail(f"{label}: the optimizer update made {nccl.get('update')} "
+                 f"NCCL calls in {steps} steps, expected {nccl_want} a step")
+    factorized = None
+    if mode == "powersgd":
+        factorized = sorted(k for k, q in st["q"].items() if q is not None)
+        rule = sorted(k for k, p in model.jax_params().items()
+                      if hvd.Compression.powersgd(PSGD_RANK).factorizes(
+                          tuple(p.shape), p.dtype))
+        if factorized != rule or len(rule) != 2:
+            fail(f"{label}: factorized leaves {factorized}, the rule says "
+                 f"{rule} (the stem conv and the head)")
     nccl = {part: {k: v / steps for k, v in c.items()}
             for part, c in nccl.items()}
     params = hvd.fsdp_unpack_params(step.params) if zero3 else model.jax_params()
@@ -1404,7 +1585,8 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0,
                 steps=steps, losses=losses, launches=launches,
                 step_s=times, img_per_s=x.shape[0] * len(steady) / sum(steady),
                 peak_gib=peak / 2 ** 30, split_s=split, checksum=checksum,
-                nccl_calls=nccl, nccl_update_want=nccl_want, step_calls=calls)
+                nccl_calls=nccl, nccl_update_want=nccl_want, overlap=overlap,
+                factorized=factorized, step_calls=calls)
 
 
 def adasum_replay(x, y) -> dict:
@@ -1525,13 +1707,16 @@ def adasum_replay(x, y) -> dict:
                 step_calls=dict(zip(modes, calls)))
 
 
-def train_lm(steps: int) -> dict:
+def train_lm(steps: int, powersgd_rank=None) -> dict:
     """The LM slice: ``steps`` steps of the flagship TransformerLM through
     ``make_train_step`` with ``DistributedOptimizer(adamw(1e-4))`` and
     ``lm_xent``; fails unless the loss is finite and falls and flash_fwd
     launched once per layer and step. Then one more step of the same step
     function, split into its parts (``make_train_step``'s ``on_phase``)
-    by synchronised host timers."""
+    by synchronised host timers. With ``powersgd_rank`` (run
+    ``lm_powersgd``) the optimizer syncs PowerSGD factors with EF: the
+    factorized leaves must be those the wire-cost rule names, and the
+    other float leaves' int8 exchange runs once a step."""
     import numpy as np
     import torch
 
@@ -1548,7 +1733,11 @@ def train_lm(steps: int) -> dict:
         0, LM["vocab"], (LM_BATCH, LM_SEQ)).astype(np.int32)
     x = torch.from_numpy(tok).to(dev)
     y = torch.from_numpy(np.roll(tok, -1, axis=1)).to(dev)
-    tx = hvd.DistributedOptimizer(hvd.adamw(1e-4))
+    mode = "lm" if powersgd_rank is None else "lm_powersgd"
+    comp = None if powersgd_rank is None else hvd.Compression.powersgd(
+        powersgd_rank)
+    tx = hvd.DistributedOptimizer(hvd.adamw(1e-4), compression=comp,
+                                  error_feedback=comp is not None)
     st = tx.init(model.jax_params())
     step = hvd.make_train_step(model, tx, loss_fn=hvd.lm_xent,
                                on_phase=on_phase)
@@ -1560,18 +1749,115 @@ def train_lm(steps: int) -> dict:
     del logits
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    st, losses, times, launches, calls = run_steps("lm", step, st, x, y, steps)
+    st, losses, times, launches, calls = run_steps(mode, step, st, x, y,
+                                                   steps)
     if launches["flash_fwd"] != LM["depth"] * steps:
-        fail(f"lm: {launches['flash_fwd']} flash_fwd launches in {steps} "
+        fail(f"{mode}: {launches['flash_fwd']} flash_fwd launches in {steps} "
              f"steps of a depth-{LM['depth']} model ({launches})")
+    psgd = None
+    if comp is not None:
+        for k in ("quantize", "dequant_accumulate_requantize",
+                  "dequantize_rows"):
+            if launches[k] != steps:
+                fail(f"{mode}: {launches[k]} launches of {k} in {steps} "
+                     "steps, expected one a step (the fallback leaves' "
+                     "grouped int8 exchange)")
+        params = model.jax_params()
+        rule = sorted(k for k, p in params.items()
+                      if comp.factorizes(tuple(p.shape), p.dtype))
+        got = sorted(k for k, q in st["q"].items() if q is not None)
+        if got != rule or not rule:
+            fail(f"{mode}: factorized leaves {got}, the rule says {rule}")
+        psgd = dict(rank=powersgd_rank, factorized=len(got),
+                    leaves=len(params), **wire_bytes(params, comp))
     peak = torch.cuda.max_memory_allocated()
-    st, split = split_step("lm", step, st, x, y, marks)
+    st, split = split_step(mode, step, st, x, y, marks)
     steady = times[1:]
-    return dict(mode="lm", steps=steps, params=n_params, losses=losses,
+    return dict(mode=mode, steps=steps, params=n_params, losses=losses,
                 launches=launches, step_s=times,
                 tokens_per_s=LM_BATCH * LM_SEQ * len(steady) / sum(steady),
-                peak_gib=peak / 2 ** 30, split_s=split,
+                peak_gib=peak / 2 ** 30, split_s=split, powersgd=psgd,
                 split_step_s=sum(split.values()), step_calls=calls)
+
+
+def wire_bytes(params: dict, comp) -> dict:
+    """One transfer direction's wire bytes a step of ``params`` under
+    ``comp`` (its ``wire_bytes``: P and Q in f32 for a factorized leaf,
+    int8 and bf16 scales for the int8 fallback), beside f32."""
+    total = sum(comp.wire_bytes(tuple(p.shape), p.dtype)
+                for p in params.values())
+    f32 = sum(p.numel() * 4 for p in params.values())
+    return dict(wire_bytes=total, f32_bytes=f32, wire_over_f32=total / f32)
+
+
+def train_multisteps(steps: int, x, y) -> dict:
+    """``backward_passes_per_step=2`` on ResNet-50 (allreduce mode, int8 +
+    EF, fused Adam): the exchange and the update run on every second
+    step only. Fails unless a step that does not emit makes no NCCL call
+    in the optimizer update and launches no kernel, one that emits makes
+    allreduce mode's calls and launches, and the loss falls across an
+    emit."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import kernels as K
+
+    dev = hvd.device()
+    model = build_model("resnet50", 0, dev)
+    params = model.jax_params()
+    tx = hvd.DistributedOptimizer(hvd.fused_adam(1e-3),
+                                  compression=hvd.Compression.int8,
+                                  error_feedback=True,
+                                  backward_passes_per_step=2)
+    where = ["step"]
+    update = tx.update
+
+    def counted_update(*args, **kw):
+        where.append("update")
+        try:
+            return update(*args, **kw)
+        finally:
+            where.pop()
+
+    step = hvd.make_train_step(model, tx._replace(update=counted_update))
+    st = tx.init(params)
+    want = allreduce_nccl_calls(list(params.values()))
+    adam = -(-len(params) // K.ADAM_MAX_LEAVES)
+    losses, per_step, times = [], [], []
+    for i in range(steps):
+        nccl: dict = {}
+        calls: list = [[]]
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with counting_collectives(nccl, where), logging_calls(calls):
+            st, loss = step(st, x, y)
+            losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        emit = i % 2 == 1
+        got = sum(nccl.get("update", {}).values())
+        launches = {k: v for k, v in K.launches.items() if v}
+        want_launches = ({"quantize": 1, "dequant_accumulate_requantize": 1,
+                          "dequantize_rows": 1, "fused_adam": adam}
+                         if emit else {})
+        if got != (want if emit else 0) or launches != want_launches:
+            fail(f"multisteps step {i}: {got} NCCL calls in the update and "
+                 f"launches {launches}, expected "
+                 f"{want if emit else 0} and {want_launches}")
+        if int(st.mini_step) != (i + 1) % 2:
+            fail(f"multisteps step {i}: mini_step {int(st.mini_step)}")
+        per_step.append(dict(emit=emit, nccl_update=got, launches=launches))
+    # the parameters move only at the first emit: the first two losses
+    # are of the same weights (within the forward's own noise)
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0] or \
+            abs(losses[1] - losses[0]) > 1e-3 * abs(losses[0]):
+        fail(f"multisteps: losses {losses} (the same until the first emit, "
+             "then falling)")
+    torch.cuda.synchronize()
+    return dict(mode="multisteps", steps=steps, losses=losses,
+                per_step=per_step, step_s=times, step_calls=calls[-1],
+                launches={k: sum(p["launches"].get(k, 0) for p in per_step)
+                          for k in K.KERNELS})
 
 
 # --------------------------------------------------------------------------
@@ -2281,6 +2567,8 @@ def _world_rank(modes, ckpt_dir) -> dict:
     xs, ys = hvd.shard_batch(x).to(hvd.device()), hvd.shard_batch(y).to(
         hvd.device())
     runs = [train(mode, 4, xs, ys) for mode in modes]
+    runs += [train(mode, 4, xs, ys, bucket_bytes=bb)
+             for mode, bb in OVERLAP_RUNS]
     return dict(runs=runs, checkpoint=checkpoint_world(ckpt_dir, xs, ys))
 
 
@@ -2304,6 +2592,28 @@ def run_gpus(n: int, modes) -> tuple:
         if r > 0 and not out["checkpoint"]["mine_empty"]:
             fail(f"{n} GPUs, checkpoint: rank {r}'s directory was written")
     return res[0]["runs"], [out["checkpoint"] for out in res]
+
+
+def print_overlap(by_mode: dict, suffix: str, smi: str) -> None:
+    """The overlap runs' lines: img/s per GPU beside the mode without
+    overlap in the same run, buckets started from the backward, and the
+    last gradient hook to the last bucket's completion."""
+    for mode, bb in OVERLAP_RUNS:
+        run = by_mode[overlap_label(mode, bb) + suffix]
+        base = by_mode[mode + suffix]
+        ov = run["overlap"]
+        print(f"e2e {run['mode']}: {run['img_per_s']:.2f} img/s per GPU "
+              f"({mode}{suffix} without overlap, same run: "
+              f"{base['img_per_s']:.2f}); {ov['buckets']} buckets, "
+              f"{ov['started_in_backward']} started from the backward's hooks "
+              f"({ov['started_with_leaves_pending']} of them while gradients "
+              f"were still to come), last hook to last completion "
+              f"{ov['last_hook_to_done_ms']:.3f} ms; NCCL calls a step in the "
+              f"update {json.dumps(run['nccl_calls'].get('update', {}))}; "
+              f"launches a step "
+              f"{json.dumps({k: v / run['steps'] for k, v in run['launches'].items() if v})}"
+              f"; hook route bit-equal to the exchange re-run after the "
+              f"backward ({smi})", flush=True)
 
 
 def _summary(run: dict) -> str:
@@ -2392,6 +2702,9 @@ def main() -> None:
         y = torch.randint(0, 1000, (64,), device=hvd.device(), generator=gen)
         runs = [train("zero1", 10, x, y), train("allreduce", 5, x, y),
                 train("zero3", 10, x, y), train("adasum", 5, x, y)]
+        runs += [train(mode, 5, x, y, bucket_bytes=bb)
+                 for mode, bb in OVERLAP_RUNS]
+        runs.append(train_multisteps(4, x, y))
         for name, mode, lr in ZOO_RUNS:     # the other scaling models
             side = MODELS[name][1]
             xm = x if side == 224 else torch.randn(
@@ -2405,6 +2718,8 @@ def main() -> None:
         del x, y
         torch.cuda.empty_cache()
         runs.append(train_lm(LM_STEPS))
+        torch.cuda.empty_cache()
+        runs.append(train_lm(4, powersgd_rank=PSGD_RANK))
         torch.cuda.empty_cache()
     finally:
         hvd.shutdown()
@@ -2450,6 +2765,16 @@ def main() -> None:
     lm = by_mode["lm"]
     print(f"e2e lm: {lm['tokens_per_s']:.1f} tokens/s per GPU over steps "
           f"2-{lm['steps']} ({smi}; TF32 off for matmuls)", flush=True)
+    print_overlap(by_mode, "", smi)
+    ms = by_mode["multisteps"]
+    print(f"e2e multisteps (backward_passes_per_step=2, allreduce mode int8 "
+          f"+ EF): per step {json.dumps(ms['per_step'])}, losses "
+          f"{ms['losses']} ({smi})", flush=True)
+    lp = by_mode["lm_powersgd"]
+    print(f"e2e lm_powersgd (rank {PSGD_RANK}, EF, adamw): "
+          f"{lp['tokens_per_s']:.1f} tokens/s per GPU (plain adamw "
+          f"{lm['tokens_per_s']:.1f}), losses {lp['losses']}, "
+          f"{json.dumps(lp['powersgd'])} ({smi})", flush=True)
     step_calls = {run["mode"]: run["step_calls"] for run in runs}
     step_calls.update(replay["step_calls"])
     if gpus > 1:
@@ -2470,6 +2795,16 @@ def main() -> None:
                   f"peak {run['peak_gib']:.2f} GiB ({smi})", flush=True)
             step_calls[run["mode"]] = run["step_calls"]
             runs.append(run)
+        print_overlap({r["mode"]: r for r in world_runs}, f"@{gpus}", smi)
+        psgd = next(r for r in world_runs if r["mode"] == f"powersgd@{gpus}")
+        meta = ResNet50(device="meta").jax_params()
+        print(f"e2e powersgd@{gpus} (ResNet-50, rank {PSGD_RANK}, EF, fused "
+              f"Adam): {psgd['img_per_s']:.2f} img/s per GPU, losses "
+              f"{psgd['losses']}, factorized {psgd['factorized']}, "
+              f"{json.dumps(wire_bytes(meta, hvd.Compression.powersgd(PSGD_RANK)))}"
+              f", NCCL calls a step in the update "
+              f"{json.dumps(psgd['nccl_calls']['update'])} ({smi})",
+              flush=True)
         torch.cuda.empty_cache()
         front_runs, sync_bn = run_frontend_gpus(gpus)
         functional = next(r for r in runs if r["mode"] == f"allreduce@{gpus}")

@@ -70,6 +70,7 @@ from horovod_tpu_torch.ops.collective import (  # noqa: F401
     synchronize,
 )
 from horovod_tpu_torch.optim import (  # noqa: F401
+    DistributedGradientTape,
     DistributedOptimizer,
     FsdpParams,
     adam,
@@ -80,6 +81,7 @@ from horovod_tpu_torch.optim import (  # noqa: F401
     fsdp_pack_params,
     fsdp_unpack_params,
     fused_adam,
+    reshard_optimizer_state,
 )
 from horovod_tpu_torch.ops.flash_attention import flash_attention  # noqa: F401
 from horovod_tpu_torch.training import (  # noqa: F401

@@ -50,7 +50,7 @@ import torch
 from horovod_tpu_torch import basics, pytree
 from horovod_tpu_torch.ops import collective as C
 from horovod_tpu_torch.optim import (
-    FsdpParams, _fsdp_meta, _map_state, is_zero1_rows,
+    FsdpParams, MultiStepsState, _fsdp_meta, _map_state, is_zero1_rows,
     reshard_optimizer_state,
 )
 from horovod_tpu_torch.training import (
@@ -192,31 +192,21 @@ def _tensors(tree, device):
 
 
 def _from_jax_state(state):
-    """A ZeRO-1 state the JAX package wrote (``_EFState(inner=(
-    ScaleByAdamState(count [N], mu, nu), EmptyState...), residual)`` or
-    its bare inner tuple) in the port's consolidated view; any other state
-    as it is. The JAX package's states the port has no counterpart of
-    raise."""
-    name = type(state).__name__
-    if name == "NumericsGuardState":
+    """A state the JAX package wrote in the port's layout
+    (:func:`~horovod_tpu_torch.models.convert.opt_state_from_jax`: a ZeRO-1
+    state as its consolidated view). The JAX package's states the port
+    has no counterpart of raise."""
+    from horovod_tpu_torch.models.convert import opt_state_from_jax
+
+    if type(state).__name__ == "NumericsGuardState":
         raise ValueError("NumericsGuardState (the numerics guard) is not "
                          "ported: its state cannot be restored here")
-    ef = name == "_EFState"
-    inner = state.inner if ef else state
-    adam = [s for s in inner if type(s).__name__ == "ScaleByAdamState"] \
-        if isinstance(inner, tuple) else []
-    if len(adam) != 1 or np.ndim(adam[0].count) != 1:
-        return state
-    a = adam[0]
-    out = {"shard": {"size": int(np.shape(a.count)[0])},
-           "inner": {"count": a.count, "mu": dict(a.mu), "nu": dict(a.nu)}}
-    if ef:
-        out["residual"] = dict(state.residual)
-    return out
+    return opt_state_from_jax(state)
 
 
 def consolidate_opt_state(opt_state, params, *,
-                          to_size: Optional[int] = None):
+                          to_size: Optional[int] = None,
+                          bucket_bytes: Optional[int] = None):
     """A restored optimizer state made this rank's state again.
 
     A ZeRO-1 state comes back from :func:`restore` as its consolidated
@@ -232,6 +222,13 @@ def consolidate_opt_state(opt_state, params, *,
     parameter shards re-packed too, which is not ported."""
     opt_state = _from_jax_state(opt_state)
     dev = _device_of(params)
+    if type(opt_state).__name__ == "MultiStepsState":
+        return MultiStepsState(
+            torch.as_tensor(np.asarray(opt_state.mini_step, np.int32)),
+            torch.as_tensor(np.asarray(opt_state.gradient_step, np.int32)),
+            consolidate_opt_state(opt_state.inner_opt_state, params,
+                                  to_size=to_size, bucket_bytes=bucket_bytes),
+            _tensors(opt_state.acc_grads, dev), opt_state.skip_state)
     if not is_zero1_rows(opt_state):
         return _tensors(opt_state, dev)
     rank, size = _world()
@@ -250,7 +247,8 @@ def consolidate_opt_state(opt_state, params, *,
             f"a ZeRO-3 state of {opt_state['shard']['size']} ranks cannot "
             f"move to {n_new}: re-packing the parameter shards "
             "(fsdp_reshard_params) is not ported")
-    rows = reshard_optimizer_state(opt_state, params, to_size=n_new)
+    rows = reshard_optimizer_state(opt_state, params, to_size=n_new,
+                                   bucket_bytes=bucket_bytes)
 
     def row(x):
         if not isinstance(x, (np.ndarray, torch.Tensor)):

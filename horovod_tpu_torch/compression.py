@@ -2,8 +2,12 @@
 
 Counterpart of ``horovod_tpu/compression.py`` (reference
 ``horovod/torch/compression.py``): ``Compression.none``, ``.fp16``
-(bfloat16 on the wire) and ``.int8`` (blockwise-scaled int8, one bf16
-max-abs scale per :data:`INT8_BLOCK` elements). The int8 collectives in
+(bfloat16 on the wire), ``.int8`` (blockwise-scaled int8, one bf16
+max-abs scale per :data:`INT8_BLOCK` elements) and ``.powersgd(r)``
+(rank-``r`` factors of the >= 2-D leaves, Vogels et al. 2019; the
+factorization itself lives in :mod:`horovod_tpu_torch.optim`, which
+keeps its warm-started ``Q``). :meth:`Compression.from_env` reads the
+``HOROVOD_COMPRESSION`` spelling. The int8 collectives in
 :mod:`horovod_tpu_torch.ops.collective` never sum int8: they quantize per
 destination chunk, exchange int8 + scales, and accumulate in f32.
 
@@ -16,6 +20,7 @@ the block layout — which elements share a scale — is spelled here by
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -182,9 +187,87 @@ class Int8Compressor(Compressor):
         return n + math.ceil(n / cls.block) * _SCALE_BYTES
 
 
+class PowerSGDCompressor(Compressor):
+    """Rank-``r`` low-rank gradient factorization (PowerSGD): a >= 2-D
+    leaf ``M``, seen as ``[d0, prod(rest)]``, syncs only ``P = M @ Q``
+    and ``Q' = M^T @ P``, ``(d0 + m) * r`` floats in place of ``d0 * m``,
+    with ``Q`` warm-started across steps in the optimizer's state.
+    Stateful, so it rides ``DistributedOptimizer(compression=
+    Compression.powersgd(r), error_feedback=True)`` only. The other
+    leaves fall back to the int8 wire; ``compress``/``decompress`` are
+    that fallback's roundtrip."""
+
+    #: the optimizer factorizes; the other leaves ride the int8 wire
+    factorized = True
+    quantized = True
+    block = INT8_BLOCK
+    fallback = Int8Compressor
+
+    def __init__(self, rank: int = 4):
+        if rank < 1:
+            raise ValueError(f"PowerSGD rank must be >= 1, got {rank}")
+        self.rank = int(rank)
+
+    def effective_rank(self, shape) -> int:
+        return min(self.rank, int(shape[0]), _numel(shape[1:]))
+
+    def factorizes(self, shape, dtype) -> bool:
+        """Factorize only where the factors cost less wire than the leaf:
+        ``(d0 + m) * r < d0 * m``."""
+        if len(shape) < 2 or not _quantizable(dtype):
+            return False
+        r = self.effective_rank(shape)
+        d0, m = int(shape[0]), _numel(shape[1:])
+        return r >= 1 and (d0 + m) * r < d0 * m
+
+    def compress(self, tensor):
+        return Int8Compressor.compress(tensor)
+
+    def decompress(self, tensor, ctx):
+        return Int8Compressor.decompress(tensor, ctx)
+
+    def wire_bytes(self, shape, dtype) -> int:
+        if not self.factorizes(shape, dtype):
+            return Int8Compressor.wire_bytes(shape, dtype)
+        d0, m = int(shape[0]), _numel(shape[1:])
+        return (d0 + m) * self.effective_rank(shape) * 4   # f32 P and Q
+
+    def __repr__(self):
+        return f"PowerSGD(rank={self.rank})"
+
+
 class Compression:
-    """``hvd.Compression``: ``none``, ``fp16`` and ``int8``."""
+    """``hvd.Compression``: ``none``, ``fp16``, ``int8`` and
+    ``powersgd(r)``."""
 
     none = NoneCompressor
     fp16 = FP16Compressor
     int8 = Int8Compressor
+
+    @staticmethod
+    def powersgd(rank: int = None) -> PowerSGDCompressor:
+        """Rank-``r`` PowerSGD (default ``HOROVOD_POWERSGD_RANK``, else
+        4)."""
+        if rank is None:
+            rank = int(os.environ.get("HOROVOD_POWERSGD_RANK", "4"))
+        return PowerSGDCompressor(rank)
+
+    @staticmethod
+    def from_env(default=NoneCompressor):
+        """The compressor ``HOROVOD_COMPRESSION`` names
+        (``none|off|0``, ``fp16|bf16|16bit``, ``int8``, ``powersgd``);
+        ``default`` when it is unset."""
+        name = os.environ.get("HOROVOD_COMPRESSION", "").strip().lower()
+        if not name:
+            return default
+        if name in ("none", "off", "0"):
+            return NoneCompressor
+        if name in ("fp16", "bf16", "16bit"):
+            return FP16Compressor
+        if name == "int8":
+            return Int8Compressor
+        if name == "powersgd":
+            return Compression.powersgd()
+        raise ValueError(
+            f"HOROVOD_COMPRESSION={name!r}: expected one of "
+            "none|fp16|int8|powersgd")

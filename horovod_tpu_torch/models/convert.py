@@ -153,3 +153,78 @@ def fsdp_params_from_jax(shards: dict, like: dict, rank: int):
                              f"{(n, g.Lp // n)}")
     return FsdpParams({k: _rows_tensor(v[rank]) for k, v in shards.items()},
                       meta)
+
+
+def _adam_from_jax(inner):
+    """optax Adam's ``(ScaleByAdamState(count, mu, nu), EmptyState, ...)``
+    as the port's ``{"count", "mu", "nu"}`` (a 0-d count as an int, a
+    ZeRO-1 ``[N]`` count as it is); ``None`` for any other state."""
+    if not isinstance(inner, tuple) or hasattr(inner, "_fields"):
+        return None
+    names = [type(s).__name__ for s in inner]
+    if names.count("ScaleByAdamState") != 1 or any(
+            n not in ("ScaleByAdamState", "EmptyState") for n in names):
+        return None
+    a = inner[names.index("ScaleByAdamState")]
+    count = a.count
+    if np.ndim(count) == 0:
+        count = int(np.asarray(count))
+    return {"count": count, "mu": flatten_tree(dict(a.mu)),
+            "nu": flatten_tree(dict(a.nu))}
+
+
+def opt_state_from_jax(state):
+    """A JAX package optimizer state (as ``checkpoint.restore`` gives it)
+    in the port's layout; a state of another kind comes back as it is.
+
+    - optax Adam → ``{"count", "mu", "nu"}`` (trees flattened to the
+      port's ``/``-joined keys);
+    - ``_EFState(inner, residual)`` → ``{"inner", "residual"}``;
+    - ``_PowerSGDState(inner, residual, q)`` → ``{"inner", "residual",
+      "q"}``, ``q`` with ``None`` for the leaves that do not factorize;
+    - ZeRO-1 (Adam's ``count`` is ``[N]``) → the same with ``"shard":
+      {"size": N}``: the consolidated view
+      ``checkpoint.consolidate_opt_state`` re-packs for each rank;
+    - optax ``MultiStepsState`` → the port's (``optim.MultiStepsState``),
+      its inner state converted."""
+    name = type(state).__name__
+    if name == "MultiStepsState":
+        from horovod_tpu_torch.optim import MultiStepsState
+
+        return MultiStepsState(state.mini_step, state.gradient_step,
+                               opt_state_from_jax(state.inner_opt_state),
+                               flatten_tree(dict(state.acc_grads)),
+                               state.skip_state)
+    parts = {"_EFState": ("inner", "residual"),
+             "_PowerSGDState": ("inner", "residual", "q")}.get(name)
+    if parts is None:
+        adam = _adam_from_jax(state)
+        if adam is None:
+            return state
+        if np.ndim(adam["count"]) == 1:     # a bare ZeRO-1 Adam state
+            return {"shard": {"size": int(np.shape(adam["count"])[0])},
+                    "inner": adam}
+        return adam
+    adam = _adam_from_jax(state.inner)
+    out = {"inner": state.inner if adam is None else adam}
+    for part in parts[1:]:
+        out[part] = flatten_tree(dict(getattr(state, part)))
+    if adam is not None and np.ndim(adam["count"]) == 1:
+        out["shard"] = {"size": int(np.shape(adam["count"])[0])}
+    return out
+
+
+def powersgd_q_from_jax(q: dict, rank: Optional[int] = None) -> dict:
+    """The port's ``Q`` of a JAX package PowerSGD state: its ``q`` tree
+    flattened to the port's keys, as tensors; ``rank`` takes that row of
+    a ZeRO-1 state's ``[N, m, r]`` tiles. The JAX package draws its
+    initial ``Q`` from ``jax.random`` and the port from its own
+    generator, so a run that is to follow the JAX package's carries its
+    ``Q`` over with this."""
+    out = {}
+    for k, v in flatten_tree(dict(q)).items():
+        if v is not None:
+            v = np.asarray(v)
+            v = torch.from_numpy(np.array(v if rank is None else v[rank]))
+        out[k] = v
+    return out

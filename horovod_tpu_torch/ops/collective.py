@@ -200,6 +200,28 @@ def quantized_psum_scatter(flat, *, block=None, pre=None):
     return _k.dequant_accumulate(qr, scr, flat.dtype, block)[:s]
 
 
+def quantized_reducescatter(tensor, *, block=None):
+    """SUM reduce-scatter over the int8 wire of this rank's flat packed
+    ``[Lp]`` buffer (``Lp`` a multiple of the world size N, as the ZeRO-1
+    packing makes it): this rank's f32 sum shard ``[Lp // N]``. One
+    quantize, two ``all_to_all`` (int8 values, bf16 scales) and one
+    ``dequant_accumulate`` (:func:`quantized_psum_scatter`)."""
+    basics._require_init()
+    _check_device(tensor)
+    if tensor.dim() != 1:
+        raise ValueError("quantized_reducescatter takes this rank's flat "
+                         f"[Lp] buffer, got shape {tuple(tensor.shape)}")
+    if not tensor.dtype.is_floating_point:
+        raise ValueError("quantized_reducescatter quantizes a float buffer, "
+                         f"got {tensor.dtype}")
+    n = _n()
+    if tensor.shape[0] % n:
+        raise ValueError(
+            f"quantized_reducescatter: Lp={tensor.shape[0]} is not a "
+            f"multiple of the world size {n} (pad the flat buffer to it)")
+    return quantized_psum_scatter(tensor, block=block)
+
+
 @functools.lru_cache(maxsize=64)
 def _quant_rows_layout(sizes: tuple, n: int, block: int) -> tuple:
     """The ``[N, S]`` layout of the fused int8 exchange of leaves of

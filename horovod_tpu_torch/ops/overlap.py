@@ -1,10 +1,30 @@
-"""Flat packing of a gradient tree into exchange groups.
+"""Bucketed gradient exchange: the packing and the plan.
 
-Counterpart of the segment layer of ``horovod_tpu/ops/overlap.py``:
-:class:`Segment`, :class:`Bucket`, :func:`pack_group` and
-:func:`assemble`, which the (non-bucketed) ZeRO-1 exchange uses — one
-group per dtype whose segments are whole leaves. ``BucketPlan`` and the
-bucketed allreduce come with a later slice.
+Counterpart of ``horovod_tpu/ops/overlap.py``, Horovod's fusion-buffer
+overlap: the gradient tree is packed flat per dtype and cut into
+buckets of about ``HOROVOD_BUCKET_BYTES`` (default 64 MiB, else
+``HOROVOD_FUSION_THRESHOLD``) in reverse flatten order (the last leaves'
+gradients are the backward's first), and each bucket is one collective.
+The plan depends only on the leaves' shapes and dtypes and the bucket
+size, never on the world size (which only pads ``Lp``), and its keys
+(``float32#0``, ...), segments, ``L`` and ``Lp`` are the JAX package's:
+optimizer states and checkpoints are keyed by them.
+
+- :class:`Segment`, :class:`Bucket`, :func:`pack_group`,
+  :func:`assemble` — the segment layer, which the ZeRO-1 exchange also
+  uses with one whole-leaf group per dtype;
+- :class:`BucketPlan`, :func:`plan_for` — the plan, cached by signature;
+- :func:`bucketed_allreduce` — allreduce mode's exchange, one
+  ``allreduce`` per bucket (an int8 bucket is one quantize, one
+  requantize and one dequantize launch), with error-feedback residuals
+  keyed by bucket;
+- :func:`bucket_bytes_from_env`, :func:`resolve_bucket_bytes` — the
+  ``overlap=``/``bucket_bytes=`` knobs.
+
+Launching the buckets while the backward still runs is
+:func:`horovod_tpu_torch.training.make_train_step`'s part (gradient
+hooks); the JAX package's schedule pins (``barrier_after``,
+``sync_hook``) have no counterpart in eager PyTorch.
 
 Leaves may be non-contiguous views (the models hand the optimizer their
 parameters in the JAX package's layouts, e.g. a conv kernel permuted to
@@ -14,9 +34,46 @@ flat buffer, so the permutation costs no copy beyond the packing's own.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+import functools
+import math
+import os
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+#: the reference fusion buffer's 64 MiB
+DEFAULT_BUCKET_BYTES = 64 * 1024 * 1024
+BUCKET_BYTES_ENV = "HOROVOD_BUCKET_BYTES"
+OVERLAP_ENV = "HOROVOD_OVERLAP"
+
+
+def _env_true(name: str, default: str = "0") -> bool:
+    return os.environ.get(name, default).lower() in ("1", "true", "yes")
+
+
+def bucket_bytes_from_env() -> int:
+    """``HOROVOD_BUCKET_BYTES`` when set, else ``HOROVOD_FUSION_THRESHOLD``
+    (the native core's bin size), else 64 MiB."""
+    for name in (BUCKET_BYTES_ENV, "HOROVOD_FUSION_THRESHOLD"):
+        v = os.environ.get(name)
+        if v:
+            return max(1, int(v))
+    return DEFAULT_BUCKET_BYTES
+
+
+def resolve_bucket_bytes(overlap=None, bucket_bytes: Optional[int] = None
+                         ) -> Optional[int]:
+    """The bucket capacity of an ``overlap=``/``bucket_bytes=`` pair, or
+    ``None`` for the monolithic exchange. ``overlap=None`` reads
+    ``HOROVOD_OVERLAP``; ``overlap=False`` wins over the env;
+    ``bucket_bytes`` alone implies overlap."""
+    if overlap is None:
+        overlap = True if bucket_bytes is not None else _env_true(OVERLAP_ENV)
+    if not overlap:
+        return None
+    if bucket_bytes is not None:
+        return max(1, int(bucket_bytes))
+    return bucket_bytes_from_env()
 
 
 class Segment(NamedTuple):
@@ -40,6 +97,99 @@ class Bucket(NamedTuple):
     segs: Tuple[Segment, ...]
     L: int
     Lp: int
+
+    @property
+    def idxs(self) -> Tuple[int, ...]:
+        """The leaves it holds, each once, in segment order."""
+        return tuple(dict.fromkeys(s.idx for s in self.segs))
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _shape_dtype(leaf) -> Tuple[Tuple[int, ...], str]:
+    return tuple(int(d) for d in leaf.shape), _dtype_name(leaf.dtype)
+
+
+class BucketPlan:
+    """The leaves of a tree cut into buckets of about ``bucket_bytes``,
+    in reverse flatten order. ``groups`` maps each key to its
+    :class:`Bucket`, in plan order."""
+
+    def __init__(self, buckets: Sequence[Bucket], *, n: int,
+                 bucket_bytes: int):
+        self.buckets: Tuple[Bucket, ...] = tuple(buckets)
+        self.n = int(n)
+        self.bucket_bytes = int(bucket_bytes)
+        self.groups = {b.key: b for b in self.buckets}
+
+    def __len__(self) -> int:
+        return len(self.buckets)
+
+    def describe(self) -> str:
+        return "\n".join(
+            f"{b.key}: L={b.L} Lp={b.Lp} segs="
+            + ",".join(f"{s.idx}[{s.start}:{s.stop}]" for s in b.segs)
+            for b in self.buckets)
+
+    @classmethod
+    def build(cls, leaves: Sequence, n: int,
+              bucket_bytes: Optional[int] = None) -> "BucketPlan":
+        """The plan of ``leaves`` (anything with ``.shape`` and a torch
+        ``.dtype``, or ``(shape, dtype name)`` pairs): leaves walked last
+        to first, each dtype filling its own open bucket, a leaf split
+        where a bucket fills, every segment at least one element (so a
+        ``bucket_bytes`` below one itemsize still ends)."""
+        bucket_bytes = int(bucket_bytes or bucket_bytes_from_env())
+        n = max(1, int(n))
+        infos = [l if isinstance(l, tuple) else _shape_dtype(l) for l in leaves]
+        open_segs: dict = {}            # dtype -> (segs, bytes, elems)
+        counters: dict = {}
+        buckets: List[Bucket] = []
+
+        def close(dt: str) -> None:
+            segs, _nbytes, elems = open_segs.pop(dt)
+            if not segs:
+                return
+            k = counters.get(dt, 0)
+            counters[dt] = k + 1
+            buckets.append(Bucket(key=f"{dt}#{k}", dtype=dt, segs=tuple(segs),
+                                  L=elems, Lp=elems + (-elems) % n))
+
+        for i in reversed(range(len(infos))):
+            shape, dt = infos[i]
+            size = math.prod(shape) if shape else 1
+            if size == 0:
+                continue
+            itemsize = getattr(torch, dt).itemsize
+            pos = 0
+            while pos < size:
+                segs, nbytes, elems = open_segs.setdefault(dt, ([], 0, 0))
+                take = min(size - pos, max(1, (bucket_bytes - nbytes) // itemsize))
+                segs.append(Segment(i, pos, pos + take))
+                nbytes += take * itemsize
+                open_segs[dt] = (segs, nbytes, elems + take)
+                pos += take
+                if nbytes >= bucket_bytes:
+                    close(dt)
+        for dt in list(open_segs):
+            close(dt)
+        return cls(buckets, n=n, bucket_bytes=bucket_bytes)
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_plan(sig: tuple, n: int, bucket_bytes: int) -> BucketPlan:
+    return BucketPlan.build(list(sig), n, bucket_bytes)
+
+
+def plan_for(leaves: Sequence, n: int,
+             bucket_bytes: Optional[int] = None) -> BucketPlan:
+    """:meth:`BucketPlan.build`, cached by the leaves' (shape, dtype)
+    signature: a step asks for it every time."""
+    bucket_bytes = int(bucket_bytes or bucket_bytes_from_env())
+    sig = tuple(l if isinstance(l, tuple) else _shape_dtype(l) for l in leaves)
+    return _cached_plan(sig, max(1, int(n)), bucket_bytes)
 
 
 @torch.no_grad()
@@ -71,6 +221,7 @@ def assemble(flats: Dict[str, torch.Tensor], groups: Dict[str, Bucket],
     into the buffer's once, not each padded to its full length and
     summed."""
     pieces: dict = {}
+    device = next((f.device for f in flats.values()), None)
     for key, b in groups.items():
         sizes = [s.size for s in b.segs]
         parts = torch.split(flats[key][:sum(sizes)], sizes)
@@ -80,8 +231,112 @@ def assemble(flats: Dict[str, torch.Tensor], groups: Dict[str, Bucket],
     for i, shape in enumerate(shapes):
         ps = sorted(pieces.get(i, ()), key=lambda t: t[0])
         if not ps:
-            out.append(torch.zeros(shape, dtype=dtypes[i]))
+            out.append(torch.zeros(shape, dtype=dtypes[i], device=device))
             continue
         flat = ps[0][1] if len(ps) == 1 else torch.cat([p for _, p in ps])
         out.append(flat.view(shape))
     return out
+
+
+# --------------------------------------------------------------------------
+# allreduce mode
+
+
+def _check_op(op, compression):
+    from horovod_tpu_torch.ops import collective as _C
+
+    if op not in (_C.Average, _C.Sum):
+        raise ValueError(
+            "bucketed overlap supports op=Average/Sum (Adasum's pairwise "
+            "projections are per-tensor scalars; bucket packing would mix "
+            "them)")
+    if getattr(compression, "factorized", False):
+        raise ValueError(
+            "factorized compression (PowerSGD) syncs per-leaf rank-r "
+            "factors; bucket-level overlap does not apply — drop "
+            "overlap= or use the int8/fp16 wire")
+
+
+def _predivide(x, f: float):
+    """``x / f`` as the JAX package's compiled step computes the gradient
+    predivide: XLA turns a divide by the constant ``f`` into a multiply by
+    its f32 reciprocal (a 16-bit ``x`` widened to f32 for it and the
+    product rounded back)."""
+    wide = torch.promote_types(x.dtype, torch.float32)
+    recip = torch.tensor(f, dtype=wide).reciprocal().to(x.device)
+    return (x.to(wide) * recip).to(x.dtype)
+
+
+def predivided_average(tensors, compression, f: float) -> list:
+    """Average with the gradient predivide ``f``: each tensor times
+    ``1/f`` (:func:`_predivide`), summed across ranks in one grouped
+    exchange, the sums times ``f / N``."""
+    from horovod_tpu_torch.ops import collective as _C
+
+    outs = _C._grouped_allreduce([_predivide(t, f) for t in tensors], _C.Sum,
+                                 compression)[0]
+    return [o * torch.tensor(f / _C._n(), dtype=o.dtype, device=o.device)
+            for o in outs]
+
+
+def allreduce_bucket(flat, op, compression, *, predivide: float = 1.0,
+                     residual=None, roundtrip=None):
+    """One bucket's flat ``[L]`` buffer allreduced: with ``residual``
+    (error feedback) the corrected ``flat + residual`` goes on the wire
+    and ``corrected - roundtrip(corrected)`` comes back as the new
+    residual. Without a predivide the residual comes from the exchange's
+    own quantize pass (bit-equal to the int8 compressor's roundtrip:
+    the one-leaf ``[N, S]`` layout cuts the flat vector's 256-element
+    blocks). Returns ``(reduced [L], new residual or None)``."""
+    from horovod_tpu_torch.ops import collective as _C
+
+    ef = residual is not None
+    if ef:
+        flat = flat + residual
+    if op == _C.Average and predivide != 1.0:
+        res = flat - roundtrip(flat) if ef else None
+        return predivided_average([flat], compression, predivide)[0], res
+    outs, res = _C._grouped_allreduce([flat], op, compression, residuals=ef)
+    return outs[0], (res[0] if ef else None)
+
+
+def bucketed_allreduce(grads: dict, op=None, *, compression=None,
+                       bucket_bytes: Optional[int] = None,
+                       plan: Optional[BucketPlan] = None,
+                       predivide: float = 1.0,
+                       residual: Optional[dict] = None, roundtrip=None):
+    """Allreduce a flat gradient dict (keys in the JAX package's flatten
+    order, :func:`~horovod_tpu_torch.optim.tree_keys`) bucket by bucket:
+    one :func:`allreduce_bucket` per bucket of the plan (built at N = 1:
+    the allreduce pads internally, so ``L == Lp``), each leaf's reduced
+    value assembled back from its segments. For ``none`` and ``fp16``
+    each leaf is bit-equal to its own allreduce (the wire is elementwise
+    and packing a permutation); int8's blocks follow the bucket. With
+    ``residual`` (a dict keyed by bucket) returns ``(reduced, new
+    residual)``, else ``(reduced, None)``."""
+    from horovod_tpu_torch.compression import Compression
+    from horovod_tpu_torch.ops import collective as _C
+    from horovod_tpu_torch.optim import tree_keys
+
+    op = _C.Average if op is None else _C.ReduceOp(op)
+    compression = Compression.none if compression is None else compression
+    _check_op(op, compression)
+    keys = tree_keys(grads)
+    leaves = [grads[k] for k in keys]
+    if plan is None:
+        plan = plan_for(leaves, 1, bucket_bytes)
+    if roundtrip is None:
+        def roundtrip(v):
+            return compression.decompress(*compression.compress(v))
+    flats, new_res = {}, ({} if residual is not None else None)
+    for key, b in plan.groups.items():
+        out, res = allreduce_bucket(
+            pack_group(leaves, b), op, compression, predivide=predivide,
+            residual=None if residual is None else residual[key],
+            roundtrip=roundtrip)
+        flats[key] = out
+        if new_res is not None:
+            new_res[key] = res
+    out = assemble(flats, plan.groups, [tuple(l.shape) for l in leaves],
+                   [l.dtype for l in leaves])
+    return dict(zip(keys, out)), new_res

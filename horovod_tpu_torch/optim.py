@@ -24,18 +24,24 @@ layout-dependent.
   (``shard_optimizer=True``: flat-packed reduce-scatter, this rank's
   optimizer shard, all-gather of the update shards) or ZeRO-3
   (``shard_params=True``: the parameters themselves are this rank's
-  shards, :class:`FsdpParams`, gathered on use).
+  shards, :class:`FsdpParams`, gathered on use); bucketed overlap
+  (``overlap=True``: one exchange a bucket, launched from the backward
+  through a :class:`BucketExchange`), PowerSGD, the gradient predivide
+  and ``backward_passes_per_step`` (:func:`multi_steps`, optax's
+  ``MultiSteps``);
+- :class:`DistributedGradientTape` — a gradient function's gradients
+  combined across ranks.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from horovod_tpu_torch import basics
+from horovod_tpu_torch import basics, pytree
 from horovod_tpu_torch.compression import (
     MIN_QUANT_ELEMS, Compression, _quantizable, quantize_chunked,
 )
@@ -51,16 +57,6 @@ from horovod_tpu_torch.ops.collective import Adasum, Average, ReduceOp, Sum
 class Transform(NamedTuple):
     init: Callable
     update: Callable
-
-
-class DistributedTransform(NamedTuple):
-    """What :func:`DistributedOptimizer` returns: a :class:`Transform`
-    that exchanges gradients itself."""
-
-    init: Callable
-    update: Callable
-    shard_optimizer: bool
-    shard_params: bool = False
 
 
 def tree_keys(tree: dict) -> list:
@@ -186,9 +182,14 @@ def _zero_spec(leaves, n: int):
     return spec
 
 
-def _zero_groups(leaves, n: int):
-    """One whole-leaf :class:`~horovod_tpu_torch.ops.overlap.Bucket` per
-    dtype (keys = dtype names, the JAX package's state layout)."""
+def _zero_groups(leaves, n: int, bucket_bytes=None):
+    """The ZeRO-1 exchange groups, as
+    :class:`~horovod_tpu_torch.ops.overlap.Bucket`: one whole-leaf group
+    per dtype (keys = dtype names), or with ``bucket_bytes`` the
+    :class:`~horovod_tpu_torch.ops.overlap.BucketPlan`'s buckets (keys
+    ``dtype#k``) — the JAX package's state layouts."""
+    if bucket_bytes:
+        return _ov.plan_for(leaves, n, bucket_bytes).groups
     groups = {}
     for k, (idxs, sizes, _shapes, L, Lp) in _zero_spec(leaves, n).items():
         segs = tuple(_ov.Segment(i, 0, sz) for i, sz in zip(idxs, sizes))
@@ -201,12 +202,14 @@ def _rank_shard(flat, n: int, r: int):
     return flat[r * s:(r + 1) * s]
 
 
-def _zero_init(optimizer, params, n: int, r: int, *, error_feedback: bool):
+def _zero_init(optimizer, params, n: int, r: int, *, error_feedback: bool,
+               compression=None, bucket_bytes=None):
     """This rank's ZeRO-1 state: the inner optimizer initialized on this
-    rank's row of each per-dtype ``[N, shard]`` flat buffer, plus (with
-    error feedback) the ``[Lp]`` per-dtype residuals."""
+    rank's row of each group's ``[N, shard]`` flat buffer, plus (with
+    error feedback) the ``[Lp]`` residual of each group and, under
+    PowerSGD, the warm-start ``Q`` of each factorized leaf."""
     leaves = [params[k] for k in tree_keys(params)]
-    groups = _zero_groups(leaves, n)
+    groups = _zero_groups(leaves, n, bucket_bytes)
     shards = {k: _rank_shard(_ov.pack_group(leaves, g), n, r).clone()
               for k, g in groups.items()}
     state = {"shard": {"rank": r, "size": n},
@@ -215,79 +218,121 @@ def _zero_init(optimizer, params, n: int, r: int, *, error_feedback: bool):
         state["residual"] = {
             k: torch.zeros(g.Lp, dtype=shards[k].dtype, device=shards[k].device)
             for k, g in groups.items()}
+    if getattr(compression, "factorized", False):
+        state["q"] = _powersgd_q_init(params, compression)
     return state
 
 
-def _zero_update(grads, state, params, *, optimizer, compression,
-                 error_feedback, op, roundtrip):
-    """One ZeRO-1 update on this rank (the reference's bound-axis branch):
-    pack, (error-feedback correct,) reduce-scatter — the int8 exchange
-    for quantizable groups, with ONE quantize pass serving both the
-    residual and the wire — update this rank's shard, all-gather the
-    update shards, unpack."""
-    n, r = state["shard"]["size"], state["shard"]["rank"]
+def _zero_bucket(flat, key, g, *, residual, n, op, compression, predivide,
+                 roundtrip):
+    """One ZeRO-1 group's exchange on this rank: (error-feedback correct,)
+    reduce-scatter — the int8 exchange for a quantizable group, whose one
+    quantize pass serves the residual and the wire — and divide for
+    Average. Returns ``(this rank's [Lp/N] gradient shard, new residual
+    or None)``."""
     quantized = getattr(compression, "quantized", False)
-    qblock = int(getattr(compression, "block", 0) or 0)
+    qgroup = (quantized and _quantizable(flat.dtype)
+              and g.Lp >= int(getattr(compression, "min_quant_elems", 0)))
+    pre = res = None
+    send = flat
+    if residual is not None:
+        send = flat + residual[key]
+        if qgroup:
+            q_w, sc_w, rt = quantize_chunked(send, n, int(compression.block))
+            pre = (q_w, sc_w)
+        else:
+            rt = roundtrip(send)
+        res = send - rt
+    pdiv = op == Average and predivide != 1.0
+    if pdiv:
+        send = _ov._predivide(send, predivide)
+    if qgroup:
+        shard = _C.quantized_psum_scatter(send, block=int(compression.block),
+                                          pre=pre)
+    else:
+        comp, ctx = compression.compress(send)
+        shard = _C.reducescatter(comp, Sum)
+    if op == Average and not pdiv:
+        shard = _C._div(shard, n)          # on the wire's dtype, as JAX
+    if not qgroup:
+        shard = compression.decompress(shard, ctx)
+    if pdiv:
+        shard = shard * torch.tensor(predivide / n, dtype=shard.dtype,
+                                     device=shard.device)
+    return shard, res
+
+
+def _zero_update(grads, state, params, *, optimizer, compression,
+                 error_feedback, op, predivide, roundtrip, bucket_bytes=None,
+                 started=None):
+    """One ZeRO-1 update on this rank (the reference's bound-axis branch):
+    each group (a dtype, or with ``bucket_bytes`` a bucket) packed and
+    reduce-scattered by :func:`_zero_bucket` — or taken from ``started``,
+    a :class:`BucketExchange` that ran them during the backward — then
+    the inner optimizer on this rank's shards (one update over every
+    group), and the update shards back through ONE all-gather per dtype
+    (this rank's shards of a dtype's buckets concatenated first)."""
+    if state.get("q") is not None:
+        return _zero_update_powersgd(grads, state, params,
+                                     optimizer=optimizer,
+                                     compression=compression, op=op)
+    n, r = state["shard"]["size"], state["shard"]["rank"]
     keys = tree_keys(grads)
     leaves = [grads[k] for k in keys]
-    p_leaves = [params[k] for k in keys] if params is not None else None
-    groups = _zero_groups(leaves, n)
-    residual = state.get("residual")
-    gshards, pshards, new_residual = {}, ({} if p_leaves else None), {}
-    for key, g in groups.items():
-        qgroup = (quantized and _quantizable(leaves[g.segs[0].idx].dtype)
-                  and g.Lp >= int(getattr(compression, "min_quant_elems", 0)))
-        flat = _ov.pack_group(leaves, g)
-        pre = None
-        if error_feedback:
-            corrected = flat + residual[key]
-            if qgroup:
-                q_w, sc_w, rt = quantize_chunked(corrected, n, qblock)
-                pre = (q_w, sc_w)
-            else:
-                rt = roundtrip(corrected)
-            new_residual[key] = corrected - rt
-            send = corrected
-        else:
-            send = flat
-        if qgroup:
-            shard = _C.quantized_psum_scatter(send, block=qblock, pre=pre)
-            ctx = None
-        else:
-            comp, ctx = compression.compress(send)
-            shard = _C.reducescatter(comp, Sum)
-        if op == Average:
-            shard = _C._div(shard, n)
-        if not qgroup:
-            shard = compression.decompress(shard, ctx)
-        gshards[key] = shard
-        if p_leaves is not None:
-            pshards[key] = _rank_shard(_ov.pack_group(p_leaves, g), n, r)
+    groups = _zero_groups(leaves, n, bucket_bytes)
+    if started is None:
+        started = {key: _zero_bucket(
+            _ov.pack_group(leaves, g), key, g,
+            residual=state.get("residual") if error_feedback else None, n=n,
+            op=op, compression=compression, predivide=predivide,
+            roundtrip=roundtrip) for key, g in groups.items()}
+    gshards = {k: started[k][0] for k in groups}
+    pshards = None
+    if params is not None:
+        p_leaves = [params[k] for k in keys]
+        pshards = {k: _rank_shard(_ov.pack_group(p_leaves, g), n, r)
+                   for k, g in groups.items()}
     upd_shards, new_inner = optimizer.update(gshards, state["inner"], pshards)
-
-    # gather leg: one all-gather per dtype of this rank's update shard
-    full_flats = {}
-    for key, g in groups.items():
-        s = g.Lp // n
-        gat = _C.allgather(upd_shards[key].reshape(-1))
-        full_flats[key] = gat.reshape(n, s).reshape(-1)[:g.L]
+    full_flats = _gather_updates(upd_shards, groups, n)
     out_leaves = _ov.assemble(full_flats, groups,
                               [tuple(l.shape) for l in leaves],
                               [l.dtype for l in leaves])
     new_state = {"shard": state["shard"], "inner": new_inner}
     if error_feedback:
-        new_state["residual"] = new_residual
+        new_state["residual"] = {k: started[k][1] for k in groups}
     return dict(zip(keys, out_leaves)), new_state
+
+
+def _gather_updates(upd_shards: dict, groups: dict, n: int) -> dict:
+    """The gather leg: per dtype, this rank's update shards of its groups
+    concatenated, one all-gather, and each group's ``[L]`` sliced back out
+    of the ``[N, S]`` rows."""
+    by_dtype: dict = {}
+    for key, g in groups.items():
+        by_dtype.setdefault(g.dtype, []).append(key)
+    full = {}
+    for keys in by_dtype.values():
+        cats = [upd_shards[k].reshape(-1) for k in keys]
+        cat = cats[0] if len(cats) == 1 else torch.cat(cats)
+        rows = _C.allgather(cat).view(n, -1)
+        off = 0
+        for k in keys:
+            s = groups[k].Lp // n
+            full[k] = rows[:, off:off + s].reshape(-1)[:groups[k].L]
+            off += s
+    return full
 
 
 # --------------------------------------------------------------------------
 # ZeRO-1 state across world sizes
 #
 # A rank's ZeRO-1 state is its own row: {"shard": {"rank", "size"},
-# "inner": {"count", "mu": {dtype: [s]}, "nu"}, "residual": {dtype: [Lp]}}.
-# checkpoint.save writes the consolidated view, every rank's row stacked
-# as the JAX package holds it: {"shard": {"size": N}, "inner": {"count":
-# [N], "mu": {dtype: [N, s]}, ...}, "residual": {dtype: [N, Lp]}}.
+# "inner": {"count", "mu": {group: [s]}, "nu"}, "residual": {group: [Lp]},
+# "q": {leaf: [m, r] | None} (PowerSGD)}, a group being a dtype or, under
+# overlap, a bucket ("dtype#k"). checkpoint.save writes the consolidated
+# view, every rank's row stacked as the JAX package holds it: {"shard":
+# {"size": N}, "inner": {"count": [N], "mu": {group: [N, s]}, ...},
+# "residual": {group: [N, Lp]}, "q": {leaf: [N, m, r] | None}}.
 
 
 def is_zero1_rows(state) -> bool:
@@ -298,28 +343,81 @@ def is_zero1_rows(state) -> bool:
             and set(state["shard"]) == {"size"})
 
 
-def _group_lengths(params) -> dict:
-    """``{dtype: L}``, the true packed length of each ZeRO-1 group of
-    ``params``: a flat dict of tensors or host arrays (``|V2`` is bf16),
-    or :class:`FsdpParams`, whose groups are known."""
+def _leaf_sigs(params) -> list:
+    """``[(shape, dtype name)]`` of ``params`` in :func:`tree_keys` order:
+    a flat dict of tensors or host arrays (``|V2`` is bf16), or
+    :class:`FsdpParams`."""
     if isinstance(params, FsdpParams):
-        return {k: g.L for k, g in params.meta.groups.items()}
-    lengths: dict = {}
+        return [(tuple(s), _dtype_key(d))
+                for s, d in zip(params.meta.shapes, params.meta.dtypes)]
+    sigs = []
     for k in tree_keys(params):
         p = params[k]
         if isinstance(p, torch.Tensor):
-            key, n = _dtype_key(p.dtype), p.numel()
+            sigs.append((tuple(p.shape), _dtype_key(p.dtype)))
         else:
             p = np.asarray(p)
-            key = "bfloat16" if p.dtype == np.dtype("V2") else str(p.dtype)
-            n = p.size
-        lengths[key] = lengths.get(key, 0) + int(n)
+            sigs.append((tuple(p.shape), "bfloat16" if p.dtype == np.dtype("V2")
+                         else str(p.dtype)))
+    return sigs
+
+
+def _group_lengths(params) -> dict:
+    """``{dtype: L}``, the true packed length of each per-dtype ZeRO-1
+    group of ``params``."""
+    lengths: dict = {}
+    for shape, dt in _leaf_sigs(params):
+        lengths[dt] = lengths.get(dt, 0) + int(np.prod(shape, dtype=np.int64))
     return lengths
 
 
 def _is_bucket_key(k) -> bool:
-    """The JAX package's bucketed (overlap) group keys, ``dtype#k``."""
-    return isinstance(k, str) and "#" in k and k.rpartition("#")[2].isdigit()
+    """Exactly the bucket keys ``dtype#k`` (a parameter whose name holds a
+    ``#`` is not one)."""
+    if not isinstance(k, str) or "#" not in k:
+        return False
+    dt, _, idx = k.rpartition("#")
+    return idx.isdigit() and isinstance(getattr(torch, dt, None), torch.dtype)
+
+
+def _bucket_lengths(state, params, bucket_bytes) -> dict:
+    """``{bucket key: L}`` of a bucketed state's plan, re-derived from
+    ``params`` and ``bucket_bytes`` (default the env's); raises, as the
+    JAX package does, when the state's keys or row lengths are not that
+    plan's."""
+    plan = _ov.plan_for(_leaf_sigs(params), 1,
+                        bucket_bytes or _ov.bucket_bytes_from_env())
+    exact = {b.key: b.L for b in plan.buckets}
+
+    def mismatch(detail):
+        raise ValueError(
+            "bucketed (overlap) optimizer state does not match the "
+            f"re-derived BucketPlan ({detail}); reshard with the SAME "
+            "HOROVOD_BUCKET_BYTES (or pass bucket_bytes=) the state was "
+            "trained with")
+
+    keys = {k for k in _dict_keys(state) if _is_bucket_key(k)}
+    unknown = sorted(keys - set(exact))
+    if unknown:
+        mismatch(f"unknown bucket keys {unknown}")
+
+    def check(x, key):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                check(v, k if k in exact else key)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                check(v, key)
+        elif key is not None and np.ndim(x) == 2:
+            rows, width = np.shape(x)
+            L = exact[key]
+            Lp = L + (-L) % rows
+            if width not in (Lp, Lp // rows):
+                mismatch(f"buffer {key} has row length {width}, expected "
+                         f"{Lp} or {Lp // rows}")
+
+    check({k: v for k, v in state.items() if k in ("inner", "residual")}, None)
+    return exact
 
 
 def _sum_rows(x: np.ndarray, n_new: int) -> np.ndarray:
@@ -339,20 +437,24 @@ def _sum_rows(x: np.ndarray, n_new: int) -> np.ndarray:
     return host_array(torch.from_numpy(total).bfloat16()) if bf16 else total
 
 
-def reshard_optimizer_state(state, params, *, to_size=None):
+def reshard_optimizer_state(state, params, *, to_size=None,
+                            bucket_bytes=None):
     """Re-pack a consolidated ZeRO-1 state (:func:`is_zero1_rows`, host
     arrays as :func:`~horovod_tpu_torch.checkpoint.restore` returns them)
     for ``to_size`` ranks (default the world's size), as the JAX package's
     ``reshard_optimizer_state`` does: each ``[N, s]`` row buffer of a
     group is unpadded to the group's true length (from ``params``, the
     tree the state was built on), re-padded for ``to_size`` and reshaped
-    ``[to_size, s']``; a per-rank scalar (``count``, ``[N]``) is re-tiled
-    from row 0; the error-feedback residuals ``[N, Lp]`` are summed over
-    the old ranks and the sum spread evenly over the new ones (the
-    gradient mass the old ranks still owed is kept); other leaves pass
-    through. Any other state is returned as it is. The JAX package's
-    bucketed (``dtype#k``) states raise: the bucketed ZeRO-1 path is not
-    ported."""
+    ``[to_size, s']``; a per-rank scalar (``count``, ``[N]``) and
+    PowerSGD's ``Q`` (``[N, m, r]``, identical rows) are re-tiled from row
+    0; the error-feedback residuals ``[N, Lp]`` are summed over the old
+    ranks and the sum spread evenly over the new ones (the gradient mass
+    the old ranks still owed is kept); other leaves pass through. A
+    bucketed state (``dtype#k`` groups, ``overlap=True``) is re-packed by
+    the plan of ``params`` at ``bucket_bytes`` (default the
+    ``HOROVOD_BUCKET_BYTES`` resolution: reshard with the knob the state
+    was trained with; another one raises). Any other state is returned as
+    it is."""
     if not is_zero1_rows(state):
         return state
     from horovod_tpu_torch.training import host_snapshot
@@ -360,12 +462,8 @@ def reshard_optimizer_state(state, params, *, to_size=None):
     n_new = int(to_size) if to_size is not None else basics.size()
     n_old = int(state["shard"]["size"])
     lengths = _group_lengths(params)
-    buckets = sorted({k for k in _dict_keys(state) if _is_bucket_key(k)})
-    if buckets:
-        raise ValueError(
-            f"bucketed ZeRO-1 state (groups {buckets[:4]}): the bucketed "
-            "(overlap) ZeRO-1 path is not ported, its state cannot be "
-            "re-packed")
+    if any(_is_bucket_key(k) for k in _dict_keys(state)):
+        lengths = _bucket_lengths(state, params, bucket_bytes)
     unknown = sorted(set(state.get("residual", {})) - set(lengths))
     if unknown:
         raise ValueError(f"residual groups {unknown} are not groups of params "
@@ -399,7 +497,12 @@ def reshard_optimizer_state(state, params, *, to_size=None):
             return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
         return one(x, group)
 
-    out = {k: (v if k in ("shard", "residual") else walk(v))
+    def one_q(x):
+        if x is None:
+            return None
+        return np.broadcast_to(x[:1], (n_new,) + np.shape(x)[1:]).copy()
+
+    out = {k: (v if k in ("shard", "residual", "q") else walk(v))
            for k, v in state.items()}
     out["shard"] = {"size": n_new}
     if "residual" in state:
@@ -409,6 +512,8 @@ def reshard_optimizer_state(state, params, *, to_size=None):
             total = repad(_sum_rows(x, n_new)[:L], L)
             out["residual"][k] = np.broadcast_to(
                 total, (n_new, total.shape[0])).copy()
+    if "q" in state:
+        out["q"] = {k: one_q(x) for k, x in state["q"].items()}
     return out
 
 
@@ -585,6 +690,133 @@ def _fsdp_update(grads, state, params, *, optimizer, op):
 
 
 # --------------------------------------------------------------------------
+# PowerSGD
+
+
+#: the JAX package seeds leaf i's Q with PRNGKey(POWERSGD_SEED + i); the
+#: port seeds its own generator the same way (the draws differ: a JAX
+#: state's Q is carried over with ``convert.powersgd_q_from_jax``)
+POWERSGD_SEED = 0x9D5D
+
+
+def _powersgd_q_init(params: dict, compression) -> dict:
+    """The warm-start ``Q`` ``[m, r]`` of each factorized leaf (``None``
+    elsewhere): standard normal from a generator seeded with
+    ``POWERSGD_SEED + i`` (``i`` the leaf's place in :func:`tree_keys`),
+    so every rank draws the same ``Q`` without a broadcast."""
+    qs = {}
+    for i, k in enumerate(tree_keys(params)):
+        p = params[k]
+        shape = tuple(p.shape)
+        if compression.factorizes(shape, p.dtype):
+            m = int(np.prod(shape[1:]))
+            gen = torch.Generator().manual_seed(POWERSGD_SEED + i)
+            q = torch.randn((m, compression.effective_rank(shape)),
+                            generator=gen, dtype=torch.float32)
+            qs[k] = q.to(p.device)
+        else:
+            qs[k] = None
+    return qs
+
+
+def _orthonormalize(p, eps: float = 1e-8):
+    """One modified Gram-Schmidt pass over ``P``'s few columns."""
+    cols = []
+    for i in range(p.shape[1]):
+        v = p[:, i]
+        for u in cols:
+            v = v - torch.dot(u, v) * u
+        v = v / (torch.sqrt(torch.sum(v * v)) + eps)
+        cols.append(v)
+    return torch.stack(cols, dim=1)
+
+
+def _powersgd_sync(corrected: dict, qs: dict, op, compression):
+    """One PowerSGD exchange of the corrected leaves (``g + residual``):
+    each factorized leaf ``M`` (``[d0, m]``) sends ``P = M @ Q``, every
+    ``P`` of the step in one flat mean allreduce, then ``Q' = M^T @
+    orthonormalize(P)``, every ``Q'`` in a second; the leaf's mean is
+    ``P @ Q'^T`` and its residual ``M - P @ Q'^T``. The other float
+    leaves ride the grouped int8 exchange (their residual from its one
+    quantize pass), the rest the plain allreduce with a zero residual.
+    Returns ``(reduced, residual, new Q)`` dicts."""
+    n = basics.size()
+    keys = tree_keys(corrected)
+    fact = [k for k in keys if qs.get(k) is not None]
+    quant = [k for k in keys if qs.get(k) is None
+             and _quantizable(corrected[k].dtype)]
+    rest = [k for k in keys if qs.get(k) is None and k not in quant]
+    reduced, res, new_q = {}, {}, dict(qs)
+    if fact:
+        m2d = {k: corrected[k].reshape(corrected[k].shape[0], -1) for k in fact}
+        ps = _C._grouped_flat_allreduce([m2d[k] @ qs[k] for k in fact],
+                                        Average)
+        ps = [_orthonormalize(p) for p in ps]
+        qn = _C._grouped_flat_allreduce(
+            [m2d[k].T @ p for k, p in zip(fact, ps)], Average)
+        for k, p, q in zip(fact, ps, qn):
+            approx = p @ q.T
+            res[k] = (m2d[k] - approx).view(corrected[k].shape)
+            red = approx.view(corrected[k].shape)
+            reduced[k] = red * n if op == Sum else red
+            new_q[k] = q
+    if quant:
+        outs, rs = _C._grouped_allreduce([corrected[k] for k in quant], op,
+                                         compression.fallback, residuals=True)
+        reduced.update(zip(quant, outs))
+        res.update(zip(quant, rs))
+    if rest:
+        outs = _C._grouped_allreduce([corrected[k] for k in rest], op)[0]
+        reduced.update(zip(rest, outs))
+        res.update((k, torch.zeros_like(corrected[k])) for k in rest)
+    return reduced, res, new_q
+
+
+def _powersgd_update(grads, state, params, *, optimizer, compression, op):
+    """Allreduce mode under PowerSGD: the state is ``{"inner",
+    "residual" (param-shaped), "q"}``."""
+    corrected = {k: grads[k] + state["residual"][k] for k in tree_keys(grads)}
+    reduced, res, q = _powersgd_sync(corrected, state["q"], op, compression)
+    updates, inner = optimizer.update(reduced, state["inner"], params)
+    return updates, {"inner": inner, "residual": res, "q": q}
+
+
+def _zero_update_powersgd(grads, state, params, *, optimizer, compression,
+                          op):
+    """ZeRO-1 under PowerSGD: the per-dtype ``[Lp]`` residual rows unpacked
+    onto the leaves, :func:`_powersgd_sync` (after which the mean gradient
+    is known on every rank, so this rank's shard is a slice: no
+    reduce-scatter), the inner update of the shards and the all-gather of
+    the update shards, as :func:`_zero_update`."""
+    n, r = state["shard"]["size"], state["shard"]["rank"]
+    keys = tree_keys(grads)
+    leaves = [grads[k] for k in keys]
+    groups = _zero_groups(leaves, n)
+    shapes = [tuple(l.shape) for l in leaves]
+    dtypes = [l.dtype for l in leaves]
+    cflats = {key: _ov.pack_group(leaves, g) + state["residual"][key]
+              for key, g in groups.items()}
+    corrected = dict(zip(keys, _ov.assemble(cflats, groups, shapes, dtypes)))
+    reduced, res, q = _powersgd_sync(corrected, state["q"], op, compression)
+    red_leaves = [reduced[k] for k in keys]
+    res_leaves = [res[k] for k in keys]
+    gshards, new_res = {}, {}
+    for key, g in groups.items():
+        gshards[key] = _rank_shard(_ov.pack_group(red_leaves, g), n, r)
+        new_res[key] = _ov.pack_group(res_leaves, g)
+    pshards = None
+    if params is not None:
+        p_leaves = [params[k] for k in keys]
+        pshards = {k: _rank_shard(_ov.pack_group(p_leaves, g), n, r)
+                   for k, g in groups.items()}
+    upd_shards, inner = optimizer.update(gshards, state["inner"], pshards)
+    out = _ov.assemble(_gather_updates(upd_shards, groups, n), groups, shapes,
+                       dtypes)
+    return dict(zip(keys, out)), {"shard": state["shard"], "inner": inner,
+                                  "residual": new_res, "q": q}
+
+
+# --------------------------------------------------------------------------
 # DistributedOptimizer
 
 
@@ -602,12 +834,193 @@ def _adasum_tree(grads: dict, compression) -> dict:
     return dict(zip(keys, _compressed_adasum(leaves, compression)))
 
 
+def _env_true(name: str, default: str = "0") -> bool:
+    return os.environ.get(name, default).lower() in ("1", "true", "yes")
+
+
+_side_streams: dict = {}
+
+
+def _side_stream(device) -> "torch.cuda.Stream":
+    """The one stream per device the bucket exchanges run on: made once,
+    so the caching allocator reuses the exchanges' buffers step to step
+    (a new stream a step would start an empty pool each time)."""
+    key = torch.device(device).index
+    if key not in _side_streams:
+        _side_streams[key] = torch.cuda.Stream(device=device)
+    return _side_streams[key]
+
+
+class BucketExchange:
+    """One step's bucketed exchange, launched from the backward: the
+    training step hands each leaf's gradient to :meth:`ready` as the
+    backward produces it (a gradient hook), and a bucket's exchange
+    starts as soon as its last leaf is ready and every bucket before it
+    in the plan has started (all ranks issue the collectives in plan
+    order). :meth:`flush` starts the rest after the backward, a leaf
+    whose parameter got no gradient counting as zeros.
+
+    ``run(key, flat)`` is the bucket's exchange (the same function the
+    update runs when it exchanges after the backward, so both routes give
+    the same bits). On the GPU the buckets run on a side stream (one a
+    device, :func:`_side_stream`) that first waits for the backward's
+    stream at each launch, and :meth:`results` makes the caller's stream
+    wait for it."""
+
+    def __init__(self, groups: dict, n_leaves: int, run: Callable):
+        self.groups = groups
+        self.run = run
+        self.order = list(groups)
+        self.leaves = [None] * n_leaves
+        self.left = {k: len(b.idxs) for k, b in groups.items()}
+        self.of_leaf: dict = {}
+        for k, b in groups.items():
+            for i in b.idxs:
+                self.of_leaf.setdefault(i, []).append(k)
+        self.done: dict = {}
+        self.next = 0
+        self.missing = n_leaves
+        #: buckets started from the backward (before :meth:`flush`), and
+        #: of them those started while leaves were still to come
+        self.in_backward = 0
+        self.early = 0
+        self.stream = None
+
+    def ready(self, i: int, grad) -> None:
+        """Leaf ``i``'s gradient is final (called once per leaf)."""
+        if self.leaves[i] is not None:
+            return
+        self._take(i, grad)
+        self._advance(in_backward=True)
+
+    def _take(self, i: int, grad) -> None:
+        self.leaves[i] = grad
+        self.missing -= 1
+        for k in self.of_leaf.get(i, ()):
+            self.left[k] -= 1
+
+    def _advance(self, in_backward: bool) -> None:
+        while self.next < len(self.order) and \
+                self.left[self.order[self.next]] == 0:
+            key = self.order[self.next]
+            self._launch(key)
+            self.next += 1
+            self.in_backward += int(in_backward)
+            self.early += int(in_backward and self.missing > 0)
+
+    @torch.no_grad()
+    def _launch(self, key: str) -> None:
+        b = self.groups[key]
+        ref = self.leaves[b.segs[0].idx]
+        if ref.device.type != "cuda":
+            self.done[key] = self.run(key, _ov.pack_group(self.leaves, b))
+            return
+        if self.stream is None:
+            self.stream = _side_stream(ref.device)
+        self.stream.wait_stream(torch.cuda.current_stream(ref.device))
+        with torch.cuda.stream(self.stream):
+            self.done[key] = self.run(key, _ov.pack_group(self.leaves, b))
+
+    def flush(self, grads: list) -> None:
+        """Start every bucket not yet started, with ``grads`` (every
+        leaf's gradient after the backward, zeros for a parameter that got
+        none) for the leaves no hook handed over."""
+        for i, g in enumerate(grads):
+            if self.leaves[i] is None:
+                self._take(i, g)
+        self._advance(in_backward=False)
+
+    def results(self) -> dict:
+        """``{key: run's result}`` of every bucket, safe to read on the
+        caller's stream."""
+        if len(self.done) != len(self.order):
+            raise RuntimeError(f"{len(self.order) - len(self.done)} buckets "
+                               "were never started: call flush() first")
+        if self.stream is not None:
+            cur = torch.cuda.current_stream(self.stream.device)
+            cur.wait_stream(self.stream)
+            for out in self.done.values():
+                for t in out:
+                    if isinstance(t, torch.Tensor):
+                        t.record_stream(cur)
+        return self.done
+
+
+class DistributedTransform(NamedTuple):
+    """What :func:`DistributedOptimizer` returns: a :class:`Transform`
+    that exchanges gradients itself. ``update(grads, state, params=None,
+    *, started=None)``: ``started`` is a :class:`BucketExchange` from
+    ``exchange(state, params)`` that already ran the buckets during the
+    backward (``bucket_bytes`` set, allreduce mode or ZeRO-1)."""
+
+    init: Callable
+    update: Callable
+    shard_optimizer: bool
+    shard_params: bool = False
+    bucket_bytes: Optional[int] = None
+    exchange: Optional[Callable] = None
+
+
+#: optax's ``MultiStepsState``, under its JAX name (checkpoints of either
+#: package read it): ``mini_step``/``gradient_step`` are 0-d int32
+#: tensors on the host, ``acc_grads`` the running mean of the gradients
+MultiStepsState = pytree._stand_in(
+    "optax.transforms._accumulation", "MultiStepsState",
+    pytree._NAMEDTUPLE_FIELDS[("optax", "MultiStepsState")])
+
+
+def multi_steps(tx, every_k: int):
+    """``optax.MultiSteps(tx, every_k_schedule=every_k)`` with the mean of
+    the gradients (Welford: ``acc + (g - acc) / (n + 1)``): every
+    ``every_k``-th update runs ``tx`` on the mean of the last ``every_k``
+    gradients and returns its update; the others return zeros. optax runs
+    ``tx`` on every mini-step and keeps its state only on the emitting
+    one; here ``tx`` runs on the emitting step only, which gives the same
+    values and no exchange between emits. On an emit the accumulator is
+    reset as ``0 * acc``, as optax does (a NaN stays NaN)."""
+    k = int(every_k)
+
+    def init(params):
+        return MultiStepsState(
+            torch.zeros((), dtype=torch.int32), torch.zeros((), dtype=torch.int32),
+            tx.init(params),
+            {key: torch.zeros_like(p) for key, p in params.items()}, ())
+
+    def update(grads, state, params=None, **kw):
+        mini = int(state.mini_step)
+        acc = {}
+        for key in tree_keys(grads):
+            g, a = grads[key], state.acc_grads[key]
+            acc[key] = a + (g - a) / torch.tensor(mini + 1, dtype=g.dtype,
+                                                  device=g.device)
+        step = int(state.gradient_step)
+        if mini == k - 1:
+            updates, inner = tx.update(acc, state.inner_opt_state, params)
+            acc = {key: a * 0 for key, a in acc.items()}
+            step += 1
+        else:
+            updates = {key: torch.zeros_like(g) for key, g in grads.items()}
+            inner = state.inner_opt_state
+        return updates, MultiStepsState(
+            torch.tensor((mini + 1) % k, dtype=torch.int32),
+            torch.tensor(step, dtype=torch.int32), inner, acc,
+            state.skip_state)
+
+    return Transform(init, update)
+
+
 def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
-                         compression=None, error_feedback: bool = False,
-                         shard_optimizer: bool = False,
-                         shard_params: bool = False) -> DistributedTransform:
+                         compression=None, backward_passes_per_step: int = 1,
+                         axis=None, gradient_predivide_factor: float = 1.0,
+                         error_feedback: bool = False,
+                         shard_optimizer: Optional[bool] = None,
+                         shard_params: Optional[bool] = None,
+                         overlap: Optional[bool] = None,
+                         bucket_bytes: Optional[int] = None,
+                         numerics_guard: Optional[bool] = None,
+                         loss_scale=None) -> DistributedTransform:
     """Wrap ``optimizer`` so each ``update`` first combines the gradients
-    across ranks.
+    across ranks. The JAX package's signature and refusals, same messages.
 
     - allreduce mode (default): the gradient tree is allreduced in one
       fused exchange (:func:`~horovod_tpu_torch.ops.collective.grouped_allreduce`:
@@ -620,23 +1033,62 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
       with ``Compression.fp16`` one butterfly over the leaves packed in
       their 16-bit wire type, each leaf combined in that type as its own
       ``allreduce(g, Adasum, compression=...)`` combines it.
-    - ``shard_optimizer=True`` (ZeRO-1): the tree is flat-packed per
-      dtype and reduce-scattered; this rank updates only its shard of the
-      optimizer state and the update shards are all-gathered. The state
-      holds this rank's shard only (``state["shard"]`` names it).
-    - ``shard_params=True`` (ZeRO-3): ``init`` takes :class:`FsdpParams`
-      and gives the ZeRO-1 state; ``update`` takes the gradient shards
-      (the gather's backward reduce-scattered them) and returns update
-      shards. The gradient leg is exact: compression and error feedback
-      are refused (``HOROVOD_FSDP_WIRE=int8`` compresses the gather).
+    - ``shard_optimizer=True`` (ZeRO-1; default ``HOROVOD_SHARD_OPTIMIZER``):
+      the tree is flat-packed per dtype and reduce-scattered; this rank
+      updates only its shard of the optimizer state and the update shards
+      are all-gathered. The state holds this rank's shard only
+      (``state["shard"]`` names it).
+    - ``shard_params=True`` (ZeRO-3; default ``HOROVOD_SHARD_PARAMS``):
+      ``init`` takes :class:`FsdpParams` and gives the ZeRO-1 state;
+      ``update`` takes the gradient shards (the gather's backward
+      reduce-scattered them) and returns update shards. The gradient leg
+      is exact: compression and error feedback are refused
+      (``HOROVOD_FSDP_WIRE=int8`` compresses the gather).
 
+    ``compression=None`` reads ``HOROVOD_COMPRESSION``
+    (:meth:`Compression.from_env`; PowerSGD resolved there turns
+    ``error_feedback`` on). ``Compression.powersgd(r)`` syncs rank-``r``
+    factors of each >= 2-D leaf where they are smaller than it, ``Q``
+    warm-started in the state (needs ``error_feedback=True``).
     ``error_feedback=True`` keeps what the lossy wire rounded away and
-    adds it to the next step's gradient (EF-SGD); it needs a lossy
-    ``compression``.
+    adds it to the next step's gradient (EF-SGD).
+    ``gradient_predivide_factor`` ``f`` (Average, ``none``/``fp16``):
+    each gradient is divided by ``f`` before the sum and the sum
+    multiplied by ``f / N``.
+
+    ``overlap=True`` (default ``HOROVOD_OVERLAP``; ``bucket_bytes`` alone
+    implies it): the exchange runs bucket by bucket
+    (:class:`~horovod_tpu_torch.ops.overlap.BucketPlan`, ``bucket_bytes``
+    default ``HOROVOD_BUCKET_BYTES``): in allreduce mode one allreduce a
+    bucket, error-feedback residuals keyed by bucket; under ZeRO-1 one
+    reduce-scatter a bucket, the state's shards per bucket, the update
+    shards back through one all-gather per dtype. ``make_train_step``
+    launches the buckets from the backward's gradient hooks
+    (``exchange``); ``update`` after the backward runs the same buckets.
+
+    ``backward_passes_per_step=k`` accumulates ``k`` gradients and
+    exchanges their mean on every ``k``-th update (:func:`multi_steps`).
+    ``axis`` must stay ``None``: the port's collectives run on the
+    world's process group. ``numerics_guard``/``loss_scale`` (and
+    ``HOROVOD_NUMERICS_GUARD=1``) raise ``NotImplementedError``: the
+    guard is not ported yet (ROADMAP Queue A item 8).
     """
+    if axis is not None:
+        raise ValueError(
+            f"axis={axis!r}: the port's collectives run on the world's "
+            "process group; there are no mesh axes to name")
+    if shard_optimizer is None:
+        shard_optimizer = _env_true("HOROVOD_SHARD_OPTIMIZER")
+    if shard_params is None:
+        shard_params = _env_true("HOROVOD_SHARD_PARAMS")
+    ov_bytes = _ov.resolve_bucket_bytes(overlap, bucket_bytes)
     if compression is None:
-        compression = Compression.none
+        compression = Compression.from_env()
+        if getattr(compression, "factorized", False) and not error_feedback:
+            error_feedback = True
     op = ReduceOp(op)
+    pf = float(gradient_predivide_factor)
+    factorized = getattr(compression, "factorized", False)
     quantized = getattr(compression, "quantized", False)
     if shard_params:
         if op not in (Average, Sum):
@@ -647,70 +1099,207 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
         if compression is not Compression.none:
             raise ValueError(
                 "gradient compression does not compose with "
-                "shard_params=True: the ZeRO-3 gradient leg is the parameter "
-                "gather's transpose, exact by construction. Compress the "
-                "parameter GATHER instead (HOROVOD_FSDP_WIRE=int8)")
+                "shard_params=True: the ZeRO-3 gradient leg is the "
+                "parameter gather's transpose — exact full precision by "
+                "construction. Compress the parameter GATHER instead "
+                "(HOROVOD_FSDP_WIRE=int8)")
         if error_feedback:
             raise ValueError(
                 "error_feedback needs a lossy gradient wire; the ZeRO-3 "
-                "gradient leg is exact (see shard_params)")
+                "gradient leg is exact (see shard_params). The int8 "
+                "GATHER wire perturbs only forward parameter values — "
+                "there is no gradient rounding to feed back")
+        if pf != 1.0:
+            raise ValueError(
+                "gradient_predivide_factor is not supported with "
+                "shard_params=True (the reduced shards arrive through "
+                "the gather transpose; there is no pre-wire scale point)")
         if shard_optimizer:
             raise ValueError(
                 "shard_params=True already shards the optimizer state; "
                 "pass shard_optimizer=False")
+        if ov_bytes:
+            raise ValueError(
+                "overlap/bucket_bytes with shard_params=True (bucketed "
+                "ZeRO-3) is not ported yet: ROADMAP Queue A item 6 (A8)")
+    if factorized and not error_feedback:
+        raise ValueError(
+            "PowerSGD compression is biased low-rank truncation; it is "
+            "only convergence-safe with error_feedback=True (EF-SGD, "
+            "Karimireddy et al. 2019)")
+    if factorized and op not in (Average, Sum):
+        raise ValueError("PowerSGD compression supports op=Average/Sum only")
+    if (factorized or quantized) and pf != 1.0:
+        raise ValueError(
+            "gradient_predivide_factor is a headroom trick for plain "
+            "16-bit casts; blockwise int8 scaling / PowerSGD factors "
+            "normalize per block and do not support it")
     if error_feedback and compression is Compression.none:
         raise ValueError(
-            "error_feedback=True needs a lossy compression (e.g. "
-            "Compression.int8); with Compression.none there is no rounding "
-            "error to feed back")
-    if op == Adasum:
-        if error_feedback:
-            raise ValueError("error_feedback is not supported with op=Adasum")
-        if quantized:
-            raise ValueError(
-                "quantized compression is not supported with op=Adasum (the "
-                "scalar projections have no low-bit reduction formulation)")
-        if shard_optimizer:
-            raise ValueError(
-                "shard_optimizer=True is not supported with op=Adasum (the "
-                "pairwise projections have no reduce-scatter formulation)")
-    elif (quantized or shard_optimizer) and op not in (Average, Sum):
+            "error_feedback=True needs a lossy compression "
+            "(e.g. Compression.fp16); with Compression.none there is no "
+            "rounding error to feed back")
+    if error_feedback and op == Adasum:
+        raise ValueError("error_feedback is not supported with op=Adasum")
+    if quantized and op == Adasum:
+        raise ValueError(
+            "quantized compression is not supported with op=Adasum (the "
+            "scalar projections have no low-bit reduction formulation)")
+    if shard_optimizer and op == Adasum:
+        raise ValueError(
+            "shard_optimizer=True is not supported with op=Adasum (the "
+            "pairwise projections have no reduce-scatter formulation)")
+    if (quantized or shard_optimizer) and op not in (Average, Sum, Adasum):
         raise ValueError(
             f"op={op!r}: the reduce-scatter paths (quantized compression, "
             "shard_optimizer) support Average/Sum only")
+    if ov_bytes and factorized:
+        raise ValueError(
+            "overlap/bucket_bytes is not supported with PowerSGD "
+            "compression: the rank-r P/Q factors are per-leaf matrices "
+            "that bucket packing would mix; use the int8/fp16 wire with "
+            "overlap, or PowerSGD without it")
+    if ov_bytes and op == Adasum:
+        raise ValueError(
+            "overlap/bucket_bytes is not supported with op=Adasum (the "
+            "pairwise projections are per-tensor scalars; bucket packing "
+            "would mix them)")
+    if numerics_guard is None:
+        numerics_guard = (_env_true("HOROVOD_NUMERICS_GUARD")
+                          or loss_scale is not None)
+    elif not numerics_guard and loss_scale is not None:
+        raise ValueError(
+            "loss_scale is carried in the numerics guard's state (the "
+            "guard unscales the gradients and backs the scale off on bad "
+            "steps); numerics_guard=False with loss_scale set would "
+            "silently train UNSCALED — drop loss_scale or the explicit "
+            "numerics_guard=False")
+    if numerics_guard and shard_params:
+        raise ValueError(
+            "numerics_guard does not compose with shard_params=True yet: "
+            "the guard's fused global-norm/finiteness reduction assumes "
+            "full (or ZeRO-1 replicated) gradients, and per-rank verdicts "
+            "over FsdpParams shards could diverge. Guard ZeRO-1 "
+            "(shard_optimizer=True) instead, or train ZeRO-3 unguarded")
+    if numerics_guard:
+        raise NotImplementedError(
+            "numerics_guard/loss_scale (HOROVOD_NUMERICS_GUARD) is not "
+            "ported yet: the numerics guard comes with resilience, ROADMAP "
+            "Queue A item 8 (A10)")
+    if int(backward_passes_per_step) < 1:
+        raise ValueError("backward_passes_per_step must be >= 1, got "
+                         f"{backward_passes_per_step}")
 
     def _roundtrip(g):
-        c, ctx = compression.compress(g)
-        return compression.decompress(c, ctx)
+        """What ``g`` contributes through the wire: with a predivide the
+        wire carries ``compress(g / f)``, scaled back by ``f``."""
+        if op == Average and pf != 1.0:
+            wire = compression.decompress(*compression.compress(
+                _ov._predivide(g, pf)))
+            return wire * torch.tensor(pf, dtype=wire.dtype, device=wire.device)
+        return compression.decompress(*compression.compress(g))
 
     def _reduce(grads, residuals=False):
         """The reduced tree (and with ``residuals`` each leaf's ``g -
-        roundtrip(g)`` from the same quantize pass): one int8 exchange per
-        quantizable dtype and one flat ``all_reduce`` per other dtype a
-        step, or Adasum's butterfly."""
+        roundtrip(g)``, from the exchange's own quantize pass where there
+        is no predivide): one int8 exchange per quantizable dtype and one
+        flat ``all_reduce`` per other dtype a step, or Adasum's
+        butterfly."""
         keys = tree_keys(grads)
         if op == Adasum:
             return _adasum_tree(grads, compression), None
-        outs, res = _C._grouped_allreduce([grads[k] for k in keys], op,
-                                          compression, residuals=residuals)
+        leaves = [grads[k] for k in keys]
+        if op == Average and pf != 1.0:
+            res = [g - _roundtrip(g) for g in leaves] if residuals else None
+            outs = _ov.predivided_average(leaves, compression, pf)
+        else:
+            outs, res = _C._grouped_allreduce(leaves, op, compression,
+                                              residuals=residuals)
         return dict(zip(keys, outs)), (dict(zip(keys, res)) if residuals
                                        else None)
+
+    def _ar_plan(grads):
+        return _ov.plan_for([grads[k] for k in tree_keys(grads)], 1, ov_bytes)
 
     def init(params):
         if shard_params:
             return _fsdp_init(optimizer, params)
         if shard_optimizer:
             return _zero_init(optimizer, params, basics.size(), basics.rank(),
-                              error_feedback=error_feedback)
+                              error_feedback=error_feedback,
+                              compression=compression, bucket_bytes=ov_bytes)
         inner = optimizer.init(params)
-        if error_feedback:
+        if factorized:
             return {"inner": inner,
-                    "residual": {k: torch.zeros(p.shape, dtype=p.dtype,
-                                                device=p.device)
-                                 for k, p in params.items()}}
+                    "residual": {k: torch.zeros_like(p)
+                                 for k, p in params.items()},
+                    "q": _powersgd_q_init(params, compression)}
+        if error_feedback:
+            if ov_bytes:
+                residual = {b.key: torch.zeros(
+                    b.L, dtype=getattr(torch, b.dtype),
+                    device=next(iter(params.values())).device)
+                    for b in _ar_plan(params).buckets}
+            else:
+                residual = {k: torch.zeros(p.shape, dtype=p.dtype,
+                                           device=p.device)
+                            for k, p in params.items()}
+            return {"inner": inner, "residual": residual}
         return inner
 
-    def update(grads, state, params=None):
+    def _bucket_runner(state, groups):
+        """``run(key, flat)``: the exchange of one bucket of this step,
+        allreduce mode or ZeRO-1."""
+        residual = state.get("residual") if error_feedback else None
+        if shard_optimizer:
+            n = state["shard"]["size"]
+
+            def run(key, flat):
+                return _zero_bucket(flat, key, groups[key],
+                                    residual=residual, n=n, op=op,
+                                    compression=compression, predivide=pf,
+                                    roundtrip=_roundtrip)
+        else:
+            def run(key, flat):
+                return _ov.allreduce_bucket(
+                    flat, op, compression, predivide=pf,
+                    residual=None if residual is None else residual[key],
+                    roundtrip=_roundtrip)
+        return run
+
+    def _groups(leaves, state):
+        if shard_optimizer:
+            return _zero_groups(leaves, state["shard"]["size"], ov_bytes)
+        return _ov.plan_for(leaves, 1, ov_bytes).groups
+
+    def exchange(state, params):
+        """A :class:`BucketExchange` for this step's gradients (shaped as
+        ``params``), to be fed from the backward."""
+        keys = tree_keys(params)
+        groups = _groups([params[k] for k in keys], state)
+        return BucketExchange(groups, len(keys), _bucket_runner(state, groups))
+
+    def _bucketed(grads, state, started):
+        """The reduced tree and new residuals of allreduce mode's buckets,
+        from ``started`` or run now."""
+        keys = tree_keys(grads)
+        leaves = [grads[k] for k in keys]
+        groups = _groups(leaves, state)
+        if started is None:
+            run = _bucket_runner(state, groups)
+            done = {key: run(key, _ov.pack_group(leaves, b))
+                    for key, b in groups.items()}
+        else:
+            done = started.results()
+        out = _ov.assemble({k: v[0] for k, v in done.items()}, groups,
+                           [tuple(l.shape) for l in leaves],
+                           [l.dtype for l in leaves])
+        return dict(zip(keys, out)), {k: v[1] for k, v in done.items()}
+
+    def update(grads, state, params=None, *, started=None):
+        if started is not None and not ov_bytes:
+            raise ValueError("started= is the bucketed exchange: build the "
+                             "optimizer with overlap=True")
         if shard_params:
             return _fsdp_update(grads, state, params, optimizer=optimizer,
                                 op=op)
@@ -718,7 +1307,19 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
             return _zero_update(
                 grads, state, params, optimizer=optimizer,
                 compression=compression, error_feedback=error_feedback,
-                op=op, roundtrip=_roundtrip)
+                op=op, predivide=pf, roundtrip=_roundtrip,
+                bucket_bytes=ov_bytes,
+                started=None if started is None else started.results())
+        if factorized:
+            return _powersgd_update(grads, state, params, optimizer=optimizer,
+                                    compression=compression, op=op)
+        if ov_bytes:
+            reduced, residual = _bucketed(grads, state, started)
+            if error_feedback:
+                updates, inner = optimizer.update(reduced, state["inner"],
+                                                  params)
+                return updates, {"inner": inner, "residual": residual}
+            return optimizer.update(reduced, state, params)
         if error_feedback:
             corrected = {k: grads[k] + state["residual"][k]
                          for k in tree_keys(grads)}
@@ -729,8 +1330,50 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
             return updates, {"inner": inner, "residual": residual}
         return optimizer.update(_reduce(grads)[0], state, params)
 
+    k = int(backward_passes_per_step)
+    if k > 1:
+        tx = multi_steps(Transform(init, update), k)
+        return DistributedTransform(tx.init, tx.update, bool(shard_optimizer),
+                                    bool(shard_params), ov_bytes, None)
     return DistributedTransform(init, update, bool(shard_optimizer),
-                                bool(shard_params))
+                                bool(shard_params), ov_bytes,
+                                exchange if ov_bytes and not shard_params
+                                else None)
+
+
+class DistributedGradientTape:
+    """Wrap a function that returns gradients (a flat dict of tensors) or
+    ``(scalar loss, gradients)`` so its gradients come back combined
+    across ranks: one grouped exchange
+    (:func:`~horovod_tpu_torch.ops.collective.grouped_allreduce`'s, with
+    ``compression``), or Adasum's butterfly. A 2-tuple counts as
+    ``(loss, gradients)`` only when its first element is a 0-d tensor;
+    ``has_aux_value`` decides where that guess would not."""
+
+    def __init__(self, grad_fn: Callable, *, op: ReduceOp = Average,
+                 compression=Compression.none,
+                 has_aux_value: Optional[bool] = None):
+        self._fn = grad_fn
+        self._op = ReduceOp(op)
+        self._compression = compression
+        self._has_aux_value = has_aux_value
+
+    def __call__(self, *args, **kwargs):
+        out = self._fn(*args, **kwargs)
+        has_value = self._has_aux_value
+        if has_value is None:
+            has_value = (isinstance(out, tuple) and len(out) == 2
+                         and not isinstance(out[0], (list, dict))
+                         and getattr(out[0], "ndim", None) == 0)
+        value, grads = out if has_value else (None, out)
+        keys = tree_keys(grads)
+        if self._op == Adasum:
+            grads = _adasum_tree(grads, self._compression)
+        else:
+            outs = _C._grouped_allreduce([grads[k] for k in keys], self._op,
+                                         self._compression)[0]
+            grads = dict(zip(keys, outs))
+        return (value, grads) if has_value else grads
 
 
 @torch.no_grad()

@@ -47,6 +47,9 @@ _NAMEDTUPLE_FIELDS = {
     ("optax", "ScaleByRmsState"): ("nu",),
     ("optax", "ScaleState"): (),
     ("optax", "AddDecayedWeightsState"): (),
+    ("optax", "MultiStepsState"): ("mini_step", "gradient_step",
+                                   "inner_opt_state", "acc_grads",
+                                   "skip_state"),
     ("horovod_tpu", "_EFState"): ("inner", "residual"),
     ("horovod_tpu", "_PowerSGDState"): ("inner", "residual", "q"),
     ("horovod_tpu", "NumericsGuardState"): (

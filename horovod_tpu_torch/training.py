@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch import basics, pytree
 from horovod_tpu_torch.models.layers import torch_params
+from horovod_tpu_torch.ops import overlap as _ov
 from horovod_tpu_torch.ops.collective import Average, allreduce
 from horovod_tpu_torch.optim import (
     DistributedTransform, FsdpParams, fsdp_gather_params, fsdp_pack_params,
@@ -56,7 +57,9 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
                     shard_params: bool = False, params=None,
                     compression=None, reduce_op=Average,
                     loss_fn: Callable = softmax_xent,
-                    on_phase: Optional[Callable[[str], None]] = None):
+                    on_phase: Optional[Callable[[str], None]] = None,
+                    overlap: Optional[bool] = None,
+                    bucket_bytes: Optional[int] = None):
     """Build ``step(opt_state, images, labels) -> (opt_state, loss)``.
 
     ``model`` exposes ``jax_params()``/``jax_grads()``/
@@ -86,6 +89,22 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
     ``jax.checkpoint``); the gather's backward yields the gradient shards,
     and the update shards are added to the shards in place.
 
+    Bucketed overlap: with a plain ``tx``, ``overlap=True`` (default
+    ``HOROVOD_OVERLAP``; ``bucket_bytes`` alone implies it) makes the
+    step's exchange :func:`~horovod_tpu_torch.ops.overlap.bucketed_allreduce`.
+    With ``tx = DistributedOptimizer(..., overlap=True)`` (allreduce mode
+    or ZeRO-1) the optimizer owns the buckets and these kwargs change
+    nothing: the step launches each bucket's exchange from the backward,
+    a ``register_post_accumulate_grad_hook`` on every parameter handing
+    each leaf's gradient (the view ``jax_grads()`` gives) to the step's
+    :class:`~horovod_tpu_torch.optim.BucketExchange`, which starts a
+    bucket once its leaves are ready, in plan order; after the backward
+    the rest start (a parameter with no gradient as zeros) and
+    ``tx.update(..., started=)`` waits for them. The update is bit-equal
+    to ``tx.update`` after the backward. ``step.hooks`` holds the hooks'
+    handles, and ``step.last_exchange`` the last step's exchange (its
+    ``in_backward`` counts the buckets started from the backward).
+
     ``on_phase(name)``, if given, is called as each part of the step
     ends: ``"forward"`` (forward and loss), ``"backward"`` (and, with a
     plain ``tx``, the gradient allreduce), ``"optimizer"`` (the update,
@@ -110,8 +129,14 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
     if params is not None:
         raise ValueError("params= is the ZeRO-3 shards: pass shard_params=True")
     params = model.jax_params()
+    keys = tree_keys(params)
     stats = model.jax_batch_stats()
     stat_keys = tree_keys(stats)
+    ov_bytes = None if distributed else _ov.resolve_bucket_bytes(
+        overlap, bucket_bytes)
+    hooked = distributed and tx.exchange is not None
+    live: dict = {"ex": None}
+    hooks = _grad_hooks(model, params, keys, live) if hooked else []
 
     def step(opt_state, images, labels):
         model.train()
@@ -119,14 +144,30 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
             p.grad = None
         loss = loss_fn(model(images), labels)
         mark("forward")
-        loss.backward()
+        ex = live["ex"] = tx.exchange(opt_state, params) if hooked else None
+        try:
+            loss.backward()
+        finally:
+            live["ex"] = None
         grads = model.jax_grads()
-        if not distributed:
+        if ex is not None:
+            ex.flush([grads[k] if grads[k] is not None
+                      else torch.zeros_like(params[k]) for k in keys])
+            step.last_exchange = ex
+        elif ov_bytes:
+            grads = _ov.bucketed_allreduce(grads, reduce_op,
+                                           compression=compression,
+                                           bucket_bytes=ov_bytes)[0]
+        elif not distributed:
             grads = {k: allreduce(grads[k], reduce_op, compression=compression)
                      for k in tree_keys(grads)}
         mark("backward")
         with torch.no_grad():
-            updates, opt_state = tx.update(grads, opt_state, params)
+            if ex is not None:
+                updates, opt_state = tx.update(grads, opt_state, params,
+                                               started=ex)
+            else:
+                updates, opt_state = tx.update(grads, opt_state, params)
             for k, u in updates.items():
                 params[k].add_(u)
             _average_stats(stats, stat_keys)
@@ -135,7 +176,60 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
         mark("loss")
         return opt_state, loss
 
+    step.hooks = hooks
+    step.last_exchange = None
     return step
+
+
+def _grad_hooks(model, params: dict, keys: list, live: dict) -> list:
+    """One ``register_post_accumulate_grad_hook`` a parameter that backs a
+    leaf of ``params``: when the parameter's gradient is final, each of
+    its leaves' gradient — the parameter's ``.grad`` through the leaf's
+    own permutation of the dims (a conv kernel's HWIO, a Dense kernel's
+    transpose) — goes to the step's exchange (``live["ex"]``, set only
+    while the step's backward runs). A leaf that is not a permutation of
+    its parameter is left to the exchange's ``flush``."""
+    owners: dict = {}
+    for p in model.parameters():
+        owners[p.untyped_storage().data_ptr()] = (p, [])
+    for i, k in enumerate(keys):
+        v = params[k]
+        owner = owners.get(v.untyped_storage().data_ptr())
+        if owner is not None:
+            perm = _view_perm(owner[0], v)
+            if perm is not None:
+                owner[1].append((i, perm))
+    handles = []
+    for p, leaves in owners.values():
+        if not leaves:
+            continue
+
+        def hook(p, leaves=leaves):
+            ex = live["ex"]
+            if ex is None or p.grad is None:
+                return
+            for i, perm in leaves:
+                ex.ready(i, p.grad.permute(perm))
+
+        handles.append(p.register_post_accumulate_grad_hook(hook))
+    return handles
+
+
+def _view_perm(p, v):
+    """The dims permutation ``perm`` with ``p.permute(perm)`` the view
+    ``v`` of ``p``, or ``None`` when ``v`` is not one."""
+    if v.numel() != p.numel() or v.dim() != p.dim() \
+            or v.storage_offset() != p.storage_offset():
+        return None
+    perm, used = [], set()
+    for size, stride in zip(v.shape, v.stride()):
+        d = next((d for d in range(p.dim()) if d not in used
+                  and p.shape[d] == size and p.stride(d) == stride), None)
+        if d is None:
+            return None
+        perm.append(d)
+        used.add(d)
+    return tuple(perm)
 
 
 def _fsdp_step(model, tx, fp, loss_fn, mark):

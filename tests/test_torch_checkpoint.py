@@ -5,7 +5,11 @@ wrote, leaf for leaf and bit for bit; the files are the same bytes), and
 gloo worlds of 2 and 4: restore from the root's directory only, a
 writer's failure on every rank, and a ZeRO-1 + EF state saved at world
 4 and consolidated to world 2 against the JAX package's
-``reshard_optimizer_state``."""
+``reshard_optimizer_state``. The optimizer states of bucketed overlap
+(a ZeRO-1 state keyed ``dtype#k``), PowerSGD (``_PowerSGDState``) and
+``backward_passes_per_step`` (optax's ``MultiStepsState``) that the JAX
+package wrote restore in the port and continue as the JAX package
+continues; the port's own saves of them restore in the JAX package."""
 
 import logging
 import os
@@ -18,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+import horovod_tpu as jhvd
 from horovod_tpu import checkpoint as jck
 from horovod_tpu.optim import _EFState, reshard_optimizer_state as jreshard
 import horovod_tpu_torch as hvd
@@ -504,12 +509,14 @@ def test_consolidate_reads_a_jax_written_zero1_state(zero1_worlds, tmp_path):
 
 
 def test_what_is_not_ported_raises():
+    """What the port still lacks raises where met; a bucketed (``dtype#k``)
+    ZeRO-1 state, which used to, is now re-packed."""
     params = {"w": torch.zeros(10)}
     rows = {"shard": {"size": 2}, "inner": {"count": np.full(2, 1, np.int32),
                                            "mu": {"float32#0": np.zeros((2, 5),
                                                                         np.float32)}}}
-    with pytest.raises(ValueError, match="bucketed"):
-        reshard_optimizer_state(rows, params, to_size=1)
+    out = reshard_optimizer_state(rows, params, to_size=1)
+    assert out["inner"]["mu"]["float32#0"].shape == (1, 10)
     from horovod_tpu_torch import pytree
 
     guard = pytree._stand_in("horovod_tpu.resilience.numerics",
@@ -589,3 +596,215 @@ def test_reshard_matches_jax_with_bf16_and_f32_groups(to_size):
                     ("residual", want.residual)):
         tree = got[part] if part == "residual" else got["inner"][part]
         _assert_same(tree, {k: v2(v) for k, v in w.items()}, part)
+
+
+# --------------------------------------------------------------------------
+# the state kinds of bucketed overlap, PowerSGD and backward_passes_per_step
+
+
+def _jax_run(tx, p, grads, n=1, shard=False, state=None):
+    """``tx``'s state and parameters after steps of ``grads`` (the same on
+    every rank) in a bound-axis step on an ``n``-device mesh."""
+    from jax.sharding import PartitionSpec as P
+
+    from horovod_tpu.ops.collective import _smap
+
+    jhvd.init(devices=jax.devices()[:n])
+    try:
+        mesh, ax = jhvd.mesh(), jhvd.data_axis()
+        s = tx.init(p) if state is None else state
+        spec = P(ax) if shard else P()
+
+        def step(pp, ss, gg):
+            u, ss = tx.update(gg, ss, pp)
+            return optax.apply_updates(pp, u), ss
+
+        f = jax.jit(_smap(step, mesh, (P(), spec, P()), (P(), spec)))
+        for g in grads:
+            p, s = f(p, s, g)
+        return (jax.tree_util.tree_map(np.asarray, p),
+                jax.tree_util.tree_map(np.asarray, s))
+    finally:
+        jhvd.shutdown()
+
+
+def _port_run(tx, params, state, grads):
+    params = {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
+    for g in grads:
+        u, state = tx.update({k: torch.from_numpy(np.array(v))
+                              for k, v in g.items()}, state, params)
+        params = {k: params[k] + u[k] for k in params}
+    return {k: v.numpy() for k, v in params.items()}, state
+
+
+def _flat_grads(r, params, scale=1.0):
+    return {k: (r.randn(*v.shape) * scale).astype(np.float32)
+            for k, v in params.items()}
+
+
+@pytest.fixture()
+def world_of_one(monkeypatch):
+    for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "RANK", "WORLD_SIZE",
+              "HOROVOD_BUCKET_BYTES", "HOROVOD_OVERLAP"):
+        monkeypatch.delenv(k, raising=False)
+    hvd.init(device="cpu")
+    yield
+    hvd.shutdown()
+
+
+#: jitted optax Adam contracts into FMAs, the port's rounds each operation
+#: (tests/test_torch_optim.py's per-step Adam bar)
+ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
+
+
+def test_jax_bucketed_zero1_state_restores_and_continues(tmp_path,
+                                                         world_of_one):
+    """ZeRO-1 + fp16 + EF + overlap (4096-byte buckets) trained by the JAX
+    package at N = 2 and saved; the port restores it into a world of one
+    (``consolidate_opt_state(..., bucket_bytes=)``: re-packed 2 -> 1) and
+    continues 2 steps as the JAX package continues from its own
+    ``reshard_optimizer_state`` at N = 1."""
+    r = np.random.RandomState(11)
+    params = {"b": np.zeros(33, np.float32),
+              "w": (r.randn(64, 33) * 0.1).astype(np.float32)}
+    kw = dict(compression=jhvd.Compression.fp16, error_feedback=True,
+              shard_optimizer=True, overlap=True, bucket_bytes=4096)
+    p2, s2 = _jax_run(jhvd.DistributedOptimizer(optax.adam(1e-2), **kw),
+                      params, [_flat_grads(r, params) for _ in range(2)],
+                      n=2, shard=True)
+    assert len(s2.residual) >= 2 and all("#" in k for k in s2.residual)
+    jck.save(str(tmp_path), 2, {"params": p2, "opt": s2})
+    tree = ck.restore(str(tmp_path), 2)
+    st = ck.consolidate_opt_state(tree["opt"], tree["params"],
+                                  bucket_bytes=4096)
+    assert st["shard"] == {"rank": 0, "size": 1}
+    assert sorted(st["residual"]) == sorted(s2.residual)
+    more = [_flat_grads(r, params) for _ in range(2)]
+    s1 = jreshard(s2, p2, to_size=1, bucket_bytes=4096)
+    pj, sj = _jax_run(jhvd.DistributedOptimizer(optax.adam(1e-2), **kw), p2,
+                      more, n=1, shard=True, state=s1)
+    tx = hvd.DistributedOptimizer(hvd.adam(1e-2), compression=hvd.Compression.fp16,
+                                  error_feedback=True, shard_optimizer=True,
+                                  bucket_bytes=4096)
+    pp, sp = _port_run(tx, tree["params"], st, more)
+    for k in params:
+        np.testing.assert_allclose(pp[k], pj[k], rtol=ADAM_RTOL,
+                                   atol=ADAM_ATOL)
+    for k, v in sj.residual.items():
+        np.testing.assert_allclose(sp["residual"][k].numpy(), v[0],
+                                   rtol=ADAM_RTOL, atol=ADAM_ATOL)
+    assert sp["inner"]["count"] == int(sj.inner[0].count[0]) == 4
+
+
+def test_jax_powersgd_state_restores_and_continues(tmp_path, world_of_one):
+    """A ``_PowerSGDState`` (allreduce mode) the JAX package wrote after 2
+    steps: the port restores it (``Q`` and all) and continues 2 steps as
+    the JAX package continues, within the PowerSGD bar (rtol 1e-4 /
+    atol 1e-5)."""
+    from horovod_tpu.optim import _PowerSGDState
+
+    r = np.random.RandomState(12)
+    params = {"dense": {"kernel": (r.randn(64, 48) * 0.1).astype(np.float32),
+                        "bias": np.zeros(48, np.float32)}}
+    flat = {"dense/kernel": params["dense"]["kernel"],
+            "dense/bias": params["dense"]["bias"]}
+    jtx = jhvd.DistributedOptimizer(optax.adam(1e-2),
+                                    compression=jhvd.Compression.powersgd(2),
+                                    error_feedback=True)
+    nested = lambda g: {"dense": {"kernel": g["dense/kernel"],  # noqa: E731
+                                  "bias": g["dense/bias"]}}
+    grads = [_flat_grads(r, flat) for _ in range(4)]
+    pj2, sj2 = _jax_run(jtx, params, [nested(g) for g in grads[:2]])
+    assert isinstance(sj2, _PowerSGDState)
+    jck.save(str(tmp_path), 2, {"params": pj2, "opt": sj2})
+    tree = ck.restore(str(tmp_path), 2)
+    st = ck.consolidate_opt_state(tree["opt"], tree["params"])
+    assert set(st) == {"inner", "residual", "q"} and st["inner"]["count"] == 2
+    assert st["q"]["dense/bias"] is None and tuple(
+        st["q"]["dense/kernel"].shape) == (48, 2)
+    pj, sj = _jax_run(jtx, pj2, [nested(g) for g in grads[2:]], state=sj2)
+    tx = hvd.DistributedOptimizer(hvd.adam(1e-2),
+                                  compression=hvd.Compression.powersgd(2),
+                                  error_feedback=True)
+    from horovod_tpu_torch.models.convert import flatten_tree
+
+    pp, sp = _port_run(tx, flatten_tree(tree["params"]), st, grads[2:])
+    for k, v in flatten_tree(pj).items():
+        np.testing.assert_allclose(pp[k], v, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(sp["q"]["dense/kernel"].numpy(),
+                               sj.q["dense"]["kernel"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("inner", ["identity", "int8_ef"])
+def test_jax_multisteps_state_restores_and_continues(tmp_path, world_of_one,
+                                                     inner):
+    """optax's ``MultiStepsState`` (k = 3) the JAX package wrote in the
+    middle of an accumulation: the port restores it and continues 4
+    steps bit for bit as the JAX package continues (inner identity, with
+    int8 + EF or without)."""
+    r = np.random.RandomState(13)
+    params = {"w": (r.randn(40, 30) * 0.1).astype(np.float32),
+              "e": r.randn(1500).astype(np.float32)}
+    kw = ({} if inner == "identity" else
+          dict(compression=jhvd.Compression.int8, error_feedback=True))
+    jtx = jhvd.DistributedOptimizer(optax.identity(),
+                                    backward_passes_per_step=3, **kw)
+    grads = [_flat_grads(r, params, 1e-2) for _ in range(6)]
+    pj2, sj2 = _jax_run(jtx, params, grads[:2])
+    assert type(sj2).__name__ == "MultiStepsState" and int(sj2.mini_step) == 2
+    jck.save(str(tmp_path), 2, {"params": pj2, "opt": sj2})
+    tree = ck.restore(str(tmp_path), 2)
+    st = ck.consolidate_opt_state(tree["opt"], tree["params"])
+    assert type(st).__name__ == "MultiStepsState" and int(st.mini_step) == 2
+    pj, sj = _jax_run(jtx, pj2, grads[2:], state=sj2)
+    tkw = ({} if inner == "identity" else
+           dict(compression=hvd.Compression.int8, error_feedback=True))
+    tx = hvd.DistributedOptimizer(W._identity(), backward_passes_per_step=3,
+                                  **tkw)
+    pp, sp = _port_run(tx, tree["params"], st, grads[2:])
+    for k in params:
+        assert np.array_equal(pp[k], pj[k]), k
+        assert np.array_equal(sp.acc_grads[k].numpy(), sj.acc_grads[k]), k
+    assert (int(sp.mini_step), int(sp.gradient_step)) == (
+        int(sj.mini_step), int(sj.gradient_step)) == (0, 2)
+    if inner != "identity":
+        for k, v in sj.inner_opt_state.residual.items():
+            assert np.array_equal(sp.inner_opt_state["residual"][k].numpy(), v)
+
+
+def test_the_ports_new_states_restore_in_jax(tmp_path, world_of_one):
+    """The port saves a MultiSteps-wrapped PowerSGD state and a bucketed
+    ZeRO-1 state; the JAX package restores the files, optax's own
+    ``MultiStepsState`` among them, with the port's values."""
+    r = np.random.RandomState(14)
+    params = {"w": torch.from_numpy((r.randn(64, 48) * 0.1).astype(
+        np.float32)), "b": torch.zeros(48)}
+    psgd = hvd.DistributedOptimizer(hvd.adam(1e-2),
+                                    compression=hvd.Compression.powersgd(2),
+                                    error_feedback=True,
+                                    backward_passes_per_step=2)
+    zero1 = hvd.DistributedOptimizer(hvd.adam(1e-2), shard_optimizer=True,
+                                     compression=hvd.Compression.int8,
+                                     error_feedback=True, bucket_bytes=4096)
+    states = {}
+    for name, tx in (("psgd", psgd), ("zero1", zero1)):
+        _, states[name] = _port_run(
+            tx, {k: v.numpy() for k, v in params.items()}, tx.init(params),
+            [_flat_grads(r, params) for _ in range(3)])
+    ck.save(str(tmp_path), 3, states)
+    back = jck.restore(str(tmp_path), 3)
+    ms = back["psgd"]
+    assert isinstance(ms, optax.MultiStepsState)
+    assert (int(ms.mini_step), int(ms.gradient_step)) == (1, 1)
+    np.testing.assert_array_equal(ms.acc_grads["w"],
+                                  states["psgd"].acc_grads["w"].numpy())
+    np.testing.assert_array_equal(
+        ms.inner_opt_state["q"]["w"],
+        states["psgd"].inner_opt_state["q"]["w"].numpy())
+    assert ms.inner_opt_state["q"]["b"] is None
+    z = back["zero1"]
+    assert z["shard"] == {"size": 1} and len(z["residual"]) >= 2
+    for k, v in states["zero1"]["residual"].items():
+        np.testing.assert_array_equal(z["residual"][k][0], v.numpy())
+        np.testing.assert_array_equal(z["inner"]["mu"][k][0],
+                                      states["zero1"]["inner"]["mu"][k].numpy())

@@ -145,3 +145,68 @@ def test_a_jax_checkpoint_restores_with_jax_poisoned(tmp_path):
     back = jck.restore(str(tmp_path / "port"), 3)
     assert type(back["opt"]).__name__ == "_EFState"
     np.testing.assert_array_equal(back["params"]["w"], params["w"])
+
+
+def test_the_new_state_kinds_restore_with_jax_poisoned(tmp_path):
+    """optax's ``MultiStepsState`` around a ``_PowerSGDState`` and a
+    bucketed ZeRO-1 ``_EFState`` (``float32#k`` groups), written by the
+    JAX package, restore and consolidate in a process that cannot import
+    JAX, flax, optax or ml_dtypes; the bucketed exchange and PowerSGD
+    (``ops.overlap``, ``compression``) run there too."""
+    import numpy as np
+    import optax
+
+    import horovod_tpu as jhvd
+    from horovod_tpu import checkpoint as jck
+
+    params = {"w": np.ones((16, 12), np.float32), "b": np.zeros(12, np.float32)}
+    jhvd.init(devices=__import__("jax").devices()[:1])
+    try:
+        psgd = jhvd.DistributedOptimizer(
+            optax.adam(1e-3), compression=jhvd.Compression.powersgd(2),
+            error_feedback=True, backward_passes_per_step=2).init(params)
+        zero1 = jhvd.DistributedOptimizer(
+            optax.adam(1e-3), compression=jhvd.Compression.fp16,
+            error_feedback=True, shard_optimizer=True,
+            bucket_bytes=256).init(params)
+    finally:
+        jhvd.shutdown()
+    jck.save(str(tmp_path / "jax"), 1, {"params": params, "psgd": psgd,
+                                        "zero1": zero1})
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "import horovod_tpu_torch as hvd\n"
+        "from horovod_tpu_torch import checkpoint as ck\n"
+        "from horovod_tpu_torch.ops import overlap as ov\n"
+        f"d = {str(tmp_path)!r}\n"
+        "t = ck.restore(d + '/jax', 1)\n"
+        "hvd.init(device='cpu')\n"
+        "ms = ck.consolidate_opt_state(t['psgd'], t['params'])\n"
+        "assert type(ms).__name__ == 'MultiStepsState'\n"
+        "assert tuple(ms.inner_opt_state['q']['w'].shape) == (12, 2)\n"
+        "z = ck.consolidate_opt_state(t['zero1'], t['params'], bucket_bytes=256)\n"
+        "assert len(z['residual']) > 1 and z['shard'] == {'rank': 0, 'size': 1}\n"
+        "g = {'w': torch.ones(16, 12), 'b': torch.ones(12)}\n"
+        "red, _ = ov.bucketed_allreduce(g, bucket_bytes=256)\n"
+        "assert all(torch.equal(red[k], g[k]) for k in g)\n"
+        "tx = hvd.DistributedOptimizer(hvd.adam(1e-3), error_feedback=True,\n"
+        "    compression=hvd.Compression.powersgd(2), backward_passes_per_step=2)\n"
+        "p = {k: torch.from_numpy(v.copy()) for k, v in t['params'].items()}\n"
+        "for _ in range(2):\n"
+        "    u, ms = tx.update(g, ms, p)\n"
+        "assert int(ms.gradient_step) == 1\n"
+        "hvd.shutdown()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('horovod_tpu', 'jax', 'optax', 'flax', 'ml_dtypes')\n"
+        "             and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "ok"

@@ -818,3 +818,279 @@ def zero1_restore_worker(base, params):
     tree = ck.restore(base, 5)
     return host_snapshot(ck.consolidate_opt_state(
         tree["opt"], {k: torch.from_numpy(v) for k, v in params.items()}))
+
+
+# --------------------------------------------------------------------------
+# bucketed overlap, PowerSGD, MultiSteps, the tape
+
+
+def _leaves_of(tree: dict) -> dict:
+    """This rank's leaves of ``{key: (stacked [N, ...], dtype name)}``."""
+    return {k: _mine(x).to(getattr(torch, dt)) for k, (x, dt) in tree.items()}
+
+
+def _np_tree(tree):
+    if tree is None:
+        return None
+    return {k: (None if v is None else _np_any(v)) for k, v in tree.items()}
+
+
+def _inner_tx(name: str):
+    return _identity() if name == "identity" else hvd.fused_adam(1e-2)
+
+
+def bucketed_worker(tree, cases):
+    """``bucketed_allreduce`` of this rank's leaves, one result per case
+    ``name: (op, compression, residual {bucket: stacked} or None,
+    predivide, bucket_bytes)``; also the port's per-leaf allreduce of the
+    same leaves, for the cases without a residual."""
+    from horovod_tpu_torch.ops import overlap as ov
+
+    leaves = _leaves_of(tree)
+    out = {}
+    for name, (op, comp, residual, pf, bb) in cases.items():
+        res = None if residual is None else {
+            k: _mine(v).to(getattr(torch, k.partition("#")[0]))
+            for k, v in residual.items()}
+        red, new = ov.bucketed_allreduce(
+            leaves, op, compression=_compression(comp), bucket_bytes=bb,
+            predivide=pf, residual=res)
+        out[name] = {"reduced": _np_tree(red), "residual": _np_tree(new)}
+        if residual is None and pf == 1.0:
+            out[name]["per_leaf"] = _np_tree({
+                k: hvd.allreduce(v, op, compression=_compression(comp))
+                for k, v in leaves.items()})
+    return out
+
+
+def overlap_traj_worker(p0, steps, shard, comp, ef, bucket_bytes, inner):
+    """``len(steps)`` updates of ``DistributedOptimizer(inner, ...)`` from
+    the parameters ``p0`` with this rank's gradients of each step (updates
+    added to the parameters): the final parameters, the state's group keys
+    and its residual and Adam moments (this rank's)."""
+    params = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    tx = hvd.DistributedOptimizer(
+        _inner_tx(inner), compression=_compression(comp), error_feedback=ef,
+        shard_optimizer=shard, overlap=bucket_bytes is not None,
+        bucket_bytes=bucket_bytes)
+    st = tx.init(params)
+    for g in steps:
+        u, st = tx.update({k: _mine(v) for k, v in g.items()}, st, params)
+        params = {k: params[k] + u[k] for k in params}
+    inner_st = st["inner"] if (ef or shard) else st
+    return {"params": _np_tree(params),
+            "residual": _np_tree(st["residual"]) if ef else None,
+            "mu": _np_tree(inner_st["mu"]) if inner == "adam" else None,
+            "nu": _np_tree(inner_st["nu"]) if inner == "adam" else None,
+            "count": inner_st.get("count")}
+
+
+def _small_resnet(seed=0):
+    from horovod_tpu_torch.models import BottleneckBlock, ResNet
+
+    return ResNet([1, 1], BottleneckBlock, num_classes=10, num_filters=8,
+                  seed=seed)
+
+
+def hook_route_worker(x, y, steps, cases):
+    """Each case ``name: (shard, compression, ef, bucket_bytes)``: the
+    small ResNet trained ``steps`` steps through ``make_train_step`` with
+    the buckets launched from the backward's hooks, and again exchanging
+    after the backward (the same optimizer without its ``exchange``): both
+    routes' parameters and states, and how many buckets the hooks
+    started."""
+    xs = hvd.shard_batch(torch.from_numpy(x))
+    ys = hvd.shard_batch(torch.from_numpy(y))
+    out = {}
+    for name, (shard, comp, ef, bb) in cases.items():
+        res = {}
+        for route in ("hooks", "after"):
+            model = _small_resnet()
+            tx = hvd.DistributedOptimizer(
+                hvd.fused_adam(1e-2), compression=_compression(comp),
+                error_feedback=ef, shard_optimizer=shard, bucket_bytes=bb)
+            if route == "after":
+                tx = tx._replace(exchange=None)
+            step = hvd.make_train_step(model, tx, shard_optimizer=shard)
+            st = tx.init(model.jax_params())
+            losses = []
+            for _ in range(steps):
+                st, loss = step(st, xs, ys)
+                losses.append(float(loss))
+            ex = step.last_exchange
+            for h in step.hooks:
+                h.remove()
+            res[route] = {
+                "params": _np_tree(model.jax_params()), "losses": losses,
+                "residual": _np_tree(st["residual"]) if ef else None,
+                "mu": _np_tree((st["inner"] if (ef or shard) else st)["mu"]),
+                "started": None if ex is None else (ex.in_backward,
+                                                    len(ex.order))}
+        out[name] = res
+    return out
+
+
+def quantized_rs_worker(flat):
+    return _np_any(C.quantized_reducescatter(_mine(flat)))
+
+
+def tape_worker(tree, cases):
+    """``DistributedGradientTape`` over a function returning ``(0-d loss,
+    this rank's leaves)`` for each case ``name: (op, compression)``, and
+    the plain-gradients form once."""
+    leaves = _leaves_of(tree)
+    loss = torch.tensor(float(hvd.rank()) + 0.5)
+    out = {}
+    for name, (op, comp) in cases.items():
+        tape = hvd.DistributedGradientTape(lambda: (loss, dict(leaves)),
+                                           op=op,
+                                           compression=_compression(comp))
+        value, grads = tape()
+        out[name] = {"value": float(value), "grads": _np_tree(grads)}
+    out["plain"] = _np_tree(hvd.DistributedGradientTape(
+        lambda: dict(leaves))())
+    return out
+
+
+def predivide_worker(p0, steps, cases):
+    """Each case ``name: (compression, ef, predivide)``: updates of
+    ``DistributedOptimizer(identity, gradient_predivide_factor=...)``:
+    each step's update and the final residual."""
+    out = {}
+    for name, (comp, ef, pf) in cases.items():
+        params = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+        tx = hvd.DistributedOptimizer(_identity(), compression=_compression(comp),
+                                      error_feedback=ef,
+                                      gradient_predivide_factor=pf)
+        st = tx.init(params)
+        ups = []
+        for g in steps:
+            u, st = tx.update({k: _mine(v) for k, v in g.items()}, st, params)
+            ups.append(_np_tree(u))
+        out[name] = {"updates": ups,
+                     "residual": _np_tree(st["residual"]) if ef else None}
+    return out
+
+
+def multisteps_worker(p0, steps, cases):
+    """Each case ``name: (k, compression, ef, shard)``:
+    ``DistributedOptimizer(identity, backward_passes_per_step=k)`` over
+    the steps: each update, the final ``MultiStepsState`` and the number
+    of ``torch.distributed`` calls each step made."""
+    from horovod_tpu_torch.testing import watching_calls
+
+    out = {}
+    for name, (k, comp, ef, shard) in cases.items():
+        params = {key: torch.from_numpy(v.copy()) for key, v in p0.items()}
+        tx = hvd.DistributedOptimizer(_identity(), compression=_compression(comp),
+                                      error_feedback=ef, shard_optimizer=shard,
+                                      backward_passes_per_step=k)
+        st = tx.init(params)
+        ups, calls = [], []
+        for g in steps:
+            n = [0]
+            with watching_calls(C.dist, DIST_NAMES,
+                                lambda *a: n.__setitem__(0, n[0] + 1)):
+                u, st = tx.update({key: _mine(v) for key, v in g.items()},
+                                  st, params)
+            calls.append(n[0])
+            ups.append(_np_tree(u))
+            params = {key: params[key] + u[key] for key in params}
+        inner = st.inner_opt_state
+        out[name] = {"updates": ups, "calls": calls,
+                     "mini_step": int(st.mini_step),
+                     "gradient_step": int(st.gradient_step),
+                     "acc": _np_tree(st.acc_grads),
+                     "residual": _np_tree(inner["residual"]) if ef else None,
+                     "params": _np_tree(params)}
+    return out
+
+
+#: every torch.distributed call the port's collectives make
+DIST_NAMES = ("all_reduce", "all_to_all_single", "all_gather_single",
+              "all_gather_into_tensor", "reduce_scatter_single",
+              "reduce_scatter_tensor", "broadcast", "all_gather",
+              "batch_isend_irecv")
+
+
+def powersgd_worker(p0, steps, cases, dtypes):
+    """Each case ``name: (shard, rank, q0)``: ``DistributedOptimizer(adam,
+    Compression.powersgd(rank), error_feedback=True)`` from ``p0``, its
+    initial ``Q`` replaced by ``q0`` (the JAX package's draw, ``None``
+    where a leaf does not factorize), over the steps: after each, the
+    parameters, the residual and ``Q``. ``dtypes`` names the leaves that
+    are not float32."""
+    from horovod_tpu_torch.models.convert import powersgd_q_from_jax
+
+    def dt(k):
+        return getattr(torch, dtypes.get(k, "float32"))
+
+    out = {}
+    for name, (shard, rank, q0) in cases.items():
+        params = {k: torch.from_numpy(v.copy()).to(dt(k))
+                  for k, v in p0.items()}
+        tx = hvd.DistributedOptimizer(
+            hvd.adam(1e-2), compression=hvd.Compression.powersgd(rank),
+            error_feedback=True, shard_optimizer=shard)
+        st = tx.init(params)
+        assert {k for k, q in st["q"].items() if q is not None} == \
+            {k for k, q in q0.items() if q is not None}, name
+        st["q"] = powersgd_q_from_jax(q0)
+        trace = []
+        for g in steps:
+            u, st = tx.update({k: _mine(v).to(dt(k)) for k, v in g.items()},
+                              st, params)
+            params = {k: params[k] + u[k] for k in params}
+            trace.append({"params": _np_tree(params),
+                          "residual": _np_tree(st["residual"]),
+                          "q": _np_tree(st["q"])})
+        out[name] = trace
+    return out
+
+
+def powersgd_train_worker(x, y, steps, rank):
+    """The test MLP trained ``steps`` steps with PowerSGD(rank) + EF and
+    Adam from the port's own initial ``Q``: the losses."""
+    from horovod_tpu_torch.models import MLP
+
+    model = MLP((64, 10), in_features=x.shape[1], seed=3)
+    tx = hvd.DistributedOptimizer(hvd.adam(1e-2),
+                                  compression=hvd.Compression.powersgd(rank),
+                                  error_feedback=True)
+    step = hvd.make_train_step(model, tx)
+    st = tx.init(model.jax_params())
+    xs = hvd.shard_batch(torch.from_numpy(x))
+    ys = hvd.shard_batch(torch.from_numpy(y))
+    losses = []
+    for _ in range(steps):
+        st, loss = step(st, xs, ys)
+        losses.append(float(loss))
+    return {"losses": losses,
+            "factorized": sorted(k for k, q in st["q"].items()
+                                 if q is not None)}
+
+
+def slice10_worker(inp):
+    """Every port case of the slice-10 test files that runs in a world of
+    this size, in one world."""
+    out = {}
+    if "bucketed" in inp:
+        out["bucketed"] = bucketed_worker(*inp["bucketed"])
+    if "traj" in inp:
+        out["traj"] = {name: overlap_traj_worker(*args)
+                       for name, args in inp["traj"].items()}
+    if "hooks" in inp:
+        out["hooks"] = hook_route_worker(*inp["hooks"])
+    if "qrs" in inp:
+        out["qrs"] = quantized_rs_worker(inp["qrs"])
+    if "tape" in inp:
+        out["tape"] = tape_worker(*inp["tape"])
+    if "predivide" in inp:
+        out["predivide"] = predivide_worker(*inp["predivide"])
+    if "multisteps" in inp:
+        out["multisteps"] = multisteps_worker(*inp["multisteps"])
+    if "powersgd" in inp:
+        out["powersgd"] = powersgd_worker(*inp["powersgd"])
+    if "psgd_train" in inp:
+        out["psgd_train"] = powersgd_train_worker(*inp["psgd_train"])
+    return out
