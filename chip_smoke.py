@@ -226,7 +226,43 @@ Phases, each fatal on failure (exit code 1, no result line):
 15. ``backward_passes_per_step=2`` on ResNet-50 (allreduce mode, int8 +
    EF, fused Adam), one GPU, 4 steps (``multisteps``): a step that does
    not emit makes no NCCL call in the update and launches no kernel,
-   one that emits allreduce mode's 5 calls and its launches.
+   one that emits allreduce mode's 5 calls and its launches; then the
+   same optimizer under the numerics guard, three updates with the
+   guard's own code under ``torch.cuda.set_sync_debug_mode("warn")``:
+   exactly one host sync an update (the read of the verdict that keeps
+   the host counters ``multi_steps`` branches on on a BAD micro-step;
+   every sync's stack is printed);
+16. the numerics guard and dynamic loss scaling, one GPU: ResNet-50 at
+   batch 64, int8 + EF, fused Adam, in ZeRO-1, in allreduce mode and in
+   allreduce mode at 25 MiB from the hooks, each under
+   ``DistributedOptimizer(..., loss_scale="dynamic")`` with
+   ``HOROVOD_CHAOS=grad_nan_at_step=6``, 8 steps (``zero1_guarded``,
+   ``allreduce_guarded``, ``allreduce_guarded_overlap_25MiB``): the
+   unguarded mode's launches a step (the guard adds no kernel), the
+   optimizer update's NCCL calls the unguarded run's plus the guard's
+   one all-gather; at step 6 every parameter (a -0.0 set just before it
+   among them) and every inner state tensor (moments, EF residuals)
+   bit-equal to step 5's, the scale 2^15 -> 2^14, ``bad_count`` 1 and the
+   charge consumed once; under overlap the NaN step and the one after it
+   re-run after the backward on the same gradients, bit-equal; from the
+   last state, a guarded update of gradients scaled by 2^k bit-equal to
+   the unguarded update of the gradients (updates, moments, residuals),
+   and the guard's own code (everything but the inner update) run under
+   ``torch.cuda.set_sync_debug_mode("error")``, which raises at a host
+   sync; then the update alone, unguarded and guarded from the same
+   state, timed in turns (CUDA events and a host clock: the guard's cost
+   an update). ResNet-50 with bf16 parameters under the guard in allreduce mode
+   (``resnet50_bf16_guarded``, 4 steps): B5's bf16 instantiation once a
+   step over the 161 bf16 leaves, its replay bit-equal to the plain
+   version (the ``fused_adam_bf16`` row of the ``kernels`` line).
+   ``lm_flagship`` under ``loss_scale="dynamic"`` (``lm_guarded``, 8
+   steps): 12 ``flash_fwd`` a step, no BAD step, the scale unmoved, the
+   unguarded LM's NCCL calls plus one, and the update alone timed as
+   above. Guarded against unguarded img/s and tokens/s of the same run
+   are printed, and the update's cost. The guarded runs' kernel calls
+   are replayed against the plain versions as every run's are: a
+   guarded state's Adam count is a device tensor, so B5 takes its bias
+   corrections through the device buffer there.
 
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
@@ -235,6 +271,9 @@ one GPU launches, the level-1 replay's grouped call and its packed bf16
 call (one level of each of ``DistributedOptimizer(op=Adasum)``'s
 routes), or with ``--gpus N`` rank 0's step of ``adasum`` and
 ``adasum_fp16`` across the N GPUs. ``by_mode`` splits them.
+The ``fused_adam_bf16`` row is B5's bf16 instantiation: its numbers are
+the bf16 run's step, its launches that run's (the ``fused_adam`` row
+keeps the f32 launches).
 ``launches`` counts the launches of the main path's runs (with ``--gpus
 N`` rank 0's of the N-GPU runs too, as ``mode@N``); a kernel that none of
 them launched, as the Adasum combines on one GPU, takes the replay's
@@ -347,6 +386,8 @@ NEED = {"zero1": ("quantize", "dequant_accumulate", "fused_adam"),
         "powersgd": ("quantize", "dequant_accumulate_requantize",
                      "dequantize_rows", "fused_adam"),
         "lm": ("flash_fwd",),
+        "lm_guarded": ("flash_fwd",),
+        "bf16": ("fused_adam",),
         "lm_powersgd": ("flash_fwd", "quantize",
                         "dequant_accumulate_requantize", "dequantize_rows")}
 #: the torch.distributed functions ops/collective.py calls through its
@@ -513,11 +554,15 @@ def _signature(wrapper: str, args, kw) -> tuple:
     if kernel == "adasum_segment_combine":
         return (kernel, tuple(int(o) for o in args[2]))
     # fused_adam: each leaf's length and its g's offset from a 16-byte
-    # boundary in elements (Adasum's leaves are views into a group buffer)
+    # boundary in elements (Adasum's leaves are views into a group buffer),
+    # the step count (a guarded state's is a device tensor, kept as it is:
+    # reading it here would sync the step; the replay reads it) and the
+    # dtype
     gs = args[0] if wrapper == "fused_adam_multi" else [args[0]]
+    item = gs[0].element_size()
     return (kernel, tuple(g.numel() for g in gs),
-            tuple(g.data_ptr() % 16 // 4 for g in gs), args[3],
-            tuple(sorted(kw.items())))
+            tuple(g.data_ptr() % 16 // item for g in gs), args[3],
+            tuple(sorted(kw.items())), str(gs[0].dtype).replace("torch.", ""))
 
 
 @contextlib.contextmanager
@@ -622,8 +667,10 @@ def call_bound(sig) -> tuple:
         # a and b read once, out written once; a*b, a*a, b*b summed (6)
         # and ca*a + cb*b (3) in f32
         return 3 * item * L, 9 * L, F32_OPS_PER_S
-    L = sum(sig[1])
-    return 24 * L, 12 * L, F32_OPS_PER_S
+    # fused_adam: g, mu, nu read and u, mu', nu' written, in the leaves'
+    # dtype; ~12 operations an element, in f32
+    L, item = sum(sig[1]), 2 if sig[5] == "bfloat16" else 4
+    return 6 * item * L, 12 * L, F32_OPS_PER_S
 
 
 def adasum_len_item(sig) -> tuple:
@@ -778,27 +825,35 @@ def make_call(sig, gen):
         return (lambda: (K.adasum_segment_combine(a, b, offsets),),
                 lambda: (K.adasum_segment_combine_plain(a, b, offsets),),
                 _adasum_close)
-    _, lengths, offsets, count, kw = sig
-    kw = dict(kw)
+    _, lengths, offsets, count, kw, dtype = sig
+    kw, dtype = dict(kw), getattr(torch, dtype)
+    # a guarded state's count is a 0-d device tensor: kept so, the kernel
+    # takes its bias corrections through the device buffer, as on the path
+    count = count.to(dev) if isinstance(count, torch.Tensor) \
+        and count.is_cuda else int(count)
     # g: the leaves at their logged offsets in one buffer; mu, nu fresh
-    slots = [(n + 7) // 4 * 4 for n in lengths]   # 16-byte aligned, with room
+    per = 16 // torch.empty(0, dtype=dtype).element_size()   # a 16-byte group
+    slots = [(n + 2 * per - 1) // per * per for n in lengths]  # aligned, room
     starts = np.cumsum([0] + slots)[:-1] + np.asarray(offsets)
-    gbuf = torch.randn(int(starts[-1]) + lengths[-1], device=dev,
-                       generator=gen) * 1e-2
+    gbuf = (torch.randn(int(starts[-1]) + lengths[-1], device=dev,
+                        generator=gen) * 1e-2).to(dtype)
     gs = [gbuf[int(a):int(a) + n] for a, n in zip(starts, lengths)]
-    mus = [torch.randn(n, device=dev, generator=gen) * 1e-3 for n in lengths]
-    nus = [torch.rand(n, device=dev, generator=gen) * 1e-6 for n in lengths]
+    mus = [(torch.randn(n, device=dev, generator=gen) * 1e-3).to(dtype)
+           for n in lengths]
+    nus = [(torch.rand(n, device=dev, generator=gen) * 1e-6).to(dtype)
+           for n in lengths]
     big = [int(a) for a, n in zip(starts, lengths) if n >= 8]
     if big:                                 # a NaN and an inf gradient
         gbuf[torch.tensor([a + i for a in big for i in (1, 5)], device=dev)] = \
-            torch.tensor([math.nan, math.inf] * len(big), device=dev)
+            torch.tensor([math.nan, math.inf] * len(big), device=dev,
+                         dtype=dtype)
     c = K.adam_constants(kw["lr"], kw["b1"], kw["b2"], kw["eps"],
                          kw["eps_root"], count)
     call = (lambda: sum(K.fused_adam_multi(gs, mus, nus, count, **kw), []),
             lambda: [x for out in zip(*(K.fused_adam_plain(g, m, v, c)
                                         for g, m, v in zip(gs, mus, nus)))
                      for x in out],
-            _ulps)
+            _ulps if dtype == torch.float32 else _bits)
     call[0].tensors = (gs, mus, nus)
     return call
 
@@ -933,6 +988,7 @@ def kernel_phase(step_calls: dict, main_modes: dict) -> dict:
                 continue
             calls = [make_call(s, gen) for s in ks]
             row = rows[kernel]
+            mode_err = 0.0
             for sig, (run, plain, compare) in zip(ks, calls):
                 out, ref = run(), plain()
                 bad = compare(out, ref)
@@ -942,9 +998,9 @@ def kernel_phase(step_calls: dict, main_modes: dict) -> dict:
                         map(same_bits, out, run())):
                     fail(f"{kernel} at {sig[:3]} ({mode}): two launches on "
                          "the same inputs differ")
-                row["max_abs_err"] = max(
-                    [row["max_abs_err"]]
-                    + [max_abs(a, b) for a, b in zip(out, ref)])
+                mode_err = max([mode_err]
+                               + [max_abs(a, b) for a, b in zip(out, ref)])
+                row["max_abs_err"] = max(row["max_abs_err"], mode_err)
                 row["calls_checked"] += 1
                 if kernel == "flash_fwd" and out[0].dtype == torch.bfloat16:
                     row["out_elements"] = (row.get("out_elements", 0)
@@ -955,7 +1011,7 @@ def kernel_phase(step_calls: dict, main_modes: dict) -> dict:
             b, by = bound_ms(ks)
             lib = None
             if kernel == "fused_adam" and hasattr(torch, "_fused_adam_"):
-                lib = library_adam_ms([c[0] for c in calls], ks[0][3],
+                lib = library_adam_ms([c[0] for c in calls], int(ks[0][3]),
                                       dict(ks[0][4]))
             elif kernel == "flash_fwd":
                 lib = library_flash_ms([c[0] for c in calls])
@@ -964,7 +1020,7 @@ def kernel_phase(step_calls: dict, main_modes: dict) -> dict:
                 ms=cuda_ms(lambda: [c[0]() for c in calls]),
                 device_ms=cuda_device_ms(lambda: [c[0]() for c in calls]),
                 plain_ms=cuda_ms(lambda: [c[1]() for c in calls]),
-                bound_ms=b, bound_by=by, library_ms=lib)
+                bound_ms=b, bound_by=by, library_ms=lib, max_abs_err=mode_err)
             if kernel.startswith("adasum"):
                 row["by_mode"][mode]["two_pass_bound_ms"] = two_pass_bound_ms(ks)
             del calls
@@ -1052,6 +1108,9 @@ def ptxas_usage(log: str) -> dict:
             base = re.search(r"flash_fwd_(?:mma|f32)|[a-z_]+_kernel",
                              m.group(1).split("_cu_")[-1])
             args = re.findall(r"L[ib](\d+)E", m.group(1))
+            if base and base.group(0) == "adam_kernel" \
+                    and "I13__nv_bfloat16" in m.group(1):   # B5 on bf16
+                args = ["bf16"] + args
             name = (base.group(0) if base else m.group(1)) + (
                 f"<{', '.join(args)}>" if args else "")
             usage[name] = {}
@@ -1305,10 +1364,11 @@ def build_model(name: str, seed: int, device):
                                             device=device)
 
 
-def make_tx(mode: str, lr: float = 1e-3, bucket_bytes=None):
+def make_tx(mode: str, lr: float = 1e-3, bucket_bytes=None, loss_scale=None):
     """The DistributedOptimizer of each mode, fused Adam at ``lr``
     inside: ZeRO-1 and allreduce mode with int8 + EF (bucketed overlap
-    with ``bucket_bytes``), ZeRO-3 (its gather wire is
+    with ``bucket_bytes``; under the numerics guard with ``loss_scale``),
+    ZeRO-3 (its gather wire is
     ``HOROVOD_FSDP_WIRE``), Adasum with no compression (the grouped
     butterfly) and with ``Compression.fp16`` (the leaves packed in bf16,
     one combine of the leaf table a level), PowerSGD (rank
@@ -1320,7 +1380,8 @@ def make_tx(mode: str, lr: float = 1e-3, bucket_bytes=None):
         return hvd.DistributedOptimizer(adam, compression=hvd.Compression.int8,
                                         error_feedback=True,
                                         shard_optimizer=mode == "zero1",
-                                        bucket_bytes=bucket_bytes)
+                                        bucket_bytes=bucket_bytes,
+                                        loss_scale=loss_scale)
     if mode == "powersgd":
         return hvd.DistributedOptimizer(
             adam, compression=hvd.Compression.powersgd(PSGD_RANK),
@@ -1707,7 +1768,7 @@ def adasum_replay(x, y) -> dict:
                 step_calls=dict(zip(modes, calls)))
 
 
-def train_lm(steps: int, powersgd_rank=None) -> dict:
+def train_lm(steps: int, powersgd_rank=None, loss_scale=None) -> dict:
     """The LM slice: ``steps`` steps of the flagship TransformerLM through
     ``make_train_step`` with ``DistributedOptimizer(adamw(1e-4))`` and
     ``lm_xent``; fails unless the loss is finite and falls and flash_fwd
@@ -1716,7 +1777,13 @@ def train_lm(steps: int, powersgd_rank=None) -> dict:
     by synchronised host timers. With ``powersgd_rank`` (run
     ``lm_powersgd``) the optimizer syncs PowerSGD factors with EF: the
     factorized leaves must be those the wire-cost rule names, and the
-    other float leaves' int8 exchange runs once a step."""
+    other float leaves' int8 exchange runs once a step. With
+    ``loss_scale`` (run ``lm_guarded``) the optimizer is under the
+    numerics guard with dynamic loss scaling: no step may be BAD and the
+    scale stays where it started; after the split step, :func:`update_cost`
+    of the guarded update and ``DistributedOptimizer(adamw(1e-4))``'s on
+    one more backward's gradients. The optimizer update's NCCL calls are
+    counted (``nccl_update``, a step)."""
     import numpy as np
     import torch
 
@@ -1734,13 +1801,26 @@ def train_lm(steps: int, powersgd_rank=None) -> dict:
     x = torch.from_numpy(tok).to(dev)
     y = torch.from_numpy(np.roll(tok, -1, axis=1)).to(dev)
     mode = "lm" if powersgd_rank is None else "lm_powersgd"
+    if loss_scale is not None:
+        mode = "lm_guarded"
     comp = None if powersgd_rank is None else hvd.Compression.powersgd(
         powersgd_rank)
     tx = hvd.DistributedOptimizer(hvd.adamw(1e-4), compression=comp,
-                                  error_feedback=comp is not None)
+                                  error_feedback=comp is not None,
+                                  loss_scale=loss_scale)
     st = tx.init(model.jax_params())
-    step = hvd.make_train_step(model, tx, loss_fn=hvd.lm_xent,
-                               on_phase=on_phase)
+    nccl, where = {}, ["step"]
+    update = tx.update
+
+    def counted_update(*args, **kw):
+        where.append("update")
+        try:
+            return update(*args, **kw)
+        finally:
+            where.pop()
+
+    step = hvd.make_train_step(model, tx._replace(update=counted_update),
+                               loss_fn=hvd.lm_xent, on_phase=on_phase)
     with torch.no_grad():
         logits = model(x)
     if tuple(logits.shape) != (LM_BATCH, LM_SEQ, LM["vocab"]) or not bool(
@@ -1749,8 +1829,16 @@ def train_lm(steps: int, powersgd_rank=None) -> dict:
     del logits
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    st, losses, times, launches, calls = run_steps(mode, step, st, x, y,
-                                                   steps)
+    with counting_collectives(nccl, where):
+        st, losses, times, launches, calls = run_steps(mode, step, st, x, y,
+                                                       steps)
+    guard = cost = None
+    if loss_scale is not None:
+        from horovod_tpu_torch.resilience import numerics
+
+        guard = numerics.verdict(st)
+        if guard["bad_count"] or guard["loss_scale"] != GUARD_SCALE:
+            fail(f"{mode}: a BAD step, or the scale moved: {guard}")
     if launches["flash_fwd"] != LM["depth"] * steps:
         fail(f"{mode}: {launches['flash_fwd']} flash_fwd launches in {steps} "
              f"steps of a depth-{LM['depth']} model ({launches})")
@@ -1772,12 +1860,30 @@ def train_lm(steps: int, powersgd_rank=None) -> dict:
                     leaves=len(params), **wire_bytes(params, comp))
     peak = torch.cuda.max_memory_allocated()
     st, split = split_step(mode, step, st, x, y, marks)
+    if loss_scale is not None:
+        from horovod_tpu_torch.resilience import numerics
+
+        params = model.jax_params()
+        loss, g = _grads_of(model, x, y, hvd.lm_xent)
+        scale = numerics.current_scale(st)
+        cost = update_cost({
+            "plain": (hvd.DistributedOptimizer(hvd.adamw(1e-4)).update,
+                      _int_counts(_clone(st.inner)), g, params, {}),
+            "guarded": (tx.update, _clone(st),
+                        {k: v * scale.to(v.dtype) for k, v in g.items()},
+                        params, {"loss": loss})})
+        del params, loss, g
+        torch.cuda.empty_cache()
     steady = times[1:]
     return dict(mode=mode, steps=steps, params=n_params, losses=losses,
                 launches=launches, step_s=times,
                 tokens_per_s=LM_BATCH * LM_SEQ * len(steady) / sum(steady),
                 peak_gib=peak / 2 ** 30, split_s=split, powersgd=psgd,
-                split_step_s=sum(split.values()), step_calls=calls)
+                split_step_s=sum(split.values()), guard=guard,
+                update_cost=cost,
+                nccl_update={k: v / steps
+                             for k, v in nccl.get("update", {}).items()},
+                step_calls=calls)
 
 
 def wire_bytes(params: dict, comp) -> dict:
@@ -1796,7 +1902,7 @@ def train_multisteps(steps: int, x, y) -> dict:
     step only. Fails unless a step that does not emit makes no NCCL call
     in the optimizer update and launches no kernel, one that emits makes
     allreduce mode's calls and launches, and the loss falls across an
-    emit."""
+    emit. Then :func:`multisteps_guard_syncs`."""
     import torch
 
     import horovod_tpu_torch as hvd
@@ -1854,10 +1960,441 @@ def train_multisteps(steps: int, x, y) -> dict:
         fail(f"multisteps: losses {losses} (the same until the first emit, "
              "then falling)")
     torch.cuda.synchronize()
+    syncs = multisteps_guard_syncs(model, x, y)
     return dict(mode="multisteps", steps=steps, losses=losses,
                 per_step=per_step, step_s=times, step_calls=calls[-1],
+                guard_host_syncs=syncs,
                 launches={k: sum(p["launches"].get(k, 0) for p in per_step)
                           for k in K.KERNELS})
+
+
+def multisteps_guard_syncs(model, x, y) -> list:
+    """The numerics guard over ``backward_passes_per_step=2`` (allreduce
+    mode, int8 + EF, fused Adam, ``loss_scale="dynamic"``): three
+    updates from a fresh state on one backward's gradients (one that
+    does not emit, one that does, one that does not), the inner update
+    run quietly and the guard's own code under
+    ``torch.cuda.set_sync_debug_mode("warn")``, whose warnings of a
+    synchronizing operation are counted. The counters that
+    ``multi_steps`` branches on live on the host, so a BAD micro-step's
+    keeping them costs the guard one read of its verdict an update.
+    Fails unless each update synchronised the host exactly once, and the
+    second emitted. Returns the Python stack of each update's syncs,
+    innermost first."""
+    import traceback
+    import warnings
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.resilience import numerics
+
+    dtx = hvd.DistributedOptimizer(hvd.fused_adam(1e-3),
+                                   compression=hvd.Compression.int8,
+                                   error_feedback=True,
+                                   backward_passes_per_step=2)
+    gtx = numerics.guard(dtx._replace(update=_quietly(dtx.update, "warn")),
+                         loss_scale="dynamic")
+    params = model.jax_params()
+    st = gtx.init(params)
+    loss, g = _grads_of(model, x, y)
+    scale = numerics.current_scale(st)
+    g = {k: v * scale.to(v.dtype) for k, v in g.items()}
+    per_update = []
+
+    def note(message, *args, **kw):
+        if "called a synchronizing" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1][::-1]
+                      if not f.filename.endswith("warnings.py")][:6]
+            seen.append(" < ".join(f"{os.path.basename(f.filename)}:"
+                                   f"{f.lineno}" for f in frames))
+
+    for _ in range(3):
+        seen: list = []
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(), torch.no_grad():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _, st = gtx.update(dict(g), st, params, loss=loss)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        per_update.append(seen)
+    if [len(p) for p in per_update] != [1, 1, 1] or \
+            int(st.inner.gradient_step) != 1 or int(st.bad_count):
+        fail(f"multisteps_guarded: host syncs in the guard's code, by "
+             f"update: {per_update} (expected one each: the read of the "
+             f"verdict for the host counters); gradient_step "
+             f"{int(st.inner.gradient_step)}, bad_count {int(st.bad_count)}")
+    return per_update
+
+
+# --------------------------------------------------------------------------
+# phase 16: the numerics guard and dynamic loss scaling
+
+
+#: the guarded runs' NaN charge (grad_nan_at_step, the guard's counter)
+GUARD_NAN = 6
+#: steps of each guarded ResNet-50 run: the good ones, the NaN step, one more
+GUARD_STEPS = GUARD_NAN + 2
+#: the loss scale loss_scale="dynamic" starts at (HOROVOD_NUMERICS_SCALE_INIT)
+GUARD_SCALE = 2.0 ** 15
+#: the guarded run with bf16 parameters (B5's bf16 kernel on the path)
+BF16_STEPS = 4
+BF16_MODE = "resnet50_bf16_guarded"
+
+
+def _int_counts(tree):
+    """A state tree with every Adam ``count`` tensor as a Python int: the
+    unguarded optimizer's form of the guard's device count."""
+    import torch
+
+    if isinstance(tree, dict):
+        return type(tree)((k, int(v.item()) if k == "count"
+                           and isinstance(v, torch.Tensor) and v.dim() == 0
+                           else _int_counts(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        items = [_int_counts(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
+    return tree
+
+
+def _grads_of(model, x, y, loss_fn=None):
+    """One unscaled forward and backward of ``model`` (``loss_fn`` default
+    ``softmax_xent``): ``(loss, the gradients as the optimizer's leaves,
+    cloned)``."""
+    import horovod_tpu_torch as hvd
+
+    model.train()
+    for p in model.parameters():
+        p.grad = None
+    loss = (loss_fn or hvd.softmax_xent)(model(x), y)
+    loss.backward()
+    return loss.detach(), {k: v.detach().clone()
+                           for k, v in model.jax_grads().items()}
+
+
+def _quietly(update, mode):
+    """``update`` run with the sync check off, and ``mode`` set again
+    after it: the inner optimizer's update is not the guard's code."""
+    import torch
+
+    def quiet(*args, **kw):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return update(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    return quiet
+
+
+#: the update alone with and without the guard: turns of each side, and
+#: updates back to back a turn
+COST_TURNS, COST_ITERS = 6, 5
+
+
+def update_cost(sides: dict) -> dict:
+    """The optimizer update alone, ``sides`` ``{"plain": ..., "guarded":
+    ...}`` each ``(update, state, grads, params, keywords)``: every side
+    from its own state, carried from update to update as a training loop
+    carries it, on the same gradients (the guarded side's scaled by its
+    loss scale). CUDA events around :data:`COST_ITERS` updates back to
+    back (the call and its work on the card) and a host clock around
+    the same calls (the host's time to issue them), in turns (plain,
+    guarded, guarded, plain, ...) for :data:`COST_TURNS` turns. Returns
+    each side's ms an update, their medians, and the guard's cost as the
+    difference of the medians."""
+    import statistics
+
+    import torch
+
+    state = {name: side[1] for name, side in sides.items()}
+
+    def run(name, n):
+        update, _, grads, params, kw = sides[name]
+        st = state[name]
+        for _ in range(n):
+            _, st = update(dict(grads), st, params, **kw)
+        state[name] = st
+
+    for name in sides:                  # warm up: allocator, plans
+        run(name, 2)
+    ms = {name: [] for name in sides}
+    host = {name: [] for name in sides}
+    order = ["plain", "guarded"]
+    with torch.no_grad():
+        for turn in range(COST_TURNS):
+            for name in (order if turn % 2 == 0 else order[::-1]):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                s.record()
+                t0 = time.perf_counter()
+                run(name, COST_ITERS)
+                host[name].append((time.perf_counter() - t0) * 1e3
+                                  / COST_ITERS)
+                e.record()
+                e.synchronize()
+                ms[name].append(s.elapsed_time(e) / COST_ITERS)
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    med_host = {name: statistics.median(v) for name, v in host.items()}
+    return dict(ms=ms, host_ms=host, median_ms=med, median_host_ms=med_host,
+                guard_ms=med["guarded"] - med["plain"],
+                guard_host_ms=med_host["guarded"] - med_host["plain"])
+
+
+def guard_checks(mode: str, model, tx, st, x, y, bucket_bytes=None) -> dict:
+    """From the guarded run's last state, on the gradients of one more
+    backward (unscaled): (a) the guarded update of those gradients scaled
+    by the state's loss scale (a power of two) against the unguarded
+    optimizer's update of them from the same inner state (its count an
+    int: the kernel takes the bias corrections by value there, through
+    the device buffer here): every update, moment and residual bit for
+    bit; (b) the same guarded update with the inner optimizer's update
+    run quietly and the rest — the prepare, the square sums, the
+    all-gather, the verdict, the select, the -0.0 discard and the
+    scale's arithmetic — under ``torch.cuda.set_sync_debug_mode("error")``,
+    which raises at any host sync; (c) :func:`update_cost` of the two
+    updates of (a)."""
+    import torch
+
+    from horovod_tpu_torch.resilience import numerics
+
+    params = model.jax_params()
+    loss, g = _grads_of(model, x, y)
+    scale = numerics.current_scale(st)
+    if float(scale) != 2.0 ** round(math.log2(float(scale))):
+        fail(f"{mode}_guarded: loss scale {float(scale)} is not a power of 2")
+    scaled = {k: v * scale.to(v.dtype) for k, v in g.items()}
+    plain = make_tx(mode, bucket_bytes=bucket_bytes)
+    with torch.no_grad():
+        ug, sg = tx.update(dict(scaled), _clone(st), params, loss=loss)
+        uu, su = plain.update(dict(g), _int_counts(_clone(st.inner)), params)
+    bad = [k for k in ug if not same_bits(ug[k], uu[k])]
+    bad_state = _tree_mismatch(_int_counts(sg.inner), su)
+    if bad or bad_state:
+        fail(f"{mode}_guarded: a good guarded step differs from the unguarded "
+             f"step on the same gradients: updates {bad[:5]}, inner state "
+             f"leaves {bad_state[:5]}")
+    dtx = make_tx(mode, bucket_bytes=bucket_bytes)
+    gtx = numerics.guard(dtx._replace(update=_quietly(dtx.update, "error")),
+                         loss_scale="dynamic")
+    st2 = _clone(st)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u2, s2 = gtx.update(dict(scaled), st2, params, loss=loss)
+    except RuntimeError as e:
+        fail(f"{mode}_guarded: the guard's own code synchronised the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if [k for k in ug if not same_bits(ug[k], u2[k])]:
+        fail(f"{mode}_guarded: the guard under the sync check disagrees")
+    cost = update_cost({
+        "plain": (plain.update, _int_counts(_clone(st.inner)), g, params, {}),
+        "guarded": (tx.update, _clone(st), scaled, params, {"loss": loss})})
+    return dict(good_step_bit_equal_to_unguarded=True,
+                guard_code_host_syncs=0, update_cost=cost)
+
+
+def _hook_rerun(raw_tx, model, s0, p0, loss, after) -> list:
+    """The guarded update of this step's gradients after the backward (the
+    exchange re-run on them, not started from the hooks) from the state
+    and parameters before the step: where it differs from what the hook
+    route gave (``after``: parameters and state), bit for bit."""
+    import torch
+
+    with torch.no_grad():
+        u, s = raw_tx._replace(exchange=None).update(
+            dict(model.jax_grads()), s0, p0, loss=loss)
+        p = {k: p0[k] + u[k] for k in p0}
+    return _tree_mismatch(p, after[0]) + _tree_mismatch(s, after[1])
+
+
+def train_guarded(mode: str, x, y, bucket_bytes=None, base=None) -> dict:
+    """:data:`GUARD_STEPS` steps of ResNet-50 (batch 64, int8 + EF, fused
+    Adam, allreduce mode or ZeRO-1) under ``DistributedOptimizer(...,
+    loss_scale="dynamic")`` through ``make_train_step``, with
+    ``HOROVOD_CHAOS=grad_nan_at_step=`` :data:`GUARD_NAN` armed. Fails
+    unless the losses are finite and fall; the launches are the
+    unguarded mode's a step (:func:`expected_launches`: the guard adds no
+    kernel); the optimizer update's NCCL calls are the unguarded run's
+    (``base``) plus the guard's one all-gather a step; every step but the
+    NaN step is good, and the NaN step keeps every parameter (a -0.0 set
+    just before it among them) and every inner state tensor (moments,
+    EF residuals) bit for bit, halves the scale, makes ``bad_count`` 1
+    and consumes the charge once. With ``bucket_bytes`` the buckets start
+    from the backward's hooks, and at the NaN step and the good step
+    after it the whole update is re-run after the backward on the same
+    gradients from the same state: bit-equal. img/s is taken over steps
+    1 to ``GUARD_NAN - 1``, before any of those checks. Then
+    :func:`guard_checks`."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.resilience import chaos, numerics
+
+    dev = hvd.device()
+    label = f"{mode}_guarded"
+    if bucket_bytes:
+        label = overlap_label(label, bucket_bytes)
+    model = build_model("resnet50", 0, dev)
+    leaves = len(model.jax_params())
+    raw = make_tx(mode, bucket_bytes=bucket_bytes, loss_scale="dynamic")
+    nccl, where = {}, ["step"]
+    tx = counted_exchange(raw, where) if raw.exchange is not None else raw
+    update = tx.update
+
+    def counted_update(*args, **kw):
+        where.append("update")
+        try:
+            return update(*args, **kw)
+        finally:
+            where.pop()
+
+    tx = tx._replace(update=counted_update)
+    step = hvd.make_train_step(model, tx, shard_optimizer=mode == "zero1")
+    st = tx.init(model.jax_params())
+    chaos.reset()
+    chaos.configure(f"grad_nan_at_step={GUARD_NAN}")
+    calls: list = []
+    losses, times, verdicts, reruns = [], [], [], {}
+    nan = None
+    torch.cuda.synchronize()
+    K.reset_launches()                  # count the guarded run only
+    with counting_collectives(nccl, where), logging_calls(calls):
+        for t in range(GUARD_STEPS):
+            calls.append([])
+            if t == GUARD_NAN:
+                with torch.no_grad():
+                    model.jax_params()["head/bias"][0] = -0.0
+            # after the timed window (steps 1 to GUARD_NAN - 1): the
+            # clones grow the allocator, which slows the step they precede
+            check = bucket_bytes and t in (GUARD_NAN, GUARD_NAN + 1)
+            if t == GUARD_NAN or check:
+                s0, p0 = _clone(st), _clone(model.jax_params())
+            t0 = time.perf_counter()
+            st, loss = step(st, x, y)
+            losses.append(float(loss))  # device->host read fences the step
+            times.append(time.perf_counter() - t0)
+            if check:                   # not counted: the check's own run
+                saved, n_calls = dict(K.launches), len(calls[-1])
+                where.append("check")
+                reruns[t] = _hook_rerun(raw, model, s0, p0, loss,
+                                        (model.jax_params(), st))
+                where.pop()
+                K.launches.update(saved)
+                del calls[-1][n_calls:]
+                nccl.pop("check", None)
+            if t == GUARD_NAN:
+                nan = dict(params=_tree_mismatch(p0, model.jax_params()),
+                           inner=_tree_mismatch(s0.inner, st.inner),
+                           neg0=bool(torch.signbit(
+                               model.jax_params()["head/bias"][0])))
+            verdicts.append(numerics.note_step(t, st))
+    launches = dict(K.launches)
+    for k in K.KERNELS:
+        logged = sum(sig[0] == k for c in calls for sig in c)
+        if logged != launches[k]:
+            fail(f"{label}: {launches[k]} launches of {k} but {logged} logged "
+                 "calls: a caller bypasses ops.kernels' wrappers")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"{label}: losses {losses} (finite, and falling on the batch)")
+    buckets = len(step.last_exchange.order) if bucket_bytes else 0
+    for k, per_step in expected_launches(mode, hvd.size(), leaves,
+                                         buckets).items():
+        if launches[k] != per_step * GUARD_STEPS:
+            fail(f"{label}: {launches[k]} launches of {k} in {GUARD_STEPS} "
+                 f"steps, expected {per_step} a step ({launches})")
+    upd = {k: v / GUARD_STEPS for k, v in nccl.get("update", {}).items()}
+    want = dict(base["nccl_calls"].get("update", {}))
+    want[C._AG] = want.get(C._AG, 0) + 1
+    if upd != want:
+        fail(f"{label}: the guarded update made {upd} NCCL calls a step, "
+             f"expected the unguarded run's plus one all-gather: {want}")
+    bad_steps = [t for t, v in enumerate(verdicts) if v["last_bad"]]
+    v = verdicts[GUARD_NAN]
+    if bad_steps != [GUARD_NAN] or v["bad_count"] != 1 \
+            or v["loss_scale"] != GUARD_SCALE / 2 \
+            or verdicts[GUARD_NAN - 1]["loss_scale"] != GUARD_SCALE:
+        fail(f"{label}: BAD steps {bad_steps}, verdict at the NaN step {v}")
+    if nan["params"] or nan["inner"] or not nan["neg0"]:
+        fail(f"{label}: the NaN step changed parameters {nan['params'][:5]} "
+             f"or inner state leaves {nan['inner'][:5]}, or the -0.0 "
+             f"parameter ({nan['neg0']})")
+    if chaos.grad_nan_step() is not None or \
+            chaos.injected.get("grad_nan_at_step") != 1:
+        fail(f"{label}: the NaN charge was consumed "
+             f"{chaos.injected.get('grad_nan_at_step')} times")
+    chaos.configure(None)
+    if any(reruns.values()):
+        fail(f"{label}: the hook route differs from the exchange re-run after "
+             f"the backward on the same gradients: {reruns}")
+    checks = guard_checks(mode, model, raw, st, x, y, bucket_bytes)
+    good = times[1:GUARD_NAN]
+    return dict(mode=label, steps=GUARD_STEPS, losses=losses,
+                launches=launches, step_s=times,
+                img_per_s=x.shape[0] * len(good) / sum(good),
+                nccl_calls={part: {k: v / GUARD_STEPS for k, v in c.items()}
+                            for part, c in nccl.items()},
+                verdicts=[{k: v[k] for k in ("count", "bad_count",
+                                             "loss_scale", "last_norm")}
+                          for v in verdicts],
+                nan_step=dict(step=GUARD_NAN, params_bit_equal=True,
+                              inner_state_bit_equal=True, neg0_kept=True,
+                              scale_halved=True, charge_consumed_once=True),
+                hook_route_bit_equal_steps=sorted(reruns) or None,
+                buckets=buckets, **checks, step_calls=calls[-1])
+
+
+def train_bf16_guarded(x, y) -> dict:
+    """ResNet-50 with its parameters in bf16 (the compute was bf16
+    already), ``DistributedOptimizer(fused_adam(1e-3), loss_scale=
+    "dynamic")`` in allreduce mode (a bf16 leaf rides the plain wire),
+    :data:`BF16_STEPS` steps: B5's bf16 instantiation on the main path,
+    one launch a step over the 161 bf16 leaves (25,557,032 elements).
+    Fails unless every parameter, update and moment is bf16, the losses
+    are finite and no step is BAD."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.resilience import numerics
+
+    dev = hvd.device()
+    model = build_model("resnet50", 0, dev).to(torch.bfloat16)
+    params = model.jax_params()
+    if {p.dtype for p in params.values()} != {torch.bfloat16}:
+        fail(f"{BF16_MODE}: parameters not all bf16")
+    tx = hvd.DistributedOptimizer(hvd.fused_adam(1e-3), loss_scale="dynamic")
+    st = tx.init(params)
+    step = hvd.make_train_step(model, tx)
+    st, losses, times, launches, calls = run_steps(
+        "bf16", step, st, x.to(torch.bfloat16), y, BF16_STEPS,
+        label=BF16_MODE)
+    v = numerics.verdict(st)
+    moments = [m for part in ("mu", "nu") for m in st.inner[part].values()]
+    if v["bad_count"] or {m.dtype for m in moments} != {torch.bfloat16}:
+        fail(f"{BF16_MODE}: verdict {v}, moment dtypes "
+             f"{sorted({str(m.dtype) for m in moments})}")
+    adam = -(-len(params) // K.ADAM_MAX_LEAVES)
+    if launches["fused_adam"] != adam * BF16_STEPS:
+        fail(f"{BF16_MODE}: {launches['fused_adam']} fused_adam launches in "
+             f"{BF16_STEPS} steps, expected {adam} a step")
+    steady = times[1:]
+    return dict(mode=BF16_MODE, steps=BF16_STEPS, losses=losses,
+                launches={k: 0 for k in K.KERNELS},
+                launches_bf16=launches["fused_adam"], step_s=times,
+                img_per_s=x.shape[0] * len(steady) / sum(steady),
+                elements=sum(p.numel() for p in params.values()),
+                verdict=v, step_calls=calls)
 
 
 # --------------------------------------------------------------------------
@@ -2616,6 +3153,80 @@ def print_overlap(by_mode: dict, suffix: str, smi: str) -> None:
               f"backward ({smi})", flush=True)
 
 
+def _cost_text(cost: dict) -> str:
+    m, h = cost["median_ms"], cost["median_host_ms"]
+    return (f"the update alone, medians of {COST_TURNS} turns of "
+            f"{COST_ITERS}: {m['plain']:.3f} ms unguarded, {m['guarded']:.3f} "
+            f"guarded on the card's clock (+{cost['guard_ms']:.3f}), "
+            f"{h['plain']:.3f} / {h['guarded']:.3f} ms to issue on the host "
+            f"(+{cost['guard_host_ms']:.3f})")
+
+
+def print_guarded(by_mode: dict, smi: str) -> None:
+    """The guarded phase's lines: each guarded ResNet-50 run's img/s
+    beside the same mode unguarded in this run (the guard's cost a step)
+    and its update alone with and without the guard, the bf16 run, and
+    the LM's tokens/s guarded and not and its update alone; fails unless
+    the guarded LM update makes the unguarded one's NCCL calls plus the
+    guard's one all-gather."""
+    from horovod_tpu_torch.ops import collective as C
+
+    bb = OVERLAP_RUNS[0][1]
+    for label, base in (("zero1_guarded", "zero1"),
+                        ("allreduce_guarded", "allreduce"),
+                        (overlap_label("allreduce_guarded", bb),
+                         overlap_label("allreduce", bb))):
+        g, b = by_mode[label], by_mode[base]
+        cost = 1e3 * 64 * (1 / g["img_per_s"] - 1 / b["img_per_s"])
+        print(f"e2e {label}: {g['img_per_s']:.2f} img/s per GPU under the "
+              f"guard with loss_scale=\"dynamic\", {base} unguarded in the "
+              f"same run {b['img_per_s']:.2f} (the guard's cost {cost:.3f} ms "
+              f"a step of {1e3 * 64 / b['img_per_s']:.3f}); NaN step "
+              f"{GUARD_NAN} skipped bit for bit, scale "
+              f"{g['verdicts'][GUARD_NAN - 1]['loss_scale']:g} -> "
+              f"{g['verdicts'][GUARD_NAN]['loss_scale']:g}; NCCL calls a step "
+              f"in the update {json.dumps(g['nccl_calls'].get('update', {}))} "
+              f"(unguarded {json.dumps(b['nccl_calls'].get('update', {}))}); "
+              f"good step bit-equal to unguarded, no host sync in the guard; "
+              f"{_cost_text(g['update_cost'])} ({smi})", flush=True)
+    bf = by_mode[BF16_MODE]
+    print(f"e2e {BF16_MODE}: {bf['img_per_s']:.2f} img/s per GPU, losses "
+          f"{bf['losses']}, {bf['launches_bf16']} bf16 fused_adam launches "
+          f"over {bf['elements']} elements a step ({smi})", flush=True)
+    lm, lg = by_mode["lm"], by_mode["lm_guarded"]
+    want = dict(lm["nccl_update"])
+    want[C._AG] = want.get(C._AG, 0) + 1
+    if lg["nccl_update"] != want:
+        fail(f"lm_guarded: the update made {lg['nccl_update']} NCCL calls a "
+             f"step, expected the unguarded LM's plus one all-gather: {want}")
+    cost = 1e3 * LM_BATCH * LM_SEQ * (1 / lg["tokens_per_s"]
+                                      - 1 / lm["tokens_per_s"])
+    print(f"e2e lm_guarded: {lg['tokens_per_s']:.1f} tokens/s per GPU under "
+          f"the guard with loss_scale=\"dynamic\", lm unguarded in the same "
+          f"run {lm['tokens_per_s']:.1f} (the guard's cost {cost:.3f} ms a "
+          f"step of {1e3 * LM_BATCH * LM_SEQ / lm['tokens_per_s']:.3f}), "
+          f"losses {lg['losses']}, verdict {json.dumps(lg['guard'])}, NCCL "
+          f"calls a step in the update {json.dumps(lg['nccl_update'])} "
+          f"(unguarded {json.dumps(lm['nccl_update'])}); "
+          f"{_cost_text(lg['update_cost'])} ({smi})", flush=True)
+
+
+def bf16_adam_row(f32_row: dict, run: dict) -> dict:
+    """The kernels line's row of B5's bf16 instantiation: its replay of
+    the bf16 run's step (the 161 bf16 leaves in one launch, held bit for
+    bit against the plain version) and that run's launches."""
+    m = f32_row["by_mode"][BF16_MODE]
+    return dict(name="fused_adam_bf16", route="cuda",
+                source=SOURCES["fused_adam"], replaces=TPU_KERNELS["fused_adam"],
+                launches=run["launches_bf16"],
+                launches_by_mode={BF16_MODE: run["launches_bf16"]},
+                max_abs_err=m["max_abs_err"], ms=m["ms"], kernel_ms=m["ms"],
+                device_ms=m["device_ms"], plain_ms=m["plain_ms"],
+                bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+                library_ms=m["library_ms"], elements=run["elements"],
+                bar="bit-equal to the plain version")
+
+
 def _summary(run: dict) -> str:
     return json.dumps({k: v for k, v in run.items() if k != "step_calls"})
 
@@ -2712,12 +3323,22 @@ def main() -> None:
             runs.append(train(mode, 5, xm, y, model_name=name, lr=lr))
             del xm
             torch.cuda.empty_cache()
+        by_mode = {run["mode"]: run for run in runs}
+        for mode, bb in (("zero1", None), ("allreduce", None),
+                         ("allreduce", OVERLAP_RUNS[0][1])):
+            base = by_mode[overlap_label(mode, bb) if bb else mode]
+            runs.append(train_guarded(mode, x, y, bucket_bytes=bb, base=base))
+            torch.cuda.empty_cache()
+        runs.append(train_bf16_guarded(x, y))
+        torch.cuda.empty_cache()
         x = torch.randn(128, 224, 224, 3, device=hvd.device(), generator=gen)
         y = torch.randint(0, 1000, (128,), device=hvd.device(), generator=gen)
         replay = adasum_replay(x, y)
         del x, y
         torch.cuda.empty_cache()
         runs.append(train_lm(LM_STEPS))
+        torch.cuda.empty_cache()
+        runs.append(train_lm(LM_STEPS, loss_scale="dynamic"))
         torch.cuda.empty_cache()
         runs.append(train_lm(4, powersgd_rank=PSGD_RANK))
         torch.cuda.empty_cache()
@@ -2769,7 +3390,10 @@ def main() -> None:
     ms = by_mode["multisteps"]
     print(f"e2e multisteps (backward_passes_per_step=2, allreduce mode int8 "
           f"+ EF): per step {json.dumps(ms['per_step'])}, losses "
-          f"{ms['losses']} ({smi})", flush=True)
+          f"{ms['losses']}; under the guard, host syncs in the guard's code "
+          f"by update {json.dumps(ms['guard_host_syncs'])} (the verdict's "
+          f"one read for the host counters) ({smi})", flush=True)
+    print_guarded(by_mode, smi)
     lp = by_mode["lm_powersgd"]
     print(f"e2e lm_powersgd (rank {PSGD_RANK}, EF, adamw): "
           f"{lp['tokens_per_s']:.1f} tokens/s per GPU (plain adamw "
@@ -2885,6 +3509,8 @@ def main() -> None:
     next(k for k in kernels if k["name"] == "fused_adam").update(
         launch_cap=K.ADAM_MAX_LEAVES, requant_epilogue=epilogue,
         ptxas=usage["fused_adam"])
+    kernels.append(bf16_adam_row(rows["fused_adam"], next(
+        run for run in runs if run["mode"] == BF16_MODE)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,13 +53,15 @@ from horovod_tpu_torch.optim import (
     FsdpParams, MultiStepsState, _fsdp_meta, _map_state, is_zero1_rows,
     reshard_optimizer_state,
 )
+from horovod_tpu_torch.resilience.numerics import (  # noqa: F401
+    CKPT_FINITE_ENV, NumericsGuardState, array_finite,
+    checkpoint_finite_check_enabled,
+)
 from horovod_tpu_torch.training import (
     BF16_ON_HOST, host_array, host_snapshot, host_tensor,
 )
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
-#: the poison sweep's opt-out, as in the JAX package
-CKPT_FINITE_ENV = "HOROVOD_CHECKPOINT_FINITE_CHECK"
 #: the key of a ZeRO-3 parameter tree's consolidated form
 FSDP_ROWS = "fsdp_rows"
 
@@ -194,13 +196,9 @@ def _tensors(tree, device):
 def _from_jax_state(state):
     """A state the JAX package wrote in the port's layout
     (:func:`~horovod_tpu_torch.models.convert.opt_state_from_jax`: a ZeRO-1
-    state as its consolidated view). The JAX package's states the port
-    has no counterpart of raise."""
+    state as its consolidated view)."""
     from horovod_tpu_torch.models.convert import opt_state_from_jax
 
-    if type(state).__name__ == "NumericsGuardState":
-        raise ValueError("NumericsGuardState (the numerics guard) is not "
-                         "ported: its state cannot be restored here")
     return opt_state_from_jax(state)
 
 
@@ -216,12 +214,29 @@ def consolidate_opt_state(opt_state, params, *,
     :func:`~horovod_tpu_torch.optim.reshard_optimizer_state`, against
     ``params``, the tree the state was built on (``model.jax_params()``,
     host arrays, or ZeRO-3 parameters, restored or live), and this rank's
-    row is returned as the rank-local state. Any other state comes back
+    row is returned as the rank-local state. A ``NumericsGuardState``
+    (the numerics guard's, either package's) is consolidated through its
+    ``inner``, its scalars kept. Any other state comes back
     with its arrays as tensors. Tensors go to the parameters' device. A
     ZeRO-3 state cannot change its world size here: that needs the
     parameter shards re-packed too, which is not ported."""
     opt_state = _from_jax_state(opt_state)
     dev = _device_of(params)
+    if isinstance(opt_state, NumericsGuardState):
+        # the inner state made this rank's; the guard's scalars are the
+        # same on every rank and at every world size, and go to the
+        # device as they are (rank_norms, one step deep, restarts at
+        # zeros when the size changes), as the JAX package re-packs it
+        n_new = int(to_size) if to_size is not None else _world()[1]
+        st = opt_state._replace(
+            inner=consolidate_opt_state(opt_state.inner, params,
+                                        to_size=to_size,
+                                        bucket_bytes=bucket_bytes),
+            rank_norms=(opt_state.rank_norms
+                        if tuple(np.shape(opt_state.rank_norms)) == (n_new,)
+                        else np.zeros((n_new,), np.float32)))
+        return st._replace(**{f: _tensors(getattr(st, f), dev)
+                              for f in st._fields if f != "inner"})
     if type(opt_state).__name__ == "MultiStepsState":
         return MultiStepsState(
             torch.as_tensor(np.asarray(opt_state.mini_step, np.int32)),
@@ -447,25 +462,6 @@ def state_nbytes(state: Any) -> int:
 
 # --------------------------------------------------------------------------
 # validity
-
-
-def checkpoint_finite_check_enabled() -> bool:
-    """The poison sweep's opt-out, ``HOROVOD_CHECKPOINT_FINITE_CHECK=0``,
-    for states that legitimately hold non-finite leaves."""
-    return os.environ.get(CKPT_FINITE_ENV, "1").lower() not in (
-        "0", "false", "off")
-
-
-def array_finite(a) -> bool:
-    """Is this host array free of NaN/Inf? Integer, bool and object
-    arrays, and dtypes numpy cannot judge (bf16 as ``|V2``), pass."""
-    try:
-        a = np.asarray(a)
-        if a.dtype.kind in "fc" or "float" in str(a.dtype):
-            return bool(np.isfinite(a).all())
-    except (TypeError, ValueError) as e:
-        logger.debug("finiteness probe skipped an array: %s", e)
-    return True
 
 
 def is_valid_checkpoint(path: str) -> bool:

@@ -76,6 +76,19 @@ def dequantize_rows(qr, scr, dtype, block: int = INT8_BLOCK):
     return _k.dequantize_rows(qr, scr, dtype, block)
 
 
+def int8_roundtrip(tensor, block: int = INT8_BLOCK):
+    """What ``tensor`` looks like after one trip through the int8 wire
+    (flat-block layout): ``dequant(quant(.))`` through the ``quantize``
+    kernel's roundtrip image, in the tensor's shape. Identity (the same
+    object) on dtypes that are not quantized and on leaves below the
+    :data:`MIN_QUANT_ELEMS` floor, which ride uncompressed."""
+    if not _quantizable(tensor.dtype) or tensor.numel() < MIN_QUANT_ELEMS:
+        return tensor
+    flat = _pad_to_block(tensor.reshape(-1), block).contiguous()
+    deq = _k.quantize_roundtrip(flat, block)[2]
+    return deq[:tensor.numel()].reshape(tensor.shape)
+
+
 def quantize_chunked(flat, n: int, block: int = INT8_BLOCK):
     """The wire image of a flat packed ``[Lp]`` buffer in the layout the
     quantized reduce-scatter sends: split into ``n`` destination chunks,

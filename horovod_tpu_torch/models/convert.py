@@ -186,8 +186,13 @@ def opt_state_from_jax(state):
       {"size": N}``: the consolidated view
       ``checkpoint.consolidate_opt_state`` re-packs for each rank;
     - optax ``MultiStepsState`` → the port's (``optim.MultiStepsState``),
-      its inner state converted."""
+      its inner state converted;
+    - ``NumericsGuardState`` (the numerics guard's; the port's class has
+      the JAX package's name) → the same, its ``inner`` converted and its
+      scalars as they are."""
     name = type(state).__name__
+    if name == "NumericsGuardState":
+        return state._replace(inner=opt_state_from_jax(state.inner))
     if name == "MultiStepsState":
         from horovod_tpu_torch.optim import MultiStepsState
 

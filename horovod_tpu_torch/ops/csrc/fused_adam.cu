@@ -33,7 +33,21 @@
 // (ZeRO-1, ZeRO-3) thus keeps the grid and the loop of the one-leaf
 // kernel this replaces.
 //
-// The epilogue (one leaf only): each warp takes whole 256-element blocks,
+// Element types. The kernel is instantiated for f32 and bf16 leaves; one
+// launch takes leaves of one type (the wrapper groups a call's leaves by
+// dtype). For bf16 every operation takes two bf16 values and its f32
+// result (__f*_rn) is rounded to bf16 (__float2bfloat16_rn), the constants
+// rounded to bf16 first and the square root correctly rounded in f32
+// before its own rounding: what optax's weakly typed constants and the
+// reference's kernel compute for a bf16 leaf. The f32 instantiation is
+// the expressions above, unchanged. A 16-byte access is 4 f32 or 8 bf16.
+//
+// Bias corrections. By value, or (bc non-null) read from a device buffer
+// [b1c, b2c]: a guarded optimizer's step count lives on the device (a
+// skipped step keeps it without a host read), so its bias corrections
+// are computed there, as the reference's kernel takes its traced ones.
+//
+// The epilogue (f32, one leaf only): each warp takes whole 256-element blocks,
 // eight elements a lane, quantizes the update with int8_wire.cuh's
 // requant_lane and writes q and the bf16 scale. The tail past the leaf's
 // length is the update of zero g, mu, nu, as the reference pads.
@@ -53,47 +67,128 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr long long kChunk = 2048;      // ops.kernels.ADAM_CHUNK
 constexpr int kMaxLeaves = 256;         // ops.kernels.ADAM_MAX_LEAVES
-static_assert(kChunk % (4 * kThreads) == 0 && kChunk % hvdt::kBlock == 0,
-              "a chunk is whole float4 rounds and whole int8 blocks");
+static_assert(kChunk % (8 * kThreads) == 0 && kChunk % hvdt::kBlock == 0,
+              "a chunk is whole 16-byte rounds and whole int8 blocks");
 
 struct AdamConsts {
   float omb1, b1, omb2, b2, b1c, b2c, eps, eps_root, neg_lr;
 };
 
 struct AdamTable {
-  const float* g[kMaxLeaves];
-  const float* mu[kMaxLeaves];
-  const float* nu[kMaxLeaves];
-  float* u[kMaxLeaves];
-  float* mu2[kMaxLeaves];
-  float* nu2[kMaxLeaves];
+  const void* g[kMaxLeaves];
+  const void* mu[kMaxLeaves];
+  const void* nu[kMaxLeaves];
+  void* u[kMaxLeaves];
+  void* mu2[kMaxLeaves];
+  void* nu2[kMaxLeaves];
   long long n[kMaxLeaves];
   int first[kMaxLeaves + 1];            // each leaf's first chunk; the total
   unsigned char vec[kMaxLeaves];        // all six pointers 16-byte aligned
   int8_t* q;                            // the epilogue's outputs, or null
   __nv_bfloat16* s;
+  const float* bc;                      // device [b1c, b2c], or null
   AdamConsts c;
   int n_leaves;
 };
 static_assert(sizeof(AdamTable) <= 32764, "kernel parameters over 32,764 B");
 
+// one element type's loads, stores and rounding
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr int kVec = 4;        // elements a 16-byte access
+  __device__ static float load(const float* p) { return *p; }
+  __device__ static void put(float* p, float x) { *p = x; }
+  __device__ static float r(float x) { return x; }
+  __device__ static void load_vec(const float* p, float (&x)[kVec]) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  }
+  __device__ static void store_vec(float* p, const float (&x)[kVec]) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  __device__ static float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  __device__ static void put(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16_rn(x);
+  }
+  // x's value rounded to bf16 (x is exactly representable afterwards)
+  __device__ static float r(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  __device__ static void load_vec(const __nv_bfloat16* p, float (&x)[kVec]) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      x[2 * k] = __uint_as_float(w[k] << 16);
+      x[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  }
+  __device__ static void store_vec(__nv_bfloat16* p, const float (&x)[kVec]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(x[2 * k]));
+      const uint32_t hi =
+          __bfloat16_as_ushort(__float2bfloat16_rn(x[2 * k + 1]));
+      w[k] = lo | (hi << 16);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// one element: every operation rounded by E::r (a no-op for f32, where
+// this is the f32 expressions of the header exactly)
+template <typename T>
 __device__ __forceinline__ float adam_elem(float g, float& mu, float& nu,
                                            const AdamConsts& c) {
-  const float m2 = __fadd_rn(__fmul_rn(c.omb1, g), __fmul_rn(c.b1, mu));
-  const float v2 =
-      __fadd_rn(__fmul_rn(c.omb2, __fmul_rn(g, g)), __fmul_rn(c.b2, nu));
-  const float den =
-      __fadd_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(v2, c.b2c), c.eps_root)), c.eps);
+  using E = Elem<T>;
+  const float m2 = E::r(__fadd_rn(E::r(__fmul_rn(c.omb1, g)),
+                                  E::r(__fmul_rn(c.b1, mu))));
+  const float v2 = E::r(__fadd_rn(E::r(__fmul_rn(c.omb2, E::r(__fmul_rn(g, g)))),
+                                  E::r(__fmul_rn(c.b2, nu))));
+  const float den = E::r(__fadd_rn(
+      E::r(__fsqrt_rn(E::r(__fadd_rn(E::r(__fdiv_rn(v2, c.b2c)), c.eps_root)))),
+      c.eps));
   mu = m2;
   nu = v2;
-  return __fmul_rn(c.neg_lr, __fdiv_rn(__fdiv_rn(m2, c.b1c), den));
+  return E::r(__fmul_rn(c.neg_lr, E::r(__fdiv_rn(E::r(__fdiv_rn(m2, c.b1c)), den))));
+}
+
+// the step's constants in the leaves' type: bias corrections from the
+// device buffer when there is one, each constant rounded by E::r
+template <typename T>
+__device__ __forceinline__ AdamConsts consts_of(const AdamTable& t) {
+  using E = Elem<T>;
+  AdamConsts c = t.c;
+  if (t.bc != nullptr) {
+    c.b1c = t.bc[0];
+    c.b2c = t.bc[1];
+  }
+  return AdamConsts{E::r(c.omb1), E::r(c.b1), E::r(c.omb2), E::r(c.b2),
+                    E::r(c.b1c), E::r(c.b2c), E::r(c.eps), E::r(c.eps_root),
+                    E::r(c.neg_lr)};
 }
 
 // the epilogue's 256-element blocks of [b0, b1): eight elements a lane
-__device__ __forceinline__ void adam_requant(const AdamTable& t, long long b0,
+__device__ __forceinline__ void adam_requant(const AdamTable& t,
+                                             const AdamConsts& c, long long b0,
                                              long long b1) {
-  const float *g = t.g[0], *mu = t.mu[0], *nu = t.nu[0];
-  float *u = t.u[0], *mu2 = t.mu2[0], *nu2 = t.nu2[0];
+  const float* g = static_cast<const float*>(t.g[0]);
+  const float* mu = static_cast<const float*>(t.mu[0]);
+  const float* nu = static_cast<const float*>(t.nu[0]);
+  float* u = static_cast<float*>(t.u[0]);
+  float* mu2 = static_cast<float*>(t.mu2[0]);
+  float* nu2 = static_cast<float*>(t.nu2[0]);
   const long long n = t.n[0];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (long long blk = b0 + warp * hvdt::kBlock; blk < b1;
@@ -115,7 +210,8 @@ __device__ __forceinline__ void adam_requant(const AdamTable& t, long long b0,
       }
     }
 #pragma unroll
-    for (int k = 0; k < hvdt::kLane; ++k) x[k] = adam_elem(x[k], m[k], v[k], t.c);
+    for (int k = 0; k < hvdt::kLane; ++k)
+      x[k] = adam_elem<float>(x[k], m[k], v[k], c);
     if (whole) {
       hvdt::store(u + e, x);
       hvdt::store(mu2 + e, m);
@@ -139,81 +235,85 @@ __device__ __forceinline__ void adam_requant(const AdamTable& t, long long b0,
 }
 
 // one leaf's pointers, as a block keeps them while its chunks stay in it
+template <typename T>
 struct Leaf {
-  const float *g, *mu, *nu;
-  float *u, *mu2, *nu2;
+  const T *g, *mu, *nu;
+  T *u, *mu2, *nu2;
   long long n;
   int first, end;                       // its chunks [first, end)
   bool vec;
 };
 
-__device__ __forceinline__ float4 adam4(float4 g, float4& mu, float4& nu,
-                                        const AdamConsts& c) {
-  return make_float4(adam_elem(g.x, mu.x, nu.x, c), adam_elem(g.y, mu.y, nu.y, c),
-                     adam_elem(g.z, mu.z, nu.z, c), adam_elem(g.w, mu.w, nu.w, c));
-}
-
-// elements [b0, b1) of a leaf: float4s with a scalar tail, or one element
-// a thread for an unaligned leaf
-__device__ __forceinline__ void adam_chunk(const Leaf& f, const AdamConsts& c,
+// elements [b0, b1) of a leaf: 16-byte groups with a scalar tail, or one
+// element a thread for an unaligned leaf
+template <typename T>
+__device__ __forceinline__ void adam_chunk(const Leaf<T>& f, const AdamConsts& c,
                                            long long b0, long long b1) {
-  const float* __restrict__ g = f.g;
-  const float* __restrict__ mu = f.mu;
-  const float* __restrict__ nu = f.nu;
-  float* __restrict__ u = f.u;
-  float* __restrict__ mu2 = f.mu2;
-  float* __restrict__ nu2 = f.nu2;
+  using E = Elem<T>;
+  constexpr int V = E::kVec;
+  const T* __restrict__ g = f.g;
+  const T* __restrict__ mu = f.mu;
+  const T* __restrict__ nu = f.nu;
+  T* __restrict__ u = f.u;
+  T* __restrict__ mu2 = f.mu2;
+  T* __restrict__ nu2 = f.nu2;
   if (f.vec) {
-    for (long long e = b0 + 4 * threadIdx.x; e < b1; e += 4 * kThreads) {
-      if (e + 4 <= b1) {                // read-only path for the inputs
-        float4 mv = __ldg(reinterpret_cast<const float4*>(mu + e));
-        float4 nv = __ldg(reinterpret_cast<const float4*>(nu + e));
-        *reinterpret_cast<float4*>(u + e) =
-            adam4(__ldg(reinterpret_cast<const float4*>(g + e)), mv, nv, c);
-        *reinterpret_cast<float4*>(mu2 + e) = mv;
-        *reinterpret_cast<float4*>(nu2 + e) = nv;
+    for (long long e = b0 + V * threadIdx.x; e < b1; e += V * kThreads) {
+      if (e + V <= b1) {                // read-only path for the inputs
+        float x[V], m[V], v[V];
+        E::load_vec(g + e, x);
+        E::load_vec(mu + e, m);
+        E::load_vec(nu + e, v);
+#pragma unroll
+        for (int k = 0; k < V; ++k) x[k] = adam_elem<T>(x[k], m[k], v[k], c);
+        E::store_vec(u + e, x);
+        E::store_vec(mu2 + e, m);
+        E::store_vec(nu2 + e, v);
       } else {                          // the leaf's ragged tail
         for (long long k = e; k < b1; ++k) {
-          float m = mu[k], v = nu[k];
-          u[k] = adam_elem(g[k], m, v, c);
-          mu2[k] = m;
-          nu2[k] = v;
+          float m = E::load(mu + k), v = E::load(nu + k);
+          E::put(u + k, adam_elem<T>(E::load(g + k), m, v, c));
+          E::put(mu2 + k, m);
+          E::put(nu2 + k, v);
         }
       }
     }
   } else {
     for (long long k = b0 + threadIdx.x; k < b1; k += kThreads) {
-      float m = mu[k], v = nu[k];
-      u[k] = adam_elem(g[k], m, v, c);
-      mu2[k] = m;
-      nu2[k] = v;
+      float m = E::load(mu + k), v = E::load(nu + k);
+      E::put(u + k, adam_elem<T>(E::load(g + k), m, v, c));
+      E::put(mu2 + k, m);
+      E::put(nu2 + k, v);
     }
   }
 }
 
-template <bool kRequant>
+template <typename T, bool kRequant>
 __global__ void __launch_bounds__(kThreads)
 adam_kernel(const __grid_constant__ AdamTable t) {
+  const AdamConsts c = consts_of<T>(t);
   const int chunks = t.first[t.n_leaves];
   int i = 0;
-  Leaf f{};                             // f.end = 0: found at the first chunk
-  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
-    if (c >= f.end) {                   // the last leaf with first <= c
+  Leaf<T> f{};                          // f.end = 0: found at the first chunk
+  for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
+    if (ch >= f.end) {                  // the last leaf with first <= ch
       int hi = t.n_leaves - 1;
       while (i < hi) {
         const int mid = (i + hi + 1) >> 1;
-        if (t.first[mid] <= c) i = mid; else hi = mid - 1;
+        if (t.first[mid] <= ch) i = mid; else hi = mid - 1;
       }
-      f = Leaf{t.g[i], t.mu[i], t.nu[i], t.u[i], t.mu2[i], t.nu2[i], t.n[i],
-               t.first[i], t.first[i + 1], t.vec[i] != 0};
+      f = Leaf<T>{static_cast<const T*>(t.g[i]), static_cast<const T*>(t.mu[i]),
+                  static_cast<const T*>(t.nu[i]), static_cast<T*>(t.u[i]),
+                  static_cast<T*>(t.mu2[i]), static_cast<T*>(t.nu2[i]), t.n[i],
+                  t.first[i], t.first[i + 1], t.vec[i] != 0};
     }
-    const long long b0 = static_cast<long long>(c - f.first) * kChunk;
-    if (kRequant) {                     // whole int8 blocks, zero-padded
+    const long long b0 = static_cast<long long>(ch - f.first) * kChunk;
+    if constexpr (kRequant) {           // whole int8 blocks, zero-padded
       const long long nq =
           (f.n + hvdt::kBlock - 1) / hvdt::kBlock * hvdt::kBlock;
-      adam_requant(t, b0, min(b0 + kChunk, nq));
+      adam_requant(t, c, b0, min(b0 + kChunk, nq));
     } else {
-      adam_chunk(f, t.c, b0, min(b0 + kChunk, f.n));
+      adam_chunk<T>(f, c, b0, min(b0 + kChunk, f.n));
     }
   }
 }
@@ -232,18 +332,19 @@ int grid_cap() {
   return cap;
 }
 
-template <bool kRequant>
+template <typename T, bool kRequant>
 int launch(const long long* ptrs, const long long* n, const int* first, int k,
-           void* q, void* s, const AdamConsts& c, cudaStream_t stream) {
+           void* q, void* s, const float* bc, const AdamConsts& c,
+           cudaStream_t stream) {
   AdamTable t{};
   for (int i = 0; i < k; ++i) {
     const long long* p = ptrs + 6 * i;
-    t.g[i] = reinterpret_cast<const float*>(p[0]);
-    t.mu[i] = reinterpret_cast<const float*>(p[1]);
-    t.nu[i] = reinterpret_cast<const float*>(p[2]);
-    t.u[i] = reinterpret_cast<float*>(p[3]);
-    t.mu2[i] = reinterpret_cast<float*>(p[4]);
-    t.nu2[i] = reinterpret_cast<float*>(p[5]);
+    t.g[i] = reinterpret_cast<const void*>(p[0]);
+    t.mu[i] = reinterpret_cast<const void*>(p[1]);
+    t.nu[i] = reinterpret_cast<const void*>(p[2]);
+    t.u[i] = reinterpret_cast<void*>(p[3]);
+    t.mu2[i] = reinterpret_cast<void*>(p[4]);
+    t.nu2[i] = reinterpret_cast<void*>(p[5]);
     t.n[i] = n[i];
     t.first[i] = first[i];
     t.vec[i] = ((p[0] | p[1] | p[2] | p[3] | p[4] | p[5]) & 15) == 0;
@@ -253,6 +354,7 @@ int launch(const long long* ptrs, const long long* n, const int* first, int k,
   t.first[k] = first[k];
   t.q = static_cast<int8_t*>(q);
   t.s = static_cast<__nv_bfloat16*>(s);
+  t.bc = bc;
   t.c = c;
   t.n_leaves = k;
   if (first[k] == 0) return 0;
@@ -263,7 +365,7 @@ int launch(const long long* ptrs, const long long* n, const int* first, int k,
   }
   const unsigned int grid =
       static_cast<unsigned int>(first[k] < cap ? first[k] : cap);
-  adam_kernel<kRequant><<<grid, kThreads, 0, stream>>>(t);
+  adam_kernel<T, kRequant><<<grid, kThreads, 0, stream>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -271,22 +373,28 @@ int launch(const long long* ptrs, const long long* n, const int* first, int k,
 
 extern "C" {
 
-// k leaves (1 <= k <= kMaxLeaves): ptrs [k][6] = g, mu, nu, u, mu2, nu2
-// (f32), n [k] their lengths, first [k + 1] each leaf's first chunk
-// (ceil(n / kChunk) chunks a leaf; first[k] is the total). With q and s
-// (k == 1 only) the update's int8 wire image: q [ceil(n/256)*256],
-// s bf16 [ceil(n/256)].
+// k leaves (1 <= k <= kMaxLeaves) of one element type (dtype 0: f32,
+// 1: bf16): ptrs [k][6] = g, mu, nu, u, mu2, nu2, n [k] their lengths,
+// first [k + 1] each leaf's first chunk (ceil(n / kChunk) chunks a leaf;
+// first[k] is the total). With q and s (f32, k == 1 only) the update's
+// int8 wire image: q [ceil(n/256)*256], s bf16 [ceil(n/256)]. With bc
+// the bias corrections are read from the device's [b1c, b2c] (f32), and
+// the b1c, b2c arguments are ignored.
 int hvd_fused_adam(const long long* ptrs, const long long* n, const int* first,
-                   int k, void* q, void* s, float omb1, float b1, float omb2,
-                   float b2, float b1c, float b2c, float eps, float eps_root,
-                   float neg_lr, void* stream) {
+                   int k, int dtype, void* q, void* s, const float* bc,
+                   float omb1, float b1, float omb2, float b2, float b1c,
+                   float b2c, float eps, float eps_root, float neg_lr,
+                   void* stream) {
   if (k < 1 || k > kMaxLeaves || (q == nullptr) != (s == nullptr) ||
-      (q != nullptr && k != 1) || first[0] != 0)
+      (q != nullptr && (k != 1 || dtype != 0)) || first[0] != 0 ||
+      dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const AdamConsts c{omb1, b1, omb2, b2, b1c, b2c, eps, eps_root, neg_lr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q != nullptr) return launch<true>(ptrs, n, first, k, q, s, c, st);
-  return launch<false>(ptrs, n, first, k, q, s, c, st);
+  if (q != nullptr) return launch<float, true>(ptrs, n, first, k, q, s, bc, c, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, false>(ptrs, n, first, k, q, s, bc, c, st);
+  return launch<float, false>(ptrs, n, first, k, q, s, bc, c, st);
 }
 
 }  // extern "C"

@@ -80,7 +80,7 @@ _ARGTYPES = {
     "hvd_dequant_accumulate": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
     "hvd_dequant_accumulate_requantize": [
         _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P],
-    "hvd_fused_adam": [_P, _P, _P, ctypes.c_int, _P, _P]
+    "hvd_fused_adam": [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P]
     + [ctypes.c_float] * 9 + [_P],
     "hvd_flash_fwd": [_P] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
@@ -292,16 +292,26 @@ def dequant_accumulate_requantize(qr, scr, dtype=torch.float32,
 # fused Adam
 
 
-def adam_constants(lr, b1, b2, eps, eps_root, count: int) -> dict:
+def adam_constants(lr, b1, b2, eps, eps_root, count) -> dict:
     """The f32 scalars of one Adam step, as JAX forms them: the Python
     doubles ``1-b1``, ``1-b2``, ``-lr`` cast to f32, and the bias
     corrections ``1 - b**count`` in f32. XLA's f32 ``pow`` is correctly
     rounded, so ``b**count`` is taken in double and rounded once; the
     subtraction from 1 then cancels most digits, which is why a ``pow``
-    one f32 ULP off would move the update by far more than one ULP."""
+    one f32 ULP off would move the update by far more than one ULP.
+
+    ``count`` a Python int gives Python floats. ``count`` a 0-d tensor
+    (a guarded state's count, which lives on the device so that a skipped
+    step can keep it without a host read) gives the bias corrections as
+    0-d f32 tensors on its device, computed there the same way, as the
+    reference's kernel takes its traced bias corrections."""
     f = np.float32
 
     def bias_correction(b):
+        if isinstance(count, torch.Tensor):
+            base = torch.full((), float(f(b)), dtype=torch.float64,
+                              device=count.device)
+            return 1.0 - torch.pow(base, count.double()).float()
         return float(f(1.0) - f(float(f(b)) ** count))
 
     return dict(
@@ -312,15 +322,37 @@ def adam_constants(lr, b1, b2, eps, eps_root, count: int) -> dict:
     )
 
 
+def _adam_scalar(x, like, divisor: bool = False):
+    """An Adam constant as a 0-d tensor of ``like``'s dtype: a host value
+    through f32, as JAX casts its Python doubles, on the host (a CPU
+    scalar operand: its value rides the launch, no copy and no sync) or,
+    as a ``divisor``, filled on ``like``'s device (see the module
+    docstring on division); a device bias correction (f32) cast."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=like.dtype)
+    v = float(np.float32(x))
+    if divisor:
+        return torch.full((), v, dtype=torch.float32,
+                          device=like.device).to(like.dtype)
+    return torch.tensor(v, dtype=torch.float32).to(like.dtype)
+
+
 def fused_adam_plain(g, mu, nu, c: dict):
-    t = lambda x: _f32_scalar(x, g)  # noqa: E731
-    mu2 = c["omb1"] * g + c["b1"] * mu
-    nu2 = c["omb2"] * (g * g) + c["b2"] * nu
-    # the square root is taken in f64 and rounded once: PyTorch's
-    # vectorized CPU f32 sqrt is not correctly rounded (XLA's and CUDA's
-    # are), and a rounding of f64 sqrt to f32 is exact-rounded
-    root = torch.sqrt((nu2 / t(c["b2c"]) + c["eps_root"]).double()).float()
-    u = c["neg_lr"] * ((mu2 / t(c["b1c"])) / (root + c["eps"]))
+    """One Adam step in ``g``'s dtype, optax's expressions one operation
+    at a time, each on two values of that dtype and rounded to it, the
+    constants too (what optax's weakly typed constants and the
+    reference's kernel give for a 16-bit leaf; in f32 the constants are
+    the f32 values JAX casts its Python doubles to). The square root is
+    taken in f64 and rounded once to f32 (to ``g``'s dtype from there):
+    PyTorch's vectorized CPU f32 sqrt is not correctly rounded (XLA's
+    and CUDA's are), and a rounding of f64 sqrt to f32 is."""
+    k = {name: _adam_scalar(c[name], g, name in ("b1c", "b2c"))
+         for name in c}
+    mu2 = k["omb1"] * g + k["b1"] * mu
+    nu2 = k["omb2"] * (g * g) + k["b2"] * nu
+    root = torch.sqrt((nu2 / k["b2c"] + k["eps_root"]).double())
+    root = root.to(torch.promote_types(g.dtype, torch.float32)).to(g.dtype)
+    u = k["neg_lr"] * ((mu2 / k["b1c"]) / (root + k["eps"]))
     return u, mu2, nu2
 
 
@@ -353,19 +385,19 @@ def adam_launch_plan(lengths: tuple, cap: int = ADAM_MAX_LEAVES) -> tuple:
 
 
 @functools.lru_cache(maxsize=64)
-def _adam_layout(lengths: tuple) -> tuple:
+def _adam_layout(lengths: tuple, align: int = 4) -> tuple:
     """Where each leaf's outputs lie in the flat output buffers: every leaf
-    at a 4-element (16-byte) boundary, so the kernel's float4 path takes
-    it. ``(split sizes, the leaves' places among the split pieces or None
-    when there is no gap, offsets int64, total)``."""
+    at an ``align``-element (16-byte) boundary, so the kernel's 16-byte
+    path takes it. ``(split sizes, the leaves' places among the split
+    pieces or None when there is no gap, offsets int64, total)``."""
     offs, sizes, take, at = [], [], [], 0
     for n in lengths:
         offs.append(at)
         take.append(len(sizes))
         sizes.append(n)
-        if n % 4:
-            sizes.append(4 - n % 4)
-        at += n + (-n) % 4
+        if n % align:
+            sizes.append(align - n % align)
+        at += n + (-n) % align
     return (tuple(sizes), None if len(sizes) == len(lengths) else tuple(take),
             np.asarray(offs, dtype=np.int64), at)
 
@@ -376,12 +408,18 @@ def _contiguous(xs):
     return [x if x.is_contiguous() else x.contiguous() for x in xs]
 
 
+#: the element types of the fused_adam kernel, by the code it is passed
+ADAM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 def _adam_launch(gs, mus, nus, c: dict, wire=None):
-    """Launch the ``fused_adam`` kernel over f32 leaves (a strided one is
-    copied contiguous first): the updates and moments as views of the
-    leaves' shapes into three flat buffers; with ``wire = (q, scales)``
-    (one leaf) also the update's int8 image. Per-leaf work is one pass of
-    ``map`` per attribute: it is the host's share of a step's update."""
+    """Launch the ``fused_adam`` kernel over leaves of one dtype of
+    :data:`ADAM_DTYPES` (a strided one is copied contiguous first): the
+    updates and moments as views of the leaves' shapes into three flat
+    buffers; with ``wire = (q, scales)`` (one f32 leaf) also the update's
+    int8 image. Device bias corrections (a guarded state's count) reach
+    the kernel as a pointer to ``[b1c, b2c]``. Per-leaf work is one pass
+    of ``map`` per attribute: it is the host's share of a step's update."""
     T = torch.Tensor
     gs, mus, nus = _contiguous(gs), _contiguous(mus), _contiguous(nus)
     lengths = tuple(map(T.numel, gs))
@@ -389,12 +427,16 @@ def _adam_launch(gs, mus, nus, c: dict, wire=None):
             tuple(map(T.numel, nus)) != lengths:
         raise ValueError("g, mu and nu must have the same lengths")
     dtypes = set(map(operator.attrgetter("dtype"), itertools.chain(gs, mus, nus)))
-    if dtypes != {torch.float32}:
-        raise TypeError(f"fused_adam takes float32 tensors, got {dtypes}")
-    sizes, take, offs, total = _adam_layout(lengths)
+    dtype = dtypes.pop() if len(dtypes) == 1 else None
+    if dtype not in ADAM_DTYPES:
+        raise TypeError(f"fused_adam takes tensors of one of "
+                        f"{sorted(map(str, ADAM_DTYPES))}, got {dtypes | {dtype}}")
+    if wire is not None and dtype != torch.float32:
+        raise TypeError("fused_adam's int8 epilogue takes a float32 leaf")
+    item = gs[0].element_size()
+    sizes, take, offs, total = _adam_layout(lengths, 16 // item)
     dev = gs[0].device
-    flats = [torch.empty(total, dtype=torch.float32, device=dev)
-             for _ in range(3)]
+    flats = [torch.empty(total, dtype=dtype, device=dev) for _ in range(3)]
     shaped = [(j, gs[j].shape) for j, d in enumerate(map(T.dim, gs)) if d != 1]
     outs = []
     for flat in flats:
@@ -407,9 +449,14 @@ def _adam_launch(gs, mus, nus, c: dict, wire=None):
     for j, xs in enumerate((gs, mus, nus)):
         ptrs[:, j] = list(map(T.data_ptr, xs))
     for j, flat in enumerate(flats):
-        ptrs[:, 3 + j] = flat.data_ptr() + 4 * offs
+        ptrs[:, 3 + j] = flat.data_ptr() + item * offs
     n = np.asarray(lengths, dtype=np.int64)
     q, s = wire if wire is not None else (None, None)
+    bc = None
+    consts = dict(c)
+    if isinstance(c["b1c"], torch.Tensor):
+        bc = torch.stack([c["b1c"], c["b2c"]]).to(dev, torch.float32)
+        consts["b1c"] = consts["b2c"] = 0.0
     plan = adam_launch_plan(lengths)
     for idx, first in plan:
         if len(plan) == 1 and len(idx) == len(lengths):
@@ -418,21 +465,25 @@ def _adam_launch(gs, mus, nus, c: dict, wire=None):
             tp, tn = ptrs[list(idx)], n[list(idx)]
         _launch("fused_adam", "fused_adam", "hvd_fused_adam", dev,
                 tp.ctypes.data, tn.ctypes.data, first.ctypes.data, len(idx),
-                None if q is None else q.data_ptr(),
+                ADAM_DTYPES[dtype], None if q is None else q.data_ptr(),
                 None if s is None else s.data_ptr(),
-                c["omb1"], c["b1"], c["omb2"], c["b2"], c["b1c"], c["b2c"],
-                c["eps"], c["eps_root"], c["neg_lr"])
+                None if bc is None else bc.data_ptr(),
+                consts["omb1"], consts["b1"], consts["omb2"], consts["b2"],
+                consts["b1c"], consts["b2c"], consts["eps"],
+                consts["eps_root"], consts["neg_lr"])
     return outs
 
 
-def fused_adam_multi(gs, mus, nus, count: int, *, lr, b1=0.9, b2=0.999,
+def fused_adam_multi(gs, mus, nus, count, *, lr, b1=0.9, b2=0.999,
                      eps=1e-8, eps_root=0.0):
-    """One Adam step over many f32 tensors at once, bias corrections taken
-    at step ``count`` (the incremented count): ``(updates, mus', nus')``,
-    lists of tensors of the inputs' shapes in optax's ``scale_by_adam ->
-    scale(-lr)`` order. On the card, one ``fused_adam`` launch for every
+    """One Adam step over many tensors at once, bias corrections taken at
+    step ``count`` (the incremented count; an int, or a 0-d tensor on the
+    tensors' device): ``(updates, mus', nus')``, lists of tensors of the
+    inputs' shapes and dtypes in optax's ``scale_by_adam -> scale(-lr)``
+    order. On the card, the tensors of each dtype (f32, bf16; dtypes in
+    first-seen order) go to one ``fused_adam`` launch for every
     :data:`ADAM_MAX_LEAVES` non-empty tensors (:func:`adam_launch_plan`);
-    the outputs are views into three flat buffers."""
+    the outputs are views into three flat buffers a dtype."""
     c = adam_constants(lr, b1, b2, eps, eps_root, count)
     if len(mus) != len(gs) or len(nus) != len(gs):
         raise ValueError("gs, mus and nus must hold as many tensors")
@@ -441,17 +492,29 @@ def fused_adam_multi(gs, mus, nus, count: int, *, lr, b1=0.9, b2=0.999,
     if not _on_cuda(*gs, *mus, *nus):
         outs = [fused_adam_plain(g, m, v, c) for g, m, v in zip(gs, mus, nus)]
         return [list(o) for o in zip(*outs)]
-    return _adam_launch(gs, mus, nus, c)
+    groups: dict = {}
+    for i, g in enumerate(gs):
+        groups.setdefault(g.dtype, []).append(i)
+    if len(groups) == 1:
+        return _adam_launch(gs, mus, nus, c)
+    outs = [[None] * len(gs) for _ in range(3)]
+    for idx in groups.values():
+        part = _adam_launch([gs[i] for i in idx], [mus[i] for i in idx],
+                            [nus[i] for i in idx], c)
+        for out, got in zip(outs, part):
+            for i, x in zip(idx, got):
+                out[i] = x
+    return outs
 
 
-def fused_adam_update(g, mu, nu, count: int, *, lr, b1=0.9, b2=0.999,
+def fused_adam_update(g, mu, nu, count, *, lr, b1=0.9, b2=0.999,
                       eps=1e-8, eps_root=0.0, requant_block=None):
-    """One Adam step over a flat f32 shard: :func:`fused_adam_multi` of one
-    tensor, ``(update, mu', nu')``. With ``requant_block`` also the
-    update's blockwise int8 wire image from the same pass, ``(update, mu',
-    nu', (q int8 [ceil(L/block)*block], scales bf16 [ceil(L/block)]))``,
-    the tail block zero-padded as the reference pads (no training path
-    consumes it, as in the reference)."""
+    """One Adam step over a flat shard (f32 or bf16): :func:`fused_adam_multi`
+    of one tensor, ``(update, mu', nu')``. With ``requant_block`` (f32)
+    also the update's blockwise int8 wire image from the same pass,
+    ``(update, mu', nu', (q int8 [ceil(L/block)*block], scales bf16
+    [ceil(L/block)]))``, the tail block zero-padded as the reference pads
+    (no training path consumes it, as in the reference)."""
     c = adam_constants(lr, b1, b2, eps, eps_root, count)
     if not _on_cuda(g, mu, nu):
         if requant_block is None:

@@ -31,6 +31,11 @@ layout-dependent.
   ``MultiSteps``);
 - :class:`DistributedGradientTape` — a gradient function's gradients
   combined across ranks.
+
+``DistributedOptimizer(numerics_guard=True)`` or ``loss_scale=`` wraps
+the optimizer in the numerics guard
+(:mod:`horovod_tpu_torch.resilience.numerics`), outermost;
+:func:`distributed_transform` sees through it.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from horovod_tpu_torch.ops.adasum import (
     _compressed_adasum, grouped_adasum_allreduce,
 )
 from horovod_tpu_torch.ops.collective import Adasum, Average, ReduceOp, Sum
+from horovod_tpu_torch.resilience import numerics as _numerics
 
 
 class Transform(NamedTuple):
@@ -124,7 +130,9 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         # the Adam direction: the plain Adam update with -lr set to 1,
         # which multiplies exactly
         d, mu2, nu2 = _k.fused_adam_plain(g, mu, nu, dict(c, neg_lr=1.0))
-        return c["neg_lr"] * (d + wd * p), mu2, nu2
+        # optax's constants in the leaf's type
+        return (_k._adam_scalar(c["neg_lr"], g)
+                * (d + _k._adam_scalar(wd, g) * p)), mu2, nu2
 
     return _adam(lr, b1, b2, eps, eps_root, step)
 
@@ -453,8 +461,22 @@ def reshard_optimizer_state(state, params, *, to_size=None,
     bucketed state (``dtype#k`` groups, ``overlap=True``) is re-packed by
     the plan of ``params`` at ``bucket_bytes`` (default the
     ``HOROVOD_BUCKET_BYTES`` resolution: reshard with the knob the state
-    was trained with; another one raises). Any other state is returned as
-    it is."""
+    was trained with; another one raises). A ``NumericsGuardState`` has
+    its ``inner`` re-packed and its scalars carried through, ``rank_norms``
+    (one step deep) re-created as zeros at the new size, as the JAX
+    package does. Any other state is returned as it is."""
+    if isinstance(state, _numerics.NumericsGuardState):
+        n = int(to_size) if to_size is not None else basics.size()
+        rank_norms = state.rank_norms
+        if tuple(np.shape(rank_norms)) != (n,):
+            rank_norms = (torch.zeros(n, dtype=torch.float32,
+                                      device=rank_norms.device)
+                          if isinstance(rank_norms, torch.Tensor)
+                          else np.zeros((n,), np.float32))
+        return state._replace(
+            inner=reshard_optimizer_state(state.inner, params, to_size=to_size,
+                                          bucket_bytes=bucket_bytes),
+            rank_norms=rank_norms)
     if not is_zero1_rows(state):
         return state
     from horovod_tpu_torch.training import host_snapshot
@@ -865,11 +887,16 @@ class BucketExchange:
     the same bits). On the GPU the buckets run on a side stream (one a
     device, :func:`_side_stream`) that first waits for the backward's
     stream at each launch, and :meth:`results` makes the caller's stream
-    wait for it."""
+    wait for it.
+
+    ``prepare``, when set (the numerics guard sets it), is applied to each
+    gradient as it is handed over, before any bucket sees it; ``leaves``
+    then holds the prepared gradients."""
 
     def __init__(self, groups: dict, n_leaves: int, run: Callable):
         self.groups = groups
         self.run = run
+        self.prepare: Optional[Callable] = None
         self.order = list(groups)
         self.leaves = [None] * n_leaves
         self.left = {k: len(b.idxs) for k, b in groups.items()}
@@ -894,7 +921,7 @@ class BucketExchange:
         self._advance(in_backward=True)
 
     def _take(self, i: int, grad) -> None:
-        self.leaves[i] = grad
+        self.leaves[i] = grad if self.prepare is None else self.prepare(grad)
         self.missing -= 1
         for k in self.of_leaf.get(i, ()):
             self.left[k] -= 1
@@ -963,7 +990,9 @@ class DistributedTransform(NamedTuple):
 
 #: optax's ``MultiStepsState``, under its JAX name (checkpoints of either
 #: package read it): ``mini_step``/``gradient_step`` are 0-d int32
-#: tensors on the host, ``acc_grads`` the running mean of the gradients
+#: tensors on the host (the emit is decided there; under the numerics
+#: guard a BAD micro-step keeps them, which reads the verdict once an
+#: update), ``acc_grads`` the running mean of the gradients
 MultiStepsState = pytree._stand_in(
     "optax.transforms._accumulation", "MultiStepsState",
     pytree._NAMEDTUPLE_FIELDS[("optax", "MultiStepsState")])
@@ -1018,7 +1047,7 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
                          overlap: Optional[bool] = None,
                          bucket_bytes: Optional[int] = None,
                          numerics_guard: Optional[bool] = None,
-                         loss_scale=None) -> DistributedTransform:
+                         loss_scale=None):
     """Wrap ``optimizer`` so each ``update`` first combines the gradients
     across ranks. The JAX package's signature and refusals, same messages.
 
@@ -1069,9 +1098,17 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
     ``backward_passes_per_step=k`` accumulates ``k`` gradients and
     exchanges their mean on every ``k``-th update (:func:`multi_steps`).
     ``axis`` must stay ``None``: the port's collectives run on the
-    world's process group. ``numerics_guard``/``loss_scale`` (and
-    ``HOROVOD_NUMERICS_GUARD=1``) raise ``NotImplementedError``: the
-    guard is not ported yet (ROADMAP Queue A item 8).
+    world's process group.
+
+    ``numerics_guard=True`` (default ``HOROVOD_NUMERICS_GUARD``, or any
+    ``loss_scale``) wraps the result in
+    :func:`~horovod_tpu_torch.resilience.numerics.guard`, outermost: a
+    :class:`~horovod_tpu_torch.resilience.numerics.GuardedTransformation`
+    whose state is a ``NumericsGuardState`` around this optimizer's
+    (:func:`distributed_transform` gives the optimizer inside).
+    ``loss_scale`` (``"dynamic"`` or a float) is carried in the guard's
+    state; ``make_train_step`` scales the loss by it. The guard does not
+    compose with ``shard_params=True``, as in the JAX package.
     """
     if axis is not None:
         raise ValueError(
@@ -1181,11 +1218,6 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
             "full (or ZeRO-1 replicated) gradients, and per-rank verdicts "
             "over FsdpParams shards could diverge. Guard ZeRO-1 "
             "(shard_optimizer=True) instead, or train ZeRO-3 unguarded")
-    if numerics_guard:
-        raise NotImplementedError(
-            "numerics_guard/loss_scale (HOROVOD_NUMERICS_GUARD) is not "
-            "ported yet: the numerics guard comes with resilience, ROADMAP "
-            "Queue A item 8 (A10)")
     if int(backward_passes_per_step) < 1:
         raise ValueError("backward_passes_per_step must be >= 1, got "
                          f"{backward_passes_per_step}")
@@ -1333,12 +1365,26 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
     k = int(backward_passes_per_step)
     if k > 1:
         tx = multi_steps(Transform(init, update), k)
-        return DistributedTransform(tx.init, tx.update, bool(shard_optimizer),
-                                    bool(shard_params), ov_bytes, None)
-    return DistributedTransform(init, update, bool(shard_optimizer),
-                                bool(shard_params), ov_bytes,
-                                exchange if ov_bytes and not shard_params
-                                else None)
+        tx = DistributedTransform(tx.init, tx.update, bool(shard_optimizer),
+                                  bool(shard_params), ov_bytes, None)
+    else:
+        tx = DistributedTransform(init, update, bool(shard_optimizer),
+                                  bool(shard_params), ov_bytes,
+                                  exchange if ov_bytes and not shard_params
+                                  else None)
+    if numerics_guard:
+        # outermost, so a BAD verdict freezes everything this optimizer
+        # owns: moments, EF residuals, PowerSGD's Q, the accumulator
+        tx = _numerics.guard(tx, loss_scale=loss_scale)
+    return tx
+
+
+def distributed_transform(tx) -> Optional[DistributedTransform]:
+    """The :class:`DistributedTransform` that ``tx`` is, or that a
+    numerics guard wraps (``tx.inner``); None for a plain optimizer."""
+    if _numerics.is_guarded(tx):
+        tx = tx.inner
+    return tx if isinstance(tx, DistributedTransform) else None
 
 
 class DistributedGradientTape:
@@ -1397,19 +1443,34 @@ def _map_state(fn, x):
     return fn(x)
 
 
+def _is_sharded_state(x) -> bool:
+    """Is ``x`` a ZeRO-1 state (``{"shard": {"rank", "size"}, ...}``, or
+    its consolidated view)? Such a state is per-rank data, at whatever
+    depth it sits (inside ``MultiStepsState.inner_opt_state`` or a guard's
+    ``inner``): the JAX package tests each leaf for its sharding
+    (``is_sharded_state_leaf``) for the same reason."""
+    return isinstance(x, dict) and isinstance(x.get("shard"), dict) \
+        and "size" in x["shard"]
+
+
 def broadcast_optimizer_state(state, root_rank: int = 0):
     """``root_rank``'s optimizer state on every rank, as the JAX package
     maps it: tensors through :func:`broadcast`, every other leaf (ints,
     floats, strings, ``None``, ...) through :func:`broadcast_object`, so
-    it arrives exact. A ZeRO-1 state (``state["shard"]``) is returned as
-    it is: each rank's shard is its own authoritative state, and
+    it arrives exact. A ZeRO-1 state is left as it is, at any depth of
+    the tree: each rank's shard is its own authoritative state, and
     broadcasting root's row would corrupt the others."""
-    if isinstance(state, dict) and "shard" in state:
-        return state
 
-    def one(x):
+    def walk(x):
+        if _is_sharded_state(x):
+            return x
+        if isinstance(x, dict):
+            return type(x)((k, walk(v)) for k, v in x.items())
+        if isinstance(x, (list, tuple)):
+            items = [walk(v) for v in x]
+            return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
         if isinstance(x, torch.Tensor):
             return _C.broadcast(x, root_rank)
         return _C.broadcast_object(x, root_rank)
 
-    return _map_state(one, state)
+    return walk(state)

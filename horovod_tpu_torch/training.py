@@ -22,9 +22,10 @@ from horovod_tpu_torch.models.layers import torch_params
 from horovod_tpu_torch.ops import overlap as _ov
 from horovod_tpu_torch.ops.collective import Average, allreduce
 from horovod_tpu_torch.optim import (
-    DistributedTransform, FsdpParams, fsdp_gather_params, fsdp_pack_params,
+    FsdpParams, distributed_transform, fsdp_gather_params, fsdp_pack_params,
     tree_keys,
 )
+from horovod_tpu_torch.resilience import numerics as _numerics
 
 
 def softmax_xent(logits, labels):
@@ -38,6 +39,13 @@ def lm_xent(logits, targets):
     mean over ``[B, T]`` (the JAX LM benchmark's loss)."""
     logp = F.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, targets.long()[..., None]).mean()
+
+
+def token_xent(logits, targets):
+    """The JAX package's name for :func:`lm_xent` (``training.token_xent``):
+    next-token cross entropy over ``[B, T, V]`` logits and integer
+    targets, log-softmax in f32, mean over every token."""
+    return lm_xent(logits, targets)
 
 
 @torch.no_grad()
@@ -110,17 +118,28 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
     plain ``tx``, the gradient allreduce), ``"optimizer"`` (the update,
     the exchange inside a DistributedOptimizer, the running stats) and
     ``"loss"`` (the loss allreduce). A hook that synchronises the device
-    and reads a clock splits the step's time."""
-    distributed = isinstance(tx, DistributedTransform)
+    and reads a clock splits the step's time.
+
+    A numerics-guarded ``tx`` (``DistributedOptimizer(numerics_guard=
+    True)`` or ``loss_scale=``) is seen through for all of the above and
+    detected, as the JAX step detects it: the loss is multiplied by the
+    guard's loss scale (:func:`~horovod_tpu_torch.resilience.numerics
+    .current_scale`, a device tensor) before the backward, the update
+    gets this rank's loss (``loss=``, unscaled: the scaled loss divided
+    by the scale) so a non-finite loss marks the step BAD, and the step
+    returns the unscaled, rank-averaged loss."""
+    dtx = distributed_transform(tx)
+    distributed = dtx is not None
+    guarded = _numerics.is_guarded(tx)
     mark = on_phase or (lambda name: None)
-    if shard_optimizer and not (distributed and tx.shard_optimizer):
+    if shard_optimizer and not (distributed and dtx.shard_optimizer):
         raise ValueError(
             "shard_optimizer=True needs tx = DistributedOptimizer(..., "
             "shard_optimizer=True)")
-    if distributed and tx.shard_optimizer != shard_optimizer:
+    if distributed and dtx.shard_optimizer != shard_optimizer:
         raise ValueError("tx was built with shard_optimizer="
-                         f"{tx.shard_optimizer}; pass the same here")
-    if shard_params != (distributed and tx.shard_params):
+                         f"{dtx.shard_optimizer}; pass the same here")
+    if shard_params != (distributed and dtx.shard_params):
         raise ValueError(
             "shard_params=True and tx = DistributedOptimizer(..., "
             "shard_params=True) go together")
@@ -143,12 +162,19 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
         for p in model.parameters():
             p.grad = None
         loss = loss_fn(model(images), labels)
+        scale = _numerics.current_scale(opt_state) if guarded else None
+        if scale is not None:
+            # scaled where it is differentiated: the backward runs at the
+            # scaled magnitude; the guard unscales the gradients
+            loss = loss * scale
         mark("forward")
         ex = live["ex"] = tx.exchange(opt_state, params) if hooked else None
         try:
             loss.backward()
         finally:
             live["ex"] = None
+        if scale is not None:
+            loss = loss.detach() / scale
         grads = model.jax_grads()
         if ex is not None:
             ex.flush([grads[k] if grads[k] is not None
@@ -163,11 +189,10 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
                      for k in tree_keys(grads)}
         mark("backward")
         with torch.no_grad():
+            kw = {"loss": loss.detach()} if guarded else {}
             if ex is not None:
-                updates, opt_state = tx.update(grads, opt_state, params,
-                                               started=ex)
-            else:
-                updates, opt_state = tx.update(grads, opt_state, params)
+                kw["started"] = ex
+            updates, opt_state = tx.update(grads, opt_state, params, **kw)
             for k, u in updates.items():
                 params[k].add_(u)
             _average_stats(stats, stat_keys)

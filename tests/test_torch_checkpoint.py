@@ -510,7 +510,10 @@ def test_consolidate_reads_a_jax_written_zero1_state(zero1_worlds, tmp_path):
 
 def test_what_is_not_ported_raises():
     """What the port still lacks raises where met; a bucketed (``dtype#k``)
-    ZeRO-1 state, which used to, is now re-packed."""
+    ZeRO-1 state and a ``NumericsGuardState``, which used to, are now
+    re-packed (the guard's around a bucketed ZeRO-1 state of 2 ranks,
+    consolidated to one: its ``inner`` this rank's row, its scalars kept,
+    ``rank_norms`` zeros at the new size)."""
     params = {"w": torch.zeros(10)}
     rows = {"shard": {"size": 2}, "inner": {"count": np.full(2, 1, np.int32),
                                            "mu": {"float32#0": np.zeros((2, 5),
@@ -518,14 +521,29 @@ def test_what_is_not_ported_raises():
     out = reshard_optimizer_state(rows, params, to_size=1)
     assert out["inner"]["mu"]["float32#0"].shape == (1, 10)
     from horovod_tpu_torch import pytree
+    from horovod_tpu_torch.resilience import numerics as tnum
 
     guard = pytree._stand_in("horovod_tpu.resilience.numerics",
                              "NumericsGuardState",
                              pytree._NAMEDTUPLE_FIELDS[
                                  ("horovod_tpu", "NumericsGuardState")])
-    state = guard(*([None] * len(guard._fields)))
-    with pytest.raises(ValueError, match="NumericsGuardState"):
-        ck.consolidate_opt_state(state, params)
+    assert guard is tnum.NumericsGuardState
+    scalars = dict(ewma=np.float32(0.5), count=np.int32(3),
+                   bad_count=np.int32(1), bad_streak=np.int32(0),
+                   last_bad=np.int32(0), last_finite=np.int32(1),
+                   last_norm=np.float32(0.25),
+                   norms={"float32": np.float32(0.25)},
+                   loss_scale=np.float32(4.0), good_streak=np.int32(1),
+                   chaos_fired=np.int32(0),
+                   rank_norms=np.array([0.2, 0.3], np.float32))
+    state = guard(inner=rows, **scalars)
+    out = ck.consolidate_opt_state(state, params, to_size=1)
+    assert isinstance(out, tnum.NumericsGuardState)
+    assert out.inner["shard"] == {"rank": 0, "size": 1}
+    assert tuple(out.inner["inner"]["mu"]["float32#0"].shape) == (10,)
+    assert tnum.verdict(out)["rank_norms"] == [0.0]
+    for f in ("ewma", "count", "bad_count", "loss_scale", "last_norm"):
+        assert getattr(out, f).item() == scalars[f].item(), f
     saved = {ck.FSDP_ROWS: {"float32": np.zeros((4, 3), np.float32)},
              "keys": ["w"], "shapes": [[10]], "dtypes": ["float32"]}
     with pytest.raises(ValueError, match="fsdp_reshard_params"):
@@ -808,3 +826,144 @@ def test_the_ports_new_states_restore_in_jax(tmp_path, world_of_one):
         np.testing.assert_array_equal(z["residual"][k][0], v.numpy())
         np.testing.assert_array_equal(z["inner"]["mu"][k][0],
                                       states["zero1"]["inner"]["mu"][k].numpy())
+
+
+# --------------------------------------------------------------------------
+# the numerics guard's state (NumericsGuardState) in both directions
+
+
+def _jax_guarded_zero1(n, params, grads):
+    """A guarded ZeRO-1 + int8 + EF Adam state (``loss_scale=8.0``) after
+    ``grads`` (the same on every rank) on an ``n``-device mesh, the
+    guard's scalars replicated (``numerics.shard_state_spec``)."""
+    from jax.sharding import PartitionSpec as P
+
+    from horovod_tpu.ops.collective import _smap
+    from horovod_tpu.resilience import numerics as jnum
+
+    jhvd.init(devices=jax.devices()[:n])
+    try:
+        mesh, ax = jhvd.mesh(), jhvd.data_axis()
+        tx = jhvd.DistributedOptimizer(
+            optax.adam(1e-2), shard_optimizer=True,
+            compression=jhvd.Compression.int8, error_feedback=True,
+            numerics_guard=True, loss_scale=8.0)
+        p = {k: jnp.asarray(v) for k, v in params.items()}
+        s = tx.init(p)
+        spec = jnum.shard_state_spec(P(ax))
+
+        def step(pp, ss, gg):
+            u, ss = tx.update(gg, ss, pp)
+            return optax.apply_updates(pp, u), ss
+
+        f = jax.jit(_smap(step, mesh, (P(), spec, P()), (P(), spec)))
+        for g in grads:
+            p, s = f(p, s, {k: jnp.asarray(v) for k, v in g.items()})
+        return jax.tree_util.tree_map(np.asarray, s)
+    finally:
+        jhvd.shutdown()
+
+
+def _guard_inputs():
+    r = np.random.RandomState(15)
+    params = {"w": (r.randn(40, 30) * 0.1).astype(np.float32),
+              "e": (r.randn(1500) * 0.1).astype(np.float32)}
+    grads = [_flat_grads(r, params, 8.0) for _ in range(3)]
+    grads[1]["w"][3, 4] = np.nan        # the second step is BAD
+    return params, grads
+
+
+def _assert_guard_scalars(got, want):
+    """Every scalar field of two NumericsGuardStates bit-equal (host
+    arrays or tensors), ``inner`` and ``rank_norms`` aside."""
+    for f in got._fields:
+        if f in ("inner", "rank_norms"):
+            continue
+        a, b = getattr(got, f), getattr(want, f)
+        if f == "norms":
+            assert set(a) == set(b)
+            for k in b:
+                _assert_same(_np_any(a[k]), np.asarray(b[k]), f)
+        else:
+            _assert_same(_np_any(a), np.asarray(b), f)
+
+
+def _np_any(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def test_guard_state_restores_across_the_packages(tmp_path, world_of_one):
+    """A guarded ZeRO-1 state the JAX package wrote at N = 2 (a BAD step
+    among its three, the scale backed off to 4) restores in the port and
+    consolidates to a world of one: the verdict and the scalars are the
+    JAX package's ``reshard_optimizer_state``'s, the inner rows too, bit
+    for bit; it continues as a guarded state. The port's own guarded
+    state, saved, restores in the JAX package as its
+    ``NumericsGuardState``, whose verdict is the port's."""
+    from horovod_tpu.resilience import numerics as jnum
+    from horovod_tpu_torch.resilience import numerics as tnum
+
+    params, grads = _guard_inputs()
+    jst = _jax_guarded_zero1(2, params, grads)
+    assert jnum.verdict(jst)["bad_count"] == 1
+    jck.save(str(tmp_path / "jax"), 3, {"opt": jst})
+    want = jreshard(jst, params, to_size=1)
+    tree = ck.restore(str(tmp_path / "jax"), 3)
+    assert type(tree["opt"]).__name__ == "NumericsGuardState"
+    tparams = {k: torch.from_numpy(v) for k, v in params.items()}
+    st = ck.consolidate_opt_state(tree["opt"], tparams, to_size=1)
+    assert isinstance(st, tnum.NumericsGuardState)
+    assert tnum.verdict(st) == jnum.verdict(want)
+    _assert_guard_scalars(st, want)
+    assert st.inner["shard"] == {"rank": 0, "size": 1}
+    assert int(st.inner["inner"]["count"]) == int(want.inner.inner[0].count[0])
+    for part, w in (("mu", want.inner.inner[0].mu),
+                    ("nu", want.inner.inner[0].nu)):
+        _assert_same(st.inner["inner"][part]["float32"].numpy(),
+                     np.asarray(w["float32"])[0], part)
+    _assert_same(st.inner["residual"]["float32"].numpy(),
+                 np.asarray(want.inner.residual["float32"])[0], "residual")
+    tx = hvd.DistributedOptimizer(hvd.adam(1e-2), shard_optimizer=True,
+                                  compression=hvd.Compression.int8,
+                                  error_feedback=True, loss_scale=8.0)
+    _, st2 = _port_run(tx, params, st, grads[:1])
+    assert tnum.verdict(st2)["count"] == 4
+    # the port's guarded state (continued one step) into the JAX package
+    ck.save(str(tmp_path / "port"), 4, {"opt": st2})
+    back = jck.restore(str(tmp_path / "port"), 4)["opt"]
+    assert isinstance(back, jnum.NumericsGuardState)
+    assert jnum.verdict(back) == tnum.verdict(st2)
+    np.testing.assert_array_equal(
+        back.inner["inner"]["mu"]["float32"][0],
+        st2.inner["inner"]["mu"]["float32"].numpy())
+
+
+def test_guard_state_reshard_2_1_2_keeps_the_scalars(tmp_path):
+    """``reshard_optimizer_state`` 2 -> 1 -> 2 of the JAX package's
+    guarded ZeRO-1 state as the port restores it (``tests/test_zero.py``'s
+    8 -> 4 -> 8 case at the port's sizes): the guard's scalars bit-equal
+    at every stop, ``rank_norms`` re-created as zeros at each new size,
+    the inner rows bit-equal to the JAX package's own 2 -> 1 -> 2."""
+    from horovod_tpu_torch.models.convert import opt_state_from_jax
+
+    params, grads = _guard_inputs()
+    jst = _jax_guarded_zero1(2, params, grads)
+    jck.save(str(tmp_path), 3, {"opt": jst})
+    st = opt_state_from_jax(ck.restore(str(tmp_path), 3)["opt"])
+    j1 = jreshard(jst, params, to_size=1)
+    j2 = jreshard(j1, params, to_size=2)
+    t1 = reshard_optimizer_state(st, params, to_size=1)
+    t2 = reshard_optimizer_state(t1, params, to_size=2)
+    for got, want, n in ((t1, j1, 1), (t2, j2, 2)):
+        _assert_guard_scalars(got, jst)
+        _assert_guard_scalars(got, want)
+        _assert_same(np.asarray(got.rank_norms), np.zeros(n, np.float32),
+                     "rank_norms")
+        assert got.inner["shard"] == {"size": n}
+        for part in ("mu", "nu"):
+            _assert_same(got.inner["inner"][part]["float32"],
+                         np.asarray(getattr(want.inner.inner[0], part)
+                                    ["float32"]), part)
+        _assert_same(got.inner["residual"]["float32"],
+                     np.asarray(want.inner.residual["float32"]), "residual")

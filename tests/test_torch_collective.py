@@ -215,6 +215,31 @@ def test_broadcast_optimizer_state_leaves_zero1(bcast):
     assert all(out["zero1_untouched"] for out in port[2])
 
 
+@pytest.fixture(scope="module")
+def nested():
+    return run_world(W.nested_zero1_bcast_worker, N)
+
+
+@pytest.mark.parametrize("case", ["k2", "guarded"])
+def test_broadcast_optimizer_state_leaves_zero1_nested(nested, case):
+    """A ZeRO-1 state below the top of the tree — in ``MultiStepsState``
+    (``backward_passes_per_step=2``) and in the numerics guard's
+    ``inner`` — is left alone as well: after two updates with
+    rank-dependent gradients each rank keeps its own ``mu`` shard and its
+    own ``shard``, as the JAX package leaves a sharded leaf at any
+    depth; the rest (the guard's scalars) is broadcast."""
+    for r in range(N):
+        got = nested[r][case]
+        assert got["untouched"]
+        assert got["shard_after"] == {"rank": r, "size": N}
+        np.testing.assert_array_equal(got["mu_after"], got["mu_before"])
+    assert not np.array_equal(nested[0][case]["mu_before"],
+                              nested[1][case]["mu_before"])
+    if case == "guarded":
+        assert nested[1][case]["verdict"] == nested[0][case]["verdict"]
+        assert nested[0][case]["verdict"]["count"] == 2
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_broadcast_object(bcast, n):
     port, _, _ = bcast

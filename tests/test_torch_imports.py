@@ -63,6 +63,10 @@ def test_every_module_imports_with_jax_poisoned():
         "for f in (ck.save, ck.restore, ck.CheckpointManager, host_snapshot,\n"
         "          ck.consolidate_opt_state, VGG16, InceptionV3, MLP, MnistCNN):\n"
         "    assert callable(f)\n"
+        # the numerics guard and dynamic loss scaling
+        "from horovod_tpu_torch.resilience import chaos, numerics\n"
+        "tx = hvd.DistributedOptimizer(hvd.adam(1e-3), loss_scale='dynamic')\n"
+        "assert numerics.is_guarded(tx) and chaos.parse_spec('grad_nan_at_step=2')\n"
         # the frontend and the native core, driven in a world of one
         "import torch\n"
         "import horovod_tpu_torch.torch as thvd\n"

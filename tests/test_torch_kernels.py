@@ -726,6 +726,36 @@ def test_fused_adam_update_is_the_one_tensor_launch(monkeypatch):
         K.fused_adam_update(g, mu, nu, 2, lr=1e-3, requant_block=128)
 
 
+def test_fused_adam_multi_groups_dtypes_and_takes_a_device_count(
+        monkeypatch):
+    """bf16 and f32 leaves in one ``fused_adam_multi`` call: one launch a
+    dtype (f32 first, as first seen), every output in its leaf's dtype and
+    each leaf the plain version's bits through the kernel's table (bf16
+    leaves at 8-element, 16-byte boundaries). A 0-d count tensor (a
+    guarded state's) reaches the kernel as the device buffer of its bias
+    corrections, bit-equal to the same step at an int count."""
+    r = _rng(57)
+    shapes = [(5, 7), (K.ADAM_CHUNK + 3,), (257,), (3,), (2, 3, 4)]
+    dts = [torch.float32, torch.bfloat16, torch.bfloat16, torch.float32,
+           torch.bfloat16]
+    gs = [torch.from_numpy(r.randn(*s).astype(np.float32)).to(d)
+          for s, d in zip(shapes, dts)]
+    mus = [(g.float() * 0.01).to(g.dtype) for g in gs]
+    nus = [(g.float() ** 2 * 1e-4).to(g.dtype) for g in gs]
+    want = K.fused_adam_multi(gs, mus, nus, 4, lr=1e-3)
+    launched = []
+    W.emulate_fused_adam(monkeypatch.setattr, launched)
+    for count in (4, torch.tensor(3, dtype=torch.int32) + 1):
+        launched.clear()
+        got = K.fused_adam_multi(gs, mus, nus, count, lr=1e-3)
+        assert launched == [(2, False), (3, False)]
+        for outs, refs in zip(got, want):
+            for o, ref, d in zip(outs, refs, dts):
+                assert o.dtype == d and o.shape == ref.shape
+                assert o.data_ptr() % 16 == 0
+                _assert_bits(o, ref)
+
+
 def test_every_launch_matches_its_c_signature(monkeypatch):
     """Each wrapper hands its C function exactly the arguments its
     ``argtypes`` declare, the stream last: an argument ctypes does not
@@ -760,6 +790,9 @@ def test_every_launch_matches_its_c_signature(monkeypatch):
     K.fused_adam_multi([x, torch.zeros(3, 4)], [x, torch.zeros(12)],
                        [x, torch.zeros(12)], 1, lr=1e-3)
     K.fused_adam_update(x, x, x, 1, lr=1e-3, requant_block=256)
+    xb = x.to(torch.bfloat16)
+    K.fused_adam_multi([xb], [xb], [xb], torch.tensor(2, dtype=torch.int32),
+                       lr=1e-3)
     qkv = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
     K.flash_fwd(qkv, qkv, qkv, causal=True)
     K.dequantize_rows(q8, sc)
@@ -769,6 +802,30 @@ def test_every_launch_matches_its_c_signature(monkeypatch):
     K.adasum_pair_combine_packed(xh, xh, (0, 100, 104, 512, 512))
     assert calls == ["hvd_quantize", "hvd_dequant_accumulate",
                      "hvd_dequant_accumulate_requantize", "hvd_fused_adam",
-                     "hvd_fused_adam", "hvd_flash_fwd", "hvd_dequantize_rows",
+                     "hvd_fused_adam", "hvd_fused_adam", "hvd_flash_fwd",
+                     "hvd_dequantize_rows",
                      "hvd_adasum_combine", "hvd_adasum_combine",
                      "hvd_adasum_combine"]
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1023,), np.float32), ((1024,), np.float32), ((37, 41), np.float32),
+    ((3, 3, 16, 32), np.float32), ((2000,), np.int32)])
+def test_int8_roundtrip_matches_jax(shape, dtype):
+    """``compression.int8_roundtrip`` against the JAX package's: the
+    dequantized wire image bit for bit in the leaf's shape (a NaN and an
+    infinity among the values), and the very tensor back below the
+    ``MIN_QUANT_ELEMS`` floor or for a dtype that is not quantized."""
+    r = _rng(81)
+    x = (r.randn(*shape) * 3).astype(dtype)
+    if dtype == np.float32 and x.size > 600:
+        x.reshape(-1)[[5, 500]] = [np.nan, np.inf]
+    t = torch.from_numpy(x)
+    got = tc.int8_roundtrip(t)
+    want = np.asarray(jc.int8_roundtrip(jnp.asarray(x)))
+    assert tuple(got.shape) == shape and got.dtype == t.dtype
+    if x.size < tc.MIN_QUANT_ELEMS or dtype != np.float32:
+        assert got is t
+    else:
+        assert not np.array_equal(got.numpy(), x)    # the wire is lossy
+    _assert_bits(got, want)

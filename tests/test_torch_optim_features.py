@@ -464,16 +464,59 @@ def test_refused_as_the_jax_package_refuses(one, case):
     assert str(te.value) == str(je.value)
 
 
-@pytest.mark.parametrize("kw,env", [
-    (dict(numerics_guard=True), None), (dict(loss_scale="dynamic"), None),
-    (dict(loss_scale=1024.0, shard_optimizer=True), None),
-    ({}, "HOROVOD_NUMERICS_GUARD")], ids=["guard", "loss_scale",
-                                          "loss_scale_zero1", "env"])
+GUARD_ASKS = [(dict(numerics_guard=True), None),
+              (dict(loss_scale="dynamic"), None),
+              (dict(loss_scale=1024.0, shard_optimizer=True), None),
+              ({}, "HOROVOD_NUMERICS_GUARD")]
+GUARD_IDS = ["guard", "loss_scale", "loss_scale_zero1", "env"]
+
+
+@pytest.mark.parametrize("kw,env", GUARD_ASKS, ids=GUARD_IDS)
 def test_numerics_guard_is_not_ported_and_never_ignored(one, kw, env):
+    """Each way of asking for the numerics guard is never ignored: the
+    optimizer it builds skips a step whose gradient is NaN (parameters,
+    moments and count kept, the update -0.0) and counts it BAD."""
+    from horovod_tpu_torch.resilience import numerics as tnum
+
     if env:
         one.setenv(env, "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
-        hvd.DistributedOptimizer(hvd.adam(1e-3), **kw)
+    tx = hvd.DistributedOptimizer(hvd.adam(1e-3), **kw)
+    p = {"w": torch.ones(4)}
+    st = tx.init(p)
+    scale = tnum.current_scale(st)
+    _, st = tx.update({"w": torch.full((4,), 0.5) * scale}, st, p)
+    inner = W._bits_of(st.inner)
+    u, st = tx.update({"w": torch.full((4,), float("nan"))}, st, p)
+    assert torch.equal(u["w"], torch.zeros(4)) and bool(
+        torch.signbit(u["w"]).all())
+    assert W.same_bits(inner, W._bits_of(st.inner))
+    assert tnum.verdict(st)["bad_count"] == 1
+
+
+@pytest.mark.parametrize("kw,env", GUARD_ASKS, ids=GUARD_IDS)
+def test_numerics_guard_enabled_as_the_jax_package_enables_it(one, kw, env):
+    """Each way of asking for the guard builds a guarded optimizer in both
+    packages (``numerics.is_guarded``), never an unguarded one: the guard
+    wraps the DistributedOptimizer outermost, its state a
+    ``NumericsGuardState`` with the loss scale the JAX package starts."""
+    from horovod_tpu.resilience import numerics as jnum
+    from horovod_tpu_torch.resilience import numerics as tnum
+
+    if env:
+        one.setenv(env, "1")
+    jhvd.init(devices=jax.devices()[:1])
+    try:
+        jtx = jhvd.DistributedOptimizer(optax.adam(1e-3), **kw)
+        jst = jtx.init({"w": jnp.ones(3)})
+    finally:
+        jhvd.shutdown()
+    ttx = hvd.DistributedOptimizer(hvd.adam(1e-3), **kw)
+    assert jnum.is_guarded(jtx) and tnum.is_guarded(ttx)
+    tst = ttx.init({"w": torch.ones(3)})
+    assert isinstance(tst, tnum.NumericsGuardState)
+    assert type(tst).__name__ == type(jst).__name__
+    assert float(tnum.current_scale(tst)) == float(jnum.current_scale(jst))
+    assert ttx.shard_optimizer == bool(kw.get("shard_optimizer", False))
 
 
 def test_bucketed_zero3_and_axis_are_refused(one):

@@ -136,9 +136,9 @@ def _params():
             "tiny": f(2, 3)}
 
 
-#: leaves that are not float32 (the port's Adam is f32-only: ROADMAP
-#: Queue C; the bf16 route is pinned in the unit test above)
-DTYPES: dict = {}
+#: leaves that are not float32: a bf16 leaf neither factorizes nor rides
+#: int8 (the plain wire, a zero residual), and Adam keeps its dtype
+DTYPES = {"emb": "bfloat16"}
 
 
 def _steps():

@@ -36,7 +36,7 @@ from horovod_tpu_torch.models import transformer as ttr
 from horovod_tpu_torch.models.convert import flatten_tree, load_flax_variables
 from horovod_tpu_torch.ops.flash_attention import flash_attention as tflash
 from horovod_tpu_torch.testing import run_world
-from horovod_tpu_torch.training import lm_xent
+from horovod_tpu_torch.training import lm_xent, token_xent
 
 import test_torch_workers as W
 
@@ -268,3 +268,25 @@ def test_slice_params_track_jax(slice_runs):
                                    err_msg=k)
         assert np.array_equal(got, port[1]["params"][k]), k
         assert not np.array_equal(got, start[k]), k
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_token_xent_matches_jax(dtype):
+    """``training.token_xent`` (the JAX package's name for the LM loss)
+    against ``horovod_tpu.training.token_xent`` on the same logits
+    ``[2, 5, 11]`` and targets: log-softmax in f32 (bf16 logits widened
+    first), the mean over every token, within 1e-6."""
+    from horovod_tpu.training import token_xent as jtoken_xent
+
+    r = np.random.RandomState(91)
+    logits = (r.randn(2, 5, 11) * 3).astype(np.float32)
+    targets = r.randint(0, 11, (2, 5)).astype(np.int32)
+    tl = torch.from_numpy(logits)
+    jl = jnp.asarray(logits)
+    if dtype == "bfloat16":
+        tl, jl = tl.bfloat16(), jl.astype(jnp.bfloat16)
+    got = token_xent(tl, torch.from_numpy(targets))
+    want = jtoken_xent(jl, jnp.asarray(targets))
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    assert float(got) == float(lm_xent(tl, torch.from_numpy(targets)))

@@ -211,24 +211,31 @@ def emulate_fused_adam(setattr_, launched):
         return np.ctypeslib.as_array((ctype * n).from_address(ptr)) if n \
             else np.zeros(0)
 
-    def launch(kernel, lib, sym, device, ptrs, n, first, k, q, s, *consts):
+    def launch(kernel, lib, sym, device, ptrs, n, first, k, dtype, q, s, bc,
+               *consts):
         assert sym == "hvd_fused_adam" and len(consts) == 9
         c = dict(zip(("omb1", "b1", "omb2", "b2", "b1c", "b2c", "eps",
                       "eps_root", "neg_lr"), consts))
+        if bc is not None:          # the device bias corrections
+            c["b1c"], c["b2c"] = (float(v) for v in at(bc, 2, ctypes.c_float))
+        elem, item = ((ctypes.c_float, 4), (ctypes.c_int16, 2))[dtype]
+
+        def view(ptr, count):
+            t = torch.from_numpy(at(ptr, count, elem))
+            return t.view(torch.bfloat16) if dtype == 1 else t
+
         tp = at(ptrs, 6 * k, ctypes.c_longlong).reshape(k, 6)
         tn, tf = at(n, k, ctypes.c_longlong), at(first, k + 1, ctypes.c_int)
         for ch in range(int(tf[k])):
             j = plan_leaf(tf, ch)
             lo = (ch - int(tf[j])) * K.ADAM_CHUNK
             hi = min(lo + K.ADAM_CHUNK, int(tn[j]))
-            io = [torch.from_numpy(at(int(tp[j, i]) + 4 * lo, hi - lo,
-                                      ctypes.c_float)) for i in range(6)]
+            io = [view(int(tp[j, i]) + item * lo, hi - lo) for i in range(6)]
             for dst, val in zip(io[3:], K.fused_adam_plain(*io[:3], c)):
                 dst.copy_(val)
         if q is not None:           # the epilogue: one leaf, whole blocks
             L = int(tn[0])
-            g, mu, nu = (torch.from_numpy(at(int(tp[0, i]), L, ctypes.c_float))
-                         for i in range(3))
+            g, mu, nu = (view(int(tp[0, i]), L) for i in range(3))
             *_, (qq, ss) = K.fused_adam_requant_plain(g, mu, nu, c)
             torch.from_numpy(at(q, qq.numel(), ctypes.c_int8)).copy_(qq)
             torch.from_numpy(at(s, ss.numel(), ctypes.c_int16)).copy_(
@@ -1093,4 +1100,248 @@ def slice10_worker(inp):
         out["powersgd"] = powersgd_worker(*inp["powersgd"])
     if "psgd_train" in inp:
         out["psgd_train"] = powersgd_train_worker(*inp["psgd_train"])
+    return out
+
+
+# --------------------------------------------------------------------------
+# the numerics guard (tests/test_torch_numerics.py, tests/test_torch_collective.py)
+
+
+def sgd(lr):
+    """``optax.sgd(lr)`` (no momentum): ``f32(-lr) * g``, the inner
+    optimizer of the JAX package's guard tests."""
+    from horovod_tpu_torch.optim import Transform
+
+    neg = float(np.float32(-lr))
+    return Transform(lambda p: {},
+                     lambda g, s, p=None: ({k: v * neg for k, v in g.items()},
+                                           s))
+
+
+def _bits_of(tree) -> list:
+    """Every tensor leaf of a state tree as its raw bits (so -0.0 and +0.0
+    differ), other leaves as they are."""
+    from horovod_tpu_torch import pytree
+
+    leaves, _ = pytree.flatten(tree)
+    out = []
+    for x in leaves:
+        if isinstance(x, torch.Tensor):
+            x = x.detach().contiguous()
+            if x.is_floating_point():
+                x = x.view({2: torch.int16, 4: torch.int32,
+                            8: torch.int64}[x.element_size()])
+            out.append(x.clone())
+        else:
+            out.append(x)
+    return out
+
+
+def same_bits(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(a, b))
+
+
+def nested_zero1_bcast_worker():
+    """Two ZeRO-1 states whose shard sits below the top of the tree —
+    under ``backward_passes_per_step=2`` (``MultiStepsState``) and under
+    the numerics guard (``NumericsGuardState.inner``) — after two updates
+    with rank-dependent gradients, through ``broadcast_optimizer_state``:
+    each rank's ``mu`` and shard before and after."""
+    from horovod_tpu_torch.resilience import numerics
+
+    r = hvd.rank()
+    params = {"w": torch.arange(8, dtype=torch.float32)}
+    out = {}
+    for name, kw in (("k2", dict(backward_passes_per_step=2)),
+                     ("guarded", dict(numerics_guard=True))):
+        tx = hvd.DistributedOptimizer(hvd.adam(1e-3), shard_optimizer=True,
+                                      **kw)
+        st = tx.init(params)
+        for i in range(2):
+            g = {"w": torch.arange(8, dtype=torch.float32) * 0.1 * (r + 1 + i)}
+            _, st = tx.update(g, st, params)
+        zero = st.inner_opt_state if name == "k2" else st.inner
+        before = zero["inner"]["mu"]["float32"].clone()
+        bst = hvd.broadcast_optimizer_state(st, 0)
+        bzero = bst.inner_opt_state if name == "k2" else bst.inner
+        out[name] = {"mu_before": before.numpy(),
+                     "mu_after": bzero["inner"]["mu"]["float32"].numpy(),
+                     "shard_after": dict(bzero["shard"]),
+                     "untouched": bzero is zero}
+        if name == "guarded":
+            out[name]["verdict"] = numerics.verdict(bst)
+    return out
+
+
+def _guard_tx(c):
+    """The guarded DistributedOptimizer of a guard-matrix case."""
+    from horovod_tpu_torch.optim import DistributedOptimizer
+
+    inner = sgd(c["lr"]) if c["inner"] == "sgd" else hvd.adam(c["lr"])
+    kw = dict(c["kw"])
+    if "compression" in kw:
+        kw["compression"] = (hvd.Compression.powersgd(kw["compression"][1])
+                             if isinstance(kw["compression"], tuple)
+                             else _compression(kw["compression"]))
+    if kw.get("op") == "adasum":
+        kw["op"] = hvd.Adasum
+    return DistributedOptimizer(inner, numerics_guard=True,
+                                loss_scale=c["loss_scale"], **kw)
+
+
+def guard_matrix_worker(p0, grads, losses, cases):
+    """Each case ``name: config``: the guarded DistributedOptimizer of
+    :func:`_guard_tx` from ``p0`` over the steps' per-rank gradients
+    ``grads[t][k]`` (``[N, ...]``) and losses ``losses[t][r]``, its chaos
+    spec armed. After each step the verdict (``note_step``), the
+    parameters, and on a BAD step whether the parameters and the whole
+    inner state kept their bits."""
+    from horovod_tpu_torch.models.convert import powersgd_q_from_jax
+    from horovod_tpu_torch.resilience import chaos, numerics
+
+    out = {}
+    for name, c in cases.items():
+        chaos.reset()
+        chaos.configure(c["chaos"])
+        tx = _guard_tx(c)
+        params = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+        st = tx.init(params)
+        if c.get("q0") is not None:
+            st.inner["q"] = powersgd_q_from_jax(c["q0"])
+        trace = []
+        for t, g in enumerate(grads):
+            before = (_bits_of(params), _bits_of(st.inner))
+            u, st = tx.update({k: _mine(v) for k, v in g.items()}, st, params,
+                              loss=torch.tensor(float(losses[t][hvd.rank()])))
+            params = {k: params[k] + u[k] for k in params}
+            v = numerics.note_step(t, st)
+            rec = {"verdict": v, "good_streak": int(st.good_streak),
+                   "params": {k: x.numpy() for k, x in params.items()}}
+            if v["last_bad"]:
+                rec["frozen"] = (same_bits(before[0], _bits_of(params)),
+                                 same_bits(before[1], _bits_of(st.inner)))
+            trace.append(rec)
+        out[name] = {"trace": trace, "armed": chaos.grad_nan_step(),
+                     "injected": dict(chaos.injected)}
+        chaos.configure(None)
+    return out
+
+
+def guard_e2e_worker(params, x, y, steps, chaos_spec, lr):
+    """The test MLP with flax's weights, ZeRO-1 + int8 + EF + Adam under
+    ``loss_scale="dynamic"`` through make_train_step, ``chaos_spec``
+    armed: per step the loss, the verdict, the parameters and, on a BAD
+    step, whether the parameters and the inner state kept their bits."""
+    from horovod_tpu_torch.models import MLP
+    from horovod_tpu_torch.models.convert import (
+        flatten_tree, flax_params, load_flax_variables,
+    )
+    from horovod_tpu_torch.resilience import chaos, numerics
+
+    chaos.reset()
+    chaos.configure(chaos_spec)
+    model = MLP((64, 10), in_features=x.shape[1], seed=0)
+    load_flax_variables(model, params)
+    tx = hvd.DistributedOptimizer(hvd.adam(lr), compression=hvd.Compression.int8,
+                                  error_feedback=True, shard_optimizer=True,
+                                  loss_scale="dynamic")
+    st = tx.init(model.jax_params())
+    step = hvd.make_train_step(model, tx, shard_optimizer=True)
+    xs = hvd.shard_batch(torch.from_numpy(x))
+    ys = hvd.shard_batch(torch.from_numpy(y))
+    trace = []
+    for t in range(steps):
+        before = (_bits_of(model.jax_params()), _bits_of(st.inner))
+        st, loss = step(st, xs, ys)
+        v = numerics.note_step(t, st)
+        rec = {"loss": float(loss), "verdict": v,
+               "params": flatten_tree(flax_params(model))}
+        if v["last_bad"]:
+            rec["frozen"] = (same_bits(before[0], _bits_of(model.jax_params())),
+                             same_bits(before[1], _bits_of(st.inner)))
+        trace.append(rec)
+    out = {"trace": trace, "armed": chaos.grad_nan_step(),
+           "injected": dict(chaos.injected)}
+    chaos.configure(None)
+    return out
+
+
+def guard_hook_worker(x, y, steps, nan_step, cases):
+    """Each case ``name: (shard, bucket_bytes)``: a guarded, loss-scaled
+    bucketed DistributedOptimizer (int8 + EF, Adam) trained twice from the
+    same weights — its buckets started from the backward's gradient hooks,
+    and the same optimizer with the hook route taken away (the exchange
+    after the backward) — with ``grad_nan_at_step=nan_step`` armed afresh
+    for each run. Just before the NaN step one parameter element is set
+    to -0.0. Per step of each run: the verdict, the bits of the
+    parameters and of the inner state, the buckets the hooks started."""
+    from horovod_tpu_torch.models import MLP
+    from horovod_tpu_torch.resilience import chaos, numerics
+
+    def run(shard, bucket_bytes, hooks):
+        chaos.reset()
+        chaos.configure(f"grad_nan_at_step={nan_step}")
+        model = MLP((64, 10), in_features=x.shape[1], seed=5)
+        tx = hvd.DistributedOptimizer(
+            hvd.adam(1e-2), compression=hvd.Compression.int8,
+            error_feedback=True, shard_optimizer=shard,
+            bucket_bytes=bucket_bytes, loss_scale="dynamic")
+        if not hooks:
+            tx = tx._replace(exchange=None)
+        st = tx.init(model.jax_params())
+        step = hvd.make_train_step(model, tx, shard_optimizer=shard)
+        xs = hvd.shard_batch(torch.from_numpy(x))
+        ys = hvd.shard_batch(torch.from_numpy(y))
+        trace = []
+        for t in range(steps):
+            if t == nan_step:
+                with torch.no_grad():
+                    model.jax_params()["Dense_0/bias"][3] = -0.0
+            before = (_bits_of(model.jax_params()), _bits_of(st.inner))
+            st, _ = step(st, xs, ys)
+            v = numerics.note_step(t, st)
+            ex = step.last_exchange
+            trace.append({
+                "verdict": v, "params": _bits_of(model.jax_params()),
+                "inner": _bits_of(st.inner),
+                "kept": (same_bits(before[0], _bits_of(model.jax_params())),
+                         same_bits(before[1], _bits_of(st.inner))),
+                "hooked": None if ex is None else (ex.in_backward,
+                                                   len(ex.order)),
+                "neg0": bool(torch.signbit(
+                    model.jax_params()["Dense_0/bias"][3]))})
+        out = {"trace": trace, "armed": chaos.grad_nan_step(),
+               "injected": dict(chaos.injected)}
+        chaos.configure(None)
+        return out
+
+    res = {}
+    for name, (shard, bb) in cases.items():
+        hooked, after = run(shard, bb, True), run(shard, bb, False)
+        res[name] = {
+            "hooked": [{k: v for k, v in s.items()
+                        if k not in ("params", "inner")}
+                       for s in hooked["trace"]],
+            "after": [{k: v for k, v in s.items()
+                       if k not in ("params", "inner")}
+                      for s in after["trace"]],
+            "bit_equal": [same_bits(a["params"], b["params"])
+                          and same_bits(a["inner"], b["inner"])
+                          for a, b in zip(hooked["trace"], after["trace"])],
+            "armed": (hooked["armed"], after["armed"]),
+            "injected": (hooked["injected"], after["injected"])}
+    return res
+
+
+def guard_world_worker(inp):
+    """Every case of tests/test_torch_numerics.py's world of 2 in one world."""
+    out = {}
+    if "matrix" in inp:
+        out["matrix"] = guard_matrix_worker(*inp["matrix"])
+    if "e2e" in inp:
+        out["e2e"] = guard_e2e_worker(*inp["e2e"])
+    if "hooks" in inp:
+        out["hooks"] = guard_hook_worker(*inp["hooks"])
     return out
