@@ -180,8 +180,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    without the core and one with it: every rank's parameters
    bit-identical, losses finite and falling, NCCL calls exactly 161 a
    step without the core (one per gradient; Adasum 161 log2(N)
-   exchanges) and one per plan with it, plus the 9 unnamed
-   ``all_reduce`` calls of the norms below, ``adasum_pair_combine`` 161
+   exchanges), plus the 9 unnamed ``all_reduce`` calls of the norms
+   below, and with the core one per plan (the norms ride its allreduce
+   plans), ``adasum_pair_combine`` 161
    log2(N) times a step without the core and ``adasum_segment_combine``
    log2(N) times a plan with it (their calls replayed in phase 6 under
    the run's name); img/s per GPU beside the functional optimizer's
@@ -191,11 +192,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    grads, running statistics within 1e-4 of the reference's largest
    magnitude, in both worlds. During each backward every 20th
    parameter's hook also allreduces its gradient's squared norm without
-   a name, on the default process group beside the core's plans on its
-   own (two communicators at once); every rank's norms agree, each the
-   sum of the ranks' local values. The core world's parameters after
-   each mode's first step lie within 5e-2 of the update of the world
-   without the core, per tensor.
+   a name; with the core attached that op goes through the core under a
+   generated name, so only the core's thread issues collectives (two
+   threads on two communicators in orders that differ between ranks
+   hung this phase across four GPUs before); every rank's norms agree,
+   each the sum of the ranks' local values. The core world's parameters
+   after each mode's first step lie within 5e-2 of the update of the
+   world without the core, per tensor. The phase runs
+   :data:`FRONTEND_PASSES` times (both worlds each time), each pass's
+   seconds printed.
 
 13. bucketed overlap (ResNet-50 at full width, batch 64, int8 + EF,
    fused Adam, 5 steps, one GPU and with ``--gpus N`` across them, 4
@@ -263,6 +268,29 @@ Phases, each fatal on failure (exit code 1, no result line):
    are replayed against the plain versions as every run's are: a
    guarded state's Adam count is a device tensor, so B5 takes its bias
    corrections through the device buffer there.
+17. hierarchical sync and bucketed ZeRO-3 (ResNet-50, batch 64, fused
+   Adam). One GPU: ``allreduce_hier``, allreduce mode with int8 + EF on
+   the host mesh's axis pair (``DistributedOptimizer(axis=("cross",
+   "local"))``, a 1 x 1 ``build_host_mesh``, the hierarchical toggle
+   on), 5 steps: losses and parameters bit-equal to ``allreduce`` (one
+   rank a group reorders nothing); 2 ``quantize`` a step (the EF
+   roundtrip in one launch, the cross hop's exchange), one B4, one B7;
+   NCCL calls and bytes sent a step by group (LOCAL, CROSS, WORLD), int8
+   bytes on CROSS only. ``zero3_bucketed_25MiB``: ZeRO-3 with the int8
+   gather at ``bucket_bytes`` :data:`ZERO3_BUCKET` (4 buckets), 5 steps:
+   every bucket gathered twice a step (2K ``quantize``, 2K
+   ``dequantize_rows``, 4K ``all_gather``), reduce-scattered once (K),
+   one ``fused_adam``; img/s and peak memory beside unbucketed ZeRO-3.
+   With the exact gather (``HOROVOD_FSDP_WIRE=none``, ``zero3_exact``)
+   bucketed and unbucketed runs of 4 steps bit-equal. With ``--gpus N``
+   (N = 4: a 2 x 2 host mesh, ``local=2``): ``allreduce_hier@N`` and
+   ``zero1_hier@N`` (the pair's ZeRO-1 route: the chunked roundtrip
+   through a flat reduce-scatter), 4 steps: every rank the same losses
+   and parameters, NCCL calls and bytes a step by group, int8 bytes on
+   CROSS only (none for ZeRO-1), img/s beside the flat mode; and a
+   bucketed ZeRO-3 checkpoint of the N ranks (int8 gather, after step 2
+   of 3) restored at 2 GPUs and saved, then restored at N: its third step
+   bit-equal to the run that never moved (losses, parameters).
 
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
@@ -294,6 +322,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -380,7 +409,11 @@ WRAPPERS = {
 NEED = {"zero1": ("quantize", "dequant_accumulate", "fused_adam"),
         "allreduce": ("quantize", "dequant_accumulate_requantize",
                       "dequantize_rows", "fused_adam"),
+        "allreduce_hier": ("quantize", "dequant_accumulate_requantize",
+                           "dequantize_rows", "fused_adam"),
+        "zero1_hier": ("quantize", "fused_adam"),
         "zero3": ("quantize", "dequantize_rows", "fused_adam"),
+        "zero3_exact": ("fused_adam",),
         "adasum": ("fused_adam",),
         "adasum_fp16": ("adasum_pair_combine", "fused_adam"),
         "powersgd": ("quantize", "dequant_accumulate_requantize",
@@ -409,6 +442,19 @@ OVERLAP_RUNS = (("allreduce", 25 << 20), ("zero1", 25 << 20),
                 ("allreduce", 64 << 20), ("zero1", 64 << 20))
 #: PowerSGD's rank in both of its runs
 PSGD_RANK = 4
+#: the host mesh's axis pair (``DistributedOptimizer(axis=PAIR)``) and its
+#: LOCAL size across N GPUs: 2 x 2 at four GPUs of one host (on one GPU
+#: the mesh is 1 x 1)
+PAIR = ("cross", "local")
+HIER_LOCAL = 2
+#: the modes on the axis pair, hierarchical allreduce on: allreduce mode
+#: (int8 on the cross hop, EF) and ZeRO-1 (the pair's roundtrip route)
+HIER_MODES = ("allreduce_hier", "zero1_hier")
+#: bucketed ZeRO-3's bucket size: 4 buckets of ResNet-50's 102.2 MB of f32
+ZERO3_BUCKET = 25 << 20
+#: phase 12's passes across N GPUs, each the world without the core and
+#: the one with it
+FRONTEND_PASSES = 3
 #: the ResNet-50 modes across N GPUs (``--gpus N``)
 WORLD_MODES = ("zero1", "allreduce", "zero3", "adasum", "adasum_fp16",
                "powersgd")
@@ -580,19 +626,56 @@ def logging_calls(steps: list):
         yield
 
 
+def group_name(group) -> str:
+    """``WORLD`` (the default group), ``LOCAL`` or ``CROSS`` (the host
+    mesh's sub-groups), ``CORE`` (the native core's) or ``OTHER``."""
+    from horovod_tpu_torch import basics
+
+    if group is None:
+        return "WORLD"
+    mesh, core = basics._state.host_mesh, basics._state.core
+    if mesh is not None and group is mesh.local_group:
+        return "LOCAL"
+    if mesh is not None and group is mesh.cross_group:
+        return "CROSS"
+    if core is not None and group is core._group:
+        return "CORE"
+    return "OTHER"
+
+
+def _sent(name: str, args):
+    """The tensor a collective call sends from this rank (None for the
+    point-to-point batch)."""
+    if name in ("all_reduce", "broadcast"):
+        return args[0]
+    if name == "batch_isend_irecv":
+        return None
+    return args[1]
+
+
 @contextlib.contextmanager
-def counting_collectives(counts: dict, where: list):
+def counting_collectives(counts: dict, where: list, by_group=None):
     """Count every call of the :data:`DIST_CALLS` functions into
     ``counts[where[-1]]`` (the caller pushes a label while inside a part
-    of the step). ``ops/collective.py`` looks them up through its
-    ``dist`` name at each call, so wrapping the module's attributes sees
-    every call."""
+    of the step); with ``by_group`` also each group's calls and the bytes
+    this rank sends on it by dtype (:func:`group_name`).
+    ``ops/collective.py`` looks them up through its ``dist`` name at each
+    call, so wrapping the module's attributes sees every call."""
     from horovod_tpu_torch.ops import collective as C
     from horovod_tpu_torch.testing import watching_calls
 
     def count(name, args, kw):
         part = counts.setdefault(where[-1], {})
         part[name] = part.get(name, 0) + 1
+        if by_group is not None:
+            rec = by_group.setdefault(group_name(kw.get("group")),
+                                      {"calls": 0, "bytes": {}})
+            rec["calls"] += 1
+            t = _sent(name, args)
+            if t is not None:
+                k = str(t.dtype).replace("torch.", "")
+                rec["bytes"][k] = (rec["bytes"].get(k, 0)
+                                   + t.numel() * t.element_size())
 
     with watching_calls(C.dist, DIST_CALLS, count):
         yield
@@ -1376,18 +1459,19 @@ def make_tx(mode: str, lr: float = 1e-3, bucket_bytes=None, loss_scale=None):
     import horovod_tpu_torch as hvd
 
     adam = hvd.fused_adam(lr)
-    if mode in ("zero1", "allreduce"):
-        return hvd.DistributedOptimizer(adam, compression=hvd.Compression.int8,
-                                        error_feedback=True,
-                                        shard_optimizer=mode == "zero1",
-                                        bucket_bytes=bucket_bytes,
-                                        loss_scale=loss_scale)
+    if mode in ("zero1", "allreduce") + HIER_MODES:
+        return hvd.DistributedOptimizer(
+            adam, compression=hvd.Compression.int8, error_feedback=True,
+            shard_optimizer=mode.startswith("zero1"),
+            bucket_bytes=bucket_bytes, loss_scale=loss_scale,
+            axis=PAIR if mode in HIER_MODES else None)
     if mode == "powersgd":
         return hvd.DistributedOptimizer(
             adam, compression=hvd.Compression.powersgd(PSGD_RANK),
             error_feedback=True)
-    if mode == "zero3":
-        return hvd.DistributedOptimizer(adam, shard_params=True)
+    if mode.startswith("zero3"):
+        return hvd.DistributedOptimizer(adam, shard_params=True,
+                                        bucket_bytes=bucket_bytes)
     if mode == "adasum_fp16":
         return hvd.DistributedOptimizer(adam, op=hvd.Adasum,
                                         compression=hvd.Compression.fp16)
@@ -1409,10 +1493,21 @@ def expected_launches(mode: str, n: int, leaves: int, buckets: int = 0
     from horovod_tpu_torch.ops import kernels as K
 
     levels = n.bit_length() - 1
-    adam = {"fused_adam": 1 if mode in ("zero1", "zero3")
+    adam = {"fused_adam": 1 if mode.startswith(("zero1", "zero3"))
             else -(-leaves // K.ADAM_MAX_LEAVES)}
-    if mode == "zero3":
-        return {"quantize": 2, "dequantize_rows": 2, **adam}
+    if mode == "zero3":     # each bucket gathered twice
+        k = buckets or 1
+        return {"quantize": 2 * k, "dequantize_rows": 2 * k, **adam}
+    if mode == "zero3_exact":
+        return {"quantize": 0, "dequantize_rows": 0, **adam}
+    if mode == "allreduce_hier":    # the EF roundtrip, then the cross hop's
+        return {"quantize": 2, "dequant_accumulate": 0,
+                "dequant_accumulate_requantize": 1, "dequantize_rows": 1,
+                **adam}
+    if mode == "zero1_hier":        # the chunked roundtrip, no int8 wire
+        return {"quantize": 1, "dequant_accumulate": 0,
+                "dequant_accumulate_requantize": 0, "dequantize_rows": 0,
+                **adam}
     if mode == "zero1":
         k = buckets or 1
         return {"quantize": k, "dequant_accumulate": k,
@@ -1439,6 +1534,8 @@ def expected_exchanges(mode: str, n: int) -> int:
 
 
 def overlap_label(mode: str, bucket_bytes: int) -> str:
+    if mode.startswith("zero3"):        # gathered by bucket, no overlap
+        return f"{mode}_bucketed_{bucket_bytes >> 20}MiB"
     return f"{mode}_overlap_{bucket_bytes >> 20}MiB"
 
 
@@ -1558,6 +1655,8 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0,
         label = overlap_label(label, bucket_bytes)
     model = build_model(model_name, model_seed, dev)
     leaves = len(model.jax_params())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.jax_params().values())
     nccl_want = allreduce_nccl_calls(list(model.jax_params().values()))
     with torch.no_grad():           # before ZeRO-3 empties the parameters
         logits = model(x)
@@ -1566,11 +1665,19 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0,
         fail(f"{model_name} logits: shape {tuple(logits.shape)} or "
              "non-finite")
     del logits
-    zero3 = mode == "zero3"
+    zero3 = mode.startswith("zero3")
     wire = os.environ.pop("HOROVOD_FSDP_WIRE", None)
     if zero3:
-        os.environ["HOROVOD_FSDP_WIRE"] = "int8"
-    nccl, where = {}, ["step"]
+        os.environ["HOROVOD_FSDP_WIRE"] = ("none" if mode == "zero3_exact"
+                                           else "int8")
+    hier = mode in HIER_MODES
+    if hier:        # 1 x 1 on one GPU, 2 x 2 at four
+        from horovod_tpu_torch.ops import hierarchical
+        from horovod_tpu_torch.parallel.mesh import build_host_mesh
+
+        build_host_mesh(local=HIER_LOCAL if hvd.size() > 1 else 1)
+        hierarchical.set_hierarchical(True)
+    nccl, where, by_group = {}, ["step"], {}
     try:
         tx = make_tx(mode, lr, bucket_bytes)
         if tx.exchange is not None:
@@ -1586,28 +1693,32 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0,
 
         tx = tx._replace(update=counted_update)
         marks, on_phase = phase_timer()
-        step = hvd.make_train_step(model, tx, shard_optimizer=mode == "zero1",
+        step = hvd.make_train_step(model, tx,
+                                   shard_optimizer=mode.startswith("zero1"),
                                    shard_params=zero3, on_phase=on_phase)
         st = tx.init(step.params if zero3 else model.jax_params())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with counting_collectives(nccl, where):
+        with counting_collectives(nccl, where, by_group):
             st, losses, times, launches, calls = run_steps(
                 mode, step, st, x, y, steps, label=label)
         peak = torch.cuda.max_memory_allocated()
         st, split = split_step(label, step, st, x, y, marks)
         overlap = None
-        if bucket_bytes:
+        if bucket_bytes and not zero3:
             st, overlap = overlap_checks(label, model, step, st, x, y,
                                          bucket_bytes)
     finally:
         os.environ.pop("HOROVOD_FSDP_WIRE", None)
         if wire is not None:
             os.environ["HOROVOD_FSDP_WIRE"] = wire
-    buckets = len(step.last_exchange.order) if bucket_bytes else 0
-    if bucket_bytes and buckets != -(-sum(
-            p.numel() * p.element_size()
-            for p in model.jax_params().values()) // bucket_bytes):
+        if hier:
+            hierarchical.set_hierarchical(None)
+    buckets = 0
+    if bucket_bytes:
+        buckets = len(step.params.shards) if zero3 else len(
+            step.last_exchange.order)
+    if bucket_bytes and buckets != -(-param_bytes // bucket_bytes):
         fail(f"{label}: {buckets} buckets of {bucket_bytes} bytes")
     for k, per_step in expected_launches(mode, hvd.size(), leaves,
                                          buckets).items():
@@ -1623,7 +1734,7 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0,
         nccl_want = 4 * buckets if mode == "allreduce" else 2 * buckets + 1
     elif mode == "powersgd":    # every P, every Q', then allreduce mode's
         nccl_want += 2
-    if mode in ("allreduce", "powersgd") or bucket_bytes:
+    if mode in ("allreduce", "powersgd") or (bucket_bytes and not zero3):
         if sum(nccl.get("update", {}).values()) != nccl_want * steps:
             fail(f"{label}: the optimizer update made {nccl.get('update')} "
                  f"NCCL calls in {steps} steps, expected {nccl_want} a step")
@@ -1636,16 +1747,42 @@ def train(mode: str, steps: int, x, y, model_seed: int = 0,
         if factorized != rule or len(rule) != 2:
             fail(f"{label}: factorized leaves {factorized}, the rule says "
                  f"{rule} (the stem conv and the head)")
+    if zero3:       # each group gathered twice, reduce-scattered once
+        k = len(step.params.shards)
+        got = nccl.get("step", {})
+        gathers = got.get("all_gather_into_tensor", 0) + got.get(
+            "all_gather_single", 0)
+        scatters = got.get("reduce_scatter_tensor", 0) + got.get(
+            "reduce_scatter_single", 0)
+        per_gather = 1 if mode == "zero3_exact" else 2  # int8: q, scales
+        if gathers != 2 * k * per_gather * steps or scatters != k * steps:
+            fail(f"{label}: {gathers} all-gathers and {scatters} "
+                 f"reduce-scatters in {steps} steps of {k} groups")
+    if hier:        # the int8 wire rides CROSS only
+        int8_on = sorted(g for g, rec in by_group.items()
+                         if rec["bytes"].get("int8"))
+        want = ["CROSS"] if mode == "allreduce_hier" else []
+        if int8_on != want:
+            fail(f"{label}: int8 bytes on {int8_on}, expected {want} "
+                 f"({by_group})")
+    by_group = {g: {"calls": rec["calls"] / steps,
+                    "bytes": {k: v / steps for k, v in rec["bytes"].items()}}
+                for g, rec in by_group.items()}
     nccl = {part: {k: v / steps for k, v in c.items()}
             for part, c in nccl.items()}
     params = hvd.fsdp_unpack_params(step.params) if zero3 else model.jax_params()
     checksum = float(sum(p.detach().double().sum() for p in params.values()))
+    params_sha = hashlib.sha256(b"".join(
+        params[k].detach().reshape(-1).float().cpu().numpy().tobytes()
+        for k in sorted(params))).hexdigest()
     steady = times[1:] if len(times) > 1 else times
     return dict(mode=label, model=model_name, leaves=leaves,
                 params=sum(p.numel() for p in params.values()),
                 steps=steps, losses=losses, launches=launches,
                 step_s=times, img_per_s=x.shape[0] * len(steady) / sum(steady),
                 peak_gib=peak / 2 ** 30, split_s=split, checksum=checksum,
+                params_sha=params_sha, nccl_by_group=by_group,
+                buckets=buckets,
                 nccl_calls=nccl, nccl_update_want=nccl_want, overlap=overlap,
                 factorized=factorized, step_calls=calls)
 
@@ -2832,21 +2969,27 @@ def frontend_expected(mode: str, n: int, leaves: int, plans,
                       norms: int = 0) -> tuple:
     """Exact NCCL calls and Adasum launches of the frontend's steps: per
     gradient (no core, ``plans`` None) one ``all_reduce``, or for Adasum
-    log2(N) exchanges and ``adasum_pair_combine`` launches; with the core
-    the same per fused plan, Adasum's combine ``adasum_segment_combine``;
-    and one ``all_reduce`` for each of the ``norms`` unnamed squared
-    norms. At a world of one the Average optimizer registers no hooks
-    and exchanges nothing, as the reference's."""
+    log2(N) exchanges and ``adasum_pair_combine`` launches, and one
+    ``all_reduce`` for each of the ``norms`` unnamed squared norms; with
+    the core (``plans`` its ``{"allreduce": k, "adasum": k}`` plans) the
+    same per fused plan, Adasum's combine ``adasum_segment_combine``, the
+    unnamed norms riding the allreduce plans. At a world of one the
+    Average optimizer registers no hooks and exchanges nothing, as the
+    reference's."""
     levels = n.bit_length() - 1
-    units = leaves if plans is None else plans
+    if plans is None:
+        units, norm_calls = leaves, norms
+    else:
+        units = plans["adasum" if mode == "adasum" else "allreduce"]
+        norm_calls = plans["allreduce"] if mode == "adasum" else 0
     if n == 1:          # no hooks at a world of one: nothing to exchange
         units = 0 if mode != "adasum" else units
     if mode != "adasum":
-        return ({"all_reduce": units + norms, "batch_isend_irecv": 0},
+        return ({"all_reduce": units + norm_calls, "batch_isend_irecv": 0},
                 {"adasum_pair_combine": 0, "adasum_segment_combine": 0})
     kernel = "adasum_pair_combine" if plans is None else \
         "adasum_segment_combine"
-    return ({"all_reduce": norms, "batch_isend_irecv": units * levels},
+    return ({"all_reduce": norm_calls, "batch_isend_irecv": units * levels},
             {"adasum_pair_combine": 0, "adasum_segment_combine": 0,
              kernel: units * levels})
 
@@ -2859,9 +3002,10 @@ def frontend_train(mode: str, steps: int, x, y) -> dict:
     :func:`frontend_expected` says. ``params_sha`` hashes the
     parameters' bytes (every rank must agree). Across GPUs every
     :data:`NORM_EVERY`-th parameter's hook, run after the optimizer's,
-    also allreduces its gradient's squared norm without a name, on the
-    default process group while the core (if attached) runs its plans on
-    its own: ``norms`` holds the last step's local and global values,
+    also allreduces its gradient's squared norm without a name (with the
+    core attached it goes through the core under a generated name, so
+    only the core's thread issues collectives): ``norms`` holds the last
+    step's local and global values,
     and rank 0 returns its parameters after the first and the last step
     (``params``, keyed by step, with ``sizes``)."""
     import hashlib
@@ -2892,7 +3036,13 @@ def frontend_train(mode: str, steps: int, x, y) -> dict:
     nccl, where, calls, losses, times = {}, ["step"], [], [], []
     kept = {}                           # rank 0's parameters after step 1
     keep = n > 1 and thvd.rank() == 0
-    plans0 = core.responses if core else 0
+    from horovod_tpu_torch.core import REQUEST_ADASUM, REQUEST_ALLREDUCE
+
+    def plan_counts():
+        return {k: core.plan_counts.get(t, 0) for k, t in (
+            ("allreduce", REQUEST_ALLREDUCE), ("adasum", REQUEST_ADASUM))}
+
+    plans0 = plan_counts() if core else None
     K.reset_launches()                  # count the main path's run only
     with counting_collectives(nccl, where), logging_calls(calls):
         for _ in range(steps):
@@ -2909,7 +3059,8 @@ def frontend_train(mode: str, steps: int, x, y) -> dict:
                 kept[1] = torch.cat([p.detach().reshape(-1) for p in
                                      model.parameters()]).cpu().numpy()
     launches = dict(K.launches)
-    plans = core.responses - plans0 if core else None
+    plans = {k: v - plans0[k] for k, v in plan_counts().items()} \
+        if core else None
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         fail(f"{label}: losses {losses} not finite and falling")
     want_calls, want_launches = frontend_expected(
@@ -2930,7 +3081,8 @@ def frontend_train(mode: str, steps: int, x, y) -> dict:
     sha = hashlib.sha256(flat.tobytes()).hexdigest()
     steady = times[1:]
     out = dict(mode=label, leaves=leaves, steps=steps, losses=losses,
-               launches=launches, plans=plans, nccl_calls=got_calls,
+               launches=launches, plans=plans and sum(plans.values()),
+               plans_by_type=plans, nccl_calls=got_calls,
                step_s=times, img_per_s=x.shape[0] * len(steady) / sum(steady),
                params_sha=sha, step_calls=calls[-1],
                norms=[(float(a), float(b)) for a, b in norms])
@@ -3106,7 +3258,70 @@ def _world_rank(modes, ckpt_dir) -> dict:
     runs = [train(mode, 4, xs, ys) for mode in modes]
     runs += [train(mode, 4, xs, ys, bucket_bytes=bb)
              for mode, bb in OVERLAP_RUNS]
-    return dict(runs=runs, checkpoint=checkpoint_world(ckpt_dir, xs, ys))
+    runs += [train(mode, 4, xs, ys) for mode in HIER_MODES]
+    return dict(runs=runs, checkpoint=checkpoint_world(ckpt_dir, xs, ys),
+                zero3_moved=zero3_move_rank(ckpt_dir, "run"))
+
+
+def zero3_move_rank(directory: str, phase: str) -> dict:
+    """Bucketed ZeRO-3 (:data:`ZERO3_BUCKET`, the int8 gather) across
+    world sizes, ResNet-50 on this rank's 64 rows of phase 5's global
+    batch. ``run``: 3 steps, a checkpoint after the second into
+    ``directory/zero3_a``; ``move``: that checkpoint restored at this
+    world's size (``checkpoint.fsdp_params`` re-packs the parameter rows,
+    ``consolidate_opt_state`` the state) and saved unstepped into
+    ``zero3_b``; ``resume``: ``zero3_b`` restored and the third step
+    taken. Returns the losses and the parameters' hashes (after step 2
+    and at the end)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.checkpoint as ck
+
+    n = hvd.size()
+    os.environ["HOROVOD_FSDP_WIRE"] = "int8"
+    model = build_model("resnet50", 0, hvd.device())
+    tx = make_tx("zero3", 1e-3, ZERO3_BUCKET)
+    a, b = (os.path.join(directory, f"zero3_{s}") for s in "ab")
+
+    def sha(fp):
+        full = hvd.fsdp_unpack_params(fp)
+        return hashlib.sha256(b"".join(
+            full[k].detach().reshape(-1).float().cpu().numpy().tobytes()
+            for k in sorted(full))).hexdigest()
+
+    if phase == "move":
+        tree = ck.restore(a, 2)
+        fp = ck.fsdp_params(tree["params"])
+        st = ck.consolidate_opt_state(tree["opt"], tree["params"])
+        ck.save(b, 2, {"params": fp, "opt": st})
+        return dict(size=fp.meta.size, groups=len(fp.shards), sha2=sha(fp))
+    world = 64 * (4 if phase == "resume" else n)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(world, 224, 224, 3, generator=gen)
+    y = torch.randint(0, 1000, (world,), generator=gen)
+    xs, ys = (hvd.shard_batch(v).to(hvd.device()) for v in (x, y))
+    del x
+    if phase == "resume":
+        tree = ck.restore(b, 2)
+        fp = ck.fsdp_params(tree["params"])
+        st = ck.consolidate_opt_state(tree["opt"], tree["params"])
+        step = hvd.make_train_step(model, tx, shard_params=True, params=fp)
+        todo = 1
+    else:
+        step = hvd.make_train_step(model, tx, shard_params=True)
+        st = tx.init(step.params)
+        todo = 3
+    losses, out = [], {}
+    for i in range(todo):
+        st, loss = step(st, xs, ys)
+        losses.append(float(loss))
+        if phase == "run" and i == 1:
+            ck.save(a, 2, {"params": step.params, "opt": st})
+            out["sha2"] = sha(step.params)
+    os.environ.pop("HOROVOD_FSDP_WIRE", None)
+    return dict(out, losses=losses, sha=sha(step.params),
+                groups=len(step.params.shards), size=n)
 
 
 def run_gpus(n: int, modes) -> tuple:
@@ -3122,13 +3337,83 @@ def run_gpus(n: int, modes) -> tuple:
         fail(f"{n} GPUs: {e}")
     for r, out in enumerate(res):
         for o, o0 in zip(out["runs"], res[0]["runs"]):
-            if o["losses"] != o0["losses"] or o["checksum"] != o0["checksum"]:
+            if o["losses"] != o0["losses"] or o["checksum"] != o0["checksum"] \
+                    or o["params_sha"] != o0["params_sha"]:
                 fail(f"{n} GPUs, {o['mode']}: rank {r} diverged from rank 0")
         if out["checkpoint"]["losses"] != res[0]["checkpoint"]["losses"]:
             fail(f"{n} GPUs, checkpoint run: rank {r} diverged from rank 0")
         if r > 0 and not out["checkpoint"]["mine_empty"]:
             fail(f"{n} GPUs, checkpoint: rank {r}'s directory was written")
-    return res[0]["runs"], [out["checkpoint"] for out in res]
+    return (res[0]["runs"], [out["checkpoint"] for out in res],
+            zero3_move(n, [out["zero3_moved"] for out in res]))
+
+
+def zero3_move(n: int, ran: list) -> dict:
+    """The bucketed ZeRO-3 checkpoint of the ``n`` ranks' ``run``
+    (:func:`zero3_move_rank`) restored at 2 GPUs and saved, then restored
+    at ``n`` and stepped once: every rank's losses and parameters the
+    same, the move's unpacked parameters those after step 2, the resumed
+    third step bit-equal to the run that never moved."""
+    from horovod_tpu_torch.testing import run_world
+
+    if any(o != ran[0] for o in ran):
+        fail(f"zero3 checkpoint run: the ranks differ: {ran}")
+    try:
+        moved = run_world(zero3_move_rank, 2, CKPT_DIR, "move", device=None,
+                          timeout=600)
+        back = run_world(zero3_move_rank, n, CKPT_DIR, "resume", device=None,
+                         timeout=600)
+    except RuntimeError as e:
+        fail(f"zero3 checkpoint across world sizes: {e}")
+    if any(m != moved[0] for m in moved) or moved[0]["size"] != 2 \
+            or moved[0]["sha2"] != ran[0]["sha2"]:
+        fail(f"zero3 checkpoint restored at 2 GPUs: {moved} against the "
+             f"parameters after step 2 {ran[0]['sha2']}")
+    if any(b != back[0] for b in back) or back[0]["sha"] != ran[0]["sha"] \
+            or back[0]["losses"] != ran[0]["losses"][2:]:
+        fail(f"zero3 checkpoint back at {n} GPUs: {back[0]} differs from the "
+             f"run that never moved {ran[0]}")
+    return dict(buckets=ran[0]["groups"], losses=ran[0]["losses"],
+                moved_to=moved[0]["size"], moved_groups=moved[0]["groups"],
+                resumed_loss=back[0]["losses"], bit_equal=True)
+
+
+def print_hier_zero3(by_mode: dict, smi: str) -> None:
+    """The one-GPU lines of the hierarchical run (a 1 x 1 host mesh:
+    bit-equal to the flat allreduce mode, since nothing reorders with one
+    rank a group) and of bucketed ZeRO-3 (the exact gather bucketed
+    bit-equal to unbucketed; the int8 one's img/s and peak memory beside
+    unbucketed ZeRO-3's)."""
+    hier, flat = by_mode["allreduce_hier"], by_mode["allreduce"]
+    if hier["losses"] != flat["losses"] or \
+            hier["params_sha"] != flat["params_sha"]:
+        fail(f"allreduce_hier on a 1 x 1 host mesh differs from allreduce: "
+             f"losses {hier['losses']} against {flat['losses']}")
+    print(f"e2e allreduce_hier (1 x 1 host mesh): losses and parameters "
+          f"bit-equal to allreduce; {hier['img_per_s']:.2f} img/s per GPU "
+          f"(allreduce {flat['img_per_s']:.2f}); NCCL calls and bytes sent a "
+          f"step by group {json.dumps(hier['nccl_by_group'])}; launches a "
+          f"step {json.dumps({k: v / hier['steps'] for k, v in hier['launches'].items() if v})} "
+          f"({smi})", flush=True)
+    label = overlap_label("zero3_exact", ZERO3_BUCKET)
+    exact, bucketed = by_mode["zero3_exact"], by_mode[label]
+    if exact["losses"] != bucketed["losses"] or \
+            exact["params_sha"] != bucketed["params_sha"]:
+        fail(f"{label} differs from zero3_exact: losses "
+             f"{bucketed['losses']} against {exact['losses']}")
+    z3 = by_mode["zero3"]
+    z3b = by_mode[overlap_label("zero3", ZERO3_BUCKET)]
+    print(f"e2e {z3b['mode']} (int8 gather, {z3b['buckets']} buckets, each "
+          f"gathered twice a step): {z3b['img_per_s']:.2f} img/s per GPU, "
+          f"peak {z3b['peak_gib']:.2f} GiB; zero3 unbucketed "
+          f"{z3['img_per_s']:.2f} img/s, peak {z3['peak_gib']:.2f} GiB; "
+          f"exact gather (HOROVOD_FSDP_WIRE=none): {label} bit-equal to "
+          f"zero3_exact over {exact['steps'] + 1} steps, "
+          f"{bucketed['img_per_s']:.2f} against {exact['img_per_s']:.2f} "
+          f"img/s, peak {bucketed['peak_gib']:.2f} against "
+          f"{exact['peak_gib']:.2f} GiB; NCCL calls a step "
+          f"{json.dumps(z3b['nccl_calls'].get('step', {}))} ({smi})",
+          flush=True)
 
 
 def print_overlap(by_mode: dict, suffix: str, smi: str) -> None:
@@ -3315,6 +3600,11 @@ def main() -> None:
                 train("zero3", 10, x, y), train("adasum", 5, x, y)]
         runs += [train(mode, 5, x, y, bucket_bytes=bb)
                  for mode, bb in OVERLAP_RUNS]
+        # hierarchical sync on a 1 x 1 host mesh, and bucketed ZeRO-3
+        runs += [train("allreduce_hier", 5, x, y),
+                 train("zero3", 5, x, y, bucket_bytes=ZERO3_BUCKET),
+                 train("zero3_exact", 4, x, y),
+                 train("zero3_exact", 4, x, y, bucket_bytes=ZERO3_BUCKET)]
         runs.append(train_multisteps(4, x, y))
         for name, mode, lr in ZOO_RUNS:     # the other scaling models
             side = MODELS[name][1]
@@ -3374,6 +3664,7 @@ def main() -> None:
     print(f"e2e zero3 (int8 gather): {z3['img_per_s']:.2f} img/s per GPU, "
           f"peak {z3['peak_gib']:.2f} GiB; zero1: {z1['img_per_s']:.2f} img/s, "
           f"peak {z1['peak_gib']:.2f} GiB ({smi})", flush=True)
+    print_hier_zero3(by_mode, smi)
     print(f"e2e adasum: {by_mode['adasum']['img_per_s']:.2f} img/s per GPU; "
           "at a world of one the butterfly has no level, so no Adasum kernel "
           "runs: the level-1 replay and --gpus N launch them", flush=True)
@@ -3404,7 +3695,7 @@ def main() -> None:
     if gpus > 1:
         torch.cuda.empty_cache()
         try:
-            world_runs, world_ckpt = run_gpus(gpus, WORLD_MODES)
+            world_runs, world_ckpt, z3_moved = run_gpus(gpus, WORLD_MODES)
             one = restore_world_of_one(CKPT_DIR)
         finally:
             import shutil
@@ -3412,6 +3703,9 @@ def main() -> None:
             shutil.rmtree(CKPT_DIR, ignore_errors=True)
         print(f"checkpoint at {gpus} GPUs: {json.dumps(world_ckpt)}; restored "
               f"in a world of one: {json.dumps(one)}", flush=True)
+        print(f"zero3 checkpoint (bucketed {ZERO3_BUCKET >> 20} MiB, int8 "
+              f"gather) of {gpus} GPUs restored at 2 and back at {gpus}: "
+              f"{json.dumps(z3_moved)} ({smi})", flush=True)
         for run in world_runs:
             run["mode"] = f"{run['mode']}@{gpus}"
             print(f"e2e {gpus} GPUs {run['mode']}: {_summary(run)}", flush=True)
@@ -3420,6 +3714,18 @@ def main() -> None:
             step_calls[run["mode"]] = run["step_calls"]
             runs.append(run)
         print_overlap({r["mode"]: r for r in world_runs}, f"@{gpus}", smi)
+        for mode in HIER_MODES:
+            run = next(r for r in world_runs if r["mode"] == f"{mode}@{gpus}")
+            flat = next(r for r in world_runs if r["mode"] == (
+                mode.replace("_hier", "") + f"@{gpus}"))
+            print(f"e2e {run['mode']} ({gpus // HIER_LOCAL} x {HIER_LOCAL} "
+                  f"host mesh, axis=('cross', 'local')): "
+                  f"{run['img_per_s']:.2f} img/s per GPU ({flat['mode']}, "
+                  f"same run: {flat['img_per_s']:.2f}); losses "
+                  f"{run['losses']}; NCCL calls and bytes sent a step by "
+                  f"group {json.dumps(run['nccl_by_group'])}; launches a step "
+                  f"{json.dumps({k: v / run['steps'] for k, v in run['launches'].items() if v})} "
+                  f"({smi})", flush=True)
         psgd = next(r for r in world_runs if r["mode"] == f"powersgd@{gpus}")
         meta = ResNet50(device="meta").jax_params()
         print(f"e2e powersgd@{gpus} (ResNet-50, rank {PSGD_RANK}, EF, fused "
@@ -3430,7 +3736,14 @@ def main() -> None:
               f"{json.dumps(psgd['nccl_calls']['update'])} ({smi})",
               flush=True)
         torch.cuda.empty_cache()
-        front_runs, sync_bn = run_frontend_gpus(gpus)
+        pass_s = []
+        for _ in range(FRONTEND_PASSES):    # the frontend world that hung
+            t0 = time.perf_counter()
+            front_runs, sync_bn = run_frontend_gpus(gpus)
+            pass_s.append(time.perf_counter() - t0)
+        print(f"frontend at {gpus} GPUs (phase 12): {len(pass_s)} passes, "
+              f"each the world without the core and the one with it, "
+              f"seconds {json.dumps(pass_s)}; no pass hung", flush=True)
         functional = next(r for r in runs if r["mode"] == f"allreduce@{gpus}")
         for run in front_runs:
             print(f"e2e {run['mode']}: {_summary(run)}", flush=True)

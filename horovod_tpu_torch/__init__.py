@@ -79,6 +79,7 @@ from horovod_tpu_torch.optim import (  # noqa: F401
     broadcast_parameters,
     fsdp_gather_params,
     fsdp_pack_params,
+    fsdp_reshard_params,
     fsdp_unpack_params,
     fused_adam,
     reshard_optimizer_state,

@@ -39,6 +39,8 @@ class _State:
     local_size: int = 1
     device: Optional[torch.device] = None
     core: Optional[object] = None
+    #: the host mesh of :func:`horovod_tpu_torch.parallel.mesh.build_host_mesh`
+    host_mesh: Optional[object] = None
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
@@ -56,15 +58,19 @@ def _env_int(*names: str) -> Optional[int]:
 def init(device=None, *, init_method: Optional[str] = None,
          rank: Optional[int] = None, size: Optional[int] = None,
          local_rank: Optional[int] = None,
-         native_core: Optional[bool] = None) -> None:
+         native_core: Optional[bool] = None,
+         store: Optional[dist.Store] = None) -> None:
     """Initialize the framework (``hvd.init()``).
 
     With no ``device`` the process takes ``cuda:<local_rank>`` and the
     NCCL backend, and raises if CUDA is unavailable: the port never
     carries on on the CPU unasked. ``device="cpu"`` selects the CPU and
     the gloo backend (what the CPU tests use). ``rank``/``size``/
-    ``local_rank`` override the environment. Calling ``init`` again
-    before :func:`shutdown` is a no-op, as in the reference.
+    ``local_rank`` override the environment. ``store`` is a rendezvous
+    store to join instead of ``init_method`` (a ``TCPStore`` client of a
+    server that already listens: :func:`horovod_tpu_torch.testing.
+    run_world` serves one). Calling ``init`` again before :func:`shutdown`
+    is a no-op, as in the reference.
 
     ``native_core`` (default ``HOROVOD_NATIVE_CORE=1``) attaches the
     native core, built at first use; across processes its coordinator is
@@ -101,7 +107,9 @@ def init(device=None, *, init_method: Optional[str] = None,
         kw = {}
         if dev.type == "cuda":
             kw["device_id"] = dev
-        if n == 1 and init_method is None:
+        if store is not None:
+            kw["store"] = store
+        elif n == 1 and init_method is None:
             # a world of one needs no rendezvous: an in-process store
             kw["store"] = dist.HashStore()
         else:
@@ -154,6 +162,7 @@ def shutdown() -> None:
         if _state.core is not None:
             _state.core.shutdown()
             _state.core = None
+        _state.host_mesh = None
         dist.destroy_process_group()
         _state.initialized = False
         _state.device = None

@@ -49,9 +49,9 @@ import torch
 
 from horovod_tpu_torch import basics, pytree
 from horovod_tpu_torch.ops import collective as C
-from horovod_tpu_torch.optim import (
-    FsdpParams, MultiStepsState, _fsdp_meta, _map_state, is_zero1_rows,
-    reshard_optimizer_state,
+from horovod_tpu_torch.optim import (  # noqa: F401
+    FSDP_ROWS, FsdpParams, MultiStepsState, _fsdp_meta, _map_state,
+    fsdp_reshard_params, is_zero1_rows, reshard_optimizer_state,
 )
 from horovod_tpu_torch.resilience.numerics import (  # noqa: F401
     CKPT_FINITE_ENV, NumericsGuardState, array_finite,
@@ -62,8 +62,6 @@ from horovod_tpu_torch.training import (
 )
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
-#: the key of a ZeRO-3 parameter tree's consolidated form
-FSDP_ROWS = "fsdp_rows"
 
 logger = logging.getLogger("horovod_tpu_torch.checkpoint")
 
@@ -148,11 +146,14 @@ def _gather_sharded(tree):
     than one rank and the tree holds such a state."""
     if isinstance(tree, FsdpParams):
         n = tree.meta.size
-        return {FSDP_ROWS: {k: _rows(v, n) for k, v in tree.shards.items()},
-                "keys": list(tree.meta.keys),
-                "shapes": [list(s) for s in tree.meta.shapes],
-                "dtypes": [str(d).replace("torch.", "")
-                           for d in tree.meta.dtypes]}
+        out = {FSDP_ROWS: {k: _rows(v, n) for k, v in tree.shards.items()},
+               "keys": list(tree.meta.keys),
+               "shapes": [list(s) for s in tree.meta.shapes],
+               "dtypes": [str(d).replace("torch.", "")
+                          for d in tree.meta.dtypes]}
+        if tree.meta.bucket_bytes:
+            out["bucket_bytes"] = tree.meta.bucket_bytes
+        return out
     if isinstance(tree, dict):
         shard = tree.get("shard")
         if isinstance(shard, dict) and set(shard) == {"rank", "size"} \
@@ -218,8 +219,9 @@ def consolidate_opt_state(opt_state, params, *,
     (the numerics guard's, either package's) is consolidated through its
     ``inner``, its scalars kept. Any other state comes back
     with its arrays as tensors. Tensors go to the parameters' device. A
-    ZeRO-3 state cannot change its world size here: that needs the
-    parameter shards re-packed too, which is not ported."""
+    ZeRO-3 state moves to another world size the same way, against its
+    parameters' consolidated rows (a bucketed pack's ``bucket_bytes``
+    taken from them); :func:`fsdp_params` re-packs the rows."""
     opt_state = _from_jax_state(opt_state)
     dev = _device_of(params)
     if isinstance(opt_state, NumericsGuardState):
@@ -251,17 +253,11 @@ def consolidate_opt_state(opt_state, params, *,
     if not 0 <= rank < n_new:
         raise ValueError(f"rank {rank} has no row in a world of {n_new}")
     if isinstance(params, dict) and FSDP_ROWS in params:
+        if bucket_bytes is None:
+            bucket_bytes = params.get("bucket_bytes")
         params = {k: torch.empty(s, dtype=getattr(torch, d), device="meta")
                   for k, s, d in zip(params["keys"], params["shapes"],
                                      params["dtypes"])}
-        zero3 = True
-    else:
-        zero3 = isinstance(params, FsdpParams)
-    if zero3 and opt_state["shard"]["size"] != n_new:
-        raise ValueError(
-            f"a ZeRO-3 state of {opt_state['shard']['size']} ranks cannot "
-            f"move to {n_new}: re-packing the parameter shards "
-            "(fsdp_reshard_params) is not ported")
     rows = reshard_optimizer_state(opt_state, params, to_size=n_new,
                                    bucket_bytes=bucket_bytes)
 
@@ -280,20 +276,18 @@ def consolidate_opt_state(opt_state, params, *,
 
 def fsdp_params(saved: dict, *, to_size: Optional[int] = None) -> FsdpParams:
     """This rank's :class:`~horovod_tpu_torch.optim.FsdpParams` from the
-    consolidated rows :func:`save` wrote for one: this rank's row of each
-    group, on the world's device. ``to_size`` (default the world's size)
-    must be the saved size: re-packing the shards for another size is not
-    ported."""
-    rows = saved[FSDP_ROWS]
-    n = int(np.shape(next(iter(rows.values())))[0])
+    consolidated rows :func:`save` wrote for one, re-packed for ``to_size``
+    ranks (default the world's size;
+    :func:`~horovod_tpu_torch.optim.fsdp_reshard_params`): this rank's
+    row of each group, on the world's device, with the pack's
+    ``bucket_bytes``."""
     rank, size = _world()
-    n_new = int(to_size) if to_size is not None else size
-    if n != n_new:
-        raise ValueError(
-            f"ZeRO-3 parameters saved by {n} ranks cannot load into {n_new}: "
-            "re-packing the shards (fsdp_reshard_params) is not ported")
+    n = int(to_size) if to_size is not None else size
+    saved = fsdp_reshard_params(saved, to_size=n)
+    rows = saved[FSDP_ROWS]
     dtypes = [getattr(torch, d) for d in saved["dtypes"]]
-    meta = _fsdp_meta(saved["keys"], saved["shapes"], dtypes, rank, n)
+    meta = _fsdp_meta(saved["keys"], saved["shapes"], dtypes, rank, n,
+                      bucket_bytes=saved.get("bucket_bytes"))
     dev = basics.device() if basics.is_initialized() else torch.device("cpu")
     return FsdpParams({k: host_tensor(host_array(v[rank])).to(dev)
                        for k, v in rows.items()}, meta)

@@ -23,10 +23,21 @@ The rules that keep it right on the card:
   wait on that event, and :meth:`CoreHandle.done` queries it. No
   tensor is staged through the host.
 - communicators: the core issues its collectives on a process group of
-  its own (``dist.new_group`` over every rank, made when it attaches),
-  so they never interleave with the main thread's collectives on the
-  default group: the core's sequence is the same on every rank because
-  it is negotiated, the main thread's because it is program order.
+  its own (``dist.new_group`` over every rank, made when it attaches).
+  While it is attached it is the only thread of the process that issues
+  collectives of :mod:`horovod_tpu_torch.ops.collective`'s public ops:
+  an op from any other thread, named or not, sync or async, is queued to
+  it (an unnamed one as ``<op>.noname.<k>``, :meth:`NativeCore.
+  auto_name`), so every rank issues them in the one negotiated order.
+  Two threads issuing on two NCCL communicators, each in an order of its
+  own, can deadlock the card: a hook's unnamed allreduce on the default
+  group beside the core's plans did, across four GPUs.
+- the tuned hierarchical toggles: the tail of each cycle's response list
+  carries the coordinator's hierarchical allreduce / allgather choice
+  (-1 = never tuned); each cycle applies it to
+  :mod:`horovod_tpu_torch.ops.hierarchical` before running its plans
+  (:meth:`NativeCore._apply_hier_toggles`), and :meth:`NativeCore.
+  shutdown` restores what the process had before.
 
 The JAX package's ``_Buckets`` are not carried over: they exist to keep
 compiled XLA launch signatures fixed, and an eager NCCL call has none.
@@ -42,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import itertools
 import logging
 import os
 import struct
@@ -119,11 +131,12 @@ class Response:
     )
 
 
-def _parse_response_list(buf: bytes) -> List[Response]:
-    """The responses of one serialized ``hvd::ResponseList``. The header
-    (shutdown flag, tuned cycle time, fusion threshold, cache toggle) is
-    applied inside the C loop, and the port has no hierarchical
-    strategies for the tail's toggles."""
+def _parse_response_list(buf: bytes) -> tuple:
+    """``(responses, hier_allreduce, hier_allgather)`` of one serialized
+    ``hvd::ResponseList``. The header (shutdown flag, tuned cycle time,
+    fusion threshold, cache toggle) is applied inside the C loop; the
+    tail's hierarchical pair (-1 = never tuned, absent on an older core)
+    is the Python data plane's to apply."""
     off = 0
 
     def take(fmt):
@@ -159,7 +172,16 @@ def _parse_response_list(buf: bytes) -> List[Response]:
         r.prescale_factor = take("<d")
         r.postscale_factor = take("<d")
         out.append(r)
-    return out
+    hier_ar = hier_ag = -1
+    if off + 8 <= len(buf):
+        hier_ar, hier_ag = take("<i"), take("<i")
+    return out, hier_ar, hier_ag
+
+
+#: what a generated name calls each request type (:meth:`NativeCore.auto_name`)
+_KIND = {REQUEST_ALLREDUCE: "allreduce", REQUEST_ALLGATHER: "allgather",
+         REQUEST_BROADCAST: "broadcast", REQUEST_ADASUM: "adasum",
+         REQUEST_ALLTOALL: "alltoall", REQUEST_REDUCESCATTER: "reducescatter"}
 
 
 class CoreHandle:
@@ -260,8 +282,15 @@ class NativeCore:
         self._pending: Dict[int, tuple] = {}
         self._pending_mu = threading.Lock()
         self._next_handle = 0
-        #: plans run as collectives since the core attached
+        self._noname = itertools.count()
+        #: the tuned hierarchical pair last applied, and the toggles the
+        #: process had before the first one (restored at shutdown)
+        self._hier_applied = (-1, -1)
+        self._hier_saved = None
+        #: plans run as collectives since the core attached, and by
+        #: request type (``REQUEST_ALLREDUCE``, ``REQUEST_ADASUM``, ...)
         self.responses = 0
+        self.plan_counts: Dict[int, int] = {}
 
         # keep the callback objects alive for the library's lifetime
         self._exec_cb = _EXEC_CB_T(self._on_execute)
@@ -307,6 +336,11 @@ class NativeCore:
         lib.hvd_core_fusion_threshold.restype = ctypes.c_int64
         lib.hvd_core_set_fusion_threshold.argtypes = [ctypes.c_int64]
         lib.hvd_core_cache_hit_count.restype = ctypes.c_uint64
+        lib.hvd_core_hier_allreduce.restype = ctypes.c_int
+        lib.hvd_core_hier_allgather.restype = ctypes.c_int
+        lib.hvd_core_set_autotuned_params.argtypes = [
+            ctypes.c_double, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int]
 
     # ------------------------------------------------------------- callbacks
 
@@ -321,13 +355,14 @@ class NativeCore:
 
         try:
             buf = ctypes.string_at(payload, length)
-            responses = _parse_response_list(buf)
+            responses, hier_ar, hier_ag = _parse_response_list(buf)
+            self._apply_hier_toggles(hier_ar, hier_ag)
             handles = [handles_ptr[i] for i in range(n_handles)]
             stream = contextlib.nullcontext()
             if self._stream is not None:
                 torch.cuda.set_device(self._device)
                 stream = torch.cuda.stream(self._stream)
-            with C.on_group(self._group), stream:
+            with C.on_group(self._group), stream, torch.no_grad():
                 for resp in responses:
                     self._execute_one(resp, handles)
         except Exception:  # never let an exception escape into C
@@ -338,6 +373,25 @@ class NativeCore:
             for h, _, _ in items:
                 h.error = "internal execution failure"
                 h.event.set()
+
+    def _apply_hier_toggles(self, hier_ar: int, hier_ag: int):
+        """Apply the coordinator's tuned hierarchical strategies at this
+        cycle's boundary, before its plans run (the JAX package's
+        ``_apply_hier_toggles``). -1 leaves the process's own choice
+        (``set_hierarchical`` or the env); the toggles before the first
+        tuned value are kept for :meth:`shutdown`."""
+        if (hier_ar, hier_ag) == self._hier_applied:
+            return
+        from horovod_tpu_torch.ops import hierarchical
+
+        if self._hier_saved is None and (hier_ar >= 0 or hier_ag >= 0):
+            self._hier_saved = (hierarchical._forced,
+                                hierarchical._forced_allgather)
+        if hier_ar >= 0:
+            hierarchical.set_hierarchical(bool(hier_ar))
+        if hier_ag >= 0:
+            hierarchical.set_hierarchical_allgather(bool(hier_ag))
+        self._hier_applied = (hier_ar, hier_ag)
 
     def _finish(self, entries, outs):
         """Hand each live entry its result; on the card after recording
@@ -416,6 +470,7 @@ class NativeCore:
                 outs = arrays
             if post != 1.0:
                 outs = [o * post for o in outs]
+            self.plan_counts[rtype] = self.plan_counts.get(rtype, 0) + 1
             self._finish(live, outs)
         except Exception as e:
             for handle, _, _ in live:
@@ -452,6 +507,8 @@ class NativeCore:
                 outs = [o * resp.postscale_factor for o in outs]
             mine = [(e, o.view(e[1].shape)) for e, o in zip(entries, outs)
                     if e is not None]
+            self.plan_counts[resp.response_type] = self.plan_counts.get(
+                resp.response_type, 0) + 1
             self._finish([e for e, _ in mine], [o for _, o in mine])
         except Exception as e:
             for handle, _, _ in live:
@@ -460,6 +517,13 @@ class NativeCore:
                     handle.event.set()
 
     # --------------------------------------------------------------- enqueue
+
+    def auto_name(self, request_type: int) -> str:
+        """The next generated name of an op queued without one,
+        ``<op>.noname.<k>``, ``k`` counted from 0 for this core: every
+        rank issues its unnamed ops in the same order, so their names
+        agree."""
+        return f"{_KIND[request_type]}.noname.{next(self._noname)}"
 
     def enqueue(self, name: str, tensor, request_type: int, *, op=None,
                 root_rank: int = -1, prescale: float = 1.0,
@@ -513,11 +577,37 @@ class NativeCore:
         """Globally agreed response-cache hits this process proposed."""
         return self._lib.hvd_core_cache_hit_count()
 
+    def hier_allreduce(self) -> int:
+        """The hierarchical-allreduce strategy the job applied this cycle
+        (-1 never tuned, 0 flat, 1 hierarchical)."""
+        return self._lib.hvd_core_hier_allreduce()
+
+    def hier_allgather(self) -> int:
+        return self._lib.hvd_core_hier_allgather()
+
+    def set_autotuned_params(self, *, cycle_ms: float = 0.0,
+                             fusion_bytes: int = -1, cache_enabled: int = -1,
+                             hier_allreduce: int = -1,
+                             hier_allgather: int = -1):
+        """The coordinator's manual retune: the values ride the next
+        cycle's broadcast and every rank applies them at the same cycle
+        boundary (what the autotuner does). No-op on the other ranks."""
+        self._lib.hvd_core_set_autotuned_params(
+            cycle_ms, fusion_bytes, cache_enabled, hier_allreduce,
+            hier_allgather)
+
     def shutdown(self):
         """Stop the background thread; every entry it still held fails
         with the core's shutdown error. The core's process group is
         destroyed with the default one."""
         self._lib.hvd_core_shutdown()
+        if self._hier_saved is not None:
+            from horovod_tpu_torch.ops import hierarchical
+
+            hierarchical.set_hierarchical(self._hier_saved[0])
+            hierarchical.set_hierarchical_allgather(self._hier_saved[1])
+            self._hier_saved = None
+            self._hier_applied = (-1, -1)
         with self._pending_mu:
             items = list(self._pending.values())
             self._pending.clear()

@@ -23,13 +23,30 @@ exact SUM reduce-scatter. ``allreduce(t, Adasum)`` runs the butterfly of
 
 The ``*_async`` ops return a :class:`Handle` (``synchronize``, ``poll``)
 and register their ``name`` among the outstanding ones, where a
-duplicate raises (the reference's ``DUPLICATE_NAME_ERROR``). With the
-native core attached (``init(native_core=True)``) a named async op is
-queued to the core instead (:func:`_core_enqueue`), which negotiates it
-across ranks, fuses it with others ready in the same cycle and runs it
-on the core's thread and process group (:func:`on_group`); otherwise it
-is ``torch.distributed``'s ``async_op=True``, and each sync op is its
-async op waited on at once, so the two agree bit for bit.
+duplicate raises (the reference's ``DUPLICATE_NAME_ERROR``). Without the
+native core an async op is ``torch.distributed``'s ``async_op=True``,
+and each sync op is its async op waited on at once, so the two agree
+bit for bit.
+
+With the native core attached (``init(native_core=True)``) every op a
+caller's thread issues — named or not, sync or async — is queued to the
+core (:func:`_core_enqueue`; an op without a name gets the next of
+``<op>.noname.<k>``, counted per core), which negotiates it across
+ranks, fuses it with others ready in the same cycle and runs it on the
+core's thread and process group (:func:`on_group`); a sync op waits on
+its handle. So on one rank only the core's thread issues collectives,
+in the negotiated order every rank shares, as the reference's one
+background thread does: two threads issuing on two NCCL communicators
+in an order that differs between ranks can deadlock the card. (A
+compressed :func:`allreduce` and the exchanges of the functional
+:func:`~horovod_tpu_torch.optim.DistributedOptimizer` still run on the
+caller's thread: the core carries no compression.)
+
+``axis=`` of :func:`allreduce` / :func:`allgather` is ``None`` (the
+world) or the host mesh's ``(CROSS, LOCAL)`` pair
+(:func:`horovod_tpu_torch.parallel.mesh.build_host_mesh`): with the
+pair and the toggle on they take the two-level route of
+:mod:`horovod_tpu_torch.ops.hierarchical`, else the flat one.
 """
 
 from __future__ import annotations
@@ -115,16 +132,27 @@ def _reduce_scatter_single(out, t, op, async_op=False):
 
 
 def _n() -> int:
-    return basics.size()
+    """The size of the group this thread's collectives run on."""
+    g = _group()
+    return basics.size() if g is None else dist.get_world_size(g)
 
 
 def _div(x, n: int):
     """``x / n`` as the reference's ``_div``: an integer tensor divides
     in float and truncates back; a float one divides by an ``n`` of its
-    own dtype (a tensor, so CUDA performs a true division)."""
+    own dtype (a 0-d tensor made on the tensor's device, so CUDA performs
+    a true division and nothing is copied from the host)."""
     if x.dtype.is_floating_point:
-        return x / torch.tensor(n, dtype=x.dtype, device=x.device)
+        return x / torch.full((), n, dtype=x.dtype, device=x.device)
     return torch.div(x, n).to(x.dtype)
+
+
+def _via_core():
+    """The native core, when this thread's collectives go through it: one
+    is attached and this is not the core's own thread (which runs its
+    plans inside :func:`on_group`)."""
+    core = basics._state.core
+    return core if core is not None and _group() is None else None
 
 
 def _check_device(tensor):
@@ -318,10 +346,58 @@ class _ShardGather(torch.autograd.Function):
         return out, None
 
 
-def gather_shards(flat):
+class _PairGather(torch.autograd.Function):
+    """The ZeRO-3 gather on the host mesh's ``(CROSS, LOCAL)`` pair:
+    ``allgather(flat, axis=pair)`` (inside LOCAL then across CROSS while
+    ``HOROVOD_HIERARCHICAL_ALLGATHER`` is on, else flat), after the
+    shard's int8 roundtrip when ``roundtrip`` (the pair has no int8
+    gather: the JAX package sends the roundtripped values). The backward
+    is the gather's exact transpose: a reduce-scatter over CROSS then
+    LOCAL for the two-level gather, the flat one for the flat gather."""
+
+    @staticmethod
+    def forward(ctx, flat, roundtrip):
+        from horovod_tpu_torch.compression import INT8_BLOCK, _pad_to_block
+        from horovod_tpu_torch.ops import hierarchical as _hier
+
+        ctx.mesh = _hier._mesh()
+        if roundtrip:
+            padded = _pad_to_block(flat, INT8_BLOCK).contiguous()
+            flat = _k.quantize_roundtrip(padded, INT8_BLOCK)[2][:flat.shape[0]]
+        ctx.hier = _hier.allgather_enabled()
+        if ctx.hier:
+            return _hier.hier_allgather(flat)
+        return _all_gather_flat(flat)
+
+    @staticmethod
+    def backward(ctx, ct):
+        mesh = ctx.mesh
+        steps = ((mesh.cross_group, mesh.cross), (mesh.local_group,
+                                                  mesh.local)) \
+            if ctx.hier else ((None, mesh.cross * mesh.local),)
+        ct = ct.contiguous()
+        for group, size in steps:
+            out = torch.empty(ct.shape[0] // size, dtype=ct.dtype,
+                              device=ct.device)
+            with on_group(group):
+                _reduce_scatter_single(out, ct, op=dist.ReduceOp.SUM)
+            ct = out
+        return ct, None
+
+
+def gather_shards(flat, *, axis=None, roundtrip: bool = False):
     """Differentiable tiled all-gather of this rank's flat shard (the
     ZeRO-3 full-precision parameter gather): ``[s]`` → ``[N*s]``; the
-    backward reduce-scatters (SUM) the cotangent."""
+    backward reduce-scatters (SUM) the cotangent. ``axis`` the host
+    mesh's pair: :class:`_PairGather` (``roundtrip`` sends the shard's
+    int8 roundtrip)."""
+    if axis is not None:
+        from horovod_tpu_torch.ops import hierarchical as _hier
+
+        _hier.pair_of(axis)
+        return _PairGather.apply(flat, roundtrip)
+    if roundtrip:
+        raise ValueError("roundtrip= is the axis pair's int8 gather")
     return _ShardGather.apply(flat, None)
 
 
@@ -426,17 +502,30 @@ def _grouped_allreduce(tensors, op, compression=None, *, residuals=False):
 
 
 def allreduce(tensor, op: ReduceOp = Average, *, compression=None,
-              prescale_factor: float = 1.0, postscale_factor: float = 1.0):
+              prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+              axis=None):
     """Reduce ``tensor`` across ranks (Average divides the sum by the
     world size; Adasum runs the butterfly of :mod:`.adasum` on a
     power-of-two world). A quantized ``compression`` (``Compression.int8``)
     sends f32/f64 tensors of at least ``min_quant_elems`` elements through
     the int8 exchange; other compressors cast around the reduction.
     ``prescale_factor`` multiplies the tensor before the reduction,
-    ``postscale_factor`` the result after it, as in the JAX package."""
+    ``postscale_factor`` the result after it, as in the JAX package.
+    ``axis`` the host mesh's ``(CROSS, LOCAL)`` pair: the two-level route
+    while ``HOROVOD_HIERARCHICAL_ALLREDUCE`` is on
+    (:func:`~horovod_tpu_torch.ops.hierarchical.hier_allreduce`, a
+    quantized compressor on the cross hop only), else the flat one (a
+    quantized compressor's roundtrip through the plain sum, as the JAX
+    package models a pair's wire)."""
     basics._require_init()
     _check_device(tensor)
     op = ReduceOp(op)
+    if axis is not None:
+        return _pair_allreduce(tensor, op, compression, axis,
+                               prescale_factor, postscale_factor)
+    if compression is None and _via_core() is not None:
+        return allreduce_async(tensor, op, prescale_factor=prescale_factor,
+                               postscale_factor=postscale_factor).wait()
     if prescale_factor != 1.0:
         tensor = tensor * prescale_factor
     if op != Adasum:
@@ -450,6 +539,116 @@ def allreduce(tensor, op: ReduceOp = Average, *, compression=None,
         wire, ctx = compression.compress(tensor)
         out = compression.decompress(_adasum.adasum_allreduce(wire), ctx)
     return out * postscale_factor if postscale_factor != 1.0 else out
+
+
+def _roundtrip_residuals(tensors, compression) -> list:
+    """Each tensor's ``t - decompress(compress(t))``, the rounding error
+    feedback keeps on a route whose wire is not the tensor's own
+    exchange (the axis pair's). A quantized compressor's roundtrips run
+    as one ``quantize`` launch a dtype over the tensors laid side by side
+    (:func:`_quant_rows_layout` at one row: each tensor's own 256-element
+    blocks, so every value is its own compressor's); the tensors it does
+    not quantize give ``t - t``."""
+    from horovod_tpu_torch.compression import Compression
+
+    compression = compression or Compression.none
+    out = [None] * len(tensors)
+    groups: dict = {}
+    for i, t in enumerate(tensors):
+        if getattr(compression, "quantized", False) and \
+                _quantizes(compression, t):
+            groups.setdefault(t.dtype, []).append(i)
+        else:
+            out[i] = t - compression.decompress(*compression.compress(t))
+    block = int(getattr(compression, "block", 0) or 0)
+    for idxs in groups.values():
+        leaves = [tensors[i] for i in idxs]
+        sizes = tuple(t.numel() for t in leaves)
+        cols, _offs, _S = _quant_rows_layout(sizes, 1, block)
+        buf = _pack_quant_rows(leaves, 1, cols)
+        rt = _k.quantize_roundtrip(buf.view(-1), block)[2]
+        for i, r in zip(idxs, _unpack_quant_rows(
+                buf - rt.view(buf.shape), cols, sizes,
+                [t.shape for t in leaves])):
+            out[i] = r
+    return out
+
+
+def _pair_allreduce(tensor, op, compression, axis, prescale_factor,
+                    postscale_factor):
+    """:func:`allreduce` over the host mesh's ``(CROSS, LOCAL)`` pair
+    (:func:`_pair_grouped_allreduce` of the one tensor)."""
+    from horovod_tpu_torch.ops import hierarchical as _hier
+
+    _hier.pair_of(axis)
+    if prescale_factor != 1.0:
+        tensor = tensor * prescale_factor
+    return _pair_grouped_allreduce([tensor], op, compression,
+                                   postscale_factor=postscale_factor)[0]
+
+
+def _pair_grouped_allreduce(tensors, op, compression=None, *,
+                            postscale_factor: float = 1.0) -> list:
+    """``allreduce(t, op, compression=, axis=(CROSS, LOCAL))`` of every
+    tensor, as the JAX package dispatches a tuple axis, with the
+    collectives grouped: while ``HOROVOD_HIERARCHICAL_ALLREDUCE`` is on,
+    the tensors a quantized compressor quantizes go through
+    :func:`~horovod_tpu_torch.ops.hierarchical.grouped_hier_allreduce`
+    with it (int8 on the cross hop only), the others compressed whole
+    around it; with it off the flat route, a quantized compressor's
+    roundtrip through the plain sum. Average divides by the world size.
+    Adasum has no tuple-axis route, and the two-level one sums only."""
+    from horovod_tpu_torch.compression import Compression
+    from horovod_tpu_torch.ops import hierarchical as _hier
+
+    mesh = _hier._mesh()
+    op = ReduceOp(op)
+    if op == Adasum:
+        raise ValueError(
+            "Adasum does not support hierarchical (tuple) axes; the VHDD "
+            "butterfly needs one flat rank ordering — pass a single-axis "
+            "mesh or an explicit axis")
+    hier = _hier.enabled()
+    compression = compression or Compression.none
+    quantized = getattr(compression, "quantized", False)
+    q = [i for i, t in enumerate(tensors)
+         if quantized and _quantizes(compression, t)]
+    rest = [i for i in range(len(tensors)) if i not in set(q)]
+    if (q or hier) and op not in (Average, Sum):
+        raise ValueError(
+            f"the hierarchical and quantized routes support Average/Sum, "
+            f"not {op!r}")
+    n = mesh.cross * mesh.local
+    outs = [None] * len(tensors)
+
+    def finish(o):
+        if op == Average:
+            o = _div(o, n)
+        return o * postscale_factor if postscale_factor != 1.0 else o
+
+    if q and hier:
+        # one grouped call: a quantized compressor leaves the tensors it
+        # does not quantize as they are, and they ride its buffers exact
+        red = _hier.grouped_hier_allreduce(tensors, compression=compression)
+        return [finish(o) for o in red]
+    if q:
+        red = _grouped_flat_allreduce(
+            [compression.decompress(*compression.compress(tensors[i]))
+             for i in q], Sum)
+        for i, o in zip(q, red):
+            outs[i] = finish(o)
+    if rest:
+        wire = [compression.compress(tensors[i]) for i in rest]
+        if hier:
+            red = [finish(o) for o in _hier.grouped_hier_allreduce(
+                [c for c, _ in wire])]
+        else:
+            red = _grouped_flat_allreduce([c for c, _ in wire], op)
+            if postscale_factor != 1.0:
+                red = [o * postscale_factor for o in red]
+        for i, (_c, ctx), o in zip(rest, wire, red):
+            outs[i] = compression.decompress(o, ctx)
+    return outs
 
 
 def allreduce_(tensor, op: ReduceOp = Average, **kw):
@@ -474,10 +673,12 @@ def grouped_allreduce(tensors, op: ReduceOp = Average):
     for t in tensors:
         _check_device(t)
     op = ReduceOp(op)
+    if op not in (Average, Sum, Adasum):
+        op = Sum
+    if _via_core() is not None:
+        return [h.wait() for h in [allreduce_async(t, op) for t in tensors]]
     if op == Adasum:
         return _adasum.grouped_adasum_allreduce(tensors)
-    if op not in (Average, Sum):
-        op = Sum
     return _grouped_allreduce(tensors, op)[0]
 
 
@@ -492,9 +693,23 @@ def _start_allgather(tensor):
     return [_all_gather_single(out, t, async_op=True)], lambda: out
 
 
-def allgather(tensor):
+def allgather(tensor, *, axis=None):
     """Concatenate every rank's tensor along dim 0 (equal dim 0 on every
-    rank, as the reference's static-shape path requires)."""
+    rank, as the reference's static-shape path requires). ``axis`` the
+    host mesh's ``(CROSS, LOCAL)`` pair: while
+    ``HOROVOD_HIERARCHICAL_ALLGATHER`` is on, gathered inside LOCAL then
+    across CROSS (:func:`~horovod_tpu_torch.ops.hierarchical.
+    hier_allgather`, the same rank order)."""
+    if axis is not None:
+        from horovod_tpu_torch.ops import hierarchical as _hier
+
+        basics._require_init()
+        _check_device(tensor)
+        _hier.pair_of(axis)
+        if _hier.allgather_enabled():
+            return _hier.hier_allgather(tensor)
+    if _via_core() is not None:
+        return allgather_async(tensor).wait()
     return _run(_start_allgather(tensor))
 
 
@@ -502,6 +717,8 @@ def grouped_allgather(tensors):
     """:func:`allgather` of each tensor of a list, all started before any
     is waited on (the reference fuses allgather responses too; mixed
     dtypes welcome)."""
+    if _via_core() is not None:
+        return [h.wait() for h in [allgather_async(t) for t in tensors]]
     started = [_start_allgather(t) for t in tensors]
     return [_run(s) for s in started]
 
@@ -522,6 +739,8 @@ def _start_broadcast(tensor, root_rank: int):
 
 def broadcast(tensor, root_rank: int = 0):
     """Every rank gets ``root_rank``'s tensor."""
+    if _via_core() is not None:
+        return broadcast_async(tensor, root_rank).wait()
     return _run(_start_broadcast(tensor, root_rank))
 
 
@@ -548,13 +767,13 @@ def broadcast_object(obj, root_rank: int = 0):
     dev = basics.device()
     root = basics.rank() == root_rank
     blob = pickle.dumps(obj) if root else b""
-    length = torch.tensor([len(blob)], dtype=torch.int64, device=dev)
-    dist.broadcast(length, src=root_rank, group=_group())
+    length = broadcast(torch.tensor([len(blob)], dtype=torch.int64,
+                                    device=dev), root_rank)
     if root:
         buf = torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(dev)
     else:
         buf = torch.empty(int(length.item()), dtype=torch.uint8, device=dev)
-    dist.broadcast(buf, src=root_rank, group=_group())
+    buf = broadcast(buf, root_rank)
     return pickle.loads(buf.cpu().numpy().tobytes())
 
 
@@ -607,6 +826,8 @@ def _start_reducescatter(tensor, op):
 def reducescatter(tensor, op: ReduceOp = Average):
     """Reduce along dim 0 and give rank r the r-th of N equal row blocks.
     A dim 0 that N does not divide is zero-padded first."""
+    if _via_core() is not None:
+        return reducescatter_async(tensor, op).wait()
     return _run(_start_reducescatter(tensor, op))
 
 
@@ -623,6 +844,8 @@ def _start_alltoall(tensor):
 def alltoall(tensor):
     """Rank i sends row block j of its tensor to rank j; dim 0 must be a
     multiple of the world size."""
+    if _via_core() is not None:
+        return alltoall_async(tensor).wait()
     return _run(_start_alltoall(tensor))
 
 
@@ -738,16 +961,20 @@ def join() -> int:
 
 
 def _core_enqueue(name, tensor, request_type, **kw):
-    """Queue a named async op to the native core when one is attached
-    (``init(native_core=True)``); None when the op should start here. The
-    name stays outstanding until the handle is waited on, as on the
-    direct path (the core's own check sees only the names it still
-    queues)."""
-    core = basics._state.core
-    if core is None or name is None:
+    """Queue an async op to the native core when this thread's ops go
+    through it (:func:`_via_core`); None when the op should start here.
+    An op without a name takes the core's next generated one
+    (``<op>.noname.<k>``: every rank issues its ops in the same order, so
+    the names agree). The name stays outstanding until the handle is
+    waited on, as on the direct path (the core's own check sees only the
+    names it still queues)."""
+    core = _via_core()
+    if core is None:
         return None
     basics._require_init()
     _check_device(tensor)
+    if name is None:
+        name = core.auto_name(request_type)
     _register_name(name)
     try:
         handle = core.enqueue(name, tensor, request_type, **kw)
@@ -824,10 +1051,33 @@ def allreduce_async_(tensor, op: ReduceOp = Average, *, name=None,
                         postscale_factor=postscale_factor), tensor)
 
 
+class _GroupHandle:
+    """Handle of several ops queued to the core as one: ``wait`` gives
+    their outputs, in order."""
+
+    __slots__ = ("_handles",)
+
+    def __init__(self, handles):
+        self._handles = handles
+
+    def done(self) -> bool:
+        return all(h.done() for h in self._handles)
+
+    def wait(self, timeout=None):
+        return [h.wait(timeout) for h in self._handles]
+
+
 def grouped_allreduce_async(tensors, op: ReduceOp = Average, *, name=None):
-    """Async :func:`grouped_allreduce` (never through the core: the group
-    is fused already)."""
+    """Async :func:`grouped_allreduce`. With the core attached each
+    tensor is queued to it (``<name>.<i>``), and the core fuses those of
+    a cycle."""
     op = ReduceOp(op)
+    if _via_core() is not None:
+        op = op if op in (Average, Sum, Adasum) else Sum
+        return _GroupHandle([
+            allreduce_async(t, op, name=None if name is None
+                            else f"{name}.{i}")
+            for i, t in enumerate(tensors)])
 
     def start():
         basics._require_init()

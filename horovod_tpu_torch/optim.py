@@ -232,16 +232,19 @@ def _zero_init(optimizer, params, n: int, r: int, *, error_feedback: bool,
 
 
 def _zero_bucket(flat, key, g, *, residual, n, op, compression, predivide,
-                 roundtrip):
+                 roundtrip, pair=False):
     """One ZeRO-1 group's exchange on this rank: (error-feedback correct,)
     reduce-scatter — the int8 exchange for a quantizable group, whose one
     quantize pass serves the residual and the wire — and divide for
-    Average. Returns ``(this rank's [Lp/N] gradient shard, new residual
-    or None)``."""
+    Average. On the host mesh's axis pair (``pair``) a quantizable group
+    takes the JAX package's tuple-axis route instead: the int8 exchange
+    needs one axis, so its chunk-aligned roundtrip goes through the plain
+    reduce-scatter. Returns ``(this rank's [Lp/N] gradient shard, new
+    residual or None)``."""
     quantized = getattr(compression, "quantized", False)
     qgroup = (quantized and _quantizable(flat.dtype)
               and g.Lp >= int(getattr(compression, "min_quant_elems", 0)))
-    pre = res = None
+    pre = res = rt = None
     send = flat
     if residual is not None:
         send = flat + residual[key]
@@ -254,7 +257,11 @@ def _zero_bucket(flat, key, g, *, residual, n, op, compression, predivide,
     pdiv = op == Average and predivide != 1.0
     if pdiv:
         send = _ov._predivide(send, predivide)
-    if qgroup:
+    if qgroup and pair:
+        if rt is None:
+            rt = quantize_chunked(send, n, int(compression.block))[2]
+        shard = _C.reducescatter(rt, Sum)
+    elif qgroup:
         shard = _C.quantized_psum_scatter(send, block=int(compression.block),
                                           pre=pre)
     else:
@@ -272,7 +279,7 @@ def _zero_bucket(flat, key, g, *, residual, n, op, compression, predivide,
 
 def _zero_update(grads, state, params, *, optimizer, compression,
                  error_feedback, op, predivide, roundtrip, bucket_bytes=None,
-                 started=None):
+                 started=None, pair=False):
     """One ZeRO-1 update on this rank (the reference's bound-axis branch):
     each group (a dtype, or with ``bucket_bytes`` a bucket) packed and
     reduce-scattered by :func:`_zero_bucket` — or taken from ``started``,
@@ -293,7 +300,7 @@ def _zero_update(grads, state, params, *, optimizer, compression,
             _ov.pack_group(leaves, g), key, g,
             residual=state.get("residual") if error_feedback else None, n=n,
             op=op, compression=compression, predivide=predivide,
-            roundtrip=roundtrip) for key, g in groups.items()}
+            roundtrip=roundtrip, pair=pair) for key, g in groups.items()}
     gshards = {k: started[k][0] for k in groups}
     pshards = None
     if params is not None:
@@ -483,6 +490,8 @@ def reshard_optimizer_state(state, params, *, to_size=None,
 
     n_new = int(to_size) if to_size is not None else basics.size()
     n_old = int(state["shard"]["size"])
+    if bucket_bytes is None and isinstance(params, FsdpParams):
+        bucket_bytes = params.meta.bucket_bytes
     lengths = _group_lengths(params)
     if any(_is_bucket_key(k) for k in _dict_keys(state)):
         lengths = _bucket_lengths(state, params, bucket_bytes)
@@ -579,9 +588,11 @@ def _fsdp_wire() -> str:
 
 class _FsdpMeta(NamedTuple):
     """What re-assembles the tree from the shards: the leaves' keys (in
-    JAX's flatten order), shapes and dtypes, this rank's place, and the
-    ZeRO-1 group plan at that world size. Build with :func:`_fsdp_meta`,
-    which computes the plan once."""
+    JAX's flatten order), shapes and dtypes, this rank's place, the
+    ZeRO-1 group plan at that world size (one group a dtype, or with
+    ``bucket_bytes`` the buckets of :func:`_zero_groups`), the bucket size
+    and the axis the gathers run on (``None`` or the host mesh's pair).
+    Build with :func:`_fsdp_meta`, which computes the plan once."""
 
     keys: tuple
     shapes: tuple
@@ -589,6 +600,8 @@ class _FsdpMeta(NamedTuple):
     rank: int
     size: int
     groups: dict
+    bucket_bytes: Optional[int] = None
+    axis: Optional[tuple] = None
 
 
 class FsdpParams:
@@ -609,15 +622,27 @@ class FsdpParams:
                 f"rank={self.meta.rank}, size={self.meta.size})")
 
 
-def _fsdp_meta(keys, shapes, dtypes, rank: int, size: int) -> _FsdpMeta:
+def _fsdp_groups(shapes, dtypes, size: int, bucket_bytes=None) -> dict:
+    """The ZeRO-3 exchange groups of a tree of ``shapes``/``dtypes`` at
+    ``size`` ranks: ZeRO-1's (:func:`_zero_groups`). Their boundaries
+    depend only on the shapes and ``bucket_bytes``, never on the world
+    size (only ``Lp`` does), which makes :func:`fsdp_reshard_params` a
+    re-pad."""
+    leaves = [torch.empty(tuple(s), dtype=d, device="meta")
+              for s, d in zip(shapes, dtypes)]
+    return _zero_groups(leaves, size, bucket_bytes)
+
+
+def _fsdp_meta(keys, shapes, dtypes, rank: int, size: int,
+               bucket_bytes=None, axis=None) -> _FsdpMeta:
     """The :class:`_FsdpMeta` of a tree of ``shapes``/``dtypes`` packed for
-    ``rank`` of ``size``, with its ZeRO-1 group plan."""
+    ``rank`` of ``size``, with its group plan."""
     shapes = tuple(tuple(s) for s in shapes)
     dtypes = tuple(dtypes)
-    leaves = [torch.empty(s, dtype=d, device="meta")
-              for s, d in zip(shapes, dtypes)]
+    bucket_bytes = int(bucket_bytes) if bucket_bytes else None
     return _FsdpMeta(tuple(keys), shapes, dtypes, int(rank), int(size),
-                     _zero_groups(leaves, size))
+                     _fsdp_groups(shapes, dtypes, size, bucket_bytes),
+                     bucket_bytes, None if axis is None else tuple(axis))
 
 
 def _check_world(fp: FsdpParams) -> None:
@@ -627,17 +652,27 @@ def _check_world(fp: FsdpParams) -> None:
             f"this is rank {basics.rank()} of {basics.size()}")
 
 
-def fsdp_pack_params(params: dict) -> FsdpParams:
+def fsdp_pack_params(params: dict, *, axis=None,
+                     bucket_bytes: Optional[int] = None) -> FsdpParams:
     """This rank's ZeRO-3 shards of a full parameter tree (the same on
-    every rank): each per-dtype group packed flat as ZeRO-1 packs it, and
-    this rank's ``[Lp/N]`` row kept. The layout is ZeRO-1's, so
+    every rank): each group packed flat as ZeRO-1 packs it, and this
+    rank's ``[Lp/N]`` row kept. The layout is ZeRO-1's, so
     ``DistributedOptimizer(shard_params=True).init`` gives the ZeRO-1
-    state."""
+    state. ``bucket_bytes`` sets the gather granularity (ZeRO-1's
+    buckets, keys ``dtype#k``: one gather a bucket, in the forward and in
+    the recompute, and one reduce-scatter a bucket in the backward);
+    default one group a dtype. ``axis`` is the gathers' axis: ``None``
+    (the world) or the host mesh's ``(CROSS, LOCAL)`` pair."""
+    if axis is not None:
+        from horovod_tpu_torch.ops import hierarchical as _hier
+
+        _hier.check_pair(axis)
     n, r = basics.size(), basics.rank()
     keys = tree_keys(params)
     leaves = [params[k] for k in keys]
     meta = _fsdp_meta(keys, [l.shape for l in leaves],
-                      [l.dtype for l in leaves], r, n)
+                      [l.dtype for l in leaves], r, n,
+                      bucket_bytes=bucket_bytes, axis=axis)
     shards = {k: _rank_shard(_ov.pack_group(leaves, g), n, r).clone()
               for k, g in meta.groups.items()}
     return FsdpParams(shards, meta)
@@ -669,23 +704,81 @@ def fsdp_gather_params(fp: FsdpParams, *, wire=None) -> dict:
     wire = _fsdp_wire() if wire is None else wire
     if wire not in ("none", "int8"):
         raise ValueError(f"wire must be 'none' or 'int8', got {wire!r}")
+    pair = fp.meta.axis is not None
     fulls = {}
     for key, g in fp.meta.groups.items():
         local = fp.shards[key]
-        if wire == "int8" and _quantizable(local.dtype) \
-                and g.Lp >= MIN_QUANT_ELEMS:
+        qgroup = wire == "int8" and _quantizable(local.dtype) \
+            and g.Lp >= MIN_QUANT_ELEMS
+        if qgroup and not pair:
             fulls[key] = _C.quantized_all_gather(local)
         else:
-            fulls[key] = _C.gather_shards(local)
+            # on the axis pair the int8 wire needs one axis: the shard's
+            # roundtrip goes through the routed gather, as in the JAX package
+            fulls[key] = _C.gather_shards(local, axis=fp.meta.axis,
+                                          roundtrip=qgroup)
     return _assemble(fp, fulls)
 
 
-def _fsdp_init(optimizer, params):
+#: the key of a ZeRO-3 parameter tree's consolidated form (what
+#: :func:`horovod_tpu_torch.checkpoint.save` writes for an
+#: :class:`FsdpParams`): ``{FSDP_ROWS: {group: [N, s]}, "keys", "shapes",
+#: "dtypes"}``, and ``"bucket_bytes"`` for a bucketed pack
+FSDP_ROWS = "fsdp_rows"
+
+
+def fsdp_reshard_params(fp, *, to_size: Optional[int] = None):
+    """ZeRO-3 parameter shards re-packed for ``to_size`` ranks (default
+    the world's size), as the JAX package's ``fsdp_reshard_params``: each
+    group's ``[N, s]`` rows unpadded to its true length ``L``, re-padded
+    for the new size and reshaped ``[to_size, s']``. The group boundaries
+    do not depend on the world size, so this is a re-pad: no collective,
+    no arithmetic. ``fp`` is the consolidated form (:data:`FSDP_ROWS`,
+    what ``checkpoint.restore`` returns for a saved :class:`FsdpParams`),
+    returned at the new size; a rank's own :class:`FsdpParams` holds one
+    row, and is returned only at its own size.
+    :func:`reshard_optimizer_state` re-packs the state half against the
+    same ``fp``."""
+    from horovod_tpu_torch.training import host_array
+
+    n_new = int(to_size) if to_size is not None else basics.size()
+    if isinstance(fp, FsdpParams):
+        if fp.meta.size != n_new:
+            raise ValueError(
+                f"{fp!r} holds one rank's row; re-pack the consolidated "
+                "rows (checkpoint.save writes them, checkpoint.restore "
+                f"returns them) for a world of {n_new}")
+        return fp
+    rows = fp[FSDP_ROWS]
+    n_old = int(np.shape(next(iter(rows.values())))[0])
+    if n_old == n_new:
+        return fp
+    dtypes = [getattr(torch, d) for d in fp["dtypes"]]
+    bb = fp.get("bucket_bytes")
+    old = _fsdp_groups(fp["shapes"], dtypes, n_old, bb)
+    new = _fsdp_groups(fp["shapes"], dtypes, n_new, bb)
+    out = {}
+    for k, g in new.items():
+        flat = host_array(rows[k]).reshape(-1)[:old[k].L]
+        if g.Lp > g.L:
+            flat = np.concatenate([flat, np.zeros(g.Lp - g.L, flat.dtype)])
+        out[k] = flat.reshape(n_new, -1)
+    return {**fp, FSDP_ROWS: out}
+
+
+def _fsdp_init(optimizer, params, bucket_bytes=None):
     if not isinstance(params, FsdpParams):
         raise TypeError(
             "DistributedOptimizer(shard_params=True).init expects the packed "
             "FsdpParams shards: build them with fsdp_pack_params(params), got "
             f"{type(params).__name__}")
+    if bucket_bytes and params.meta.bucket_bytes != bucket_bytes:
+        raise ValueError(
+            "bucket_bytes mismatch: params were packed with "
+            f"bucket_bytes={params.meta.bucket_bytes} but this "
+            f"optimizer resolved {bucket_bytes}; pass the same value "
+            "to fsdp_pack_params — the pack defines the exchange "
+            "granularity")
     _check_world(params)
     return {"shard": {"rank": params.meta.rank, "size": params.meta.size},
             "inner": optimizer.init(dict(params.shards))}
@@ -986,6 +1079,7 @@ class DistributedTransform(NamedTuple):
     shard_params: bool = False
     bucket_bytes: Optional[int] = None
     exchange: Optional[Callable] = None
+    axis: Optional[tuple] = None
 
 
 #: optax's ``MultiStepsState``, under its JAX name (checkpoints of either
@@ -1097,8 +1191,18 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
 
     ``backward_passes_per_step=k`` accumulates ``k`` gradients and
     exchanges their mean on every ``k``-th update (:func:`multi_steps`).
-    ``axis`` must stay ``None``: the port's collectives run on the
-    world's process group.
+    ``axis`` is ``None`` (the world's process group) or the host mesh's
+    ``(CROSS_AXIS, LOCAL_AXIS)`` pair
+    (:func:`~horovod_tpu_torch.parallel.mesh.build_host_mesh`), the JAX
+    package's tuple-axis routes: allreduce mode reduces each leaf as
+    ``allreduce(g, op, compression=, axis=pair)`` does (two-level while
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE`` is on, the int8 wire on the cross
+    hop only; the leaves grouped, each bit-equal to its own), error
+    feedback keeping ``c - decompress(compress(c))``; ZeRO-1 sends a
+    quantizable group's chunk-aligned roundtrip through the plain
+    reduce-scatter (the int8 exchange needs one axis). ZeRO-3 takes its
+    axis from :func:`fsdp_pack_params`. Overlap in allreduce mode,
+    PowerSGD and Adasum have no pair route here.
 
     ``numerics_guard=True`` (default ``HOROVOD_NUMERICS_GUARD``, or any
     ``loss_scale``) wraps the result in
@@ -1110,10 +1214,11 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
     state; ``make_train_step`` scales the loss by it. The guard does not
     compose with ``shard_params=True``, as in the JAX package.
     """
-    if axis is not None:
-        raise ValueError(
-            f"axis={axis!r}: the port's collectives run on the world's "
-            "process group; there are no mesh axes to name")
+    pair = axis is not None
+    if pair:
+        from horovod_tpu_torch.ops import hierarchical as _hier
+
+        _hier.check_pair(axis)
     if shard_optimizer is None:
         shard_optimizer = _env_true("HOROVOD_SHARD_OPTIMIZER")
     if shard_params is None:
@@ -1155,10 +1260,6 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
             raise ValueError(
                 "shard_params=True already shards the optimizer state; "
                 "pass shard_optimizer=False")
-        if ov_bytes:
-            raise ValueError(
-                "overlap/bucket_bytes with shard_params=True (bucketed "
-                "ZeRO-3) is not ported yet: ROADMAP Queue A item 6 (A8)")
     if factorized and not error_feedback:
         raise ValueError(
             "PowerSGD compression is biased low-rank truncation; it is "
@@ -1201,6 +1302,18 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
             "overlap/bucket_bytes is not supported with op=Adasum (the "
             "pairwise projections are per-tensor scalars; bucket packing "
             "would mix them)")
+    if pair and op == Adasum:
+        raise ValueError(
+            "Adasum does not support hierarchical (tuple) axes; the VHDD "
+            "butterfly needs one flat rank ordering — pass a single-axis "
+            "mesh or an explicit axis")
+    if pair and factorized:
+        raise ValueError("PowerSGD has no (cross, local) axis-pair route "
+                         "in the port: pass axis=None")
+    if pair and ov_bytes and not (shard_optimizer or shard_params):
+        raise ValueError("overlap in allreduce mode has no (cross, local) "
+                         "axis-pair route in the port: pass axis=None, or "
+                         "shard_optimizer=True")
     if numerics_guard is None:
         numerics_guard = (_env_true("HOROVOD_NUMERICS_GUARD")
                           or loss_scale is not None)
@@ -1241,7 +1354,21 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
         if op == Adasum:
             return _adasum_tree(grads, compression), None
         leaves = [grads[k] for k in keys]
-        if op == Average and pf != 1.0:
+        if pair:
+            # the JAX package's per-leaf allreduce on the pair; its error
+            # feedback measures each leaf's own compress/decompress
+            res = None
+            if residuals:
+                res = ([g - _roundtrip(g) for g in leaves] if pf != 1.0
+                       else _C._roundtrip_residuals(leaves, compression))
+            if op == Average and pf != 1.0:
+                outs = _C._pair_grouped_allreduce(
+                    [_ov._predivide(g, pf) for g in leaves], Sum, compression)
+                outs = [o * torch.tensor(pf / basics.size(), dtype=o.dtype,
+                                         device=o.device) for o in outs]
+            else:
+                outs = _C._pair_grouped_allreduce(leaves, op, compression)
+        elif op == Average and pf != 1.0:
             res = [g - _roundtrip(g) for g in leaves] if residuals else None
             outs = _ov.predivided_average(leaves, compression, pf)
         else:
@@ -1255,7 +1382,7 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
 
     def init(params):
         if shard_params:
-            return _fsdp_init(optimizer, params)
+            return _fsdp_init(optimizer, params, ov_bytes)
         if shard_optimizer:
             return _zero_init(optimizer, params, basics.size(), basics.rank(),
                               error_feedback=error_feedback,
@@ -1290,7 +1417,7 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
                 return _zero_bucket(flat, key, groups[key],
                                     residual=residual, n=n, op=op,
                                     compression=compression, predivide=pf,
-                                    roundtrip=_roundtrip)
+                                    roundtrip=_roundtrip, pair=pair)
         else:
             def run(key, flat):
                 return _ov.allreduce_bucket(
@@ -1340,7 +1467,7 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
                 grads, state, params, optimizer=optimizer,
                 compression=compression, error_feedback=error_feedback,
                 op=op, predivide=pf, roundtrip=_roundtrip,
-                bucket_bytes=ov_bytes,
+                bucket_bytes=ov_bytes, pair=pair,
                 started=None if started is None else started.results())
         if factorized:
             return _powersgd_update(grads, state, params, optimizer=optimizer,
@@ -1366,12 +1493,13 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
     if k > 1:
         tx = multi_steps(Transform(init, update), k)
         tx = DistributedTransform(tx.init, tx.update, bool(shard_optimizer),
-                                  bool(shard_params), ov_bytes, None)
+                                  bool(shard_params), ov_bytes, None,
+                                  tuple(axis) if pair else None)
     else:
         tx = DistributedTransform(init, update, bool(shard_optimizer),
                                   bool(shard_params), ov_bytes,
                                   exchange if ov_bytes and not shard_params
-                                  else None)
+                                  else None, tuple(axis) if pair else None)
     if numerics_guard:
         # outermost, so a BAD verdict freezes everything this optimizer
         # owns: moments, EF residuals, PowerSGD's Q, the accumulator

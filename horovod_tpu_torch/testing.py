@@ -1,13 +1,17 @@
 """Run a function in a world of processes, one per rank.
 
 ``run_world(fn, n, *args)`` spawns ``n`` processes, initializes
-``horovod_tpu_torch`` in each on the CPU (gloo, a free localhost port),
-calls ``fn(*args)`` and returns the per-rank results, rank-ordered.
-``device=None`` gives each rank its GPU instead (``cuda:<rank>``, NCCL).
-``native_core=True`` attaches the native core in every rank; its
-coordinator listens on a second free port, picked here and passed to
-the ranks through ``HVD_CORE_COORD_ADDR``/``HVD_CORE_COORD_PORT``, so
-that worlds run side by side never share a port.
+``horovod_tpu_torch`` in each on the CPU (gloo), calls ``fn(*args)`` and
+returns the per-rank results, rank-ordered. ``device=None`` gives each
+rank its GPU instead (``cuda:<rank>``, NCCL). The rendezvous store is a
+``torch.distributed.TCPStore`` that this process serves on a port the
+kernel picks as it binds (port 0), and the ranks connect to it as
+clients: no port is chosen, released and bound again, so worlds run
+side by side cannot take each other's ports. ``native_core=True``
+attaches the native core in every rank; its coordinator's port is
+reserved here (:func:`reserve_port`: bound, not listening, until the
+world ends) and passed to the ranks through
+``HVD_CORE_COORD_ADDR``/``HVD_CORE_COORD_PORT``.
 ``fn`` must be importable by the children (a module-level function of a
 module that does not import JAX keeps the spawn cheap).
 ``watching_calls(module, names, on_call)`` reports every call of some of
@@ -25,9 +29,23 @@ import torch.multiprocessing as mp
 
 
 def free_port() -> int:
+    """A port that was free when this returned (another process may take
+    it before it is bound again: :func:`reserve_port` holds one)."""
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def reserve_port() -> socket.socket:
+    """A socket bound to a port the kernel picks, with ``SO_REUSEADDR``
+    and not listening: while it is open the kernel hands the port to no
+    other ``bind`` to port 0, and a listener that also sets
+    ``SO_REUSEADDR`` (the native core's coordinator does) can still bind
+    and listen on it. Close it once that listener is up."""
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("0.0.0.0", 0))
+    return s
 
 
 @contextlib.contextmanager
@@ -53,8 +71,12 @@ def watching_calls(module, names, on_call):
             setattr(module, n, f)
 
 
-def _child(rank, n, port, device, fn, args, q, core_port=None):
+def _child(rank, n, port, device, fn, args, q, core_port=None,
+           timeout=120.0):
+    import datetime
+
     import torch
+    import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
 
@@ -64,8 +86,10 @@ def _child(rank, n, port, device, fn, args, q, core_port=None):
         os.environ["HVD_CORE_COORD_ADDR"] = "127.0.0.1"
         os.environ["HVD_CORE_COORD_PORT"] = str(core_port)
     try:
-        hvd.init(device=device, init_method=f"tcp://127.0.0.1:{port}",
-                 rank=rank, size=n, native_core=core_port is not None)
+        store = dist.TCPStore("127.0.0.1", port, n, is_master=False,
+                              timeout=datetime.timedelta(seconds=timeout))
+        hvd.init(device=device, store=store, rank=rank, size=n,
+                 native_core=core_port is not None)
         out = fn(*args)
         q.put((rank, True, out))
     except BaseException:  # noqa: BLE001 - shipped to the parent
@@ -78,19 +102,25 @@ def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0,
               native_core: bool = False) -> list:
     """``[fn(*args) on rank 0, ..., on rank n-1]``; raises with the first
     failing rank's traceback."""
+    import datetime
+
+    import torch.distributed as dist
+
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    port = free_port()
-    core_port = None
-    while native_core and core_port in (None, port):
-        core_port = free_port()
+    store = dist.TCPStore("127.0.0.1", 0, None, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=timeout))
+    held = reserve_port() if native_core else None
+    core_port = held.getsockname()[1] if held is not None else None
     procs = [ctx.Process(target=_child,
-                         args=(r, n, port, device, fn, args, q, core_port))
+                         args=(r, n, store.port, device, fn, args, q,
+                               core_port, timeout))
              for r in range(n)]
-    for p in procs:
-        p.start()
     results = {}
     try:
+        for p in procs:
+            p.start()
         for _ in range(n):
             rank, ok, out = q.get(timeout=timeout)
             if not ok:
@@ -98,7 +128,11 @@ def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0,
             results[rank] = out
     finally:
         for p in procs:
-            p.join(timeout=10)
-            if p.is_alive():
-                p.kill()
+            if p.pid is not None:
+                p.join(timeout=10)
+                if p.is_alive():
+                    p.kill()
+        if held is not None:
+            held.close()
+        del store
     return [results[r] for r in range(n)]

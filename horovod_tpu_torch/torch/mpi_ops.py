@@ -7,8 +7,11 @@ on the CPU; no CUDA tensor is staged through the host. (A CPU tensor in
 a world that runs on the card is carried to the card and back.) Sync,
 async (handle-based) and in-place spellings mirror the reference;
 ``allreduce``/``allgather``/``broadcast`` of a tensor that requires grad
-are differentiable (reference ``torch/mpi_ops.py:162-240``). A named
-async op goes through the native core when one is attached.
+are differentiable (reference ``torch/mpi_ops.py:162-240``). With the
+native core attached every op, named or not, sync or async, goes through
+the core (an unnamed one under a generated name), so only the core's
+thread issues collectives, as the reference's ops all go through its one
+background thread (``torch/mpi_ops.py:182-263``).
 """
 
 from __future__ import annotations

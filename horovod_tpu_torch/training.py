@@ -86,7 +86,8 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
     ``shard_params=True`` (ZeRO-3, ``tx = DistributedOptimizer(...,
     shard_params=True)``): the parameters are this rank's shards,
     ``params`` (an :class:`~horovod_tpu_torch.optim.FsdpParams`; default
-    ``fsdp_pack_params(model.jax_params())``), exposed as
+    ``fsdp_pack_params(model.jax_params())`` at the optimizer's
+    ``bucket_bytes`` and ``axis``: one gather a bucket), exposed as
     ``step.params``; build ``opt_state = tx.init(step.params)``. The
     model's own parameters are emptied: between steps no full-size
     parameter storage is held. Each step gathers the tree
@@ -264,7 +265,9 @@ def _fsdp_step(model, tx, fp, loss_fn, mark):
     from torch.utils.checkpoint import checkpoint
 
     if fp is None:
-        fp = fsdp_pack_params(model.jax_params())
+        dtx = distributed_transform(tx)
+        fp = fsdp_pack_params(model.jax_params(), axis=dtx.axis,
+                              bucket_bytes=dtx.bucket_bytes)
     elif not isinstance(fp, FsdpParams):
         raise TypeError(f"params must be FsdpParams, got {type(fp).__name__}")
     keys = sorted(fp.shards)

@@ -510,8 +510,8 @@ def test_consolidate_reads_a_jax_written_zero1_state(zero1_worlds, tmp_path):
 
 def test_what_is_not_ported_raises():
     """What the port still lacks raises where met; a bucketed (``dtype#k``)
-    ZeRO-1 state and a ``NumericsGuardState``, which used to, are now
-    re-packed (the guard's around a bucketed ZeRO-1 state of 2 ranks,
+    ZeRO-1 state, a ``NumericsGuardState`` and a ZeRO-3 tree and state
+    at another world size, which used to, are now re-packed (the guard's around a bucketed ZeRO-1 state of 2 ranks,
     consolidated to one: its ``inner`` this rank's row, its scalars kept,
     ``rank_norms`` zeros at the new size)."""
     params = {"w": torch.zeros(10)}
@@ -544,15 +544,22 @@ def test_what_is_not_ported_raises():
     assert tnum.verdict(out)["rank_norms"] == [0.0]
     for f in ("ewma", "count", "bad_count", "loss_scale", "last_norm"):
         assert getattr(out, f).item() == scalars[f].item(), f
-    saved = {ck.FSDP_ROWS: {"float32": np.zeros((4, 3), np.float32)},
+    # a ZeRO-3 tree of 4 ranks, which used to raise at another size, is
+    # re-packed for 2 (fsdp_reshard_params): rank 0 gets w[:5]
+    w = np.arange(10, dtype=np.float32)
+    saved = {ck.FSDP_ROWS: {"float32": np.concatenate(
+                 [w, np.zeros(2, np.float32)]).reshape(4, 3)},
              "keys": ["w"], "shapes": [[10]], "dtypes": ["float32"]}
-    with pytest.raises(ValueError, match="fsdp_reshard_params"):
-        ck.fsdp_params(saved, to_size=2)
+    fp = ck.fsdp_params(saved, to_size=2)
+    assert (fp.meta.rank, fp.meta.size) == (0, 2)
+    np.testing.assert_array_equal(fp.shards["float32"].numpy(), w[:5])
     zero3 = {"shard": {"size": 4}, "inner": {
         "count": np.full(4, 1, np.int32),
-        "mu": {"float32": np.zeros((4, 3), np.float32)}}}
-    with pytest.raises(ValueError, match="fsdp_reshard_params"):
-        ck.consolidate_opt_state(zero3, saved, to_size=2)
+        "mu": {"float32": saved[ck.FSDP_ROWS]["float32"]}}}
+    st = ck.consolidate_opt_state(zero3, saved, to_size=2)
+    assert st["shard"] == {"rank": 0, "size": 2}
+    np.testing.assert_array_equal(st["inner"]["mu"]["float32"].numpy(),
+                                  w[:5])
 
 
 def test_fsdp_params_roundtrip_at_the_same_size(tmp_path):

@@ -28,6 +28,7 @@ from horovod_tpu.ops import collective as JCol
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.testing import run_world
 
+import test_torch_workers as TW
 import torch_core_workers as W
 
 pytestmark = pytest.mark.torch_port
@@ -291,3 +292,100 @@ def test_a_core_that_fails_to_build_raises(monkeypatch, tmp_path):
         _build.core_library()
     assert not [f for f in os.listdir(_build.build_dir())
                 if f.endswith(".d") or "missing" in f]
+
+
+def test_the_frontend_issues_every_collective_from_the_cores_thread():
+    """A world of 4 with the core attached, the hook optimizer and
+    unnamed squared-norm allreduces from gradient hooks: every collective
+    of the steps, the unnamed ones included, is issued by one thread (the
+    core's) on the core's group, so no collective of another communicator
+    runs beside a core plan (two threads issuing on two NCCL
+    communicators in orders that differ between ranks can deadlock the
+    card). The norms agree on every rank and sum the ranks' local
+    values; every rank ends with the same parameters."""
+    n, steps = 4, 2
+    r = np.random.RandomState(3)
+    x = r.randn(n, 8, 6).astype(np.float32)
+    y = r.randint(0, 3, (n, 8)).astype(np.int64)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HOROVOD_CYCLE_TIME", "1")
+        res = run_world(TW.frontend_threads_worker, n, x, y, steps,
+                        native_core=True, timeout=180)
+    for out in res:
+        assert out["calls"] > 0
+        assert out["pairs"] == [("core", "core")], out["pairs"]
+        for a, b in zip(out["params"], res[0]["params"]):
+            np.testing.assert_array_equal(a, b)
+    norms = [out["norms"] for out in res]
+    assert len(norms[0]) == 2
+    for i in range(len(norms[0])):
+        glob = {v[i][1] for v in norms}
+        assert len(glob) == 1
+        np.testing.assert_allclose(glob.pop(), sum(v[i][0] for v in norms),
+                                   rtol=1e-6)
+
+
+def test_a_world_comes_up_while_the_first_free_port_is_held(monkeypatch):
+    """``run_world`` chooses no port that it releases before binding: the
+    store listens on a port the kernel picks as it binds, and the core's
+    coordinator port stays reserved until the world ends. Here another
+    socket listens on the port ``free_port()`` returns first, and a world
+    of 2 with the core still comes up."""
+    import socket
+
+    from horovod_tpu_torch import testing
+
+    held = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    held.bind(("127.0.0.1", 0))
+    held.listen()
+    try:
+        first = iter([held.getsockname()[1]])
+        real = testing.free_port
+        monkeypatch.setattr(testing, "free_port",
+                            lambda: next(first, None) or real())
+        monkeypatch.setenv("HOROVOD_CYCLE_TIME", "1")
+        res = testing.run_world(TW.identity_worker, 2, native_core=True,
+                                timeout=120)
+        assert [o["rank"] for o in res] == [0, 1]
+    finally:
+        held.close()
+
+
+def test_the_tuned_hierarchical_toggles_apply_at_a_cycle_and_shutdown_restores(
+        monkeypatch):
+    """The coordinator's tuned hierarchical pair rides the tail of a
+    cycle's response list; the core applies it to
+    ``ops.hierarchical`` before the cycle's plans run, as the JAX
+    package's ``_apply_hier_toggles``; ``shutdown`` restores the
+    process's own choice."""
+    import time
+
+    import torch
+
+    import horovod_tpu_torch as thvd
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.ops import hierarchical as TH
+
+    for k in ("HOROVOD_RANK", "HOROVOD_SIZE", "RANK", "WORLD_SIZE",
+              "HOROVOD_HIERARCHICAL_ALLREDUCE",
+              "HOROVOD_HIERARCHICAL_ALLGATHER"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("HOROVOD_CYCLE_TIME", "1")
+    TH.set_hierarchical_allgather(True)
+    thvd.init(device="cpu", native_core=True)
+    try:
+        core = basics.core()
+        assert (core.hier_allreduce(), core.hier_allgather()) == (-1, -1)
+        assert not TH.enabled() and TH.allgather_enabled()
+        core.set_autotuned_params(hier_allreduce=1, hier_allgather=0)
+        deadline = time.time() + 30
+        k = 0
+        while not TH.enabled() and time.time() < deadline:
+            thvd.allreduce_async(torch.ones(3), name=f"tick.{k}").wait()
+            k += 1
+        assert (core.hier_allreduce(), core.hier_allgather()) == (1, 0)
+        assert TH.enabled() and not TH.allgather_enabled()
+    finally:
+        thvd.shutdown()
+    assert TH._forced is None and TH._forced_allgather is True
+    TH.set_hierarchical_allgather(None)

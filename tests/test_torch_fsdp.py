@@ -15,7 +15,17 @@ ZeRO-1.
   frameworks order the convolutions' sums differently, and the int8 wire
   can turn a last-bit difference into one quantum);
 - the int8-wire trajectory stays in ``tests/test_fsdp.py``'s envelope of
-  the fp32 ZeRO-1 one.
+  the fp32 ZeRO-1 one;
+- bucketed ZeRO-3 (``bucket_bytes``): the packed rows bit-equal to the
+  JAX package's ``fsdp_pack_params(bucket_bytes=)``; one gather a bucket
+  in the forward and one in the recompute, one reduce-scatter a bucket
+  in the backward; 12 steps bit-equal to bucketed ZeRO-1 at the same
+  size (the unbucketed pin, bucketed); a pack of another size refused
+  with the JAX package's text;
+- ``fsdp_reshard_params`` 8 -> 4 -> 8 bit-equal to the JAX package's
+  (mixed f32/bf16, unbucketed and bucketed), and a bucketed ZeRO-3
+  checkpoint of 2 ranks moved to 4 and back resumes bit-equal to the run
+  that never moved.
 """
 
 import concurrent.futures
@@ -44,6 +54,9 @@ pytestmark = pytest.mark.torch_port
 
 N, STEPS, JAX_STEPS, LR = 2, 12, 3, 1e-3
 GATHER_S = 700          # a shard that is not a multiple of the int8 block
+#: the narrow ResNet's 524 kB of parameters in 4 buckets; the mixed
+#: tree's 129 elements in several
+BUCKET_BYTES, MIXED_BUCKET_BYTES = 150_000, 128
 
 
 def _mixed():
@@ -72,7 +85,9 @@ def runs():
     g = np.random.RandomState(5)
     inp = dict(mixed=_mixed(), params=params, stats=stats, x=x, y=y,
                gather_shard=g.randn(N, GATHER_S).astype(np.float32),
-               ct=g.randn(N, N * GATHER_S).astype(np.float32))
+               ct=g.randn(N, N * GATHER_S).astype(np.float32),
+               bucket_bytes=BUCKET_BYTES,
+               mixed_bucket_bytes=MIXED_BUCKET_BYTES)
     jhvd.init(devices=jax.devices()[:N])
     try:
         fp = jhvd.fsdp_pack_params(jax.tree_util.tree_map(jnp.asarray, params))
@@ -94,6 +109,9 @@ def _jax_side(model, params, stats, x, y, inp):
                   "d": jnp.asarray(mixed["b/d"])}}
     ref["pack_rows"] = {k: np.asarray(v.astype(jnp.float32))
                         for k, v in jhvd.fsdp_pack_params(tree).shards.items()}
+    ref["bucket_rows"] = {
+        k: np.asarray(v.astype(jnp.float32)) for k, v in jhvd.fsdp_pack_params(
+            tree, bucket_bytes=MIXED_BUCKET_BYTES).shards.items()}
     mesh, ax = jhvd.mesh(), jhvd.data_axis()
     gather = jax.jit(_smap(lambda v: jax_qgather(v[0], ax)[None], mesh,
                            (P(ax),), P(ax)))
@@ -306,3 +324,121 @@ def test_zero3_step_reuses_the_packed_group_plan(monkeypatch):
         assert built == []
     finally:
         thvd.shutdown()
+
+
+def test_bucketed_pack_rows_bit_equal_to_jax(runs):
+    _, port, ref = runs
+    assert len(ref["bucket_rows"]) > 2
+    for r in range(N):
+        got = port[r]["bucket_rows"]
+        assert sorted(got) == sorted(ref["bucket_rows"])
+        for k, rows in ref["bucket_rows"].items():
+            assert np.array_equal(got[k].view(np.uint32),
+                                  rows[r].view(np.uint32)), k
+        assert port[r]["bucket_gather"]
+
+
+def test_bucketed_zero3_gathers_and_reduce_scatters_once_a_bucket(runs):
+    """K buckets: K gathers in the forward and K in the recompute, K
+    reduce-scatters in the backward (the loss allreduce is no
+    reduce-scatter)."""
+    _, port, _ = runs
+    for r in range(N):
+        k = len(port[r]["zero3_bucketed_groups"])
+        assert k == 4 and all("#" in g for g in port[r]["zero3_bucketed_groups"])
+        calls = port[r]["zero3_bucketed_calls"]
+        assert calls.get("gather_shards") == 2 * k
+        assert calls.get("reduce_scatter_tensor", 0) + calls.get(
+            "reduce_scatter_single", 0) == k
+
+
+def test_bucketed_zero3_bit_equal_to_bucketed_zero1_over_12_steps(runs):
+    _, port, _ = runs
+    for r in range(N):
+        z1, z3 = port[r]["zero1_bucketed"], port[r]["zero3_bucketed"]
+        assert z1["losses"] == z3["losses"]
+        for k, v in z1["params"][STEPS].items():
+            assert np.array_equal(v.view(np.uint32),
+                                  z3["params"][STEPS][k].view(np.uint32)), k
+        for k, v in z1["stats"].items():
+            assert np.array_equal(v.view(np.uint32),
+                                  z3["stats"][k].view(np.uint32)), k
+    z = port[0]["zero3_bucketed"]["losses"]
+    assert z == port[1]["zero3_bucketed"]["losses"] and z[-1] < z[0]
+
+
+def test_bucketed_zero3_refuses_a_pack_of_another_size(runs):
+    _, port, _ = runs
+    for r in range(N):
+        msg = port[r]["bucket_mismatch"]
+        assert msg.startswith("bucket_bytes mismatch: params were packed with "
+                              f"bucket_bytes={MIXED_BUCKET_BYTES}")
+        assert "the pack defines the exchange granularity" in msg
+
+
+@pytest.mark.parametrize("bucket_bytes", [None, 64])
+def test_fsdp_reshard_params_8_4_8_bit_equal_to_jax(bucket_bytes):
+    """The consolidated rows of a pack at 8 re-packed for 4 and back:
+    each step bit-equal to the JAX package's ``fsdp_reshard_params`` of
+    the same ``FsdpParams``, and 8 -> 4 -> 8 gives the rows back."""
+    from horovod_tpu_torch.optim import FSDP_ROWS
+
+    mixed = _mixed()
+    tree = {"a": jnp.asarray(mixed["a"]),
+            "b": {"c": jnp.asarray(mixed["b/c"]).astype(jnp.bfloat16),
+                  "d": jnp.asarray(mixed["b/d"])}}
+    jhvd.init(devices=jax.devices()[:8])
+    try:
+        fp8 = jhvd.fsdp_pack_params(tree, bucket_bytes=bucket_bytes)
+        fp4 = jhvd.fsdp_reshard_params(fp8, to_size=4)
+        fp8b = jhvd.fsdp_reshard_params(fp4, to_size=8)
+        rows = {n: {k: np.asarray(v) for k, v in fp.shards.items()}
+                for n, fp in ((8, fp8), (4, fp4))}
+        back = {k: np.asarray(v) for k, v in fp8b.shards.items()}
+    finally:
+        jhvd.shutdown()
+    saved = {FSDP_ROWS: rows[8], "keys": ["a", "b/c", "b/d"],
+             "shapes": [[17, 5], [11], [33]],
+             "dtypes": ["float32", "bfloat16", "float32"]}
+    if bucket_bytes:
+        saved["bucket_bytes"] = bucket_bytes
+    got4 = thvd.fsdp_reshard_params(saved, to_size=4)
+    got8 = thvd.fsdp_reshard_params(got4, to_size=8)
+    for k in rows[4]:
+        assert got4[FSDP_ROWS][k].shape == rows[4][k].shape
+        assert np.array_equal(got4[FSDP_ROWS][k].view(np.uint8),
+                              rows[4][k].view(np.uint8)), k
+        assert np.array_equal(got8[FSDP_ROWS][k].view(np.uint8),
+                              back[k].view(np.uint8)), k
+        assert np.array_equal(back[k].view(np.uint8),
+                              rows[8][k].view(np.uint8)), k
+    assert thvd.fsdp_reshard_params(saved, to_size=8) is saved
+
+
+def test_bucketed_zero3_checkpoint_moves_to_4_ranks_and_back(tmp_path):
+    """Bucketed ZeRO-3, 2 ranks: 2 steps, a checkpoint, the third step.
+    The checkpoint restored at 4 ranks (parameters re-packed by
+    ``fsdp_reshard_params``, the state by ``reshard_optimizer_state``)
+    gives the same tree and is saved again; restored at 2, the third
+    step is bit-equal to the run that never moved."""
+    r = np.random.RandomState(23)
+    x = r.randn(4 * N, 32, 32, 3).astype(np.float32)
+    y = r.randint(0, 10, (4 * N,)).astype(np.int64)
+    model = _model()
+    v = jax.jit(lambda xx: model.init(jax.random.PRNGKey(7), xx, train=True))(
+        jnp.asarray(x[:1]))
+    params = jax.tree_util.tree_map(np.asarray, v["params"])
+    stats = jax.tree_util.tree_map(np.asarray, v["batch_stats"])
+    args = (str(tmp_path), params, stats, x, y, BUCKET_BYTES, LR)
+    ran = run_world(W.zero3_ckpt_worker, N, *args, "run", timeout=240)
+    moved = run_world(W.zero3_ckpt_worker, 4, *args, "move", timeout=240)
+    back = run_world(W.zero3_ckpt_worker, N, *args, "resume", timeout=240)
+    assert moved[0]["size"] == 4 and len(moved[0]["groups"]) == 4
+    for r_ in range(N):
+        assert back[r_]["losses"] == ran[r_]["losses"][2:]
+        assert back[r_]["count"] == ran[r_]["count"] == 3
+        for k, want in ran[r_]["params"].items():
+            assert np.array_equal(back[r_]["params"][k].view(np.uint32),
+                                  want.view(np.uint32)), k
+    for k, w in moved[0]["params"].items():
+        assert all(np.array_equal(w, m["params"][k]) for m in moved)

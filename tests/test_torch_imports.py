@@ -37,7 +37,9 @@ def test_every_module_imports_with_jax_poisoned():
             "horovod_tpu_torch.models.mnist", "horovod_tpu_torch.core",
             "horovod_tpu_torch.torch", "horovod_tpu_torch.torch.mpi_ops",
             "horovod_tpu_torch.torch.compression",
-            "horovod_tpu_torch.torch.sync_batch_norm"} <= set(mods)
+            "horovod_tpu_torch.torch.sync_batch_norm",
+            "horovod_tpu_torch.parallel", "horovod_tpu_torch.parallel.mesh",
+            "horovod_tpu_torch.ops.hierarchical"} <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes'):\n"
@@ -54,7 +56,13 @@ def test_every_module_imports_with_jax_poisoned():
         "          hvd.fsdp_unpack_params, collective.quantized_all_gather,\n"
         "          adasum.adasum_allreduce, adasum.grouped_adasum_allreduce,\n"
         "          kernels.dequantize_rows, kernels.adasum_pair_combine,\n"
-        "          kernels.adasum_segment_combine):\n"
+        "          kernels.adasum_segment_combine, hvd.fsdp_reshard_params):\n"
+        "    assert callable(f)\n"
+        # the host mesh and the hierarchical collectives
+        "from horovod_tpu_torch.parallel.mesh import build_host_mesh\n"
+        "from horovod_tpu_torch.ops import hierarchical\n"
+        "for f in (build_host_mesh, hierarchical.hier_allreduce,\n"
+        "          hierarchical.hierarchical_allgather):\n"
         "    assert callable(f)\n"
         # checkpoint and the new models, as a user reaches them
         "import horovod_tpu_torch.checkpoint as ck\n"

@@ -520,11 +520,19 @@ def test_numerics_guard_enabled_as_the_jax_package_enables_it(one, kw, env):
 
 
 def test_bucketed_zero3_and_axis_are_refused(one):
-    with pytest.raises(ValueError, match="ROADMAP Queue A item 6"):
-        hvd.DistributedOptimizer(hvd.adam(1e-3), shard_params=True,
-                                 overlap=True)
+    """Bucketed ZeRO-3, once refused, is built now (its trajectory is in
+    tests/test_torch_fsdp.py); an axis other than the host mesh's pair,
+    half of the pair, and the pair under Adasum are refused."""
+    tx = hvd.DistributedOptimizer(hvd.adam(1e-3), shard_params=True,
+                                  overlap=True)
+    assert tx.shard_params and tx.bucket_bytes
     with pytest.raises(ValueError, match="process group"):
         hvd.DistributedOptimizer(hvd.adam(1e-3), axis="data")
+    with pytest.raises(ValueError, match="only one of"):
+        hvd.DistributedOptimizer(hvd.adam(1e-3), axis="cross")
+    with pytest.raises(ValueError, match="Adasum does not support"):
+        hvd.DistributedOptimizer(hvd.adam(1e-3), op=hvd.Adasum,
+                                 axis=("cross", "local"))
     with pytest.raises(ValueError, match="backward_passes_per_step"):
         hvd.DistributedOptimizer(hvd.adam(1e-3), backward_passes_per_step=0)
     tx = hvd.DistributedOptimizer(hvd.adam(1e-3))

@@ -465,8 +465,103 @@ def fsdp_worker(inp, steps, lr):
                 "model_params": sum(p.numel() for p in model.parameters()),
                 "shards": sum(v.numel() for v in fp.shards.values()),
                 "row": sum(v.shape[1] for v in inp["rows"].values())}
+    bucketed_zero3_cases(out, inp, mixed, args, lr)
     del os.environ["HOROVOD_FSDP_WIRE"]
     return out
+
+
+def bucketed_zero3_cases(out, inp, mixed, args, lr):
+    """Bucketed ZeRO-3 (``bucket_bytes``): the packed rows of the mixed
+    tree, the gather giving it back, the refusal of a pack of another
+    size, the gathers and reduce-scatters of one step, and the exact-wire
+    trajectory beside bucketed ZeRO-1 at the same size."""
+    import os
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.testing import watching_calls
+
+    bb = inp["bucket_bytes"]
+    os.environ["HOROVOD_FSDP_WIRE"] = "none"
+    fpb = hvd.fsdp_pack_params(mixed, bucket_bytes=inp["mixed_bucket_bytes"])
+    out["bucket_rows"] = {k: _np_any(v) for k, v in fpb.shards.items()}
+    ga = hvd.fsdp_gather_params(fpb)
+    out["bucket_gather"] = all(torch.equal(ga[k], v) for k, v in mixed.items())
+    tx = hvd.DistributedOptimizer(hvd.fused_adam(lr), shard_params=True,
+                                  bucket_bytes=2 * inp["mixed_bucket_bytes"])
+    out["bucket_mismatch"] = _err(lambda: tx.init(fpb))
+    model = _narrow_resnet(inp["params"], inp["stats"])
+    tx1 = hvd.DistributedOptimizer(hvd.fused_adam(lr), shard_optimizer=True,
+                                   bucket_bytes=bb)
+    out["zero1_bucketed"] = _run_steps(model, tx1, *args,
+                                       shard_optimizer=True)
+    model = _narrow_resnet(inp["params"], inp["stats"])
+    tx3 = hvd.DistributedOptimizer(hvd.fused_adam(lr), shard_params=True,
+                                   bucket_bytes=bb)
+    out["zero3_bucketed"] = _run_steps(model, tx3, *args, shard_params=True)
+    # one more step, its collectives counted
+    model = _narrow_resnet(inp["params"], inp["stats"])
+    step = hvd.make_train_step(model, tx3, shard_params=True)
+    st = tx3.init(step.params)
+    calls = {}
+
+    def count(name, a, kw):
+        calls[name] = calls.get(name, 0) + 1
+
+    xs, ys = (hvd.shard_batch(torch.from_numpy(v)) for v in args[:2])
+    with watching_calls(C, ("gather_shards",), count), \
+            watching_calls(dist, ("reduce_scatter_tensor",
+                                  "reduce_scatter_single"), count):
+        step(st, xs, ys)
+    out["zero3_bucketed_calls"] = calls
+    out["zero3_bucketed_groups"] = sorted(step.params.shards)
+
+
+def zero3_ckpt_worker(base, params, stats, x, y, bb, lr, phase):
+    """The bucketed ZeRO-3 checkpoint across world sizes. ``run``: 3
+    steps, saving after the second into ``base/a``; ``move``: restore
+    ``base/a`` at this world's size and save it unstepped into
+    ``base/b``; ``resume``: restore ``base/b`` and take the third step.
+    Returns the losses and the full parameters."""
+    import os
+
+    import horovod_tpu_torch.checkpoint as ck
+
+    os.environ["HOROVOD_FSDP_WIRE"] = "none"
+    model = _narrow_resnet(params, stats)
+    tx = hvd.DistributedOptimizer(hvd.fused_adam(lr), shard_params=True,
+                                  bucket_bytes=bb)
+    xs, ys = (hvd.shard_batch(torch.from_numpy(v)) for v in (x, y))
+    losses = []
+    if phase == "move":
+        tree = ck.restore(os.path.join(base, "a"), 2)
+        fp = ck.fsdp_params(tree["params"])
+        st = ck.consolidate_opt_state(tree["opt"], tree["params"])
+        ck.save(os.path.join(base, "b"), 2, {"params": fp, "opt": st})
+        full = hvd.fsdp_unpack_params(fp)
+        return {"losses": losses, "size": fp.meta.size,
+                "groups": sorted(fp.shards),
+                "params": {k: _np_any(v) for k, v in full.items()}}
+    if phase == "resume":
+        tree = ck.restore(os.path.join(base, "b"), 2)
+        fp = ck.fsdp_params(tree["params"])
+        st = ck.consolidate_opt_state(tree["opt"], tree["params"])
+        step = hvd.make_train_step(model, tx, shard_params=True, params=fp)
+        todo = 1
+    else:
+        step = hvd.make_train_step(model, tx, shard_params=True)
+        st = tx.init(step.params)
+        todo = 3
+    for i in range(todo):
+        st, loss = step(st, xs, ys)
+        losses.append(float(loss))
+        if phase == "run" and i == 1:
+            ck.save(os.path.join(base, "a"), 2, {"params": step.params,
+                                                 "opt": st})
+    full = hvd.fsdp_unpack_params(step.params)
+    return {"losses": losses,
+            "params": {k: _np_any(v) for k, v in full.items()},
+            "count": int(st["inner"]["count"])}
 
 
 # --------------------------------------------------------------------------
@@ -1344,4 +1439,178 @@ def guard_world_worker(inp):
         out["e2e"] = guard_e2e_worker(*inp["e2e"])
     if "hooks" in inp:
         out["hooks"] = guard_hook_worker(*inp["hooks"])
+    return out
+
+
+# --------------------------------------------------------------------------
+# hierarchical sync over the host mesh (tests/test_torch_hierarchical.py)
+
+
+PAIR = ("cross", "local")
+
+
+def _err(fn):
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def hier_worker(inp, local, with_optim):
+    """One rank of a ``cross x local`` world: the errors before and after
+    the host mesh, the sub-groups, each hierarchical collective of
+    ``inp`` and, with ``with_optim``, the distributed optimizer on the
+    axis pair (allreduce mode and ZeRO-1, int8 + error feedback, an
+    identity inner optimizer so the exchange is held bit for bit)."""
+    from horovod_tpu_torch.ops import hierarchical as H
+    from horovod_tpu_torch.parallel import mesh as M
+
+    int8 = hvd.Compression.int8
+    v, v16, a = _mine(inp["v"]), _mine(inp["v16"]), _mine(inp["ag"])
+    out = {"no_mesh": _err(lambda: C.allreduce(v, axis=PAIR)),
+           "half": _err(lambda: C.allreduce(v, axis="cross"))}
+    m = M.build_host_mesh(local=local)
+    out["groups"] = (m.local_ranks, m.cross_ranks, m.shape)
+    out["adasum"] = _err(lambda: C.allreduce(v, hvd.Adasum, axis=PAIR))
+    H.set_hierarchical(True)
+    H.set_hierarchical_allgather(True)
+    try:
+        out["f32_sum"] = H.hierarchical_allreduce(v, hvd.Sum)
+        out["f32_avg"] = H.hierarchical_allreduce(v)
+        out["f16_sum"] = H.hierarchical_allreduce(v16, hvd.Sum)
+        out["int8_sum"] = C.allreduce(v, hvd.Sum, compression=int8,
+                                      axis=PAIR)
+        out["int8_avg"] = C.allreduce(v, hvd.Average, compression=int8,
+                                      axis=PAIR)
+        out["bf16_cross"] = H.hier_allreduce(
+            v, compression=hvd.Compression.fp16)
+        out["grouped"] = H.grouped_hier_allreduce([v, v[:300], v16],
+                                                  compression=int8)
+        out["grouped_own"] = [H.hier_allreduce(v, compression=int8),
+                              H.hier_allreduce(v[:300]), H.hier_allreduce(v16)]
+        out["ag_hier"] = C.allgather(a, axis=PAIR)
+        out["ag_flat"] = C.allgather(a)
+        if with_optim:
+            out["optim"] = {mode: pair_optim_steps(inp["params"], inp["grads"],
+                                                   mode)
+                            for mode in ("allreduce", "zero1")}
+        out["zero3"] = pair_zero3_gather(inp)
+        H.set_hierarchical(False)
+        out["int8_flat_route"] = C.allreduce(v, hvd.Sum, compression=int8,
+                                             axis=PAIR)
+        out["f32_flat_route"] = C.allreduce(v, hvd.Sum, axis=PAIR)
+    finally:
+        H.set_hierarchical(None)
+        H.set_hierarchical_allgather(None)
+    return _tree_out(out)
+
+
+def pair_optim_steps(params, grads, mode):
+    """``DistributedOptimizer(identity, int8, error_feedback,
+    axis=(cross, local))`` over the steps of ``grads`` (each ``[N, ...]``
+    a leaf): each step's reduced tree and the last residuals."""
+    p = {k: torch.from_numpy(v) for k, v in params.items()}
+    tx = hvd.DistributedOptimizer(_identity(), compression=hvd.Compression.int8,
+                                  error_feedback=True, axis=PAIR,
+                                  shard_optimizer=mode == "zero1")
+    st = tx.init(p)
+    ups = []
+    for g in grads:
+        u, st = tx.update({k: _mine(v) for k, v in g.items()}, st, p)
+        ups.append(_tree_out(u))
+    return {"updates": ups, "residual": _tree_out(st["residual"])}
+
+
+# --------------------------------------------------------------------------
+# the frontend beside the native core (tests/test_torch_core.py)
+
+
+WATCHED = ("all_reduce", "all_gather_into_tensor", "all_gather_single",
+           "reduce_scatter_tensor", "reduce_scatter_single", "broadcast",
+           "all_to_all_single", "batch_isend_irecv")
+
+
+def frontend_threads_worker(x, y, steps):
+    """The hook ``DistributedOptimizer`` of Horovod's torch API on a small
+    MLP, with the native core attached, and on every second parameter a
+    hook that allreduces its gradient's squared norm without a name (as
+    ``chip_smoke.py``'s ``norm_hook``). Every ``torch.distributed``
+    collective of the steps is recorded with the thread and the group
+    that issued it. Returns the distinct ``(thread, group)`` pairs (the
+    core's thread and group named ``"core"``), the last step's norms and
+    the parameters."""
+    import threading
+
+    import torch.distributed as dist
+
+    import horovod_tpu_torch.torch as thvd
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.testing import watching_calls
+
+    core = basics.core()
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(6, 16), torch.nn.ReLU(),
+                                torch.nn.Linear(16, 3))
+    opt = thvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1),
+        named_parameters=model.named_parameters())
+    norms = []
+
+    def norm_hook(p):
+        local = p.grad.detach().float().pow(2).sum()
+        norms.append((float(local), thvd.allreduce(local, op=thvd.Sum)))
+
+    for p in list(model.parameters())[::2]:
+        p.register_post_accumulate_grad_hook(norm_hook)
+    issued = []
+
+    def on_call(name, args, kw):
+        g = kw.get("group")
+        issued.append((threading.get_ident(),
+                       "core" if g is not None and g is core._group
+                       else ("default" if g is None else "other")))
+
+    xs, ys = torch.from_numpy(x[hvd.rank()]), torch.from_numpy(y[hvd.rank()])
+    with watching_calls(dist, WATCHED, on_call):
+        for _ in range(steps):
+            del norms[:]
+            opt.zero_grad()
+            torch.nn.functional.cross_entropy(model(xs), ys).backward()
+            opt.step()
+    threads = sorted({t for t, _ in issued})
+    pairs = sorted({("core" if len(threads) == 1 else f"t{threads.index(t)}",
+                     g) for t, g in issued})
+    return {"pairs": pairs, "calls": len(issued),
+            "norms": [(a, float(b)) for a, b in norms],
+            "params": [_np_any(p.detach()) for p in model.parameters()]}
+
+
+def pair_zero3_gather(inp):
+    """The ZeRO-3 gather on the axis pair (``fsdp_pack_params(axis=)``,
+    the two-level gather on): the exact gather gives the tree back, its
+    backward against the flat gather's on the same cotangent, and the
+    int8 wire's pair route (the shard's roundtrip, gathered) against each
+    rank's roundtripped row gathered flat."""
+    from horovod_tpu_torch.compression import (
+        INT8_BLOCK, dequantize_blockwise, quantize_blockwise,
+    )
+
+    tree = {k: torch.from_numpy(v) for k, v in inp["params"].items()}
+    fp = hvd.fsdp_pack_params(tree, axis=PAIR)
+    flat = hvd.fsdp_pack_params(tree)
+    got = hvd.fsdp_gather_params(fp, wire="none")
+    out = {"exact": all(torch.equal(got[k], v) for k, v in tree.items())}
+    ct = _mine(inp["ct"])
+    for name, pack, kw in (("pair", fp, {"axis": PAIR}), ("flat", flat, {})):
+        shard = pack.shards["float32"].clone().requires_grad_()
+        full = C.gather_shards(shard, **kw)
+        out[f"grad_{name}"] = _np_any(torch.autograd.grad(
+            full, shard, ct[:full.shape[0]])[0])
+    row = flat.shards["float32"]
+    rt = dequantize_blockwise(*quantize_blockwise(row, INT8_BLOCK),
+                              torch.float32)[:row.shape[0]]
+    want = C.allgather(rt)
+    q = C.gather_shards(fp.shards["float32"], axis=PAIR, roundtrip=True)
+    out["int8"] = (_np_any(q), _np_any(want))
     return out
