@@ -292,6 +292,39 @@ Phases, each fatal on failure (exit code 1, no result line):
    of 3) restored at 2 GPUs and saved, then restored at N: its third step
    bit-equal to the run that never moved (losses, parameters).
 
+18. tensor, sequence, pipeline and expert parallelism
+   (``horovod_tpu_torch.parallel``; matmuls in full f32, TF32 off), each
+   run on a named-axis mesh (``build_mesh``) of the world's ranks (one
+   GPU: every axis of size 1, no NCCL call) after the LM runs, again
+   with ``--gpus N`` across the N GPUs (:func:`run_parallel_gpus`):
+   ``sp_ring`` and ``sp_ulysses``, ``lm_flagship`` through
+   ``make_sp_train_step`` (seq N, and data 2 x seq N/2), 4 steps of
+   ``adamw(1e-4)`` on each rank's shard of the batch (the ring launches
+   no ``flash_fwd``, Ulysses 12 a step); ``zigzag_attn``, zigzag ring
+   attention forward and backward at ``[8, 2048, 16, 64]`` bf16 against
+   dense f32 attention on the un-permuted sequence (one bf16 ULP, and
+   :data:`ATTN_GRAD_ATOL` of the largest gradient); ``tp_block``,
+   ``tp_block_apply`` at one ``lm_flagship_learned`` block with x ``[8,
+   2048, 1024]`` f32 against the dense block within :data:`TP_C` times
+   the two row-split contractions' rounding bound (the elements over the
+   JAX test's dim-32 bar counted), gradients' mean over tp within
+   :data:`TP_GRAD_TOL` of the dense block's; ``pp_gpipe`` (and with N >
+   1 ``pp_interleaved``, one block a stage), ``lm_flagship_learned``
+   through ``make_transformer_pp_train_step``, 8 micro-batches of 1 x
+   2048, 4 steps; ``ep_moe_top1``/``ep_moe_top2``,
+   ``expert_parallel_moe`` at D 1024, GELU experts of hidden 4096, 8
+   experts, 4096 tokens a rank, capacity factor 2.0, forward and
+   backward against
+   the local per-token reference (:data:`MOE_TOL`). The SP and PP runs'
+   first step against ``make_train_step``'s dense flash step from the
+   same weights on the same global batch (:data:`FIRST_LOSS_RTOL`; each
+   parameter within 2 lr); every step's ``flash_fwd`` launches and NCCL
+   calls by axis group exact (:func:`par_expect`); across N GPUs every
+   rank the same losses and replicated parameters. Prints tokens/s a GPU
+   over the steps after the second, peak memory, the checks' errors, the
+   bubble ticks and the dropped tokens; every ``flash_fwd`` call of
+   Ulysses and the PP steps is replayed in the kernel phase.
+
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
 one-GPU mode that launches it; for the Adasum combines, which no run on
@@ -628,7 +661,10 @@ def logging_calls(steps: list):
 
 def group_name(group) -> str:
     """``WORLD`` (the default group), ``LOCAL`` or ``CROSS`` (the host
-    mesh's sub-groups), ``CORE`` (the native core's) or ``OTHER``."""
+    mesh's sub-groups), a named mesh axis's name in capitals (``SEQ``,
+    ``TP``, ``PIPE``, ...: :func:`~horovod_tpu_torch.parallel.mesh.
+    build_mesh`'s sub-groups), ``CORE`` (the native core's) or
+    ``OTHER``."""
     from horovod_tpu_torch import basics
 
     if group is None:
@@ -638,6 +674,10 @@ def group_name(group) -> str:
         return "LOCAL"
     if mesh is not None and group is mesh.cross_group:
         return "CROSS"
+    axes = basics._state.mesh
+    for name, g in (axes.groups.items() if axes is not None else ()):
+        if group is g:
+            return name.upper()
     if core is not None and group is core._group:
         return "CORE"
     return "OTHER"
@@ -668,9 +708,13 @@ def counting_collectives(counts: dict, where: list, by_group=None):
         part = counts.setdefault(where[-1], {})
         part[name] = part.get(name, 0) + 1
         if by_group is not None:
-            rec = by_group.setdefault(group_name(kw.get("group")),
-                                      {"calls": 0, "bytes": {}})
+            group = kw.get("group")
+            if name == "batch_isend_irecv" and args and args[0]:
+                group = args[0][0].group    # the P2P ops carry theirs
+            rec = by_group.setdefault(group_name(group),
+                                      {"calls": 0, "bytes": {}, "ops": {}})
             rec["calls"] += 1
+            rec["ops"][name] = rec["ops"].get(name, 0) + 1
             t = _sent(name, args)
             if t is not None:
                 k = str(t.dtype).replace("torch.", "")
@@ -3512,6 +3556,900 @@ def bf16_adam_row(f32_row: dict, run: dict) -> dict:
                 bar="bit-equal to the plain version")
 
 
+# --------------------------------------------------------------------------
+# phase 18: tensor, sequence, pipeline and expert parallelism
+
+#: lm_flagship with learned positions: the TP block and the PP split take
+#: no RoPE
+LM_LEARNED = dict(LM, pos_embedding="learned")
+#: phase 18's training runs: steps, and adamw's learning rate
+PAR_STEPS, PAR_LR = 4, 1e-4
+#: the PP runs' micro-batches, each 1 x 2048 (the flagship's batch of 8)
+PP_MICRO = 8
+#: the MoE runs: width, expert hidden width, experts, tokens a rank,
+#: capacity factor
+MOE = dict(dim=1024, hidden=4096, experts=8, tokens=4096, factor=2.0)
+#: the first SP/PP step against make_train_step's dense flash step from
+#: the same parameters on the same global batch (both bf16 compute): the
+#: loss within FIRST_LOSS_RTOL, and every leaf's gradient (what the
+#: optimizer is given, after the step's averaging) within FIRST_GRAD_RTOL
+#: of the dense step's in norm, ||g - g_dense|| / ||g_dense|| (other
+#: matmul shapes and sum orders round bf16 activations the other way).
+#: The parameters after a first Adam step cannot tell: it moves each by
+#: lr * sign(g), so a wrong gradient moves them no further than a right one.
+#: On an H100 the loss is within 1.3e-5 and every leaf within 0.0114 (the
+#: ring's token embedding; Ulysses 0 at one GPU, 0.0023 at four; the PP
+#: steps 0.0023); a ring whose last rotation goes the wrong way, or a
+#: ppermute whose backward reuses the forward's permutation, puts leaves
+#: near 1 (the CPU rehearsal of this phase at four ranks)
+FIRST_LOSS_RTOL, FIRST_GRAD_RTOL = 1e-4, 3e-2
+#: the TP block on the card (f32, TF32 off) against the dense block: each
+#: output element within TP_C * 2^-24 * (K_proj * (|att| @ |W_proj|) +
+#: K_down * (|gelu(h)| @ |W_down|)), K the two row-split contractions
+#: (1024 and 4096 terms). A sum of K f32 products in any order is within
+#: K * 2^-24 * sum |a b| of the exact one, so c = 2 is the worst case of
+#: two orders; rounding errors of random sign sit far below it, and so do
+#: those of a lower precision. TP_C is set between the sound runs' largest
+#: reading and the control's, the same block with TF32 on (:func:`tp_run`
+#: fails if the control meets the bar): on an H100, 0.00072 at one GPU
+#: and 0.0026 at four against the control's 0.395. The elements over the
+#: JAX test's elementwise bar (set at dim 32) are counted beside it
+TP_C = 0.03
+TP_JAX_RTOL, TP_JAX_ATOL = 2e-5, 2e-6
+#: the TP block's gradients (mean over the axis) against the dense block's:
+#: within TP_GRAD_TOL of each tensor's largest magnitude (the weight
+#: gradients sum 16,384 rows)
+TP_GRAD_TOL = 1e-4
+#: the MoE (f32) against its local reference: rtol MOE_TOL, atol MOE_TOL
+#: of the reference's largest magnitude (the JAX test's 1e-4 at unit
+#: scale); the control, the same MoE with TF32 on, must not meet it (on an
+#: H100: sound 1.5e-6 at most, the control 0.050 at least)
+MOE_TOL = 1e-4
+#: the ReLU kink check (one GPU, top1): a flipped ReLU is one whose
+#: pre-activation has another sign in the port than in the reference; each
+#: must lie within KINK_C times its f32 rounding bound, D * 2^-24 *
+#: (|x| @ |w1|), of 0 (c = 2: the worst case of two sum orders)
+KINK_C = 2.0
+#: zigzag attention (bf16 in and out) against dense f32 attention on the
+#: un-permuted sequence (:func:`_attn_ref`): out within one bf16 ULP (ULPs
+#: below 2^-8's floored, flash_fwd's bar), q/k/v gradients within one bf16
+#: ULP plus ATTN_GRAD_ATOL of the reference's largest magnitude (their f32
+#: sums run over 2048 keys in other orders before the bf16 rounding)
+ATTN_GRAD_ATOL = 2.0 ** -12
+
+
+def _par_tokens(dev):
+    """The flagship's global batch: tokens ``[8, 2048]`` from
+    ``np.random.RandomState(0)`` and the targets rolled by one."""
+    import numpy as np
+    import torch
+
+    tok = np.random.RandomState(0).randint(
+        0, LM["vocab"], (LM_BATCH, LM_SEQ)).astype(np.int64)
+    return (torch.from_numpy(tok).to(dev),
+            torch.from_numpy(np.roll(tok, -1, axis=1)).to(dev))
+
+
+def par_steps(label: str, fn, steps: int, check_first=None) -> dict:
+    """``steps`` calls of ``fn()`` (a loss tensor, or None), each with its
+    kernel-wrapper calls logged and its NCCL calls counted by group and
+    name; launch counts set to 0 just before the first and read after the
+    last. ``check_first(loss)`` runs after the first call, outside the
+    counts (it launches no kernel and makes no collective)."""
+    import torch
+
+    from horovod_tpu_torch.ops import kernels as K
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    calls, losses, times, nccl = [], [], [], []
+    for i in range(steps):
+        calls.append([])
+        counts, by_group = {}, {}
+        with logging_calls(calls), counting_collectives(counts, ["step"],
+                                                        by_group=by_group):
+            t0 = time.perf_counter()
+            loss = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        nccl.append({g: rec["ops"] for g, rec in by_group.items()})
+        losses.append(None if loss is None else float(loss))
+        if i == 0 and check_first is not None:
+            check_first(losses[0])
+    launches = dict(K.launches)
+    for k in K.KERNELS:
+        logged = sum(sig[0] == k for c in calls for sig in c)
+        if logged != launches[k]:
+            fail(f"{label}: {launches[k]} launches of {k} but {logged} "
+                 "logged calls")
+    return dict(mode=label, steps=steps, losses=losses, step_s=times,
+                launches=launches, nccl_by_step=nccl, step_calls=calls[-1],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def par_expect(run: dict, flash: int, nccl: dict) -> None:
+    """Fail unless ``run`` launched ``flash_fwd`` exactly ``flash`` times
+    a step and made exactly the NCCL calls ``nccl`` (group -> call ->
+    count) in every step, and no other kernel."""
+    steps = run["steps"]
+    want = {k: 0 for k in run["launches"]}
+    want["flash_fwd"] = flash * steps
+    if run["launches"] != want:
+        fail(f"{run['mode']}: launches {run['launches']}, expected "
+             f"flash_fwd {flash} a step and nothing else")
+    for i, got in enumerate(run["nccl_by_step"]):
+        if got != nccl:
+            fail(f"{run['mode']}: NCCL calls by group in step {i + 1} "
+                 f"{json.dumps(got)}, expected {json.dumps(nccl)}")
+    losses = [v for v in run["losses"] if v is not None]
+    if losses and not all(math.isfinite(v) for v in losses):
+        fail(f"{run['mode']}: non-finite loss {losses}")
+
+
+def _steady(times: list) -> float:
+    """Seconds a step over the steps after the second (each sub-group's
+    NCCL communicator is made at its first call)."""
+    rest = times[2:] or times[-1:]
+    return sum(rest) / len(rest)
+
+
+def _params_sha(params: dict) -> str:
+    return hashlib.sha256(b"".join(
+        params[k].detach().reshape(-1).float().cpu().numpy().tobytes()
+        for k in sorted(params))).hexdigest()
+
+
+def keeping_grads(tx, kept: list):
+    """``tx`` whose ``update`` also appends a copy of the gradients it is
+    given to ``kept`` while ``kept`` is empty or ends in a dict (append
+    None to stop): one dict a call."""
+    def update(grads, state, params=None):
+        if not kept or kept[-1] is not None:
+            kept.append({k: g.detach().clone() for k, g in grads.items()})
+        return tx.update(grads, state, params)
+
+    return type(tx)(tx.init, update)
+
+
+def dense_first_step(cfg: dict, x, y) -> tuple:
+    """``make_train_step``'s dense flash step of the flagship (``cfg``),
+    random weights from seed 0, ``adamw(PAR_LR)``, on the global batch:
+    ``(loss, the gradients its update was given)``. Every rank of a world
+    runs it on the same batch (its allreduces average equal gradients)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import TransformerLM
+
+    model = TransformerLM(**cfg, dtype=torch.bfloat16,
+                          attention_fn=hvd.flash_attention, seed=0,
+                          device=hvd.device())
+    kept = []
+    tx = keeping_grads(hvd.adamw(PAR_LR), kept)
+    step = hvd.make_train_step(model, tx, loss_fn=hvd.lm_xent)
+    _, loss = step(tx.init(model.jax_params()), x, y)
+    del model, step
+    torch.cuda.empty_cache()
+    return float(loss), kept[0]
+
+
+def first_step_check(label: str, loss: float, grads: dict, dense: tuple,
+                     key_of=lambda k: k) -> dict:
+    """The first step's loss and gradients against the dense step's
+    (:data:`FIRST_LOSS_RTOL`, :data:`FIRST_GRAD_RTOL` a leaf in norm);
+    fails past them. ``key_of`` maps a key of ``grads`` to the dense
+    key; every dense leaf must be met once."""
+    import torch
+
+    d_loss, d_grads = dense
+    if sorted(map(key_of, grads)) != sorted(d_grads):
+        fail(f"{label}: first step's gradients cover "
+             f"{sorted(map(key_of, grads))}, the dense step's "
+             f"{sorted(d_grads)}")
+    rel = abs(loss - d_loss) / abs(d_loss)
+    by_leaf = {}
+    for k, g in grads.items():
+        ref = d_grads[key_of(k)]
+        by_leaf[k] = float(torch.linalg.vector_norm((g - ref).float())
+                           / torch.linalg.vector_norm(ref.float()))
+    worst = max(by_leaf, key=by_leaf.get)
+    rec = dict(loss=loss, dense_loss=d_loss, loss_rel=rel,
+               grad_rel_max=by_leaf[worst], grad_rel_max_leaf=worst,
+               grad_rel_median=sorted(by_leaf.values())[len(by_leaf) // 2],
+               leaves=len(by_leaf))
+    if rel > FIRST_LOSS_RTOL or by_leaf[worst] > FIRST_GRAD_RTOL:
+        fail(f"{label}: first step against the dense step {json.dumps(rec)}")
+    return rec
+
+
+def sp_run(kind: str, axes: dict, x, y, dense: tuple) -> dict:
+    """``lm_flagship`` through ``make_sp_train_step`` (``kind`` ring or
+    ulysses) on the ``axes`` mesh, :data:`PAR_STEPS` steps of
+    ``adamw(PAR_LR)`` on this rank's shard of the global batch; the first
+    step against the dense step; exact flash_fwd launches and NCCL calls
+    by group a step."""
+    import functools
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import TransformerLM
+    from horovod_tpu_torch.parallel import (
+        build_mesh, ring_attention, ulysses_attention,
+    )
+    from horovod_tpu_torch.training import make_sp_train_step
+
+    mesh = build_mesh(axes)
+    nd, ns = mesh.axis_size("data"), mesh.axis_size("seq")
+    d, s = mesh.axis_index("data"), mesh.axis_index("seq")
+    label = f"sp_{kind}@{hvd.size()}"
+    bl, tl = LM_BATCH // nd, LM_SEQ // ns
+    xs = x[d * bl:(d + 1) * bl, s * tl:(s + 1) * tl].contiguous()
+    ys = y[d * bl:(d + 1) * bl, s * tl:(s + 1) * tl].contiguous()
+    attn = functools.partial(
+        ring_attention if kind == "ring" else ulysses_attention,
+        axis_name="seq")
+    model = TransformerLM(**LM, dtype=torch.bfloat16, attention_fn=attn,
+                          seed=0, device=hvd.device())
+    kept = []
+    tx = keeping_grads(hvd.adamw(PAR_LR), kept)
+    st = [tx.init(model.jax_params())]
+    step = make_sp_train_step(model, tx)
+    first = {}
+
+    def check(loss):
+        first.update(first_step_check(label, loss, kept[0], dense))
+        kept[:] = [None]
+
+    def one():
+        st[0], loss = step(st[0], xs, ys)
+        return loss
+
+    run = par_steps(label, one, PAR_STEPS, check)
+    depth = LM["depth"]
+    want = {}
+    if ns > 1:
+        want["SEQ"] = ({"batch_isend_irecv": depth * (2 * ns - 1)}
+                       if kind == "ring" else {"all_to_all_single": 8 * depth})
+        want["SEQ"]["all_reduce"] = 1
+    if nd > 1:
+        want["DATA"] = {"all_reduce": 1}
+    par_expect(run, 0 if kind == "ring" else depth, want)
+    if not run["losses"][-1] < run["losses"][0]:
+        fail(f"{label}: loss did not fall: {run['losses']}")
+    run.update(first_step=first, params_sha=_params_sha(model.jax_params()),
+               tokens_per_s_per_gpu=LM_BATCH * LM_SEQ / _steady(
+                   run["step_s"]) / hvd.size(),
+               nccl_want=want, axes=axes)
+    del model, st, step
+    torch.cuda.empty_cache()
+    return run
+
+
+def pp_run(v: int, x, y, dense: tuple) -> dict:
+    """``lm_flagship_learned`` through ``make_transformer_pp_train_step``
+    over a pipe axis of every rank, :data:`PP_MICRO` micro-batches of 1 x
+    2048, ``v`` stages a rank (v > 1: the interleaved schedule);
+    :data:`PAR_STEPS` steps of ``adamw(PAR_LR)``; the first step against
+    the dense step (each rank its blocks); exact flash_fwd launches (every
+    tick runs the rank's stages, bubble ticks on what it holds) and NCCL
+    calls a step."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import TransformerLM
+    from horovod_tpu_torch.parallel import build_mesh
+    from horovod_tpu_torch.parallel.pipeline import interleaved_schedule
+    from horovod_tpu_torch.training import (
+        make_transformer_pp_train_step, split_transformer_for_pp,
+    )
+
+    S = hvd.size()
+    r = build_mesh({"pipe": S}).axis_index("pipe")
+    label = f"pp_{'interleaved' if v > 1 else 'gpipe'}@{S}"
+    model = TransformerLM(**LM_LEARNED, dtype=torch.bfloat16,
+                          attention_fn=hvd.flash_attention, seed=0,
+                          device=hvd.device())
+    pp = split_transformer_for_pp(
+        model, {k: t.detach().clone() for k, t in model.jax_params().items()},
+        S, interleaved_v=v)
+    pp["stages"] = {k: t[r:r + 1].clone() for k, t in pp["stages"].items()}
+    del model
+    meta = TransformerLM(**LM_LEARNED, dtype=torch.bfloat16,
+                         attention_fn=hvd.flash_attention, device="meta")
+    kept = []
+    tx = keeping_grads(hvd.adamw(PAR_LR), kept)
+    st = [{p: tx.init(pp[p]) for p in pp}]
+    step = make_transformer_pp_train_step(meta, tx, interleaved_v=v)
+    tm = x.view(PP_MICRO, LM_BATCH // PP_MICRO, LM_SEQ)
+    ym = y.view(PP_MICRO, LM_BATCH // PP_MICRO, LM_SEQ)
+    per = LM["depth"] // (S * v)
+    first = {}
+
+    def check(loss):
+        # the step's three updates: the stages', the embedding's, the head's
+        parts = dict(zip(("stages", "embed", "head"), kept))
+        grads, keys = {}, {}
+        for p in ("embed", "head"):
+            for k, t in parts[p].items():
+                grads[f"{p}:{k}"], keys[f"{p}:{k}"] = t, k
+        for k, t in parts["stages"].items():
+            j, rest = k.split("/", 1)
+            for w in range(v):
+                name = f"stages:{k}#{w}"
+                grads[name] = t[0] if v == 1 else t[0, w]
+                block = (w * S + r) * per + int(j[1:])
+                keys[name] = f"block{block}/{rest}"
+        # this rank's blocks only: the dense step's other blocks are the
+        # other ranks' to meet
+        mine = {keys[k] for k in grads}
+        first.update(first_step_check(
+            label, loss, grads,
+            (dense[0], {k: g for k, g in dense[1].items() if k in mine}),
+            keys.__getitem__))
+        kept[:] = [None]
+
+    def one():
+        _, st[0], loss = step(pp, st[0], tm, ym)
+        return loss
+
+    run = par_steps(label, one, PAR_STEPS, check)
+    if v == 1:
+        n_ticks = PP_MICRO + S - 1
+        bubbles = S - 1
+    else:
+        ticks = interleaved_schedule(S, v, PP_MICRO)
+        n_ticks = len(ticks)
+        bubbles = sum(not row[r].active for row in ticks)
+    want = ({"PIPE": {"batch_isend_irecv": 2 * (n_ticks - 1),
+                      "all_reduce": 3}} if S > 1 else {})
+    par_expect(run, n_ticks * per, want)
+    if not run["losses"][-1] < run["losses"][0]:
+        fail(f"{label}: loss did not fall: {run['losses']}")
+    shared = {f"{p}/{k}": t for p in ("embed", "head")
+              for k, t in pp[p].items()}
+    run.update(first_step=first, params_sha=_params_sha(shared),
+               ticks=n_ticks, bubble_ticks=bubbles, blocks_a_stage=per,
+               tokens_per_s_per_gpu=LM_BATCH * LM_SEQ / _steady(
+                   run["step_s"]) / S, nccl_want=want)
+    del pp, st, step
+    torch.cuda.empty_cache()
+    return run
+
+
+def _attn_ref(q, k, v, dout):
+    """Dense causal attention in f32 on the un-permuted sequence, and the
+    flash backward's q/k/v gradients for ``dout`` computed densely: delta
+    from the output rounded to its bf16 (what the flash and ring
+    backwards save, as the JAX package's do)."""
+    import torch
+
+    qf, kf, vf, df = (t.float() for t in (q, k, v, dout))
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qf * scale, kf)
+    t = q.shape[1]
+    mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    del s
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    delta = torch.einsum("bqhd,bqhd->bhq", out.to(q.dtype).float(), df)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, df)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", df, vf) - delta[..., None])
+    del p
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return out, [dq, dk, dv]
+
+
+def _within_bf16(got, ref, atol: float = 0.0) -> float:
+    """The largest ``|got - ref|`` over one bf16 ULP of ``ref`` (ULPs below
+    2^-8's floored) plus ``atol``; at most 1 to pass."""
+    diff, ulp = _bf16_ulps(got.detach(), ref, FLASH_ULP_FLOOR)
+    return float((diff / (ulp + atol)).max())
+
+
+def zigzag_run(n: int) -> dict:
+    """``zigzag_ring_attention`` forward and backward at ``[8, 2048, 16,
+    64]`` bf16 (causal) over a seq axis of the ``n`` ranks, each on its
+    zigzag chunk pair, against dense attention on the un-permuted
+    sequence; 4 iterations, the first checked."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import (
+        build_mesh, zigzag_permutation, zigzag_ring_attention,
+    )
+
+    r = build_mesh({"seq": n}).axis_index("seq")
+    label = f"zigzag_attn@{n}"
+    dev = hvd.device()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    shape = (LM_BATCH, LM_SEQ, LM["heads"], LM["dim"] // LM["heads"])
+    q, k, v, dout = (torch.randn(shape, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(4))
+    perm = torch.from_numpy(zigzag_permutation(LM_SEQ, n)).to(dev)
+    tl = LM_SEQ // n
+    mine = perm[r * tl:(r + 1) * tl]
+    loc = [t[:, mine].contiguous().requires_grad_(True) for t in (q, k, v)]
+    dl = dout[:, mine].contiguous()
+    ref_out, ref_grads = _attn_ref(q, k, v, dout)
+    ref_out, ref_grads = ref_out[:, mine], [g[:, mine] for g in ref_grads]
+    errs = {}
+
+    def one():
+        out = zigzag_ring_attention(*loc)
+        grads = torch.autograd.grad(out, loc, dl)
+        if not errs:
+            errs["out_ulps"] = _within_bf16(out, ref_out)
+            for name, g, rg in zip("qkv", grads, ref_grads):
+                errs[f"d{name}_ulps"] = _within_bf16(
+                    g, rg, ATTN_GRAD_ATOL * float(rg.abs().max()))
+        return None
+
+    run = par_steps(label, one, PAR_STEPS)
+    if max(errs.values()) > 1.0:
+        fail(f"{label}: against dense attention {json.dumps(errs)}")
+    want = {"SEQ": {"batch_isend_irecv": 2 * n - 1}} if n > 1 else {}
+    par_expect(run, 0, want)
+    del q, k, v, dout, loc, ref_out, ref_grads
+    torch.cuda.empty_cache()
+    run.update(errors=errs, fwd_bwd_s=_steady(run["step_s"]), nccl_want=want)
+    return run
+
+
+def with_tf32(fn):
+    """``fn()`` with TF32 on for f32 matmuls (a bar's control: a lower
+    precision than the f32 the bar is set for), then off again."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _tp_block(dev):
+    """One ``lm_flagship_learned`` block in f32 with random weights (seed
+    18; biases and LayerNorm affines non-trivial), as the JAX package's
+    nested dict in flax's layouts (leaves requiring grad), and the port's
+    dense ``TransformerBlock`` on the same leaves."""
+    import torch
+
+    from horovod_tpu_torch.models.layers import torch_params
+    from horovod_tpu_torch.models.transformer import (
+        TransformerBlock, default_attention,
+    )
+
+    block = TransformerBlock(LM["dim"], LM["heads"], LM["mlp_ratio"],
+                             dtype=torch.float32,
+                             attention_fn=default_attention, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for m in block.modules():
+        if m is not block and hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    flat = {}
+    for name, m in block.named_children():
+        for leaf, t in m.jax_params().items():
+            t = t.detach().clone()
+            if t.dim() == 1:
+                t += 0.1 * torch.randn(t.shape, device=dev, generator=gen)
+            flat[f"{name}/{leaf}"] = t.requires_grad_(True)
+    tree: dict = {}
+    for k, t in flat.items():
+        a, b = k.split("/")
+        tree.setdefault(a, {})[b] = t
+    return block, flat, tree, lambda x: torch.func.functional_call(
+        block, torch_params(block, flat), (x,))
+
+
+def tp_run(n: int) -> dict:
+    """``tp_block_apply`` forward and backward at one ``lm_flagship_learned``
+    block, x ``[8, 2048, 1024]`` f32, over a tp axis of the ``n`` ranks,
+    4 iterations: each rank's output against the dense block within the
+    contraction-scaled bound (:data:`TP_C`), the elements over the JAX
+    test's elementwise bar counted; the gradients' mean over the axis
+    against the dense block's; exact all-reduces on TP a step."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import tp_block_apply
+    from horovod_tpu_torch.parallel import build_mesh, spmd
+
+    build_mesh({"tp": n})
+    label = f"tp_block@{n}"
+    dev = hvd.device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    block, flat, tree, dense = _tp_block(dev)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randn(LM_BATCH, LM_SEQ, LM["dim"], device=dev,
+                    generator=gen).requires_grad_(True)
+    dy = torch.randn(x.shape, device=dev, generator=gen)
+    seen = {}
+    hooks = [getattr(block, name).register_forward_hook(
+        lambda m, args, out, name=name: seen.__setitem__(name, args[0]))
+        for name in ("proj", "mlp_down")]
+    ref = dense(x)
+    for h in hooks:
+        h.remove()
+    keys = sorted(flat)
+    ref_grads = torch.autograd.grad(ref, [x] + [flat[k] for k in keys], dy)
+    ref = ref.detach()
+    with torch.no_grad():
+        bound = 2.0 ** -24 * (
+            LM["dim"] * (seen["proj"].abs() @ flat["proj/kernel"].abs())
+            + LM["mlp_ratio"] * LM["dim"] * (
+                seen["mlp_down"].abs() @ flat["mlp_down/kernel"].abs()))
+    del seen
+    got = {}
+
+    def one():
+        out = tp_block_apply(tree, x, heads=LM["heads"], axis="tp")
+        grads = torch.autograd.grad(out, [x] + [flat[k] for k in keys], dy)
+        if not got:
+            got["out"], got["grads"] = out.detach(), grads
+        return None
+
+    run = par_steps(label, one, PAR_STEPS)
+    with torch.no_grad():
+        diff = (got["out"] - ref).abs()
+        norm = float((diff / bound).max())
+        over_jax = int((diff > TP_JAX_ATOL + TP_JAX_RTOL * ref.abs()).sum())
+        grads = [spmd.pmean(g, "tp") for g in got["grads"]]
+        grad_err = {name: float((g - rg).abs().max() / rg.abs().max())
+                    for name, g, rg in zip(["x"] + keys, grads, ref_grads)}
+        ctl = with_tf32(lambda: tp_block_apply(tree, x, heads=LM["heads"],
+                                               axis="tp")) - ref
+        ctl_norm = float((ctl.abs() / bound).max())
+        ctl_over_jax = int((ctl.abs() > TP_JAX_ATOL
+                            + TP_JAX_RTOL * ref.abs()).sum())
+        del ctl
+    errs = dict(normalised_max=norm, bound_c=TP_C, over_jax_bar=over_jax,
+                elements=diff.numel(), max_abs=float(diff.max()),
+                grad_rel_max=max(grad_err.values()), grad_rel=grad_err,
+                tf32_control_normalised_max=ctl_norm,
+                tf32_control_over_jax_bar=ctl_over_jax)
+    if norm > TP_C or max(grad_err.values()) > TP_GRAD_TOL:
+        fail(f"{label}: against the dense block {json.dumps(errs)}")
+    if ctl_norm <= TP_C:
+        fail(f"{label}: the block with TF32 on meets the bar too "
+             f"{json.dumps(errs)}")
+    want = {"TP": {"all_reduce": 4}} if n > 1 else {}
+    par_expect(run, 0, want)
+    del got, grads, ref, ref_grads, bound, diff, x, dy, block, flat, tree
+    torch.cuda.empty_cache()
+    run.update(errors=errs, fwd_bwd_s=_steady(run["step_s"]),
+               tokens_per_s_per_gpu=LM_BATCH * LM_SEQ / _steady(
+                   run["step_s"]) / n, nccl_want=want)
+    return run
+
+
+def _moe_expert(p, tokens):
+    """The MoE runs' expert: a GELU (tanh) MLP, as the LM's. Smooth: a
+    ReLU's kink turns a last-bit difference of a pre-activation between
+    two matmul orders into a whole term of a weight's gradient
+    (:func:`moe_relu_run` shows it)."""
+    import torch.nn.functional as F
+
+    return F.gelu(tokens @ p[0], approximate="tanh") @ p[1]
+
+
+def _moe_ref_expert(ex, p, tokens):
+    return _moe_expert(p, tokens)
+
+
+def _moe_reference(router, w1, w2, x, routing: str, capacity: int,
+                   expert=_moe_ref_expert):
+    """Each token through its chosen experts, gate-weighted (top2: the
+    pair's gates renormalized), in token order: an expert keeps the first
+    ``capacity`` of its first choices, then second choices while room is
+    left (the GShard policy); the rest are dropped. ``expert(ex, (w1[ex],
+    w2[ex]), tokens)`` is expert ``ex`` on its kept tokens. ``(y, aux,
+    dropped)``."""
+    import torch
+
+    gates = torch.softmax(x @ router, dim=-1)
+    e = router.shape[1]
+    k = 1 if routing == "top1" else 2
+    top = torch.topk(gates, k, dim=-1)
+    g = top.values if k == 1 else top.values / torch.clamp_min(
+        top.values.sum(-1, keepdim=True), 1e-9)
+    y = torch.zeros_like(x)
+    dropped = 0
+    for ex in range(e):
+        room = capacity
+        for c in range(k):
+            idx = torch.nonzero(top.indices[:, c] == ex).flatten()
+            kept = idx[:max(room, 0)]
+            dropped += idx.numel() - kept.numel()
+            room -= kept.numel()
+            if kept.numel():
+                h = expert(ex, (w1[ex], w2[ex]), x[kept])
+                y = y.index_add(0, kept, g[kept, c:c + 1] * h)
+    first = torch.nn.functional.one_hot(top.indices[:, 0], e).float()
+    aux = (first.mean(0) * gates.mean(0)).sum() * e
+    return y, aux, dropped
+
+
+def _moe_inputs(n: int) -> dict:
+    """The MoE runs' inputs on this rank of an expert axis of ``n``: the
+    router ``[D, E]``, experts ``w1 [E, D, H]``, ``w2 [E, H, D]`` (seed
+    18), tokens ``x [T, D]`` and the output's cotangent ``dy`` (seed 100 +
+    rank); ``leaves`` the port's copies requiring grad (the router, this
+    rank's experts, the tokens); the capacity."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import build_mesh
+    from horovod_tpu_torch.parallel.moe import moe_capacity
+
+    r = build_mesh({"expert": n}).axis_index("expert")
+    dev = hvd.device()
+    D, H, E, T = MOE["dim"], MOE["hidden"], MOE["experts"], MOE["tokens"]
+    el = E // n
+    gen = torch.Generator(device=dev).manual_seed(18)
+    router = torch.randn(D, E, device=dev, generator=gen) * 0.02
+    w1 = torch.randn(E, D, H, device=dev, generator=gen) * D ** -0.5
+    w2 = torch.randn(E, H, D, device=dev, generator=gen) * H ** -0.5
+    gen.manual_seed(100 + r)
+    x = torch.randn(T, D, device=dev, generator=gen)
+    dy = torch.randn(T, D, device=dev, generator=gen)
+    mine = slice(r * el, (r + 1) * el)
+    leaves = [t.clone().requires_grad_(True)
+              for t in (router, w1[mine], w2[mine], x)]
+    return dict(n=n, mine=mine, router=router, w1=w1, w2=w2, x=x, dy=dy,
+                leaves=leaves, cap=moe_capacity(T, E, MOE["factor"]))
+
+
+def _moe_port(m: dict, routing: str, expert_fn) -> tuple:
+    """``expert_parallel_moe`` forward and backward (of ``sum(y * dy)``) on
+    this rank: ``(y, aux, [router's, its experts', tokens' gradients])``."""
+    import torch
+
+    from horovod_tpu_torch.parallel import expert_parallel_moe
+
+    rt, a, b, xs = m["leaves"]
+    y, aux = expert_parallel_moe(rt, (a, b), xs, expert_fn,
+                                 capacity_factor=MOE["factor"],
+                                 routing=routing)
+    grads = torch.autograd.grad((y * m["dy"]).sum(), [rt, a, b, xs])
+    return y.detach(), aux.detach(), [g.detach() for g in grads]
+
+
+def _moe_ref(m: dict, routing: str, expert=_moe_ref_expert) -> tuple:
+    """The local reference (:func:`_moe_reference`, ``expert`` its
+    expert) forward and backward on this rank's tokens: ``(y, aux,
+    gradients of the router, every expert, the tokens, dropped)``, the
+    experts' summed over the axis (every rank's tokens' share) and aux
+    averaged over it."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    leaves = [t.clone().requires_grad_(True)
+              for t in (m["router"], m["w1"], m["w2"], m["x"])]
+    y, aux, dropped = _moe_reference(*leaves, routing, m["cap"], expert)
+    grads = [g.detach() for g in
+             torch.autograd.grad((y * m["dy"]).sum(), leaves)]
+    aux = aux.detach()
+    if m["n"] > 1:
+        for t in grads[1:3]:
+            hvd.allreduce_(t, hvd.Sum, axis="expert")
+        aux = hvd.allreduce(aux, hvd.Average, axis="expert")
+    return y.detach(), aux, grads, dropped
+
+
+def _moe_errs(m: dict, got: tuple, ref: tuple) -> dict:
+    """Each output and gradient of ``got`` (:func:`_moe_port`) against
+    ``ref`` (:func:`_moe_ref`): ``max(|g - r| - MOE_TOL |r|) / max |r|``
+    (at most MOE_TOL to pass), aux relative."""
+    y, aux, grads = got
+    ry, raux, rg, _ = ref
+
+    def err(g, r):
+        return float(((g - r).abs() - MOE_TOL * r.abs()).max()
+                     / r.abs().max())
+
+    return dict(y=err(y, ry), router=err(grads[0], rg[0]),
+                w1=err(grads[1], rg[1][m["mine"]]),
+                w2=err(grads[2], rg[2][m["mine"]]), x=err(grads[3], rg[3]),
+                aux_rel=float((aux - raux).abs() / raux))
+
+
+def moe_run(n: int, routing: str) -> dict:
+    """``expert_parallel_moe`` (``routing``) at D 1024, expert hidden 4096,
+    8 experts over an expert axis of the ``n`` ranks, 4096 tokens a rank,
+    capacity factor 2.0, forward and backward, 4 iterations: y, aux and
+    the router's, experts' and tokens' gradients against the local
+    reference (:func:`_moe_ref`), and its control, the same with TF32 on,
+    failing the bar; exact all-to-alls and pmean a step."""
+    import torch
+
+    label = f"ep_moe_{routing}@{n}"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = _moe_inputs(n)
+    ref = _moe_ref(m, routing)
+    got = []
+
+    def one():
+        out = _moe_port(m, routing, _moe_expert)
+        if not got:
+            got.append(out)
+        return None
+
+    run = par_steps(label, one, PAR_STEPS)
+    with torch.no_grad():
+        errs = _moe_errs(m, got[0], ref)
+    ctl = _moe_errs(m, with_tf32(lambda: _moe_port(m, routing, _moe_expert)),
+                    ref)
+    errs["tf32_control_max"] = max(ctl.values())
+    errs["tf32_control"] = ctl
+    if max(v for k, v in errs.items() if not k.startswith("tf32")) > MOE_TOL:
+        fail(f"{label}: against the local reference {json.dumps(errs)}")
+    if errs["tf32_control_max"] <= MOE_TOL:
+        fail(f"{label}: the MoE with TF32 on meets the bar too "
+             f"{json.dumps(errs)}")
+    want = ({"EXPERT": {"all_to_all_single": 4, "all_reduce": 1}}
+            if n > 1 else {})
+    par_expect(run, 0, want)
+    dropped, cap = ref[3], m["cap"]
+    del got, ref, m
+    torch.cuda.empty_cache()
+    run.update(errors=errs, dropped=dropped, capacity=cap,
+               fwd_bwd_s=_steady(run["step_s"]),
+               tokens_per_s_per_gpu=MOE["tokens"] / _steady(run["step_s"]),
+               nccl_want=want)
+    return run
+
+
+def moe_relu_run() -> dict:
+    """The MoE (one GPU, top1) with ReLU experts: why the smoke's experts
+    are GELU. A pre-activation whose two matmul orders (the port's
+    capacity buffer, the reference's kept rows) round to opposite signs
+    flips the ReLU, and a flip moves a whole term of w1's and the tokens'
+    gradients. Checks that every flip lies within :data:`KINK_C` times
+    its rounding bound of 0, and that the reference given the port's
+    ReLU mask meets :data:`MOE_TOL`; the plain ReLU reference's errors
+    are reported beside it."""
+    import torch
+
+    label = "ep_moe_relu_top1@1"
+    D = MOE["dim"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = _moe_inputs(1)
+    port_pre, port_rows = [], []
+
+    def relu_port(p, tokens):
+        h = tokens @ p[0]
+        port_pre.append(h.detach())
+        port_rows.append(tokens.detach())
+        return torch.relu(h) @ p[1]
+
+    got = []
+    run = par_steps(label, lambda: got.append(
+        _moe_port(m, "top1", relu_port)), 1)
+    ref_pre, ref_rows = {}, {}
+
+    def relu_ref(ex, p, tokens):
+        h = tokens @ p[0]
+        ref_pre[ex], ref_rows[ex] = h.detach(), tokens.detach()
+        return torch.relu(h) @ p[1]
+
+    def port_mask_ref(ex, p, tokens):
+        keep = port_pre[ex][:tokens.shape[0]] > 0
+        return ((tokens @ p[0]) * keep) @ p[1]
+
+    plain = _moe_ref(m, "top1", relu_ref)
+    masked = _moe_ref(m, "top1", port_mask_ref)
+    rec = dict(pre_activations=0, flips=0, flip_max_over_bound=0.0,
+               diff_max_over_bound=0.0, rows_equal=True)
+    with torch.no_grad():
+        for ex, hr in ref_pre.items():
+            k = hr.shape[0]
+            rows = ref_rows[ex]
+            rec["rows_equal"] &= bool(torch.equal(port_rows[ex][:k], rows))
+            hp = port_pre[ex][:k]
+            bound = D * 2.0 ** -24 * (rows.abs() @ m["w1"][ex].abs())
+            flip = (hp > 0) != (hr > 0)
+            rec["pre_activations"] += hr.numel()
+            rec["flips"] += int(flip.sum())
+            if flip.any():
+                rec["flip_max_over_bound"] = max(
+                    rec["flip_max_over_bound"],
+                    float((hr.abs() / bound)[flip].max()))
+            rec["diff_max_over_bound"] = max(
+                rec["diff_max_over_bound"],
+                float(((hp - hr).abs() / bound).max()))
+        rec["plain_relu_errors"] = _moe_errs(m, got[0], plain)
+        rec["port_mask_errors"] = _moe_errs(m, got[0], masked)
+    if not rec["rows_equal"] or rec["flip_max_over_bound"] > KINK_C \
+            or max(rec["port_mask_errors"].values()) > MOE_TOL:
+        fail(f"{label}: the ReLU flips {json.dumps(rec)}")
+    par_expect(run, 0, {})
+    del got, plain, masked, m, port_pre, port_rows, ref_pre, ref_rows
+    torch.cuda.empty_cache()
+    run.update(errors=rec)
+    return run
+
+
+def parallel_phase(report=lambda run: None) -> list:
+    """Phase 18 on every rank of the world (one GPU: a mesh of one): the
+    SP runs, zigzag attention, the TP block, the PP runs and the MoE (one
+    GPU: also with ReLU experts), ``report(run)`` after each. Returns this
+    rank's run records."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in f32
+    n = hvd.size()
+    x, y = _par_tokens(hvd.device())
+    runs = []
+
+    def done(run):
+        runs.append(run)
+        report(run)
+
+    dense = dense_first_step(LM, x, y)
+    done(sp_run("ring", {"data": 1, "seq": n}, x, y, dense))
+    done(sp_run("ulysses", {"data": 2 if n > 1 else 1,
+                            "seq": n // 2 if n > 1 else 1}, x, y, dense))
+    del dense
+    done(zigzag_run(n))
+    done(tp_run(n))
+    dense = dense_first_step(LM_LEARNED, x, y)
+    done(pp_run(1, x, y, dense))
+    if n > 1:
+        done(pp_run(LM["depth"] // n, x, y, dense))
+    del dense
+    torch.cuda.empty_cache()
+    for routing in ("top1", "top2"):
+        done(moe_run(n, routing))
+    if n == 1:
+        done(moe_relu_run())
+    return runs
+
+
+def _parallel_rank() -> list:
+    runs = parallel_phase()
+    for run in runs:
+        run["nccl_by_step"] = run["nccl_by_step"][-1:]
+    return runs
+
+
+def run_parallel_gpus(n: int) -> list:
+    """Phase 18 across ``n`` GPUs: rank 0's runs, after checking that
+    every rank reports the same losses and the same replicated
+    parameters (SP: all; PP: the embedding and head)."""
+    from horovod_tpu_torch.testing import run_world
+
+    try:
+        res = run_world(_parallel_rank, n, device=None, timeout=900)
+    except RuntimeError as e:
+        fail(f"{n} GPUs, phase 18: {e}")
+    for r, out in enumerate(res):
+        for o, o0 in zip(out, res[0]):
+            if o["losses"] != o0["losses"] or \
+                    o.get("params_sha") != o0.get("params_sha"):
+                fail(f"{n} GPUs, {o['mode']}: rank {r} diverged from rank 0")
+    return res[0]
+
+
+def print_parallel(runs: list, smi: str) -> None:
+    """Phase 18's lines: each run's numbers (tokens/s a GPU over the steps
+    after the second, peak memory, the checks' errors, bubble ticks,
+    dropped tokens, NCCL calls by group a step)."""
+    keep = ("losses", "first_step", "tokens_per_s_per_gpu", "fwd_bwd_s",
+            "peak_gib", "errors", "ticks", "bubble_ticks", "blocks_a_stage",
+            "dropped", "capacity", "nccl_want", "axes", "step_s")
+    for run in runs:
+        rec = {k: run[k] for k in keep if k in run}
+        rec["flash_fwd_a_step"] = run["launches"]["flash_fwd"] / run["steps"]
+        print(f"parallel {run['mode']}: {json.dumps(rec)} ({smi}; TF32 off "
+              "for f32 matmuls)", flush=True)
+
+
 def _summary(run: dict) -> str:
     return json.dumps({k: v for k, v in run.items() if k != "step_calls"})
 
@@ -3632,10 +4570,14 @@ def main() -> None:
         torch.cuda.empty_cache()
         runs.append(train_lm(4, powersgd_rank=PSGD_RANK))
         torch.cuda.empty_cache()
+        # phase 18 on a mesh of one
+        par_runs = parallel_phase(lambda run: print_parallel([run], smi))
+        torch.cuda.empty_cache()
     finally:
         hvd.shutdown()
     for run in runs:
         print(f"e2e {run['mode']}: {_summary(run)}", flush=True)
+    runs += par_runs
     by_mode = {run["mode"]: run for run in runs}
     for name, mode, _ in ZOO_RUNS:
         run = by_mode[f"{name}_{mode}"]
@@ -3759,6 +4701,12 @@ def main() -> None:
                                                 "adasum_segment_combine")):
                 step_calls[run["mode"]] = run["step_calls"]
             runs.append(run)
+        torch.cuda.empty_cache()
+        par_world = run_parallel_gpus(gpus)
+        print_parallel(par_world, smi)
+        for run in par_world:
+            step_calls[run["mode"]] = run["step_calls"]
+        runs += par_world
         print(f"SyncBatchNorm at [64, 64, 112, 112] per GPU against "
               f"BatchNorm2d over the gathered batch, largest difference over "
               f"the reference's largest magnitude (bar {SYNC_BN_RTOL}), in "

@@ -41,6 +41,8 @@ class _State:
     core: Optional[object] = None
     #: the host mesh of :func:`horovod_tpu_torch.parallel.mesh.build_host_mesh`
     host_mesh: Optional[object] = None
+    #: the named-axis mesh of :func:`horovod_tpu_torch.parallel.mesh.build_mesh`
+    mesh: Optional[object] = None
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
@@ -163,6 +165,7 @@ def shutdown() -> None:
             _state.core.shutdown()
             _state.core = None
         _state.host_mesh = None
+        _state.mesh = None
         dist.destroy_process_group()
         _state.initialized = False
         _state.device = None

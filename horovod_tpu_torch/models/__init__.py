@@ -21,4 +21,5 @@ from horovod_tpu_torch.models.transformer import (  # noqa: F401
     TransformerTiny,
     apply_rope,
     default_attention,
+    transformer_param_specs,
 )

@@ -19,6 +19,11 @@ computes:
   :func:`horovod_tpu_torch.ops.flash_attention.flash_attention`);
 - logits in f32.
 
+Tensor parallelism: :func:`transformer_param_specs` names the dim each
+flax-keyed leaf splits over a model axis (Megatron's column/row rules),
+and :func:`tp_block_apply` runs one block split over a mesh axis's
+sub-group with its two ``psum``s stated in code.
+
 Parameters keep PyTorch's layouts (linear ``[out, in]``).
 :meth:`TransformerLM.jax_params` / :meth:`TransformerLM.jax_grads` return
 them keyed by the flax path (``block3/qkv/kernel``,
@@ -40,6 +45,7 @@ from torch import nn
 
 from horovod_tpu_torch.models.layers import Dense, Embed, LayerNorm
 from horovod_tpu_torch.ops.flash_attention import NEG_INF, repeat_kv_heads
+from horovod_tpu_torch.parallel import spmd
 
 
 def apply_rope(x, positions, *, base: float = 10000.0):
@@ -208,6 +214,107 @@ class TransformerLM(nn.Module):
     def jax_batch_stats(self) -> dict:
         """TransformerLM keeps no running statistics."""
         return {}
+
+
+def transformer_param_specs(params: dict) -> dict:
+    """Megatron-style tensor-parallel split of a TransformerLM's
+    flax-keyed leaves (``model.jax_params()``: ``block0/qkv/kernel``, ...,
+    flax's layouts): for each key, the dim split over the model axis, or
+    None (replicated). qkv/``q_proj``/``kv_proj``/``mlp_up`` kernels split
+    their output dim (1), ``proj``/``mlp_down`` their input dim (0), so
+    each block needs exactly one psum per matmul pair; ``lm_head`` and the
+    embedding tables split their feature dim (1); leaves of rank < 2 are
+    replicated. The name rules are the JAX package's."""
+
+    def dim_for(name, leaf):
+        if leaf.dim() < 2:
+            return None
+        if ("qkv" in name or "mlp_up" in name or "q_proj" in name
+                or "kv_proj" in name):
+            return 1
+        if "proj" in name or "mlp_down" in name:
+            return 0
+        if "lm_head" in name:
+            return 1
+        if "tok_embed" in name or "pos_embed" in name:
+            return 1
+        return None
+
+    return {k: dim_for(k, v) for k, v in params.items()}
+
+
+def _tp_layernorm(x, scale, bias, *, eps: float = 1e-6):
+    """flax LayerNorm's statistics (mean of squares minus squared mean,
+    clamped), in the JAX package's ``_tp_layernorm`` expression order."""
+    mu = x.mean(dim=-1, keepdim=True)
+    mu2 = (x * x).mean(dim=-1, keepdim=True)
+    var = torch.clamp_min(mu2 - mu * mu, 0.0)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def tp_block_apply(block_params: dict, x, *, heads: int, axis: str = "tp"):
+    """One transformer block, tensor-parallel over the mesh axis ``axis``.
+
+    ``block_params`` is one :class:`TransformerBlock`'s full (replicated)
+    parameters as the JAX package's nested dict in flax's layouts
+    (``block_params["qkv"]["kernel"]`` ``[D, 3D]``); every rank of the
+    axis calls it on the same ``x`` ``[B, T, D]`` and slices its own
+    column/row blocks (Megatron: qkv and mlp_up column-split, proj and
+    mlp_down row-split), so the block costs exactly two psums forward
+    (:func:`~horovod_tpu_torch.parallel.spmd.psum`, whose backward is a
+    psum: each rank's gradient is the axis size times its share, and
+    their mean over the axis the block's). Attention is dense
+    (:func:`default_attention`), as in the JAX package.
+
+    Full multi-head attention only (a fused ``qkv`` kernel), no RoPE;
+    ``heads`` and the MLP's hidden width must be divisible by the axis
+    size."""
+    if "qkv" not in block_params:
+        raise ValueError(
+            "tp_block_apply requires a fused qkv kernel (kv_heads unset "
+            "or == heads); GQA blocks need the GSPMD path "
+            "(transformer_param_specs)")
+    n = spmd.axis_size(axis)
+    r = spmd.axis_index(axis)
+    dim = x.shape[-1]
+    if heads % n:
+        raise ValueError(f"heads={heads} not divisible by tp axis size {n}")
+    w = dim // n  # per-rank head-block width (heads//n heads, contiguous)
+    head_dim = dim // heads
+    b, t = x.shape[:2]
+
+    h = _tp_layernorm(x, block_params["ln1"]["scale"],
+                      block_params["ln1"]["bias"])
+    # fused qkv kernel layout is [D, 3D] = [q | k | v]; this rank takes
+    # the same column window r*w inside each third
+    qkv_k = block_params["qkv"]["kernel"]
+    qkv_local = torch.cat([qkv_k[:, base + r * w:base + (r + 1) * w]
+                           for base in (0, dim, 2 * dim)], dim=1)
+    q, k, v = (h @ qkv_local).split(w, dim=-1)
+    split = lambda z: z.reshape(b, t, heads // n, head_dim)  # noqa: E731
+    att = default_attention(split(q), split(k), split(v), causal=True)
+    att = att.reshape(b, t, w)
+    # proj row-split: each rank contributes its head-block's slice of the
+    # contraction; psum #1 completes it
+    partial = att @ block_params["proj"]["kernel"][r * w:(r + 1) * w]
+    x = x + spmd.psum(partial, axis)
+
+    h = _tp_layernorm(x, block_params["ln2"]["scale"],
+                      block_params["ln2"]["bias"])
+    up_k = block_params["mlp_up"]["kernel"]
+    hidden = up_k.shape[1]
+    if hidden % n:
+        raise ValueError(
+            f"mlp hidden width {hidden} not divisible by tp axis size {n}")
+    fw = hidden // n
+    # mlp_up's bias is column-split with its kernel: it lands before the
+    # gelu, so it cannot wait for the psum
+    h = (h @ up_k[:, r * fw:(r + 1) * fw]
+         + block_params["mlp_up"]["bias"][r * fw:(r + 1) * fw])
+    h = F.gelu(h, approximate="tanh")
+    partial = h @ block_params["mlp_down"]["kernel"][r * fw:(r + 1) * fw]
+    # mlp_down's bias is replicated and added exactly once, after psum #2
+    return x + spmd.psum(partial, axis) + block_params["mlp_down"]["bias"]
 
 
 def _with_defaults(**defaults):

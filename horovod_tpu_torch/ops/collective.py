@@ -46,7 +46,12 @@ caller's thread: the core carries no compression.)
 world) or the host mesh's ``(CROSS, LOCAL)`` pair
 (:func:`horovod_tpu_torch.parallel.mesh.build_host_mesh`): with the
 pair and the toggle on they take the two-level route of
-:mod:`horovod_tpu_torch.ops.hierarchical`, else the flat one.
+:mod:`horovod_tpu_torch.ops.hierarchical`, else the flat one. A mesh
+axis's name (``axis="seq"``, :func:`horovod_tpu_torch.parallel.mesh.
+build_mesh`) runs :func:`allreduce`, :func:`grouped_allreduce`,
+:func:`allgather`, :func:`alltoall` and :func:`reducescatter` over that
+axis's sub-group (:func:`on_group`), Average dividing by its size; not
+with the native core attached, which they would bypass (they raise).
 """
 
 from __future__ import annotations
@@ -120,6 +125,22 @@ def on_group(group):
         yield
     finally:
         _local.group = saved
+
+
+def _axis_group(axis, required: bool = False):
+    """The sub-group of the process mesh's axis ``axis`` (a name), or None
+    when the mesh has no such axis (the host mesh's pair route then
+    judges ``axis``); ``required`` raises instead. Refused while the
+    native core is attached (its thread issues every collective)."""
+    mesh = basics._state.mesh
+    if isinstance(axis, str) and mesh is not None and axis in mesh.shape:
+        from horovod_tpu_torch.parallel.mesh import axis_collectives
+
+        return axis_collectives(axis).group(axis)
+    if required:
+        raise ValueError(f"no mesh axis {axis!r}: build it with "
+                         "horovod_tpu_torch.parallel.build_mesh first")
+    return None
 
 
 def _all_gather_single(out, t, async_op=False):
@@ -511,7 +532,8 @@ def allreduce(tensor, op: ReduceOp = Average, *, compression=None,
     the int8 exchange; other compressors cast around the reduction.
     ``prescale_factor`` multiplies the tensor before the reduction,
     ``postscale_factor`` the result after it, as in the JAX package.
-    ``axis`` the host mesh's ``(CROSS, LOCAL)`` pair: the two-level route
+    ``axis`` a mesh axis's name: over its sub-group. ``axis`` the host
+    mesh's ``(CROSS, LOCAL)`` pair: the two-level route
     while ``HOROVOD_HIERARCHICAL_ALLREDUCE`` is on
     (:func:`~horovod_tpu_torch.ops.hierarchical.hier_allreduce`, a
     quantized compressor on the cross hop only), else the flat one (a
@@ -520,6 +542,13 @@ def allreduce(tensor, op: ReduceOp = Average, *, compression=None,
     basics._require_init()
     _check_device(tensor)
     op = ReduceOp(op)
+    if _axis_group(axis) is not None:
+        if op == Adasum:
+            raise ValueError("Adasum runs over the world; pass axis=None")
+        with on_group(_axis_group(axis)):
+            return allreduce(tensor, op, compression=compression,
+                             prescale_factor=prescale_factor,
+                             postscale_factor=postscale_factor)
     if axis is not None:
         return _pair_allreduce(tensor, op, compression, axis,
                                prescale_factor, postscale_factor)
@@ -660,16 +689,22 @@ def allreduce_(tensor, op: ReduceOp = Average, **kw):
     return tensor
 
 
-def grouped_allreduce(tensors, op: ReduceOp = Average):
+def grouped_allreduce(tensors, op: ReduceOp = Average, *, axis=None):
     """Fused allreduce of a list of tensors (Horovod's fusion buffer,
     ``MemcpyInFusionBuffer`` -> one reduction -> ``MemcpyOutFusionBuffer``):
     one flat ``all_reduce`` per dtype, split back into views of each
     tensor's shape. ``op=Adasum`` runs one grouped butterfly
     (:func:`~horovod_tpu_torch.ops.adasum.grouped_adasum_allreduce`).
     As the JAX package's ``grouped_allreduce``, every other op sums:
-    ``Min`` and ``Max`` are summed, not reduced by min or max."""
+    ``Min`` and ``Max`` are summed, not reduced by min or max. ``axis``
+    a mesh axis's name: over its sub-group (not Adasum)."""
     basics._require_init()
     tensors = list(tensors)
+    if axis is not None:
+        if ReduceOp(op) == Adasum:
+            raise ValueError("Adasum runs over the world; pass axis=None")
+        with on_group(_axis_group(axis, required=True)):
+            return grouped_allreduce(tensors, op)
     for t in tensors:
         _check_device(t)
     op = ReduceOp(op)
@@ -695,11 +730,15 @@ def _start_allgather(tensor):
 
 def allgather(tensor, *, axis=None):
     """Concatenate every rank's tensor along dim 0 (equal dim 0 on every
-    rank, as the reference's static-shape path requires). ``axis`` the
+    rank, as the reference's static-shape path requires). ``axis`` a
+    mesh axis's name: over its sub-group. ``axis`` the
     host mesh's ``(CROSS, LOCAL)`` pair: while
     ``HOROVOD_HIERARCHICAL_ALLGATHER`` is on, gathered inside LOCAL then
     across CROSS (:func:`~horovod_tpu_torch.ops.hierarchical.
     hier_allgather`, the same rank order)."""
+    if _axis_group(axis) is not None:
+        with on_group(_axis_group(axis)):
+            return allgather(tensor)
     if axis is not None:
         from horovod_tpu_torch.ops import hierarchical as _hier
 
@@ -823,9 +862,13 @@ def _start_reducescatter(tensor, op):
     return [work], lambda: _div(out, n) if op == Average else out
 
 
-def reducescatter(tensor, op: ReduceOp = Average):
+def reducescatter(tensor, op: ReduceOp = Average, *, axis=None):
     """Reduce along dim 0 and give rank r the r-th of N equal row blocks.
-    A dim 0 that N does not divide is zero-padded first."""
+    A dim 0 that N does not divide is zero-padded first. ``axis`` a mesh
+    axis's name: over its sub-group, r and N its index and size."""
+    if axis is not None:
+        with on_group(_axis_group(axis, required=True)):
+            return reducescatter(tensor, op)
     if _via_core() is not None:
         return reducescatter_async(tensor, op).wait()
     return _run(_start_reducescatter(tensor, op))
@@ -841,9 +884,13 @@ def _start_alltoall(tensor):
     return _start_all_to_all(tensor)
 
 
-def alltoall(tensor):
+def alltoall(tensor, *, axis=None):
     """Rank i sends row block j of its tensor to rank j; dim 0 must be a
-    multiple of the world size."""
+    multiple of the world size. ``axis`` a mesh axis's name: over its
+    sub-group, i and j its indices."""
+    if axis is not None:
+        with on_group(_axis_group(axis, required=True)):
+            return alltoall(tensor)
     if _via_core() is not None:
         return alltoall_async(tensor).wait()
     return _run(_start_alltoall(tensor))

@@ -363,3 +363,270 @@ def shard_batch(batch: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"global batch {b} is not divisible by world size {n}")
     per = b // n
     return batch[r * per:(r + 1) * per]
+
+
+# --------------------------------------------------------------------------
+# sequence and pipeline parallelism
+
+
+def _present(axis: str) -> bool:
+    """Whether the process mesh has ``axis`` at a size above 1 (an axis
+    of one rank reduces nothing)."""
+    from horovod_tpu_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    return axis in mesh.shape and mesh.shape[axis] > 1
+
+
+def make_sp_train_step(model, tx, *, data_axis: Optional[str] = None,
+                       seq_axis: str = "seq"):
+    """Sequence-parallel causal-LM step over the process mesh's
+    ``(data, seq)`` axes (:func:`~horovod_tpu_torch.parallel.mesh.
+    build_mesh`): ``step(opt_state, tokens, targets) -> (opt_state,
+    loss)`` on this rank's ``[B/data, T/seq]`` shard of the tokens and of
+    the targets (rolled globally before sharding).
+
+    Build the model with an attention over the ``seq`` axis
+    (``functools.partial(ring_attention, axis_name=seq_axis)`` or
+    :func:`~horovod_tpu_torch.parallel.ulysses_attention`). The step
+    passes each shard's global ``positions`` (``seq_index * T_local +
+    arange``), takes :func:`token_xent` of the shard, and averages the
+    gradients and the loss over ``data`` (``data_axis``, default
+    ``"data"``; absent means one) and then over ``seq``: one flat
+    all-reduce per axis and dtype. The parameters (``model.jax_params()``)
+    are updated in place, as :func:`make_train_step` does; ``tx`` is a
+    plain optimizer (``opt_state = tx.init(model.jax_params())``)."""
+    from horovod_tpu_torch.ops.collective import grouped_allreduce
+    from horovod_tpu_torch.parallel import spmd
+
+    dax = data_axis or "data"
+    params = model.jax_params()
+    keys = tree_keys(params)
+
+    def step(opt_state, tokens, targets):
+        model.train()
+        for p in model.parameters():
+            p.grad = None
+        t_local = tokens.shape[1]
+        positions = (spmd.axis_index(seq_axis) * t_local + torch.arange(
+            t_local, device=tokens.device))[None, :]
+        loss = token_xent(model(tokens, positions), targets)
+        loss.backward()
+        grads = model.jax_grads()
+        flat = [grads[k] if grads[k] is not None
+                else torch.zeros_like(params[k]) for k in keys]
+        flat.append(loss.detach())
+        for ax in (dax, seq_axis):
+            if _present(ax):
+                flat = grouped_allreduce(flat, Average, axis=ax)
+        with torch.no_grad():
+            updates, opt_state = tx.update(dict(zip(keys, flat[:-1])),
+                                           opt_state, params)
+            for k, u in updates.items():
+                params[k].add_(u)
+        return opt_state, flat[-1]
+
+    return step
+
+
+def _pp_apply(interleaved: bool):
+    from horovod_tpu_torch.parallel import pipeline
+
+    return (pipeline.pipeline_apply_interleaved if interleaved
+            else pipeline.pipeline_apply)
+
+
+def _with_grad(tree: dict) -> dict:
+    return {k: v.requires_grad_(True) for k, v in tree.items()}
+
+
+def make_pp_train_step(stage_fn: Callable, tx, *,
+                       loss_fn: Optional[Callable] = None,
+                       interleaved: bool = False,
+                       axis: Optional[str] = None):
+    """Pipeline-parallel step over the ``pipe`` axis: ``step(stacked,
+    opt_state, x_micro, y_micro) -> (stacked, opt_state, loss)``.
+
+    ``stacked`` is this rank's slice of the stage-stacked parameters, a
+    flat dict of ``[1, ...]`` leaves (``[1, v, ...]`` with
+    ``interleaved=True``): what ``shard_map`` hands a device of the
+    ``P("pipe")``-sharded :func:`~horovod_tpu_torch.parallel.
+    make_stage_params` (or :func:`~horovod_tpu_torch.parallel.
+    make_interleaved_stage_params`) tree; ``stage_fn(params, activation)``
+    gets the dict with the leading dim taken off. ``opt_state =
+    tx.init(stacked)``. ``x_micro``/``y_micro`` ``[n_micro, mb, ...]`` are
+    replicated; ``loss_fn`` defaults to the mean squared error.
+
+    The loss is computed on every rank from the ``psum`` of the pipeline's
+    output; psum's backward is a psum, so each rank's stage gradient
+    over-counts by the pipe size and is divided by it before the update,
+    as in the JAX package. ``stacked`` is updated in place and returned."""
+    from horovod_tpu_torch.parallel import spmd
+
+    if loss_fn is None:
+        loss_fn = lambda out, y: torch.mean((out - y) ** 2)  # noqa: E731
+    ax = axis or "pipe"
+    apply_fn = _pp_apply(interleaved)
+
+    def step(stacked, opt_state, xm, ym):
+        keys = tree_keys(stacked)
+        stacked = _with_grad(stacked)
+        out = apply_fn(stage_fn, {k: v[0] for k, v in stacked.items()}, xm,
+                       axis_name=ax)
+        loss = loss_fn(spmd.psum(out, ax), ym)  # valid on the last stage only
+        grads = torch.autograd.grad(loss, [stacked[k] for k in keys])
+        k_size = spmd.axis_size(ax)
+        with torch.no_grad():
+            updates, opt_state = tx.update(
+                {k: g / k_size for k, g in zip(keys, grads)}, opt_state,
+                stacked)
+            for k, u in updates.items():
+                stacked[k].add_(u)
+        return stacked, opt_state, loss.detach()
+
+    return step
+
+
+def split_transformer_for_pp(model, params: dict, n_stages: int, *,
+                             interleaved_v: int = 1) -> dict:
+    """Split a TransformerLM's flax-keyed parameters (``model.jax_params()``)
+    for pipeline parallelism: ``depth`` blocks grouped into ``n_stages *
+    interleaved_v`` stages (stage s holds blocks ``s*per .. s*per+per-1``
+    as ``b0 .. b{per-1}``), stacked ``[S, ...]`` (GPipe) or ``[S, v, ...]``
+    round-robin (interleaved), and the replicated embedding and head
+    apart. Returns ``{"embed": {...}, "stages": {...}, "head": {...}}``,
+    flat dicts; rank r of the pipe axis takes ``stages[k][r:r+1]``."""
+    from horovod_tpu_torch.parallel.pipeline import (
+        make_interleaved_stage_params, make_stage_params,
+    )
+
+    n_total = n_stages * interleaved_v
+    if model.depth % n_total != 0:
+        raise ValueError(
+            f"depth {model.depth} not divisible by n_stages*v = {n_total}"
+        )
+    if model.use_rope:
+        raise ValueError(
+            "PP transformer currently supports pos_embedding='learned' "
+            "(positions resolve at embed time; rope would need per-stage "
+            "position plumbing)"
+        )
+    per = model.depth // n_total
+    stage_trees = []
+    for s in range(n_total):
+        tree = {}
+        for j in range(per):
+            pre = f"block{s * per + j}/"
+            tree.update({f"b{j}/{k[len(pre):]}": v for k, v in params.items()
+                         if k.startswith(pre)})
+        stage_trees.append(tree)
+    stacked = (make_interleaved_stage_params(stage_trees, n_stages)
+               if interleaved_v > 1 else make_stage_params(stage_trees))
+    embed = {k: params[k] for k in ("tok_embed/embedding", "pos_embed")}
+    head = {k: v for k, v in params.items()
+            if k.startswith(("ln_f/", "lm_head/"))}
+    return {"embed": embed, "stages": stacked, "head": head}
+
+
+def make_transformer_pp_train_step(model, tx, *, interleaved_v: int = 1,
+                                   axis: Optional[str] = None):
+    """Pipeline-parallel causal-LM step for a TransformerLM (learned
+    positions): embedding, blocks and head all trained.
+    ``step(params, opt_state, tokens_micro, targets_micro) -> (params,
+    opt_state, loss)``; ``params`` is :func:`split_transformer_for_pp`'s
+    split (same ``interleaved_v``) with ``stages`` cut to this rank's
+    ``[1, ...]`` slice, ``opt_state = {part: tx.init(params[part])}``,
+    tokens and targets ``[n_micro, mb, T]`` replicated. The parameters
+    are updated in place.
+
+    The stages run the port's :class:`~horovod_tpu_torch.models.
+    transformer.TransformerBlock` (the model's attention function: on
+    CUDA tensors ``flash_attention``'s kernel), the head its
+    ``LayerNorm`` and ``Dense``, through ``torch.func.functional_call``.
+    Gradient bookkeeping over the pipe axis, as the JAX package's:
+    stages divided by S (psum's backward over-counts), the embedding
+    psum-ed over the axis and divided by S (only stage 0 reads it), the
+    head pmean-ed (its per-rank gradient is the true one); the embedding
+    and head in one flat all-reduce per dtype."""
+    from torch.func import functional_call
+
+    from horovod_tpu_torch.models.layers import Dense, LayerNorm
+    from horovod_tpu_torch.models.transformer import TransformerBlock
+    from horovod_tpu_torch.ops.collective import Sum, grouped_allreduce
+    from horovod_tpu_torch.parallel import spmd
+
+    ax = axis or "pipe"
+    n_stages = spmd.axis_size(ax)
+    if model.depth % (n_stages * interleaved_v) != 0:
+        raise ValueError(
+            f"depth {model.depth} not divisible by n_stages*v = "
+            f"{n_stages * interleaved_v}; pass the same interleaved_v used "
+            f"in split_transformer_for_pp"
+        )
+    per = model.depth // (n_stages * interleaved_v)
+    apply_fn = _pp_apply(interleaved_v > 1)
+    b0 = model.block0
+    dim, vocab = b0.dim, model.lm_head.weight.shape[0]
+    block = TransformerBlock(
+        dim, b0.heads, b0.mlp_up.weight.shape[0] // dim, dtype=model.dtype,
+        attention_fn=b0.attention_fn,
+        kv_heads=None if b0.h_kv == b0.heads else b0.h_kv, device="meta")
+    ln_f = LayerNorm(dim, dtype=model.dtype, device="meta")
+    lm_head = Dense(dim, vocab, bias=False, dtype=model.dtype, device="meta")
+
+    def call(module, tree: dict, x):
+        if hasattr(module, "from_jax"):     # a layer: its own leaves
+            tp = {k: v.contiguous()
+                  for k, v in module.from_jax(tree.__getitem__).items()}
+        else:
+            tp = torch_params(module, tree)
+        return functional_call(module, tp, (x,))
+
+    def embed_fn(ep, tokens):
+        # the JAX package's order: take the f32 rows, then cast (so the
+        # table's gradient accumulates in f32)
+        t = tokens.shape[-1]
+        x = torch.nn.functional.embedding(
+            tokens.long(), ep["tok_embed/embedding"]).to(model.dtype)
+        return x + ep["pos_embed"][:t].to(model.dtype)
+
+    def stage_fn(sp, h):
+        for j in range(per):
+            pre = f"b{j}/"
+            h = call(block, {k[len(pre):]: v for k, v in sp.items()
+                             if k.startswith(pre)}, h)
+        return h
+
+    def head_fn(hp, x):
+        x = call(ln_f, {k[len("ln_f/"):]: v for k, v in hp.items()
+                        if k.startswith("ln_f/")}, x)
+        return call(lm_head, {"kernel": hp["lm_head/kernel"]}, x).float()
+
+    def step(params, opt_state, toks_m, tgts_m):
+        parts = {p: _with_grad(params[p]) for p in ("embed", "stages", "head")}
+        keys = {p: tree_keys(parts[p]) for p in parts}
+        h = embed_fn(parts["embed"], toks_m)
+        out = apply_fn(stage_fn, {k: v[0] for k, v in parts["stages"].items()},
+                       h, axis_name=ax)
+        loss = token_xent(head_fn(parts["head"], spmd.psum(out, ax)), tgts_m)
+        flat = [parts[p][k] for p in parts for k in keys[p]]
+        grads = dict(zip([(p, k) for p in parts for k in keys[p]],
+                         torch.autograd.grad(loss, flat)))
+        S = n_stages
+        g = {"stages": {k: grads["stages", k] / S for k in keys["stages"]}}
+        # the embedding: psum / S; the head: pmean (psum / S too)
+        eh = [(p, k) for p in ("embed", "head") for k in keys[p]]
+        red = [grads[pk] for pk in eh]
+        if S > 1:
+            red = grouped_allreduce(red, Sum, axis=ax)
+        for (p, k), r in zip(eh, red):
+            g.setdefault(p, {})[k] = r / S
+        new_opt = {}
+        with torch.no_grad():
+            for p in ("stages", "embed", "head"):
+                updates, new_opt[p] = tx.update(g[p], opt_state[p], parts[p])
+                for k, u in updates.items():
+                    parts[p][k].add_(u)
+        return parts, new_opt, loss.detach()
+
+    return step

@@ -39,7 +39,11 @@ def test_every_module_imports_with_jax_poisoned():
             "horovod_tpu_torch.torch.compression",
             "horovod_tpu_torch.torch.sync_batch_norm",
             "horovod_tpu_torch.parallel", "horovod_tpu_torch.parallel.mesh",
-            "horovod_tpu_torch.ops.hierarchical"} <= set(mods)
+            "horovod_tpu_torch.ops.hierarchical",
+            "horovod_tpu_torch.parallel.spmd",
+            "horovod_tpu_torch.parallel.ring_attention",
+            "horovod_tpu_torch.parallel.pipeline",
+            "horovod_tpu_torch.parallel.moe"} <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes'):\n"
@@ -63,6 +67,22 @@ def test_every_module_imports_with_jax_poisoned():
         "from horovod_tpu_torch.ops import hierarchical\n"
         "for f in (build_host_mesh, hierarchical.hier_allreduce,\n"
         "          hierarchical.hierarchical_allgather):\n"
+        "    assert callable(f)\n"
+        # tensor, sequence, pipeline and expert parallelism
+        "from horovod_tpu_torch import parallel as par\n"
+        "from horovod_tpu_torch.parallel import spmd\n"
+        "from horovod_tpu_torch.models import transformer_param_specs\n"
+        "from horovod_tpu_torch.models.transformer import tp_block_apply\n"
+        "from horovod_tpu_torch.training import (make_sp_train_step,\n"
+        "    make_pp_train_step, split_transformer_for_pp,\n"
+        "    make_transformer_pp_train_step)\n"
+        "for f in (par.build_mesh, par.MeshConfig, par.ring_attention,\n"
+        "          par.zigzag_ring_attention, par.ulysses_attention,\n"
+        "          par.pipeline_apply, par.pipeline_apply_interleaved,\n"
+        "          par.expert_parallel_moe, spmd.psum, spmd.ppermute,\n"
+        "          spmd.all_to_all, tp_block_apply, transformer_param_specs,\n"
+        "          make_sp_train_step, make_pp_train_step,\n"
+        "          split_transformer_for_pp, make_transformer_pp_train_step):\n"
         "    assert callable(f)\n"
         # checkpoint and the new models, as a user reaches them
         "import horovod_tpu_torch.checkpoint as ck\n"
@@ -99,6 +119,25 @@ def test_every_module_imports_with_jax_poisoned():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("ok")
+
+
+def test_parallel_exports_match_the_jax_package():
+    """``horovod_tpu_torch.parallel`` exports every name the JAX package's
+    ``horovod_tpu.parallel`` does (its submodules aside), and
+    ``horovod_tpu_torch.models`` its ``transformer_param_specs``."""
+    import types
+
+    import horovod_tpu.parallel as jp
+    import horovod_tpu_torch.models as tmodels
+    import horovod_tpu_torch.parallel as tp
+
+    def names(m):
+        return {n for n, v in vars(m).items() if not n.startswith("_")
+                and not isinstance(v, types.ModuleType)}
+
+    missing = names(jp) - names(tp)
+    assert not missing, sorted(missing)
+    assert callable(tmodels.transformer_param_specs)
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():

@@ -1614,3 +1614,356 @@ def pair_zero3_gather(inp):
     q = C.gather_shards(fp.shards["float32"], axis=PAIR, roundtrip=True)
     out["int8"] = (_np_any(q), _np_any(want))
     return out
+
+
+# --------------------------------------------------------------------------
+# tensor, sequence, pipeline and expert parallelism (tests/test_torch_parallel.py,
+# tests/test_torch_sequence.py, tests/test_torch_tp.py)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _n(t):
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _vg(fn, x, w):
+    """``fn(x)`` and the gradient of ``sum(fn(x) * w)`` at ``x``."""
+    x = x.clone().requires_grad_(True)
+    out = fn(x)
+    (g,) = torch.autograd.grad((out * w).sum(), [x])
+    return _n(out), _n(g)
+
+
+def mesh_worker(cases):
+    """Each ``axes`` of ``cases`` through ``build_mesh``: the mesh's axis
+    order, sizes, this rank's coordinates and each axis's line of ranks,
+    or the error's text."""
+    from horovod_tpu_torch.parallel import MeshConfig, build_mesh
+
+    out = []
+    for axes in cases:
+        try:
+            m = (MeshConfig(*axes).build() if isinstance(axes, tuple)
+                 else build_mesh(axes))
+        except ValueError as e:
+            out.append({"error": str(e)})
+            continue
+        out.append({"names": m.axis_names, "shape": dict(m.shape),
+                    "coords": {a: m.axis_index(a) for a in m.axis_names},
+                    "ranks": {a: m.ranks(a) for a in m.axis_names}})
+    return out
+
+
+def mesh_axis_under_core_worker():
+    """A world with the native core attached and a ``tp`` mesh over every
+    rank: each collective over the axis (``axis="tp"`` and the spmd
+    primitives) raises before it issues anything; a world allreduce then
+    still goes through the core. The errors' texts and the sum."""
+    from horovod_tpu_torch.parallel import build_mesh, spmd
+
+    build_mesh({"tp": hvd.size()})
+    x = torch.full((4,), float(hvd.rank() + 1))
+    calls = {
+        "allreduce": lambda: hvd.allreduce(x, hvd.Sum, axis="tp"),
+        "grouped_allreduce": lambda: hvd.grouped_allreduce([x], axis="tp"),
+        "allgather": lambda: hvd.allgather(x, axis="tp"),
+        "alltoall": lambda: hvd.alltoall(x, axis="tp"),
+        "reducescatter": lambda: hvd.reducescatter(x, axis="tp"),
+        "psum": lambda: spmd.psum(x, "tp"),
+        "pmean": lambda: spmd.pmean(x, "tp"),
+        "ppermute": lambda: spmd.ppermute(x, "tp", [(0, 1), (1, 0)]),
+        "all_to_all": lambda: spmd.all_to_all(x, "tp", 0, 0),
+        "exchange": lambda: spmd.exchange([x], "tp", [(0, 1), (1, 0)]),
+    }
+    errors = {}
+    for name, call in calls.items():
+        try:
+            call()
+            errors[name] = None
+        except RuntimeError as e:
+            errors[name] = str(e)
+    return {"errors": errors,
+            "sum": _n(hvd.allreduce(x, hvd.Sum))}
+
+
+def spmd_worker(inp):
+    """The per-axis primitives and the collectives' ``axis=<name>`` on a
+    ``data 2 x seq 2`` mesh, then on ``pipe 4``: each output and the
+    gradient of ``sum(out * w)``."""
+    from horovod_tpu_torch.parallel import build_mesh, spmd
+
+    r = hvd.rank()
+    x, w = _t(inp["x"][r]), _t(inp["w"][r])
+    a, wa = _t(inp["a"][r]), _t(inp["wa"][r])
+    out = {}
+    build_mesh({"data": 2, "seq": 2})
+    out["psum_seq"] = _vg(lambda v: spmd.psum(v, "seq"), x, w)
+    out["pmean_data"] = _vg(lambda v: spmd.pmean(v, "data"), x, w)
+    out["ppermute_seq"] = _vg(
+        lambda v: spmd.ppermute(v, "seq", [(0, 1), (1, 0)]), x, w)
+    out["a2a_seq"] = _vg(lambda v: spmd.all_to_all(v, "seq", 2, 1), a, wa)
+    out["index"] = (spmd.axis_index("data"), spmd.axis_index("seq"),
+                    spmd.axis_size("seq"))
+    out["ar_sum_seq"] = _n(hvd.allreduce(x, hvd.Sum, axis="seq"))
+    out["ar_avg_data"] = _n(hvd.allreduce(x, hvd.Average, axis="data"))
+    out["ag_seq"] = _n(hvd.allgather(x, axis="seq"))
+    out["grouped_seq"] = [_n(t) for t in hvd.grouped_allreduce(
+        [x, a], hvd.Average, axis="seq")]
+    build_mesh({"pipe": 4})
+    out["shift_open"] = _vg(
+        lambda v: spmd.ppermute(v, "pipe", [(0, 1), (1, 2), (2, 3)]), x, w)
+    out["shift_ring"] = _vg(
+        lambda v: spmd.ppermute(v, "pipe", [(i, (i + 1) % 4)
+                                            for i in range(4)]), x, w)
+    e, we = _t(inp["e"][r]), _t(inp["we"][r])
+    out["a2a_pipe_0_1"] = _vg(lambda v: spmd.all_to_all(v, "pipe", 0, 1),
+                              e, we)
+    f, wf = _t(inp["f"][r]), _t(inp["wf"][r])
+    out["a2a_pipe_1_0"] = _vg(lambda v: spmd.all_to_all(v, "pipe", 1, 0),
+                              f, wf)
+    out["alltoall_pipe"] = _n(hvd.alltoall(e, axis="pipe"))
+    out["rs_pipe"] = _n(hvd.reducescatter(e, hvd.Sum, axis="pipe"))
+    return out
+
+
+def _stage_fn(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def pipeline_worker(cases):
+    """GPipe and interleaved pipelines on the pipe axis of this world:
+    each case's output psum-ed over the axis, and this rank's stage
+    gradient of ``sum(psum(out) ** 2)``."""
+    from horovod_tpu_torch.parallel import (
+        build_mesh, pipeline_apply, pipeline_apply_interleaved, spmd,
+    )
+
+    r = hvd.rank()
+    build_mesh({"pipe": hvd.size()})
+    res = []
+    for kind, stacked, x in cases:
+        local = {k: _t(v[r]).requires_grad_(True) for k, v in stacked.items()}
+        fn = pipeline_apply if kind == "gpipe" else pipeline_apply_interleaved
+        out = spmd.psum(fn(_stage_fn, local, _t(x)), "pipe")
+        grads = torch.autograd.grad((out ** 2).sum(),
+                                    [local["w"], local["b"]])
+        res.append({"out": _n(out), "w": _n(grads[0]), "b": _n(grads[1])})
+    return res
+
+
+def pp_step_worker(stacked, x, y, steps, interleaved, lr):
+    """``make_pp_train_step`` with Adam over this rank's stage slice:
+    the losses of ``steps`` steps."""
+    from horovod_tpu_torch.parallel import build_mesh
+    from horovod_tpu_torch.training import make_pp_train_step
+
+    r = hvd.rank()
+    build_mesh({"pipe": hvd.size()})
+    local = {k: _t(v[r:r + 1]) for k, v in stacked.items()}
+    tx = hvd.adam(lr)
+    st = tx.init(local)
+    step = make_pp_train_step(_stage_fn, tx, interleaved=interleaved)
+    losses = []
+    for _ in range(steps):
+        local, st, loss = step(local, st, _t(x), _t(y))
+        losses.append(float(loss))
+    return losses
+
+
+def transformer_pp_worker(cfg, params, tokens, targets, S, v, lr):
+    """One ``make_transformer_pp_train_step`` step (SGD) of a TransformerLM
+    (f32, learned positions) loaded from flax-keyed numpy ``params``:
+    the loss and every updated leaf, stages as this rank's slice."""
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel import build_mesh
+    from horovod_tpu_torch.training import (
+        make_transformer_pp_train_step, split_transformer_for_pp,
+    )
+
+    r = hvd.rank()
+    build_mesh({"pipe": S})
+    model = TransformerLM(**cfg, dtype=torch.float32)
+    with torch.no_grad():
+        for k, t in model.jax_params().items():
+            t.copy_(_t(params[k]))
+    pp = split_transformer_for_pp(
+        model, {k: t.detach().clone() for k, t in model.jax_params().items()},
+        S, interleaved_v=v)
+    pp["stages"] = {k: t[r:r + 1].clone() for k, t in pp["stages"].items()}
+    tx = sgd(lr)
+    st = {p: tx.init(pp[p]) for p in pp}
+    step = make_transformer_pp_train_step(model, tx, interleaved_v=v)
+    M, mb, T = tokens.shape
+    pp, st, loss = step(pp, st, _t(tokens), _t(targets))
+    return {"loss": float(loss),
+            **{f"{p}:{k}": _n(t) for p in pp for k, t in pp[p].items()}}
+
+
+def three_d_worker(w1, w2, x, y):
+    """DP 2 x PP 2 x TP 2 in one world of 8: an MLP stage whose hidden dim
+    is split over ``model``, pipelined over ``pipe``, the batch split over
+    ``data``; the loss and this rank's gradient shards, normalised by
+    S * tp and averaged over data (the JAX test's recipe)."""
+    from horovod_tpu_torch.parallel import build_mesh, pipeline_apply, spmd
+
+    m = build_mesh({"data": 2, "pipe": 2, "model": 2})
+    d, p, t = m.axis_index("data"), m.axis_index("pipe"), m.axis_index("model")
+    hid = w1.shape[2] // 2
+    mb = x.shape[1] // 2
+    a = _t(w1[p, :, t * hid:(t + 1) * hid]).requires_grad_(True)
+    b = _t(w2[p, t * hid:(t + 1) * hid, :]).requires_grad_(True)
+    xm, ym = _t(x[:, d * mb:(d + 1) * mb]), _t(y[:, d * mb:(d + 1) * mb])
+
+    def tp_stage(lp, h):
+        return spmd.psum(torch.relu(h @ lp[0]) @ lp[1], "model")
+
+    out = spmd.psum(pipeline_apply(tp_stage, (a, b), xm, axis_name="pipe"),
+                    "pipe")
+    loss = torch.mean((out - ym) ** 2)
+    g1, g2 = torch.autograd.grad(loss, [a, b])
+    k = spmd.axis_size("pipe") * spmd.axis_size("model")
+    loss = spmd.pmean(loss.detach(), "data")
+    g1 = spmd.pmean(g1 / k, "data")
+    g2 = spmd.pmean(g2 / k, "data")
+    return {"coords": (d, p, t), "loss": float(loss), "g1": _n(g1),
+            "g2": _n(g2)}
+
+
+def _expert_fn(p, tokens):
+    return torch.relu(tokens @ p[0]) @ p[1]
+
+
+def moe_worker(cases):
+    """``expert_parallel_moe`` on the expert axis of this world, each
+    case's output, aux and the gradients of ``sum(y ** 2) + 0.01 aux``
+    (router, this rank's experts)."""
+    from horovod_tpu_torch.parallel import build_mesh, expert_parallel_moe
+
+    r, n = hvd.rank(), hvd.size()
+    build_mesh({"expert": n})
+    res = []
+    for router, w1, w2, x, factor, routing in cases:
+        e_local = w1.shape[0] // n
+        rt = _t(router).requires_grad_(True)
+        a = _t(w1[r * e_local:(r + 1) * e_local]).requires_grad_(True)
+        b = _t(w2[r * e_local:(r + 1) * e_local]).requires_grad_(True)
+        y, aux = expert_parallel_moe(rt, (a, b), _t(x), _expert_fn,
+                                     capacity_factor=factor, routing=routing)
+        grads = torch.autograd.grad((y ** 2).sum() + 0.01 * aux, [rt, a, b])
+        res.append({"y": _n(y), "aux": float(aux),
+                    "router": _n(grads[0]), "w1": _n(grads[1]),
+                    "w2": _n(grads[2])})
+    return res
+
+
+def ring_worker(cases):
+    """Ring, zigzag and Ulysses attention on a ``seq`` axis over this
+    world: each case's output shard and its q/k/v shards' gradients of
+    ``sum(out ** 2)`` (``grad`` cases)."""
+    import functools
+
+    from horovod_tpu_torch.parallel import (
+        build_mesh, ring_attention, ulysses_attention, zigzag_ring_attention,
+    )
+
+    r, n = hvd.rank(), hvd.size()
+    build_mesh({"seq": n})
+    fns = {"ring": ring_attention, "zigzag": zigzag_ring_attention,
+           "ulysses": ulysses_attention}
+    res = []
+    for kind, kw, q, k, v, grad in cases:
+        fn = functools.partial(fns[kind], **kw)
+        tl = q.shape[1] // n
+        loc = [_t(a[:, r * tl:(r + 1) * tl]).requires_grad_(grad)
+               for a in (q, k, v)]
+        try:
+            out = fn(*loc)
+        except ValueError as e:
+            res.append({"error": str(e)})
+            continue
+        item = {"out": _n(out)}
+        if grad:
+            item["grads"] = [_n(g) for g in torch.autograd.grad(
+                (out ** 2).sum(), loc)]
+        res.append(item)
+    return res
+
+
+def sp_step_worker(cfg, params, tokens, targets, axes, steps, opt, lr,
+                   attention, block_k):
+    """``make_sp_train_step`` of a TransformerLM (f32) loaded from
+    flax-keyed numpy ``params`` on the ``axes`` mesh: the losses of
+    ``steps`` steps and the parameters after them."""
+    import functools
+
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.parallel import (
+        build_mesh, ring_attention, ulysses_attention,
+    )
+    from horovod_tpu_torch.training import make_sp_train_step
+
+    m = build_mesh(axes)
+    attn = (functools.partial(ring_attention, axis_name="seq",
+                              block_k=block_k) if attention == "ring"
+            else functools.partial(ulysses_attention, axis_name="seq"))
+    model = TransformerLM(**cfg, dtype=torch.float32, attention_fn=attn)
+    with torch.no_grad():
+        for k, t in model.jax_params().items():
+            t.copy_(_t(params[k]))
+    tx = sgd(lr) if opt == "sgd" else hvd.adam(lr)
+    st = tx.init(model.jax_params())
+    step = make_sp_train_step(model, tx)
+    d, s = m.axis_index("data"), m.axis_index("seq")
+    bl = tokens.shape[0] // m.axis_size("data")
+    tl = tokens.shape[1] // m.axis_size("seq")
+    tok = _t(tokens[d * bl:(d + 1) * bl, s * tl:(s + 1) * tl])
+    tgt = _t(targets[d * bl:(d + 1) * bl, s * tl:(s + 1) * tl])
+    losses = []
+    for _ in range(steps):
+        st, loss = step(st, tok, tgt)
+        losses.append(float(loss))
+    return {"losses": losses,
+            "params": {k: _n(t) for k, t in model.jax_params().items()}}
+
+
+def tp_worker(params, x, heads, w):
+    """``tp_block_apply`` over the ``tp`` axis of a ``data 2 x tp 4``
+    (world of 8) or ``tp 2`` mesh: the output, and the gradients of
+    ``sum(out * w)`` (x and every parameter) averaged over the axis; then
+    the rejections' texts."""
+    from horovod_tpu_torch.models.transformer import tp_block_apply
+    from horovod_tpu_torch.parallel import build_mesh, spmd
+
+    build_mesh({"data": 2, "tp": 4} if hvd.size() == 8 else {"tp": 2})
+    flat = {k: _t(v).requires_grad_(True) for k, v in params.items()}
+    tree: dict = {}
+    for k, v in flat.items():
+        a, b = k.split("/")
+        tree.setdefault(a, {})[b] = v
+    xt = _t(x).requires_grad_(True)
+    out = tp_block_apply(tree, xt, heads=heads, axis="tp")
+    keys = sorted(flat)
+    grads = torch.autograd.grad((out * _t(w)).sum(),
+                                [xt] + [flat[k] for k in keys])
+    grads = [spmd.pmean(g, "tp") for g in grads]
+    res = {"out": _n(out), "grad_x": _n(grads[0]),
+           "grads": {k: _n(g) for k, g in zip(keys, grads[1:])}}
+    errs = []
+    ones = torch.ones(1, 4, 32)
+    for bad, h in (({"q_proj": {}}, 4),
+                   ({"qkv": {"kernel": torch.ones(32, 96)},
+                     "ln1": {"scale": torch.ones(32), "bias": torch.zeros(32)}},
+                    3),
+                   ({**tree, "mlp_up": {"kernel": torch.ones(32, 7),
+                                        "bias": torch.zeros(7)}}, 4)):
+        try:
+            tp_block_apply(bad, ones, heads=h, axis="tp")
+            errs.append(None)
+        except ValueError as e:
+            errs.append(str(e))
+    res["errors"] = errs
+    return res
