@@ -324,6 +324,37 @@ Phases, each fatal on failure (exit code 1, no result line):
    over the steps after the second, peak memory, the checks' errors, the
    bubble ticks and the dropped tokens; every ``flash_fwd`` call of
    Ulysses and the PP steps is replayed in the kernel phase.
+19. resilience (``horovod_tpu_torch.resilience``), ResNet-50 at full
+   width, batch 64 a GPU, ZeRO-1 + int8 + EF + fused Adam, as phase 4.
+   One GPU: (a) preemption, in child processes with phase 10's
+   deterministic kernels: ``resilience.run(..., num_steps=8)`` under
+   ``HOROVOD_CHAOS=sigterm_at_step=4`` must exit 75 with a valid
+   emergency checkpoint of step 4, a second SIGTERM sent during the
+   drain only latched (``resilience_extra_preempt_signals`` 1); a second
+   child resumes it and ends bit-equal (every parameter, running stat
+   and optimizer leaf) to an uninterrupted 8-step run; drain,
+   emergency checkpoint and resume seconds and the checkpoint's bytes
+   are printed. (b) rollback: ``elastic.run`` at a world of one under
+   ``loss_scale="dynamic"``, the batches of steps 3-5 NaN while the
+   replay epoch is 0: three BAD steps, each leaving the parameters and
+   the inner optimizer state bit-identical, then ``NumericsRollback`` at
+   step 5 to committed step 3 and a replay in epoch 1 (fresh batches)
+   that ends finite, ``numerics_rollbacks`` 1 and the health HEALTHY.
+   (c) retry: one eager ``allreduce`` under ``collective_fail=1``
+   bit-equal to the clean call, ``resilience_retries`` 1. With ``--gpus
+   N``, in a world of N (deterministic kernels): 9 steps of
+   ``elastic.run`` under :data:`ELASTIC_SPEC` (N -> N-1 -> N): every
+   rank's final parameters and running stats bit-equal to each other's
+   and to the same schedule driven by hand (N ranks for steps 0-3, N-1
+   restored from the snapshot with ``consolidate_opt_state(to_size=
+   N-1)`` for 3-6, N again for 6-9); rank 0's metrics (generation 3,
+   one shrink, one grow, one rank lost, two resizes); at N-1 ranks
+   ZeRO-1's launches a step exact, its last step's calls replayed in the
+   kernel phase (``elastic@3``); prints each resize's seconds, the first
+   step after it, img/s a GPU at N, N-1, N, the commit's and the
+   boundary's ms a step. Then ``min_workers=N`` with one rank failed at
+   step 2 raises ``WorldTooSmall`` on every rank after rank 0 wrote a
+   valid checkpoint of step 2.
 
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
@@ -4450,6 +4481,698 @@ def print_parallel(runs: list, smi: str) -> None:
               "for f32 matmuls)", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 19: resilience — preemption, rollback, retry, elastic resize
+
+#: the preemption run: steps, and the step before which the chaos SIGTERM
+#: lands
+PREEMPT_STEPS = 8
+PREEMPT_AT = 4
+#: the rollback run: its steps, and the steps whose batch is NaN while
+#: the replay epoch is 0 (HOROVOD_NUMERICS_MAX_BAD, 3, in a row)
+ROLLBACK_STEPS = 8
+ROLLBACK_NAN = (3, 4, 5)
+#: the elastic run across the GPUs: 4 -> 3 -> 4
+ELASTIC_SPEC = "rank_fail=1,rank_fail_at_step=3,rank_join_at_step=6"
+ELASTIC_STEPS = 9
+ELASTIC_FAIL, ELASTIC_JOIN = 3, 6
+#: the run whose world falls below min_workers
+TOO_SMALL_SPEC = "rank_fail=1,rank_fail_at_step=2"
+TOO_SMALL_AT = 2
+#: rows a GPU a step in phase 19
+P19_BATCH = 64
+
+
+def p19_batch(step: int, epoch: int = 0):
+    """This rank's batch of ``step`` (replay epoch ``epoch``): 64 rows of
+    224x224x3 and their labels, drawn on the device from a generator
+    seeded by (epoch, step, rank), so every run, resumed or not, sees
+    the same batches."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    dev = hvd.device()
+    gen = torch.Generator(device=dev).manual_seed(
+        1_000_003 * epoch + 1009 * step + hvd.rank())
+    x = torch.randn(P19_BATCH, 224, 224, 3, device=dev, generator=gen)
+    y = torch.randint(0, 1000, (P19_BATCH,), device=dev, generator=gen)
+    return x, y
+
+
+def p19_state(model, opt_state) -> dict:
+    return {"params": model.jax_params(),
+            "batch_stats": model.jax_batch_stats(), "opt_state": opt_state}
+
+
+def p19_load(model, state: dict) -> None:
+    """A state's parameters and running stats into ``model``, unless they
+    are its own (a resumed, rolled-back or resharded state holds new
+    tensors)."""
+    import torch
+
+    with torch.no_grad():
+        for part, views in (("params", model.jax_params()),
+                            ("batch_stats", model.jax_batch_stats())):
+            for k, v in views.items():
+                if state[part][k].data_ptr() != v.data_ptr():
+                    v.copy_(state[part][k])
+
+
+def p19_builder(model, *, loss_scale=None, poison=None, log=None):
+    """The elastic step builder: for each world a fresh ZeRO-1 + int8 +
+    EF + fused Adam optimizer (:func:`make_tx`) and ``make_train_step``;
+    the step loads the state into the model and trains on
+    :func:`p19_batch` of its step and replay epoch (times NaN where
+    ``poison(step, epoch)``). ``log`` gets ``(world, step, epoch,
+    seconds, loss)`` a step, the step synchronised."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.resilience import numerics
+
+    def builder(world):
+        step = hvd.make_train_step(model, make_tx("zero1",
+                                                  loss_scale=loss_scale),
+                                   shard_optimizer=True)
+
+        def step_fn(state, i):
+            epoch = numerics.replay_epoch()
+            x, y = p19_batch(i, epoch)
+            if poison is not None and poison(i, epoch):
+                x = x * float("nan")
+            p19_load(model, state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt, loss = step(state["opt_state"], x, y)
+            loss = float(loss)
+            if log is not None:
+                log.append((hvd.size(), i, epoch,
+                            time.perf_counter() - t0, loss))
+            return p19_state(model, opt)
+
+        return step_fn
+
+    return builder
+
+
+def _p19_setup() -> None:
+    """Deterministic kernels (phase 10's settings): ``CUBLAS_WORKSPACE_
+    CONFIG`` must come from the environment, set before CUDA starts."""
+    import torch
+
+    if not os.environ.get("CUBLAS_WORKSPACE_CONFIG"):
+        fail("phase 19: CUBLAS_WORKSPACE_CONFIG must be set before CUDA "
+             "starts")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def preempt_child(directory: str, role: str) -> None:
+    """Phase 19's preemption on one GPU, in a child process (phase 10's
+    determinism). ``preempt``: ``resilience.run`` of ResNet-50 ZeRO-1 for
+    :data:`PREEMPT_STEPS` steps under ``HOROVOD_CHAOS=sigterm_at_step=``
+    :data:`PREEMPT_AT`, a second SIGTERM sent during the drain; prints the
+    preemption's record and leaves with ``Preempted``'s exit code.
+    ``resume``: the same run from ``directory`` (it resumes at the
+    emergency checkpoint), then an uninterrupted run of a fresh model and
+    state; prints both final states' agreement and the resume's
+    seconds."""
+    import horovod_tpu_torch as hvd
+
+    _p19_setup()
+    hvd.init()
+    try:
+        _preempt_role(directory, role)
+    finally:
+        hvd.shutdown()
+
+
+def _preempt_role(directory: str, role: str) -> None:
+    import signal
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint as ck
+    from horovod_tpu_torch.observability import metrics
+    from horovod_tpu_torch.resilience import loop
+
+    dev = hvd.device()
+    model = build_model("resnet50", 0, dev)
+    state = p19_state(model, make_tx("zero1").init(model.jax_params()))
+    fn = p19_builder(model)(1)
+    times = {}
+    if role == "preempt":
+        drain, save = loop._drain, ck.save
+
+        def noisy_drain(st, *a, **kw):     # the supervisor escalates
+            t0 = time.perf_counter()
+            os.kill(os.getpid(), signal.SIGTERM)
+            time.sleep(0)
+            drain(st, *a, **kw)
+            times["drain_s"] = time.perf_counter() - t0
+
+        def timed_save(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return save(*a, **kw)
+            finally:
+                times["emergency_checkpoint_s"] = time.perf_counter() - t0
+
+        loop._drain, ck.save = noisy_drain, timed_save
+        try:
+            loop.run(fn, state, num_steps=PREEMPT_STEPS,
+                     checkpoint_dir=directory)
+        except loop.Preempted as e:
+            print(json.dumps(dict(
+                times, step=e.step, signum=e.signum,
+                checkpoint=os.path.basename(e.checkpoint_path or ""),
+                bytes=_dir_bytes(e.checkpoint_path),
+                valid=ck.is_valid_checkpoint(e.checkpoint_path),
+                latest_step=ck.latest_step(directory),
+                preemptions=metrics.value("resilience_preemptions"),
+                extra_signals=metrics.value(
+                    "resilience_extra_preempt_signals"))), flush=True)
+            raise
+        fail("preemption: the run was not preempted")
+    resume = loop.resume_state
+
+    def timed_resume(d):
+        t0 = time.perf_counter()
+        try:
+            return resume(d)
+        finally:
+            times["resume_s"] = time.perf_counter() - t0
+
+    loop.resume_state = timed_resume
+    resumed = loop.run(fn, state, num_steps=PREEMPT_STEPS,
+                       checkpoint_dir=directory)
+    loop.resume_state = resume
+    model_b = build_model("resnet50", 0, dev)
+    clean = loop.run(p19_builder(model_b)(1),
+                     p19_state(model_b, make_tx("zero1").init(
+                         model_b.jax_params())), num_steps=PREEMPT_STEPS)
+    bad = _tree_mismatch(resumed, clean)
+    print(json.dumps(dict(times, resumes=metrics.value("resilience_resumes"),
+                          mismatched_leaves=len(bad),
+                          leaves=len(_leaf_list(clean)))), flush=True)
+
+
+def _leaf_list(tree) -> list:
+    from horovod_tpu_torch import pytree
+
+    return pytree.flatten(tree)[0]
+
+
+def preemption_phase() -> dict:
+    """Run :func:`preempt_child` as ``preempt``, which must leave with exit
+    code 75 and a valid emergency checkpoint of step :data:`PREEMPT_AT`,
+    the second SIGTERM only latched; then as ``resume``, whose final state
+    must equal the uninterrupted run's bit for bit."""
+    import shutil
+
+    directory = os.path.join(CKPT_DIR, "preempt")
+    shutil.rmtree(directory, ignore_errors=True)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env.pop("HOROVOD_CHAOS", None)
+    out = {}
+    try:
+        for role in ("preempt", "resume"):
+            if role == "preempt":
+                env["HOROVOD_CHAOS"] = f"sigterm_at_step={PREEMPT_AT}"
+            else:
+                env.pop("HOROVOD_CHAOS")
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--preempt", directory, role],
+                               capture_output=True, text=True, timeout=600,
+                               env=env)
+            want = 75 if role == "preempt" else 0
+            if r.returncode != want:
+                fail(f"preemption ({role}): exit code {r.returncode}, "
+                     f"expected {want}:\n{r.stderr[-3000:]}")
+            out[role] = json.loads(r.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    p, s = out["preempt"], out["resume"]
+    if (p["step"], p["checkpoint"], p["latest_step"], p["valid"]) != (
+            PREEMPT_AT, f"step_{PREEMPT_AT}", PREEMPT_AT, True):
+        fail(f"preemption: emergency checkpoint {p}")
+    if (p["preemptions"], p["extra_signals"]) != (1.0, 1.0):
+        fail(f"preemption: the drain's second SIGTERM was not latched once "
+             f"({p})")
+    if s["resumes"] != 1.0 or s["mismatched_leaves"]:
+        fail(f"preemption: the resumed run differs from the uninterrupted "
+             f"one in {s['mismatched_leaves']} of {s['leaves']} leaves")
+    return dict(exit_code=75, **{k: v for k, v in p.items()},
+                resume_s=s["resume_s"], resumed_bit_equal=True,
+                leaves=s["leaves"])
+
+
+def rollback_phase() -> dict:
+    """One GPU, ``elastic.run`` at a world of one with the guard
+    (``loss_scale="dynamic"``): the batches of :data:`ROLLBACK_NAN` are
+    NaN in replay epoch 0. Each of those steps must be BAD and leave the
+    parameters and the inner optimizer state bit-identical; the third
+    rolls back to committed step 3, the replay (epoch 1, fresh batches)
+    finishes finite, ``numerics_rollbacks`` 1, health HEALTHY."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.observability import metrics
+    from horovod_tpu_torch.resilience import elastic, health, numerics
+
+    metrics.reset()
+    health.reset()
+    numerics.reset()
+    model = build_model("resnet50", 0, hvd.device())
+    tx0 = make_tx("zero1", loss_scale="dynamic")
+    state = p19_state(model, tx0.init(model.jax_params()))
+    log, frozen, rolled = [], [], []
+
+    def poison(i, epoch):
+        return epoch == 0 and i in ROLLBACK_NAN
+
+    inner = p19_builder(model, loss_scale="dynamic", poison=poison, log=log)
+
+    def builder(world):
+        fn = inner(world)
+
+        def step_fn(st, i):
+            if not poison(i, numerics.replay_epoch()):
+                return fn(st, i)
+            p19_load(model, st)
+            before = _clone({"params": model.jax_params(),
+                             "inner": st["opt_state"].inner})
+            out = fn(st, i)
+            frozen.append((i, numerics.verdict(out["opt_state"])["last_bad"],
+                           len(_tree_mismatch(before, {
+                               "params": model.jax_params(),
+                               "inner": out["opt_state"].inner}))))
+            return out
+
+        return step_fn
+
+    rollback = elastic.ElasticRun._numerics_rollback
+
+    def recorded(self, nr):
+        rolled.append((nr.step, nr.streak, self._committed_step))
+        return rollback(self, nr)
+
+    elastic.ElasticRun._numerics_rollback = recorded
+    try:
+        final = elastic.run(builder, state, num_steps=ROLLBACK_STEPS,
+                            snapshot_every=1)
+    finally:
+        elastic.ElasticRun._numerics_rollback = rollback
+    torch.cuda.synchronize()
+    if frozen != [(i, True, 0) for i in ROLLBACK_NAN]:
+        fail(f"rollback: the NaN steps (step, BAD, leaves changed) {frozen}")
+    last = ROLLBACK_NAN[-1]
+    if rolled != [(last, len(ROLLBACK_NAN), ROLLBACK_NAN[0])]:
+        fail(f"rollback: (step, streak, committed step) {rolled}")
+    replay = [(i, e) for _, i, e, _, _ in log if e == 1]
+    if replay != [(i, 1) for i in range(ROLLBACK_NAN[0], ROLLBACK_STEPS)]:
+        fail(f"rollback: the replay ran {replay}")
+    losses = [loss for _, _, e, _, loss in log if e == 1]
+    if not all(math.isfinite(v) for v in losses) or not \
+            numerics.tree_finite(final["params"]):
+        fail(f"rollback: the replay is not finite ({losses})")
+    v = numerics.verdict(final["opt_state"])
+    if (metrics.value("numerics_rollbacks"), numerics.replay_epoch(),
+            v["bad_streak"], health.health_state().name) != (
+                1.0, 1, 0, "HEALTHY"):
+        fail(f"rollback: rollbacks {metrics.value('numerics_rollbacks')}, "
+             f"replay epoch {numerics.replay_epoch()}, verdict {v}, health "
+             f"{health.health_state().name}")
+    return dict(bad_steps=[i for i, _, _ in frozen], skipped_bit_equal=True,
+                rolled_back=dict(at=rolled[0][0], to=rolled[0][2]),
+                replayed=[i for i, _ in replay],
+                rollback_steps=metrics.value("numerics_rollback_steps"),
+                numerics_rollbacks=1, replay_losses=losses,
+                loss_scale=v["loss_scale"], bad_count=v["bad_count"],
+                health="HEALTHY")
+
+
+def retry_phase() -> dict:
+    """One eager ``allreduce`` under ``HOROVOD_CHAOS=collective_fail=1``:
+    bit-equal to the clean call, ``resilience_retries`` 1."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.observability import metrics
+    from horovod_tpu_torch.resilience import chaos
+
+    metrics.reset()
+    gen = torch.Generator(device=hvd.device()).manual_seed(19)
+    x = torch.randn(1 << 22, device=hvd.device(), generator=gen)
+    clean = hvd.allreduce(x, op=hvd.Average)
+    chaos.configure("collective_fail=1")
+    try:
+        t0 = time.perf_counter()
+        got = hvd.allreduce(x, op=hvd.Average)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        chaos.reset()
+    retries = metrics.value("resilience_retries", scope="collective_dispatch")
+    if not same_bits(got, clean) or retries != 1.0:
+        fail(f"retry: bit-equal {same_bits(got, clean)}, retries {retries}")
+    return dict(elements=x.numel(), retries=1, bit_equal=True,
+                retried_call_s=dt)
+
+
+def resilience_phase() -> dict:
+    """Phase 19 on one GPU: :func:`preemption_phase` (child processes),
+    then in a world of one :func:`rollback_phase` and :func:`retry_phase`."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    t0 = time.perf_counter()
+    out = {"preemption": preemption_phase()}
+    hvd.init()
+    try:
+        out["rollback"] = rollback_phase()
+        torch.cuda.empty_cache()
+        out["retry"] = retry_phase()
+    finally:
+        hvd.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _by_hand(base, ranks, tag: str) -> bool:
+    """Re-form this rank's world by hand over base-world ``ranks`` under
+    ``tag`` on the base store (the reference of the elastic run); a rank
+    outside waits for ``tag``'s done key. True when this rank is in."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+
+    me = _P19["rank"]
+    if hvd.is_initialized():
+        hvd.shutdown()
+    if me not in ranks:
+        base.wait([tag + "done"], datetime.timedelta(seconds=600))
+        return False
+    hvd.init(device=_P19["device"], rank=list(ranks).index(me),
+             size=len(ranks), store=dist.PrefixStore(tag, base))
+    return True
+
+
+_P19: dict = {}
+
+
+def _state_sha(model, state) -> str:
+    import torch
+
+    h = hashlib.sha256()
+    for part in (model.jax_params(), model.jax_batch_stats()):
+        for k in sorted(part):
+            h.update(part[k].detach().reshape(-1).view(torch.uint8)
+                     .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _elastic_rank() -> dict:
+    """One rank of phase 19 across the GPUs (deterministic kernels):
+    ResNet-50 ZeRO-1 + int8 + EF + fused Adam under ``elastic.run`` and
+    :data:`ELASTIC_SPEC`, 4 -> 3 -> 4, every kernel-wrapper call logged and
+    the launches counted; then the same schedule driven by hand (a fresh
+    world of 4 for steps 0-3, one of ranks 0-2 restored from the snapshot
+    with ``consolidate_opt_state(to_size=3)`` for 3-6, 4 again for 6-9);
+    then a run whose world falls below ``min_workers``."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics, checkpoint as ck
+    from horovod_tpu_torch.observability import metrics
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.resilience import chaos, elastic
+    from horovod_tpu_torch.training import host_snapshot
+
+    _p19_setup()
+    base = basics._state.store
+    _P19.update(rank=hvd.rank(), device=hvd.device())
+    n = hvd.size()
+    dev = hvd.device()
+    metrics.reset()
+    model = build_model("resnet50", 0, dev)
+    state = p19_state(model, make_tx("zero1").init(model.jax_params()))
+    log, calls, worlds = [], [], []
+    costs: dict = {}
+    inner = p19_builder(model, log=log)
+
+    def builder(world):
+        fn = inner(world)
+
+        def step_fn(st, i):
+            calls.append([])
+            worlds.append(hvd.size())
+            return fn(st, i)
+
+        return step_fn
+
+    from horovod_tpu_torch import training
+
+    depth: dict = {}
+
+    def timed(name, f, keyed=False):
+        def call(*a):           # the outermost call of a recursive one
+            depth[name] = depth.get(name, 0) + 1
+            t0 = time.perf_counter()
+            try:
+                return f(*a)
+            finally:
+                dt = time.perf_counter() - t0
+                depth[name] -= 1
+                if not depth[name]:
+                    costs.setdefault(name, []).append(
+                        (a[1], dt) if keyed else dt)
+        return call
+
+    # the commit (its all-gather, its host copy), the boundary (keyed by
+    # step), the resize (its re-formation, the snapshot's broadcast and
+    # the reshard)
+    targets = [(elastic.ElasticRun, "_commit", "commit"),
+               (elastic.ElasticRun, "_poll_membership", "boundary"),
+               (elastic.ElasticRun, "_resize", "resize"),
+               (elastic.ElasticRun, "_form", "form"),
+               (ck, "broadcast_host_tree", "broadcast"),
+               (elastic, "_default_reshard", "reshard"),
+               (ck, "_gather_sharded", "gather"),
+               (training, "host_snapshot", "host_copy")]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in targets]
+    for (obj, attr, name), (_, _, f) in zip(targets, saved):
+        setattr(obj, attr, timed(name, f, keyed=name == "boundary"))
+    chaos.configure(ELASTIC_SPEC)
+    K.reset_launches()                  # count the main path's run only
+    try:
+        with logging_calls(calls):
+            final = elastic.run(builder, state, num_steps=ELASTIC_STEPS,
+                                snapshot_every=1)
+    finally:
+        for obj, attr, f in saved:
+            setattr(obj, attr, f)
+        chaos.reset()
+    launches = dict(K.launches)
+    for k in K.KERNELS:
+        logged = sum(sig[0] == k for c in calls for sig in c)
+        if logged != launches[k]:
+            fail(f"elastic: {launches[k]} launches of {k} but {logged} "
+                 "logged calls")
+    out = dict(rank=_P19["rank"], size=hvd.size(), log=log,
+               launches=launches, costs=costs,
+               sha=_state_sha(model, final),
+               three=[c for c, w in zip(calls, worlds) if w == n - 1],
+               metrics=dict(
+                   generation=metrics.value("resilience_elastic_generation"),
+                   shrink=metrics.value("resilience_elastic_membership_changes",
+                                        kind="shrink"),
+                   grow=metrics.value("resilience_elastic_membership_changes",
+                                      kind="grow"),
+                   rank_lost=metrics.value("resilience_rank_lost"),
+                   resizes=(metrics.value("resilience_elastic_resize_seconds")
+                            or {}).get("count")))
+    del final, state
+    torch.cuda.empty_cache()
+
+    # the hand-driven reference
+    def restore_into(snap, size):
+        st = dict(snap)
+        st["opt_state"] = ck.consolidate_opt_state(
+            st["opt_state"], st["params"], to_size=size)
+        p19_load(model, ck._tensors({"params": st["params"],
+                                     "batch_stats": st["batch_stats"]}, dev))
+        return p19_state(model, st["opt_state"])
+
+    model = build_model("resnet50", 0, dev)
+    _by_hand(base, range(n), "p19ref1/")
+    fn = p19_builder(model)(n)
+    st = p19_state(model, make_tx("zero1").init(model.jax_params()))
+    for i in range(ELASTIC_FAIL):
+        st = fn(st, i)
+    snap = host_snapshot(ck._gather_sharded(st))
+    if _by_hand(base, range(n - 1), "p19ref2/"):
+        st = restore_into(snap, n - 1)
+        fn = p19_builder(model)(n - 1)
+        for i in range(ELASTIC_FAIL, ELASTIC_JOIN):
+            st = fn(st, i)
+        snap = host_snapshot(ck._gather_sharded(st))
+        if hvd.rank() == 0:
+            base.set("p19ref2/done", "1")
+    _by_hand(base, range(n), "p19ref3/")
+    snap = ck.broadcast_host_tree(snap if hvd.rank() == 0 else None)
+    st = restore_into(snap, n)
+    fn = p19_builder(model)(n)
+    for i in range(ELASTIC_JOIN, ELASTIC_STEPS):
+        st = fn(st, i)
+    out["reference_sha"] = _state_sha(model, st)
+    del st, snap
+    torch.cuda.empty_cache()
+
+    # below min_workers: the emergency checkpoint of the committed step
+    _by_hand(base, range(n), "p19small/")
+    directory = os.path.join(CKPT_DIR, "too_small")
+    model = build_model("resnet50", 0, dev)
+    state = p19_state(model, make_tx("zero1").init(model.jax_params()))
+    chaos.configure(TOO_SMALL_SPEC)
+    try:
+        elastic.run(p19_builder(model), state, num_steps=TOO_SMALL_AT + 2,
+                    min_workers=n, checkpoint_dir=directory)
+        out["too_small"] = None
+    except elastic.WorldTooSmall as e:
+        out["too_small"] = dict(alive=e.alive, min_workers=e.min_workers,
+                                step=e.step)
+        if _P19["rank"] == 0:
+            out["too_small"].update(
+                latest_step=ck.latest_step(directory),
+                valid=ck.is_valid_checkpoint(
+                    os.path.join(directory, f"step_{TOO_SMALL_AT}")))
+    finally:
+        chaos.reset()
+    return out
+
+
+def _segment_img_s(log: list, world: int, first: int, last: int) -> float:
+    """img/s per GPU over the steps ``[first, last)`` at ``world``, the
+    first of them (new communicators, after the resize) left out."""
+    times = [s for w, i, e, s, _ in log if w == world and first < i < last]
+    return P19_BATCH * len(times) / sum(times)
+
+
+def elastic_gpus(n: int) -> tuple:
+    """Phase 19 across ``n`` GPUs (:func:`_elastic_rank` on each): every
+    rank's elastic parameters bit-equal to the hand-driven reference and
+    to every other rank's, rank 0's metrics (generation 3, one shrink,
+    one grow, one rank lost, two resizes), ZeRO-1's kernels launched at
+    the three-rank shapes exactly as :func:`expected_launches` says, and
+    the world too small raising on every rank after rank 0 wrote a valid
+    checkpoint of the committed step. Returns ``(record, rank 0's run
+    for the kernels line, the three-rank step's calls)``."""
+    import shutil
+
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.testing import run_world
+
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    t0 = time.perf_counter()
+    try:
+        res = run_world(_elastic_rank, n, device=None, timeout=900)
+    except RuntimeError as e:
+        fail(f"elastic across {n} GPUs: {e}")
+    finally:
+        shutil.rmtree(os.path.join(CKPT_DIR, "too_small"),
+                      ignore_errors=True)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    seconds = time.perf_counter() - t0
+    r0 = res[0]
+    for out in res:
+        if out["sha"] != r0["sha"] or out["sha"] != out["reference_sha"]:
+            fail(f"elastic: rank {out['rank']}'s parameters and running "
+                 f"stats differ from rank 0's or from the hand-driven "
+                 f"reference ({out['sha'][:12]}, {r0['sha'][:12]}, "
+                 f"{out['reference_sha'][:12]})")
+        if out["size"] != n:
+            fail(f"elastic: rank {out['rank']} ended in a world of "
+                 f"{out['size']}")
+        small = out["too_small"]
+        if small is None or (small["alive"], small["min_workers"],
+                             small["step"]) != (n - 1, n, TOO_SMALL_AT):
+            fail(f"elastic: below min_workers, rank {out['rank']}: {small}")
+    if (r0["too_small"]["latest_step"], r0["too_small"]["valid"]) != (
+            TOO_SMALL_AT, True):
+        fail(f"elastic: the emergency checkpoint below min_workers "
+             f"{r0['too_small']}")
+    m = r0["metrics"]
+    if (m["generation"], m["shrink"], m["grow"], m["rank_lost"],
+            m["resizes"]) != (3.0, 1.0, 1.0, 1.0, 2):
+        fail(f"elastic: rank 0's metrics {m}")
+    want = expected_launches("zero1", n - 1, 161)
+    steps3 = r0["three"]
+    if len(steps3) != ELASTIC_JOIN - ELASTIC_FAIL:
+        fail(f"elastic: {len(steps3)} steps at {n - 1} ranks")
+    for c in steps3:
+        got = {k: sum(s[0] == k for s in c) for k in want}
+        if got != want:
+            fail(f"elastic: launches a step at {n - 1} ranks {got}, "
+                 f"expected {want}")
+    for k in NEED["zero1"]:
+        if r0["launches"][k] < 1:
+            fail(f"elastic: kernel {k} was not launched")
+    log = r0["log"]
+    worlds = [(n, 0, ELASTIC_FAIL), (n - 1, ELASTIC_FAIL, ELASTIC_JOIN),
+              (n, ELASTIC_JOIN, ELASTIC_STEPS)]
+    first = {f"{w}@{a}": next(s for ww, i, e, s, _ in log
+                             if ww == w and i == a) for w, a, _ in worlds}
+    c = r0["costs"]
+    # a step's boundary on the rank that reached it last: its own cost
+    # (the others' readings add their wait for that rank)
+    by_step: dict = {}
+    for out in res:
+        for step, dt in out["costs"]["boundary"]:
+            by_step.setdefault(step, []).append(dt)
+    last_in = [min(v) for v in by_step.values()]
+
+    def ms(xs):
+        return 1e3 * sum(xs) / len(xs)
+
+    record = dict(
+        seconds=seconds, resize_s=c["resize"],
+        resize_parts_s={k: c.get(k, []) for k in ("form", "broadcast",
+                                                   "reshard")},
+        first_step_s=first,
+        img_per_s_per_gpu={f"{w}@{a}-{b}": _segment_img_s(log, w, a, b)
+                           for w, a, b in worlds},
+        commit_ms_per_step=ms(c["commit"][1:]),
+        commit_parts_ms_per_step=dict(gather=ms(c["gather"][1:]),
+                                      host_copy=ms(c["host_copy"][1:])),
+        commit_ms_per_step_by_rank={
+            f"rank{out['rank']}": ms(out["costs"]["commit"][1:])
+            for out in res},
+        boundary_ms_per_step=ms(last_in),
+        boundary_ms_per_step_by_rank={
+            f"rank{out['rank']}": ms([dt for _, dt in
+                                      out["costs"]["boundary"]])
+            for out in res},
+        losses=[loss for _, _, _, _, loss in log],
+        metrics=m, bit_equal_to_reference=True, ranks_agree=True,
+        too_small=r0["too_small"],
+        launches_at_three_a_step=want)
+    run = dict(mode=f"elastic@{n}", launches=r0["launches"])
+    return record, run, steps3[-1]
+
+
 def _summary(run: dict) -> str:
     return json.dumps({k: v for k, v in run.items() if k != "step_calls"})
 
@@ -4462,6 +5185,10 @@ def main() -> None:
     if len(sys.argv) > 2 and sys.argv[1] == "--checkpoint":
         sys.path.insert(0, ROOT)
         checkpoint_child(sys.argv[2])
+        return
+    if len(sys.argv) > 3 and sys.argv[1] == "--preempt":
+        sys.path.insert(0, ROOT)
+        preempt_child(sys.argv[2], sys.argv[3])
         return
     gpus = 1
     if len(sys.argv) > 2 and sys.argv[1] == "--gpus":
@@ -4595,6 +5322,13 @@ def main() -> None:
     print(f"frontend named ops through the native core (one GPU, ResNet-50 "
           f"batch 64, 161 gradients from post-accumulate-grad hooks): "
           f"{json.dumps(front)} ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    p19 = resilience_phase()
+    print(f"resilience (phase 19, one GPU, ResNet-50 ZeRO-1 + int8 + EF + "
+          f"fused Adam, batch {P19_BATCH}): preemption "
+          f"{json.dumps(p19['preemption'])}; rollback "
+          f"{json.dumps(p19['rollback'])}; retry {json.dumps(p19['retry'])}; "
+          f"phase {p19['seconds']:.1f} s ({smi})", flush=True)
     ar = by_mode["allreduce"]
     print(f"e2e allreduce: NCCL calls a step in the optimizer update "
           f"{json.dumps(ar['nccl_calls']['update'])}, "
@@ -4707,6 +5441,16 @@ def main() -> None:
         for run in par_world:
             step_calls[run["mode"]] = run["step_calls"]
         runs += par_world
+        torch.cuda.empty_cache()
+        elastic_rec, elastic_run, elastic_calls = elastic_gpus(gpus)
+        step_calls[f"elastic@{gpus - 1}"] = elastic_calls
+        runs.append(elastic_run)
+        z1 = {r["mode"]: r["img_per_s"] for r in runs
+              if r["mode"] in ("zero1", f"zero1@{gpus}")}
+        print(f"elastic {gpus} -> {gpus - 1} -> {gpus} (phase 19, ResNet-50 "
+              f"ZeRO-1 + int8 + EF + fused Adam, {ELASTIC_SPEC}): "
+              f"{json.dumps(elastic_rec)}; phase 4's ZeRO-1 img/s per GPU "
+              f"{json.dumps(z1)} ({smi})", flush=True)
         print(f"SyncBatchNorm at [64, 64, 112, 112] per GPU against "
               f"BatchNorm2d over the gathered batch, largest difference over "
               f"the reference's largest magnitude (bar {SYNC_BN_RTOL}), in "

@@ -21,6 +21,8 @@ from horovod_tpu_torch.basics import (  # noqa: F401
     gloo_built,
     gloo_enabled,
     gpu_available,
+    health,
+    health_state,
     init,
     is_homogeneous,
     is_initialized,

@@ -43,6 +43,9 @@ class _State:
     host_mesh: Optional[object] = None
     #: the named-axis mesh of :func:`horovod_tpu_torch.parallel.mesh.build_mesh`
     mesh: Optional[object] = None
+    #: the rendezvous store the process group was formed over (the elastic
+    #: driver re-forms its generations under prefixes of it)
+    store: Optional[dist.Store] = None
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
@@ -117,6 +120,9 @@ def init(device=None, *, init_method: Optional[str] = None,
         else:
             kw["init_method"] = init_method or "env://"
         dist.init_process_group(backend, rank=r, world_size=n, **kw)
+        _state.store = kw.get("store")
+        if _state.store is None:
+            _state.store = dist.distributed_c10d._get_default_store()
         _state.rank, _state.size = r, n
         _state.local_rank = lr
         _state.local_size = ls if ls is not None else (
@@ -135,6 +141,7 @@ def init(device=None, *, init_method: Optional[str] = None,
                     coordinator_port=_coordinator_port(n))
             except BaseException:
                 dist.destroy_process_group()
+                _state.store = None
                 raise
         _state.initialized = True
 
@@ -157,7 +164,11 @@ def _coordinator_port(n: int) -> int:
 
 def shutdown() -> None:
     """Shut the native core down (if attached), then tear the process
-    group down; a later :func:`init` starts afresh."""
+    group down; a later :func:`init` starts afresh, over another store and
+    world size too (the elastic resize): the meshes and their sub-groups
+    go with the group, and the outstanding async-collective names are
+    forgotten (an op left in flight when a world ended must not poison the
+    next one with a duplicate name)."""
     with _state.lock:
         if not _state.initialized:
             return
@@ -166,9 +177,13 @@ def shutdown() -> None:
             _state.core = None
         _state.host_mesh = None
         _state.mesh = None
+        from horovod_tpu_torch.ops import collective as _C
+
+        _C.clear_outstanding_names()
         dist.destroy_process_group()
         _state.initialized = False
         _state.device = None
+        _state.store = None
 
 
 def is_initialized() -> bool:
@@ -234,6 +249,25 @@ def core():
     attaches it)."""
     _require_init()
     return _state.core
+
+
+def health_state():
+    """This process's :class:`~horovod_tpu_torch.resilience.HealthState`
+    (``HEALTHY → SUSPECT → DEGRADED → FATAL``), fed by the native core's
+    cycle/stall signals and the retry layer. Readable before :func:`init`
+    (always ``HEALTHY`` until something feeds the monitor)."""
+    from horovod_tpu_torch.resilience import health as _health
+
+    return _health.health_state()
+
+
+def health() -> dict:
+    """JSON-able health snapshot (state, reason, strike count, last-beat
+    age), what the JAX package's rank-0 metrics endpoint serves at
+    ``/health``."""
+    from horovod_tpu_torch.resilience import health as _health
+
+    return _health.snapshot()
 
 
 def device() -> torch.device:

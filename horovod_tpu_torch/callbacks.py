@@ -1,0 +1,131 @@
+"""Training-loop callbacks.
+
+Counterpart of ``horovod_tpu/callbacks.py``, as far as the port has it:
+the hook surface (:class:`Callback`, the Keras-named ``on_train_begin``
+... ``on_batch_end``), the dispatcher a loop drives
+(:class:`CallbackList`, what :func:`horovod_tpu_torch.resilience.run`
+fires) and :class:`HealthCallback`. The JAX module imports JAX at module
+level, so these classes are copied, not the file. The broadcast,
+learning-rate, metrics and publish callbacks wait for the launcher port
+(ROADMAP Queue A item 12).
+
+A callback is wired to any *trainer* object via
+:meth:`Callback.set_trainer`; the hooks' names and meaning are Keras's.
+stdlib-only at import.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Callable, List
+
+
+class Callback:
+    """Base callback (hook surface of ``keras.callbacks.Callback`` as used by
+    the reference in ``_keras/callbacks.py``)."""
+
+    trainer: Any = None
+
+    def set_trainer(self, trainer):
+        self.trainer = trainer
+
+    def on_train_begin(self, logs=None):
+        pass
+
+    def on_train_end(self, logs=None):
+        pass
+
+    def on_epoch_begin(self, epoch, logs=None):
+        pass
+
+    def on_epoch_end(self, epoch, logs=None):
+        pass
+
+    def on_batch_begin(self, batch, logs=None):
+        pass
+
+    def on_batch_end(self, batch, logs=None):
+        pass
+
+
+class CallbackList:
+    """Dispatch helper a fit loop drives (Keras ``CallbackList`` analog)."""
+
+    def __init__(self, callbacks: List[Callback], trainer=None):
+        self.callbacks = list(callbacks)
+        if trainer is not None:
+            for cb in self.callbacks:
+                cb.set_trainer(trainer)
+
+    def __iter__(self):
+        return iter(self.callbacks)
+
+    def _fire(self, hook, *args):
+        for cb in self.callbacks:
+            getattr(cb, hook)(*args)
+
+    def on_train_begin(self, logs=None):
+        self._fire("on_train_begin", logs)
+
+    def on_train_end(self, logs=None):
+        self._fire("on_train_end", logs)
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self._fire("on_epoch_begin", epoch, logs)
+
+    def on_epoch_end(self, epoch, logs=None):
+        self._fire("on_epoch_end", epoch, logs)
+
+    def on_batch_begin(self, batch, logs=None):
+        self._fire("on_batch_begin", batch, logs)
+
+    def on_batch_end(self, batch, logs=None):
+        self._fire("on_batch_end", batch, logs)
+
+
+class HealthCallback(Callback):
+    """Surface the resilience health state machine inside the fit loop.
+
+    Every batch end feeds a progress beat into the monitor (a completed
+    batch *is* forward progress — this walks SUSPECT/DEGRADED back toward
+    HEALTHY) and, on a state change, logs the transition with its reason.
+    With ``abort_on`` set (default ``FATAL``), reaching that severity raises
+    ``RuntimeError`` at the batch boundary so a poisoned run stops at a
+    clean step edge instead of hanging in the next collective.
+    """
+
+    def __init__(self, printer: Callable[[str], Any] = None,
+                 abort_on=None):
+        from horovod_tpu_torch.resilience import health as _health
+
+        self._health = _health
+        self.printer = printer
+        self.abort_on = (
+            _health.HealthState.FATAL if abort_on is None else abort_on
+        )
+        self._last = _health.health_state()
+
+    def _say(self, msg: str) -> None:
+        if self.printer is not None:
+            self.printer(msg)
+        else:
+            logging.getLogger("horovod_tpu_torch.resilience").warning(
+                "%s", msg)
+
+    def on_batch_end(self, batch, logs=None):
+        # read (and possibly abort on) the state the batch produced BEFORE
+        # feeding the progress beat — beat() walks SUSPECT back to HEALTHY,
+        # which would make abort_on=SUSPECT unreachable
+        state = self._health.health_state()
+        if state != self._last:
+            self._say(
+                f"health: {self._last.name} -> {state.name} at batch "
+                f"{batch} ({self._health.MONITOR.reason()})"
+            )
+            self._last = state
+        if state >= self.abort_on:
+            raise RuntimeError(
+                f"health state {state.name} reached at batch {batch}: "
+                f"{self._health.MONITOR.reason()}"
+            )
+        self._health.beat()

@@ -274,6 +274,24 @@ def consolidate_opt_state(opt_state, params, *,
     return out
 
 
+def rank_state(state: Any, *, to_size: Optional[int] = None) -> Any:
+    """A restored or host-snapshotted state made this rank's again, what
+    the preemption loop's resume and the elastic driver's rollback hand
+    the step: a dict carrying ``params`` and ``opt_state`` gets its
+    optimizer state consolidated for ``to_size`` ranks (default the
+    world's size; :func:`consolidate_opt_state`), and every host array
+    leaf becomes a tensor on the world's device (the CPU before
+    ``hvd.init``). ZeRO-3 parameters are re-packed by
+    :func:`fsdp_params`, not here."""
+    if isinstance(state, dict) and "opt_state" in state \
+            and "params" in state:
+        state = dict(state)
+        state["opt_state"] = consolidate_opt_state(
+            state["opt_state"], state["params"], to_size=to_size)
+    dev = basics.device() if basics.is_initialized() else torch.device("cpu")
+    return _tensors(state, dev)
+
+
 def fsdp_params(saved: dict, *, to_size: Optional[int] = None) -> FsdpParams:
     """This rank's :class:`~horovod_tpu_torch.optim.FsdpParams` from the
     consolidated rows :func:`save` wrote for one, re-packed for ``to_size``
@@ -384,17 +402,55 @@ def _broadcast_array(a: Optional[np.ndarray], shape, dtype: str,
     return out.cpu().numpy().view(dtype).reshape(shape)
 
 
+def broadcast_host_tree(tree: Any, root: int = 0, *,
+                        error: Optional[str] = None,
+                        what: str = "broadcast") -> Any:
+    """``root``'s tree of host arrays (numpy, bf16 as ``|V2``) and
+    picklable leaves on every rank: the structure and the object leaves
+    as one ``pytree.dump`` (its stand-in classes travel by name) through
+    ``broadcast_object``, then each array as its bytes. ``error`` given on
+    ``root``: the other ranks raise ``RuntimeError("<what> failed on rank
+    <root>: <error>")`` instead (the root raises its own). Collective;
+    the other ranks' ``tree`` is ignored."""
+    is_root = basics.rank() == root
+    arrays, payload = [], None
+    if is_root and error is not None:
+        payload = {"ok": False, "error": error}
+    elif is_root:
+        leaves, treedef = pytree.flatten(tree)
+        meta = []
+        for leaf in leaves:
+            if isinstance(leaf, (np.ndarray, np.generic)):
+                a = np.asarray(leaf)
+                meta.append(("array", (a.shape, a.dtype.str)))
+                arrays.append(a)
+            else:
+                meta.append(("obj", leaf))
+        buf = io.BytesIO()
+        pytree.dump({"treedef": treedef, "meta": meta}, buf)
+        payload = {"ok": True, "tree": buf.getvalue()}
+    payload = C.broadcast_object(payload, root)
+    if not payload["ok"]:
+        raise RuntimeError(f"{what} failed on rank {root}: "
+                           f"{payload['error']}")
+    d = pytree.load(io.BytesIO(payload["tree"]))
+    mine = iter(arrays)
+    return pytree.unflatten(d["treedef"], [
+        v if kind == "obj" else _broadcast_array(
+            next(mine) if is_root else None, v[0], v[1], root)
+        for kind, v in d["meta"]])
+
+
 def restore(directory: str, step: Optional[int] = None, *,
             broadcast_root: int = 0) -> Any:
-    """Load a checkpoint on ``broadcast_root`` only and broadcast it: the
-    structure and the object leaves with ``broadcast_object``, each array
-    with ``broadcast``, so every rank resumes from the same state even
-    when only the root's filesystem holds it. Arrays come back as numpy
-    (bf16 as ``|V2``); sharded states in their consolidated view
+    """Load a checkpoint on ``broadcast_root`` only and broadcast it
+    (:func:`broadcast_host_tree`), so every rank resumes from the same
+    state even when only the root's filesystem holds it. Arrays come back
+    as numpy (bf16 as ``|V2``); sharded states in their consolidated view
     (:func:`consolidate_opt_state`, :func:`fsdp_params`)."""
     multi = _multi()
     i_am_root = not multi or basics.rank() == broadcast_root
-    d, arrays, err = None, None, None
+    tree, err = None, None
     if i_am_root:
         try:
             if step is None:
@@ -403,46 +459,25 @@ def restore(directory: str, step: Optional[int] = None, *,
                     raise FileNotFoundError(f"no checkpoints under {directory}")
             path = _step_dir(directory, step)
             with open(os.path.join(path, "tree.pkl"), "rb") as f:
-                blob = f.read()
-            d = pytree.load(io.BytesIO(blob))
-            arrays = np.load(os.path.join(path, "arrays.npz"))
+                d = pytree.load(f)
+            with np.load(os.path.join(path, "arrays.npz")) as arrays:
+                tree = pytree.unflatten(d["treedef"], [
+                    arrays[v] if kind == "array" else v
+                    for kind, v in d["meta"]])
         except BaseException as e:
             err = e
     if not multi:
         if err is not None:
             raise err
-    else:
-        # the structure goes as tree.pkl's bytes: its stand-in classes
-        # are read by pytree.load, not by plain pickle
-        if i_am_root and err is None:
-            payload = {"ok": True, "tree": blob, "shapes": {
-                k: (arrays[k].shape, arrays[k].dtype.str)
-                for kind, k in d["meta"] if kind == "array"}}
-        elif i_am_root:
-            payload = {"ok": False, "error": repr(err)}
-        else:
-            payload = None
-        payload = C.broadcast_object(payload, broadcast_root)
-        if not payload["ok"]:
-            if err is not None:
-                raise err
-            raise RuntimeError(f"checkpoint restore failed on rank "
-                               f"{broadcast_root}: {payload['error']}")
-        d = pytree.load(io.BytesIO(payload["tree"]))
-        shapes = payload["shapes"]
-
-    leaves = []
-    for kind, v in d["meta"]:
-        if kind != "array":
-            leaves.append(v)
-        elif multi:
-            shape, dtype = shapes[v]
-            leaves.append(_broadcast_array(
-                arrays[v] if i_am_root else None, shape, dtype,
-                broadcast_root))
-        else:
-            leaves.append(arrays[v])
-    return pytree.unflatten(d["treedef"], leaves)
+        return tree
+    try:
+        return broadcast_host_tree(
+            tree, broadcast_root, what="checkpoint restore",
+            error=repr(err) if err is not None else None)
+    except RuntimeError:
+        if err is not None:
+            raise err
+        raise
 
 
 def state_nbytes(state: Any) -> int:

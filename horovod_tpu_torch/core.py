@@ -63,6 +63,8 @@ from typing import Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.resilience import health as _health
+
 logger = logging.getLogger("horovod_tpu_torch.core")
 
 REQUEST_ALLREDUCE = 0
@@ -213,9 +215,17 @@ class CoreHandle:
         """The result, once the core has run the plan; on the card the
         caller's current stream then waits on the completion event."""
         if not self.event.wait(timeout):
+            # attributable from the exception alone: which tensor, and what
+            # the process-wide health machine thinks right now
+            _health.record_timeout(self.name)
+            state = _health.health_state()
+            reason = _health.MONITOR.reason()
             err = TimeoutError(
-                f"collective '{self.name}' did not complete within {timeout}s")
+                f"collective '{self.name}' did not complete within "
+                f"{timeout}s (health: {state.name}"
+                + (f", {reason}" if reason else "") + ")")
             err.tensor_name = self.name
+            err.health_state = state
             raise err
         if self.on_wait is not None:
             self.on_wait()
@@ -345,9 +355,21 @@ class NativeCore:
     # ------------------------------------------------------------- callbacks
 
     def _on_log(self, level: int, msg: bytes):
+        text = msg.decode(errors="replace")
         logger.log({0: logging.DEBUG, 1: logging.INFO,
                     2: logging.WARNING}.get(level, logging.ERROR),
-                   "%s", msg.decode(errors="replace"))
+                   "%s", text)
+        if level >= 2 and text.startswith("Stalled collective:"):
+            # the stall inspector's warning (csrc stall_inspector.h:
+            # "Stalled collective: NAME waited Xs; missing ranks: ...")
+            # feeds the health state machine
+            try:
+                rest = text[len("Stalled collective:"):].strip()
+                name, _, tail = rest.partition(" waited ")
+                seconds = float(tail.split("s", 1)[0]) if tail else 0.0
+                _health.record_stall(name, seconds)
+            except ValueError:  # the log text must never crash the callback
+                _health.record_stall(text)
 
     def _on_execute(self, payload, length, handles_ptr, n_handles):
         """Runs on the core's background thread (ctypes holds the GIL)."""
@@ -365,6 +387,11 @@ class NativeCore:
             with C.on_group(self._group), stream, torch.no_grad():
                 for resp in responses:
                     self._execute_one(resp, handles)
+            if responses:
+                # a cycle that launched negotiated plans is progress; empty
+                # cycles are not (they keep firing while a tensor stalls,
+                # and must not reset the stall strikes)
+                _health.beat()
         except Exception:  # never let an exception escape into C
             logger.exception("execution callback failed")
             with self._pending_mu:
@@ -554,6 +581,12 @@ class NativeCore:
                     "(reference DUPLICATE_NAME_ERROR).")
             raise RuntimeError(f"enqueue failed for '{name}' (rc={rc})")
         return handle
+
+    def pending_count(self) -> int:
+        """Ops queued to the core and not run yet (the preemption loop's
+        drain waits for 0)."""
+        with self._pending_mu:
+            return len(self._pending)
 
     # ----------------------------------------------------------------- knobs
 

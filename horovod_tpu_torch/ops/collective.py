@@ -70,6 +70,8 @@ import torch.distributed as dist
 from horovod_tpu_torch import basics
 from horovod_tpu_torch.ops import adasum as _adasum
 from horovod_tpu_torch.ops import kernels as _k
+from horovod_tpu_torch.resilience import chaos as _chaos
+from horovod_tpu_torch.resilience import retry as _retry
 
 
 class ReduceOp(enum.IntEnum):
@@ -519,9 +521,92 @@ def _grouped_allreduce(tensors, op, compression=None, *, residuals=False):
 
 
 # --------------------------------------------------------------------------
+# the eager dispatch guard
+
+
+#: substrings marking a failure of a world of one's collective as
+#: transient (a rendezvous abort, where a re-dispatch succeeds);
+#: deliberately narrow, as in the JAX package
+_TRANSIENT_DISPATCH_MARKERS = (
+    "deadline exceeded",
+    "deadline_exceeded",
+    "rendezvous",
+)
+
+_dispatch_policy: Optional[_retry.RetryPolicy] = None
+
+
+def _get_dispatch_policy() -> _retry.RetryPolicy:
+    """The shared policy for eager launch retries, built at the first
+    retry so ``HOROVOD_RETRY_COLLECTIVE_DISPATCH_*`` set after import is
+    still honored."""
+    global _dispatch_policy
+    if _dispatch_policy is None:
+        _dispatch_policy = _retry.policy_from_env(
+            "collective_dispatch", max_attempts=3, base_delay=0.05,
+            max_delay=1.0)
+    return _dispatch_policy
+
+
+def _transient_dispatch_error(e: BaseException) -> bool:
+    """Is this eager-launch failure worth re-dispatching? Only when every
+    participant failed together: a chaos injection (it fires ahead of the
+    launch, on every rank alike) and, in a world of one, the rendezvous
+    abort class. Across processes nothing else is retried: a rank that
+    re-launches a collective its peers completed would desynchronize the
+    job."""
+    if isinstance(e, _retry.TransientError):
+        return True
+    if basics.is_initialized() and basics.process_size() > 1:
+        return False
+    msg = str(e).lower()
+    return any(m in msg for m in _TRANSIENT_DISPATCH_MARKERS)
+
+
+def _guarded(fn):
+    """Wrap one public eager collective with the fault-tolerance guard:
+    chaos injection (``collective_delay``/``collective_fail``) ahead of
+    the launch, and the shared retry policy around transient dispatch
+    failures. The happy path is one chaos check and a bare call; the
+    backoff schedule is only built once a launch fails."""
+    @functools.wraps(fn)
+    def launch(*args, **kw):
+        if _chaos.enabled():
+            _chaos.maybe_delay("collective_delay")
+
+            def attempt():
+                if _chaos.enabled():
+                    _chaos.inject_failure("collective_fail")
+                return fn(*args, **kw)
+
+            return _get_dispatch_policy().call(
+                attempt, retriable=_transient_dispatch_error)
+        try:
+            return fn(*args, **kw)
+        except Exception as e:
+            if not _transient_dispatch_error(e):
+                raise
+            # the failure that already happened is the policy's first
+            # attempt: launches stay within max_attempts, and the first
+            # re-dispatch waits out base_delay
+            first = [e]
+
+            def rerun():
+                if first:
+                    raise first.pop()
+                return fn(*args, **kw)
+
+            return _get_dispatch_policy().call(
+                rerun, retriable=_transient_dispatch_error)
+
+    return launch
+
+
+# --------------------------------------------------------------------------
 # the public collectives
 
 
+@_guarded
 def allreduce(tensor, op: ReduceOp = Average, *, compression=None,
               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
               axis=None):
@@ -689,6 +774,7 @@ def allreduce_(tensor, op: ReduceOp = Average, **kw):
     return tensor
 
 
+@_guarded
 def grouped_allreduce(tensors, op: ReduceOp = Average, *, axis=None):
     """Fused allreduce of a list of tensors (Horovod's fusion buffer,
     ``MemcpyInFusionBuffer`` -> one reduction -> ``MemcpyOutFusionBuffer``):
@@ -728,6 +814,7 @@ def _start_allgather(tensor):
     return [_all_gather_single(out, t, async_op=True)], lambda: out
 
 
+@_guarded
 def allgather(tensor, *, axis=None):
     """Concatenate every rank's tensor along dim 0 (equal dim 0 on every
     rank, as the reference's static-shape path requires). ``axis`` a
@@ -752,6 +839,7 @@ def allgather(tensor, *, axis=None):
     return _run(_start_allgather(tensor))
 
 
+@_guarded
 def grouped_allgather(tensors):
     """:func:`allgather` of each tensor of a list, all started before any
     is waited on (the reference fuses allgather responses too; mixed
@@ -776,6 +864,7 @@ def _start_broadcast(tensor, root_rank: int):
     return [work], lambda: out.to(torch.bool) if was_bool else out
 
 
+@_guarded
 def broadcast(tensor, root_rank: int = 0):
     """Every rank gets ``root_rank``'s tensor."""
     if _via_core() is not None:
@@ -862,6 +951,7 @@ def _start_reducescatter(tensor, op):
     return [work], lambda: _div(out, n) if op == Average else out
 
 
+@_guarded
 def reducescatter(tensor, op: ReduceOp = Average, *, axis=None):
     """Reduce along dim 0 and give rank r the r-th of N equal row blocks.
     A dim 0 that N does not divide is zero-padded first. ``axis`` a mesh
@@ -884,6 +974,7 @@ def _start_alltoall(tensor):
     return _start_all_to_all(tensor)
 
 
+@_guarded
 def alltoall(tensor, *, axis=None):
     """Rank i sends row block j of its tensor to rank j; dim 0 must be a
     multiple of the world size. ``axis`` a mesh axis's name: over its
@@ -952,6 +1043,13 @@ def _register_name(name: Optional[str]):
                 "synchronize the previous op first (reference "
                 "DUPLICATE_NAME_ERROR).")
         _outstanding_names.add(name)
+
+
+def clear_outstanding_names() -> None:
+    """Forget every outstanding async-collective name
+    (:func:`horovod_tpu_torch.basics.shutdown` calls this)."""
+    with _outstanding_lock:
+        _outstanding_names.clear()
 
 
 def _release_name(name: Optional[str]):

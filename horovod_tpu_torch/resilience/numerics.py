@@ -43,11 +43,20 @@ every rank, so every rank reaches the same verdict. Outside a world
 Chaos: ``HOROVOD_CHAOS=grad_nan_at_step=K`` / ``grad_spike_at_step=K:s``
 multiply the gradients by NaN / ``s`` on the guard's K-th update.
 
+5. **The skip/replay policy** — :class:`NumericsRollback`: the elastic
+   driver (:mod:`horovod_tpu_torch.resilience.elastic`) raises it after
+   :func:`max_consecutive_bad` BAD steps in a row and replays from its
+   last committed snapshot with :func:`replay_epoch` bumped (data
+   pipelines fold it into batch selection: :func:`horovod_tpu_torch.data.
+   sampler.mix_seed`), at most :func:`max_rollbacks` times a run, then
+   :class:`NumericsError` with the health machine FATAL.
+
+The verdict readers set the JAX package's ``numerics_*`` gauges.
+
 Not ported yet: the fingerprint plane and its quarantine
 (``publish_fingerprint``, ``cross_check_fingerprints``,
-``maybe_note_output``, ``flush_staged``; ROADMAP Queue A item 11), and
-the skip/replay policy (``NumericsRollback``, ``max_consecutive_bad``,
-the rollback budget; item 9). The metrics gauges wait for item 11 too.
+``maybe_note_output``, ``flush_staged``, the boundary claim; ROADMAP
+Queue A item 11).
 """
 
 from __future__ import annotations
@@ -56,17 +65,26 @@ import functools
 import logging
 import math
 import os
+import threading
 from typing import Any, Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from horovod_tpu_torch import basics, pytree
+from horovod_tpu_torch.observability import metrics as _metrics
 from horovod_tpu_torch.resilience import chaos as _chaos
 
 __all__ = [
     "NumericsGuardState",
     "GuardedTransformation",
+    "NumericsRollback",
+    "NumericsError",
+    "max_consecutive_bad",
+    "max_rollbacks",
+    "replay_epoch",
+    "bump_replay_epoch",
+    "reset",
     "guard",
     "is_guarded",
     "current_scale",
@@ -86,6 +104,8 @@ logger = logging.getLogger("horovod_tpu_torch.resilience.numerics")
 SPIKE_FACTOR_ENV = "HOROVOD_NUMERICS_SPIKE_FACTOR"
 EWMA_ALPHA_ENV = "HOROVOD_NUMERICS_EWMA_ALPHA"
 WARMUP_ENV = "HOROVOD_NUMERICS_WARMUP"
+MAX_BAD_ENV = "HOROVOD_NUMERICS_MAX_BAD"
+MAX_ROLLBACKS_ENV = "HOROVOD_NUMERICS_MAX_ROLLBACKS"
 SCALE_INIT_ENV = "HOROVOD_NUMERICS_SCALE_INIT"
 SCALE_GROWTH_ENV = "HOROVOD_NUMERICS_SCALE_GROWTH_INTERVAL"
 GATE_ENV = "HOROVOD_PUBLISH_NUMERICS_GATE"
@@ -137,6 +157,29 @@ class GuardedTransformation(NamedTuple):
         return getattr(self.inner, "bucket_bytes", None)
 
 
+class NumericsRollback(Exception):
+    """Control flow: the guard saw ``max_consecutive_bad`` bad steps in a
+    row; the elastic driver unwinds the inner loop and replays from the
+    last committed snapshot with :func:`replay_epoch` bumped."""
+
+    def __init__(self, step: int, streak: int):
+        self.step = step
+        self.streak = streak
+        super().__init__(
+            f"{streak} consecutive bad steps at step {step}; rolling back"
+        )
+
+
+class NumericsError(RuntimeError):
+    """The rollback budget is exhausted: the run cannot make numerically
+    sound progress (bad data shard, persistent SDC). The health machine
+    was marked FATAL before this raised."""
+
+
+_lock = threading.Lock()
+_replay_epoch = 0
+
+
 def _env_float(name: str, default: float) -> float:
     try:
         return float(os.environ.get(name, default))
@@ -149,6 +192,39 @@ def _env_int(name: str, default: int) -> int:
         return int(os.environ.get(name, default))
     except ValueError:
         return default
+
+
+def max_consecutive_bad() -> int:
+    """Bad steps in a row before the skip policy escalates to a rollback
+    (``HOROVOD_NUMERICS_MAX_BAD``, default 3)."""
+    return max(1, _env_int(MAX_BAD_ENV, 3))
+
+
+def max_rollbacks() -> int:
+    """Numerics rollbacks tolerated per run before FATAL
+    (``HOROVOD_NUMERICS_MAX_ROLLBACKS``, default 3)."""
+    return max(1, _env_int(MAX_ROLLBACKS_ENV, 3))
+
+
+def replay_epoch() -> int:
+    """Bumped on every numerics rollback. Data pipelines that fold this
+    into their batch selection draw FRESH batches for the replayed steps
+    instead of re-serving the batch that went bad."""
+    return _replay_epoch
+
+
+def bump_replay_epoch() -> int:
+    global _replay_epoch
+    with _lock:
+        _replay_epoch += 1
+        return _replay_epoch
+
+
+def reset() -> None:
+    """Back to a replay epoch of 0 (tests)."""
+    global _replay_epoch
+    with _lock:
+        _replay_epoch = 0
 
 
 def _keys(tree: dict) -> list:
@@ -682,6 +758,27 @@ def note_step_staged(step: int, staged) -> Optional[dict]:
 
 def _note_verdict(step: int, v: dict) -> dict:
     del step        # the fingerprint record keyed by it waits for item 11
+    if _metrics.enabled():
+        _metrics.gauge(
+            "numerics_guard_bad_steps",
+            help="total steps the numerics guard marked BAD and skipped",
+        ).set(v["bad_count"])
+        _metrics.gauge(
+            "numerics_guard_bad_streak",
+            help="consecutive BAD steps (the rollback trigger)",
+        ).set(v["bad_streak"])
+        _metrics.gauge(
+            "numerics_guard_grad_norm",
+            help="global gradient norm of the last guarded step",
+        ).set(v["last_norm"])
+        _metrics.gauge(
+            "numerics_guard_grad_norm_ewma",
+            help="EWMA of the global gradient norm over good steps",
+        ).set(v["ewma"])
+        _metrics.gauge(
+            "numerics_loss_scale",
+            help="current dynamic loss scale (1 when scaling is off)",
+        ).set(v["loss_scale"])
     if _chaos.enabled():
         # consume a charge ONLY when the step recorded its injection: a
         # restored state whose counter is already past K never injects

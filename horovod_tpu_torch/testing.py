@@ -13,7 +13,10 @@ reserved here (:func:`reserve_port`: bound, not listening, until the
 world ends) and passed to the ranks through
 ``HVD_CORE_COORD_ADDR``/``HVD_CORE_COORD_PORT``.
 ``fn`` must be importable by the children (a module-level function of a
-module that does not import JAX keeps the spawn cheap).
+module that does not import JAX keeps the spawn cheap). A rank whose
+``fn`` raises ``SystemExit`` (the preemption loop's ``Preempted``, exit
+code 75) exits its process with that code, and :func:`run_world` raises
+:class:`WorldExit` with every such rank's code.
 ``watching_calls(module, names, on_call)`` reports every call of some of
 a module's functions (kernel wrappers, collectives) while it is open.
 """
@@ -71,6 +74,19 @@ def watching_calls(module, names, on_call):
             setattr(module, n, f)
 
 
+class WorldExit(RuntimeError):
+    """Ranks of a :func:`run_world` left through ``SystemExit``:
+    ``codes`` maps each such rank to its exit code, ``exitcodes`` every
+    rank's process exit code; ``results`` holds the other ranks'
+    returns."""
+
+    def __init__(self, codes: dict, exitcodes: dict, results: dict):
+        self.codes = codes
+        self.exitcodes = exitcodes
+        self.results = results
+        super().__init__(f"ranks exited: {codes}")
+
+
 def _child(rank, n, port, device, fn, args, q, core_port=None,
            timeout=120.0):
     import datetime
@@ -92,6 +108,9 @@ def _child(rank, n, port, device, fn, args, q, core_port=None,
                  native_core=core_port is not None)
         out = fn(*args)
         q.put((rank, True, out))
+    except SystemExit as e:     # the process exits with its code
+        q.put((rank, "exit", e.code))
+        raise
     except BaseException:  # noqa: BLE001 - shipped to the parent
         q.put((rank, False, traceback.format_exc()))
     finally:
@@ -117,15 +136,18 @@ def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0,
                          args=(r, n, store.port, device, fn, args, q,
                                core_port, timeout))
              for r in range(n)]
-    results = {}
+    results, exits = {}, {}
     try:
         for p in procs:
             p.start()
         for _ in range(n):
             rank, ok, out = q.get(timeout=timeout)
-            if not ok:
+            if ok == "exit":
+                exits[rank] = out
+            elif not ok:
                 raise RuntimeError(f"rank {rank} failed:\n{out}")
-            results[rank] = out
+            else:
+                results[rank] = out
     finally:
         for p in procs:
             if p.pid is not None:
@@ -135,4 +157,7 @@ def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0,
         if held is not None:
             held.close()
         del store
+    if exits:
+        raise WorldExit(exits, {r: p.exitcode for r, p in enumerate(procs)},
+                        results)
     return [results[r] for r in range(n)]

@@ -43,7 +43,15 @@ def test_every_module_imports_with_jax_poisoned():
             "horovod_tpu_torch.parallel.spmd",
             "horovod_tpu_torch.parallel.ring_attention",
             "horovod_tpu_torch.parallel.pipeline",
-            "horovod_tpu_torch.parallel.moe"} <= set(mods)
+            "horovod_tpu_torch.parallel.moe",
+            "horovod_tpu_torch.observability.metrics",
+            "horovod_tpu_torch.resilience.health",
+            "horovod_tpu_torch.resilience.retry",
+            "horovod_tpu_torch.resilience.chaos",
+            "horovod_tpu_torch.resilience.loop",
+            "horovod_tpu_torch.resilience.elastic",
+            "horovod_tpu_torch.run.rendezvous",
+            "horovod_tpu_torch.callbacks"} <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes'):\n"
@@ -95,6 +103,31 @@ def test_every_module_imports_with_jax_poisoned():
         "from horovod_tpu_torch.resilience import chaos, numerics\n"
         "tx = hvd.DistributedOptimizer(hvd.adam(1e-3), loss_scale='dynamic')\n"
         "assert numerics.is_guarded(tx) and chaos.parse_spec('grad_nan_at_step=2')\n"
+        # resilience: the preemption loop and the elastic driver, driven
+        # in a world of one, and the stdlib-only modules import alone
+        "import numpy as np\n"
+        "from horovod_tpu_torch import resilience\n"
+        "from horovod_tpu_torch.resilience import elastic, loop\n"
+        "from horovod_tpu_torch.callbacks import HealthCallback\n"
+        "out = loop.run(lambda st, i: {'w': st['w'] + 1}, {'w': np.zeros(1)},\n"
+        "               num_steps=2, callbacks=[HealthCallback()])\n"
+        "assert float(out['w'][0]) == 2.0 and resilience.RESUMABLE_EXIT_CODE == 75\n"
+        "assert hvd.health_state() == resilience.HealthState.HEALTHY\n"
+        "hvd.init(device='cpu')\n"
+        "out = elastic.run(lambda n: (lambda st, i: {'w': st['w'] + n}),\n"
+        "                  {'w': np.zeros(1)}, num_steps=3)\n"
+        "assert float(out['w'][0]) == 3.0\n"
+        "hvd.shutdown()\n"
+        "import subprocess\n"
+        "light = ('horovod_tpu_torch.observability.metrics', "
+        "'horovod_tpu_torch.resilience.health', "
+        "'horovod_tpu_torch.resilience.retry', "
+        "'horovod_tpu_torch.run.rendezvous', 'horovod_tpu_torch.callbacks')\n"
+        "for m in light:\n"
+        "    probe = ('import sys, importlib; importlib.import_module(%r); '\n"
+        "             'bad = [n for n in sys.modules if n.split(\".\")[0] in '\n"
+        "             '(\"jax\", \"horovod_tpu\")]; assert not bad, bad' % m)\n"
+        "    subprocess.run([sys.executable, '-c', probe], check=True)\n"
         # the frontend and the native core, driven in a world of one
         "import torch\n"
         "import horovod_tpu_torch.torch as thvd\n"
