@@ -518,7 +518,7 @@ HIER_MODES = ("allreduce_hier", "zero1_hier")
 ZERO3_BUCKET = 25 << 20
 #: phase 12's passes across N GPUs, each the world without the core and
 #: the one with it
-FRONTEND_PASSES = 3
+FRONTEND_PASSES = 2
 #: the ResNet-50 modes across N GPUs (``--gpus N``)
 WORLD_MODES = ("zero1", "allreduce", "zero3", "adasum", "adasum_fp16",
                "powersgd")
@@ -5172,6 +5172,487 @@ def elastic_gpus(n: int) -> tuple:
     run = dict(mode=f"elastic@{n}", launches=r0["launches"])
     return record, run, steps3[-1]
 
+# --------------------------------------------------------------------------
+# phase 20: observability and analysis on the main path
+
+#: one GPU: steps of the plain and of the instrumented ZeRO-1 run, and the
+#: last steps of the instrumented run that torch.profiler traces
+OBS_STEPS = 8
+OBS_TRACED = 2
+#: the hand-written kernels of ZeRO-1's path, and the symbol each has in a
+#: torch.profiler trace
+OBS_KERNELS = {"quantize": "quantize_kernel",
+               "dequant_accumulate": "deq_acc_kernel",
+               "fused_adam": "adam_kernel"}
+#: the trace category of a kernel launched on the card
+OBS_TRACE_CAT = "kernel"
+#: across the GPUs: the hang drill's steps, the step whose second eager
+#: collective the highest rank holds before dispatching, how long it holds
+#: (s), and the watchdog's timeout (s): above every gap between two
+#: collectives of a healthy run (the commit's host copy, a resize)
+HANG_STEPS = 6
+HANG_AT = 3
+HANG_HOLD = 16.0
+HANG_TIMEOUT = 6.0
+#: the corrupt-rank drill: its steps, the rank whose published gradient
+#: fingerprint is made non-finite and from which step
+CORRUPT_STEPS = 5
+CORRUPT_RANK, CORRUPT_AT = 2, 2
+#: seconds a metrics snapshot lives in the KV (a rank that stops
+#: publishing is dead to the aggregator after it)
+OBS_SNAP_TTL = 3.0
+
+
+def _obs_env(directory: str) -> dict:
+    """Every plane of phase 20 on: the host timeline, the flight sidecar,
+    the schedule sanitizer, the gradient fingerprints."""
+    return {"HOROVOD_TIMELINE": os.path.join(directory, "timeline.json"),
+            "HOROVOD_FLIGHT_DIR": os.path.join(directory, "flight"),
+            "HOROVOD_SANITIZE": "1",
+            "HOROVOD_NUMERICS_FINGERPRINT": "1"}
+
+
+def observe_child(directory: str, role: str) -> None:
+    """Phase 20 on one GPU, in a child process (phase 10's determinism):
+    phase 4's ResNet-50 ZeRO-1 + int8 + EF + fused Adam, batch 64,
+    :data:`OBS_STEPS` steps on one batch. ``plain``: the step as built.
+    ``instrumented``: through ``instrument_step`` with the parent's env
+    (:func:`_obs_env`) on, a metrics publisher and a fleet aggregator
+    over an HTTP KV store, and ``profiler.timeline`` around the last
+    :data:`OBS_TRACED` steps; after ``shutdown`` (which merges the
+    timeline and flushes the flight ring) the files are read back. Prints
+    one JSON record."""
+    import horovod_tpu_torch as hvd
+
+    _p19_setup()
+    hvd.init()
+    try:
+        out = _observe_role(directory, role)
+    finally:
+        hvd.shutdown()
+    if role == "instrumented":
+        out.update(_observe_files(directory))
+    print(json.dumps(out), flush=True)
+
+
+def _observe_role(directory: str, role: str) -> dict:
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import profiler
+    from horovod_tpu_torch.observability import aggregate, exporters, metrics
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.run.rendezvous import KVStoreClient, KVStoreServer
+    from horovod_tpu_torch.training import instrument_step
+
+    inst = role == "instrumented"
+    dev = hvd.device()
+    model = build_model("resnet50", 0, dev)
+    tx = make_tx("zero1")
+    opt = tx.init(model.jax_params())
+    step = hvd.make_train_step(model, tx, shard_optimizer=True)
+    x, y = p19_batch(0)
+    server = pub = agg = None
+    if inst:
+        server = KVStoreServer()
+        kv = KVStoreClient("127.0.0.1", server.start())
+        pub = aggregate.MetricsPublisher(kv, rank=0, ttl=OBS_SNAP_TTL)
+        agg = aggregate.FleetAggregator(kv, world=1)
+        # ResNet-50 at 224x224: 4.1 GFLOP a forward image, x3 a step
+        step = instrument_step(step, batch_arg=1,
+                               flops_per_step=3 * 4.1e9 * x.shape[0])
+    per_step, times, losses = [], [], []
+    K.reset_launches()
+    try:
+        for i in range(OBS_STEPS):
+            if inst and i == OBS_STEPS - OBS_TRACED:
+                profiler.start_timeline(os.path.join(directory, "prof"))
+            before = dict(K.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt, loss = step(opt, x, y)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+            per_step.append({k: K.launches[k] - before[k]
+                             for k in OBS_KERNELS})
+            if inst:
+                pub.publish_once()
+        if inst:
+            profiler.stop_timeline()
+            fleet = agg.collect()
+    finally:
+        if server is not None:
+            server.close()
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"phase 20 ({role}): losses {losses}")
+    measured = times[1:OBS_STEPS - OBS_TRACED]
+    out = dict(role=role, sha=_state_sha(model, None), losses=losses,
+               launches_per_step=per_step,
+               ms_per_step=1e3 * sum(measured) / len(measured),
+               median_ms_per_step=1e3 * sorted(measured)[len(measured) // 2],
+               step_ms=[1e3 * t for t in times])
+    if inst:
+        text = exporters.to_prometheus()
+        out.update(fleet_ranks=fleet["ranks"], dead_ranks=fleet["dead_ranks"],
+                   prometheus_lines=_parse_prometheus(text),
+                   train_steps=metrics.value("train_steps"),
+                   mfu=metrics.value("train_mfu"),
+                   grad_sync_bytes=metrics.value("grad_sync_bytes_per_step",
+                                                 mode="sharded"))
+    return out
+
+
+def _parse_prometheus(text: str) -> int:
+    """The number of samples in a Prometheus text exposition; fails on a
+    line that is neither a comment nor ``name{labels} value``."""
+    import re
+
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*'
+                        r'="(\\.|[^"\\])*",?)*\})? [-+0-9.eEinfINFNa]+$')
+    n = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        if not sample.match(line):
+            fail(f"phase 20: Prometheus line does not parse: {line!r}")
+        n += 1
+    if not n:
+        fail("phase 20: empty Prometheus exposition")
+    return n
+
+
+def _observe_files(directory: str) -> dict:
+    """The instrumented run's files: the merged timeline (Chrome-trace
+    JSON, one ``step`` span a step), the flight sidecar with a torn line
+    appended (as a kill mid-write leaves it) through ``flight.load_dir``
+    and ``analyze_dir``, and the profiler trace's kernels by symbol."""
+    from horovod_tpu_torch.observability import flight
+
+    env = _obs_env(directory)
+    with open(env["HOROVOD_TIMELINE"]) as f:
+        events = json.load(f)
+    spans = [e for e in events if e.get("tid") == "step" and e.get("ph") == "X"]
+    sidecar = os.path.join(env["HOROVOD_FLIGHT_DIR"], "flight-rank0.jsonl")
+    with open(sidecar, "a") as f:
+        f.write('{"t": 1.0, "kind": "collec')
+    rank_events, meta = flight.load_dir(env["HOROVOD_FLIGHT_DIR"])
+    verdict = flight.analyze_dir(env["HOROVOD_FLIGHT_DIR"])
+    evs = rank_events.get(0, [])
+    with open(os.path.join(directory, "prof", "trace.json")) as f:
+        prof = json.load(f)
+    names = [e.get("name", "") for e in prof.get("traceEvents", [])
+             if e.get("cat") == OBS_TRACE_CAT]
+    return dict(
+        timeline_events=len(events), step_spans=len(spans),
+        flight_events=len(evs),
+        flight_steps=sum(e.get("kind") == "step" for e in evs),
+        flight_collectives=sum(e.get("kind") == "collective" for e in evs),
+        flight_verdict=verdict.get("verdict"),
+        profiler_kernels={k: sum(sym in n for n in names)
+                          for k, sym in OBS_KERNELS.items()})
+
+
+def observability_phase() -> dict:
+    """Phase 20 on one GPU: :func:`observe_child` plain, then
+    instrumented. The parameters and running stats after the last step
+    must be bit-equal; B1, B3 and B5 must launch once a step in both; the
+    timeline must hold one step span a step, the flight sidecar load with
+    its torn tail and be analyzed, the Prometheus exposition parse, the
+    aggregator see one live rank, and the profiler trace name each
+    kernel's symbol."""
+    import shutil
+
+    directory = os.path.join(CKPT_DIR, "observe")
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    base = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    for k in list(_obs_env(directory)) + ["HOROVOD_CHAOS"]:
+        base.pop(k, None)
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        for role in ("plain", "instrumented"):
+            env = dict(base, **(_obs_env(directory)
+                                if role == "instrumented" else {}))
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--observe", directory, role],
+                               capture_output=True, text=True, timeout=600,
+                               env=env)
+            if r.returncode != 0:
+                fail(f"phase 20 ({role}): exit code {r.returncode}:\n"
+                     f"{r.stderr[-3000:]}")
+            out[role] = json.loads(r.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    plain, inst = out["plain"], out["instrumented"]
+    if plain["sha"] != inst["sha"] or plain["losses"] != inst["losses"]:
+        fail(f"phase 20: the instrumented run is not bit-equal to the plain "
+             f"one (losses {plain['losses']} vs {inst['losses']})")
+    for run in (plain, inst):
+        for i, c in enumerate(run["launches_per_step"]):
+            if any(v != 1 for v in c.values()):
+                fail(f"phase 20 ({run['role']}): step {i} launched {c}, "
+                     "expected each of B1, B3, B5 once")
+    if inst["step_spans"] != OBS_STEPS:
+        fail(f"phase 20: {inst['step_spans']} step spans in the timeline, "
+             f"expected {OBS_STEPS}")
+    if inst["flight_steps"] != OBS_STEPS or not inst["flight_collectives"]:
+        fail(f"phase 20: flight sidecar {inst['flight_steps']} step events, "
+             f"{inst['flight_collectives']} collective events")
+    if inst["flight_verdict"] not in ("progressing", "no_data"):
+        fail(f"phase 20: a healthy run's flight verdict is "
+             f"{inst['flight_verdict']}")
+    if inst["fleet_ranks"] != [0] or inst["dead_ranks"]:
+        fail(f"phase 20: the aggregator saw {inst['fleet_ranks']} live, "
+             f"{inst['dead_ranks']} dead")
+    if inst["train_steps"] != OBS_STEPS:
+        fail(f"phase 20: train_steps {inst['train_steps']}")
+    missing = [k for k, v in inst["profiler_kernels"].items() if v < 1]
+    if missing:
+        fail(f"phase 20: the torch.profiler trace names no kernel of "
+             f"{missing} ({inst['profiler_kernels']})")
+    return dict(seconds=time.perf_counter() - t0,
+                plain_ms_per_step=plain["ms_per_step"],
+                instrumented_ms_per_step=inst["ms_per_step"],
+                plain_median_ms_per_step=plain["median_ms_per_step"],
+                instrumented_median_ms_per_step=inst["median_ms_per_step"],
+                plain_step_ms=plain["step_ms"],
+                instrumented_step_ms=inst["step_ms"],
+                bit_equal=True, launches_per_step=inst["launches_per_step"][0],
+                launches={k: sum(c[k] for c in inst["launches_per_step"])
+                          for k in OBS_KERNELS},
+                **{k: inst[k] for k in (
+                    "step_spans", "timeline_events", "flight_events",
+                    "flight_verdict", "prometheus_lines", "profiler_kernels",
+                    "mfu", "grad_sync_bytes")})
+
+
+def _drill_rank(drill: str) -> dict:
+    """One rank of a phase-20 drill across the GPUs: ResNet-50 ZeRO-1 +
+    int8 + EF + fused Adam under ``elastic.run`` (committed once, at the
+    start), each step through ``instrument_step`` and followed by one
+    more eager collective (the slowest rank's step time, ``Max``), every
+    plane on (the parent's env), a metrics publisher a rank and rank 0's
+    fleet aggregator over the world's KV store. ``hang``: the highest
+    rank holds :data:`HANG_HOLD` s before its second collective of step
+    :data:`HANG_AT`; ``corrupt``: rank :data:`CORRUPT_RANK` publishes a
+    non-finite fingerprint from step :data:`CORRUPT_AT`. Rank 0 stamps
+    the onset (its own begin of the parked collective, or its own
+    fingerprint publication of the corrupt step), the verdict
+    (``health.record_hang`` / ``record_numeric_corruption``, where it
+    also reads ``publish_gate_reason``) and the eviction
+    (``mark_dead``)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import sanitizer
+    from horovod_tpu_torch.observability import aggregate, flight, metrics
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.resilience import chaos, elastic, health, numerics
+    from horovod_tpu_torch.run import rendezvous
+    from horovod_tpu_torch.training import instrument_step
+
+    _p19_setup()
+    me, n = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    metrics.reset()
+    chaos.reset()
+    if drill == "hang" and me == n - 1:
+        chaos.configure(f"rank_hang_at_step={HANG_AT},"
+                        f"rank_hang_hold={HANG_HOLD}")
+    elif drill == "corrupt":
+        chaos.configure(f"grad_corrupt_rank={CORRUPT_RANK}:{CORRUPT_AT}")
+    kv = rendezvous.kv_client_from_env()
+    pub = aggregate.MetricsPublisher(kv, rank=me, ttl=OBS_SNAP_TTL)
+    agg = aggregate.FleetAggregator(kv, world=n) if me == 0 else None
+    stamps, seen, calls, gates = {}, [], [], []
+    steps = HANG_STEPS if drill == "hang" else CORRUPT_STEPS
+    model = build_model("resnet50", 0, dev)
+    state = p19_state(model, make_tx("zero1").init(model.jax_params()))
+
+    def builder(world):
+        fn = instrument_step(p19_builder(model)(world))
+
+        def step_fn(st, i):
+            calls.append(dict(K.launches))
+            t0 = time.perf_counter()
+            st = fn(st, i)
+            dt = torch.full((1,), time.perf_counter() - t0, device=dev)
+            hvd.allreduce(dt, op=hvd.Max).item()
+            pub.publish_once()
+            if agg is not None:
+                fleet = agg.collect()
+                seen.append((hvd.size(), len(fleet["ranks"])))
+            return st
+
+        return step_fn
+
+    saved = []
+    if me == 0:
+        def stamp(obj, attr, name, also=None):
+            f = getattr(obj, attr)
+            saved.append((obj, attr, f))
+
+            def call(*a, **kw):
+                stamps.setdefault(name, time.monotonic())
+                if also is not None:
+                    also()
+                return f(*a, **kw)
+            setattr(obj, attr, call)
+
+        stamp(health, "record_hang", "verdict")
+        stamp(health, "record_numeric_corruption", "verdict",
+              lambda: gates.append(numerics.publish_gate_reason(None, {})))
+        stamp(elastic.ElasticCoordinator, "mark_dead", "evicted")
+        publish = numerics.publish_fingerprint
+
+        def stamped_publish(step, *a, **kw):
+            if step == CORRUPT_AT:
+                stamps.setdefault("onset", time.monotonic())
+            return publish(step, *a, **kw)
+        saved.append((numerics, "publish_fingerprint", publish))
+        numerics.publish_fingerprint = stamped_publish
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        final = elastic.run(builder, state, num_steps=steps,
+                            snapshot_every=steps + 1)
+    finally:
+        for obj, attr, f in saved:
+            setattr(obj, attr, f)
+        chaos.reset()
+    out = dict(rank=me, final=final is not None,
+               size=hvd.size() if hvd.is_initialized() else 0,
+               seconds=time.perf_counter() - t0,
+               launches=dict(K.launches), steps_run=len(calls),
+               diagnoses=[(e.get("verdict"), e.get("key"), e.get("hung_ranks"))
+                          for e in flight.events() if e.get("kind") == "hang"
+                          and e.get("ph") == "diagnosed"])
+    if me == 0:
+        flight.disarm_watchdog()    # the run is over: no more progress
+        if drill == "hang":
+            hang = flight.last_hang() or {}
+            key = hang.get("key")
+            parked = [e["t"] for e in flight.events()
+                      if e.get("kind") == "collective" and e.get("ph") == "b"
+                      and key and [e["step"], e["gen"], e["seq"]] == key]
+            if parked:
+                stamps["onset"] = parked[0]
+            out["verdict"] = {k: hang.get(k) for k in (
+                "verdict", "key", "op", "hung_ranks", "waiting")}
+        else:
+            c = numerics.last_corruption()
+            out["verdict"] = c and {"rank": c["rank"], "step": c["step"],
+                                    "finite": c["finite"]}
+            out["gate"] = gates[0] if gates else None
+        t_end = time.monotonic() + OBS_SNAP_TTL + 2.0
+        while seen and seen[-1][1] != hvd.size() and time.monotonic() < t_end:
+            time.sleep(0.25)
+            seen.append((hvd.size(), len(agg.collect()["ranks"])))
+        out.update(
+            stamps=stamps, fleet_seen=seen,
+            divergence=sanitizer.last_divergence(),
+            sched_checked=metrics.value("sanitizer_steps_checked"),
+            hang_fired=metrics.value("hang_watchdog_fired"))
+    return out
+
+
+def _drill_gpus(n: int, drill: str) -> tuple:
+    """Run :func:`_drill_rank` across ``n`` GPUs with every plane on;
+    returns ``(the ranks' records, seconds)``."""
+    import shutil
+
+    from horovod_tpu_torch.observability import flight
+    from horovod_tpu_torch.testing import run_world
+
+    directory = os.path.join(CKPT_DIR, f"drill_{drill}")
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    env = dict(_obs_env(directory), CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               HOROVOD_HANG_TIMEOUT=str(HANG_TIMEOUT), HOROVOD_HANG_EVICT="1")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        res = run_world(_drill_rank, n, drill, device=None, timeout=600)
+        if drill == "hang":     # the sidecars alone, after the run
+            offline = flight.analyze_dir(env["HOROVOD_FLIGHT_DIR"])
+            res[0]["offline"] = {k: offline.get(k) for k in (
+                "verdict", "key", "hung_ranks")}
+    except RuntimeError as e:
+        fail(f"phase 20 {drill} drill across {n} GPUs: {e}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(directory, ignore_errors=True)
+    return res, time.perf_counter() - t0
+
+
+def drills_gpus(n: int) -> dict:
+    """Phase 20 across ``n`` GPUs: the hang drill (the watchdog fires,
+    rank 0's diagnosis names rank ``n - 1`` missing at the parked
+    ``(step, gen, seq)``, the rank is evicted and the run finishes at
+    ``n - 1`` ranks, the schedule hashes of every checked step agree, the
+    aggregator sees ``n`` live ranks, then ``n - 1``), then the corrupt
+    drill (the cross-check names :data:`CORRUPT_RANK`, whose quarantine
+    ``publish_gate_reason`` reports, and it is evicted). Each drill's
+    onset -> verdict and verdict -> eviction seconds on rank 0's clock."""
+    out = {}
+    for drill in ("hang", "corrupt"):
+        res, seconds = _drill_gpus(n, drill)
+        r0 = res[0]
+        victim = n - 1 if drill == "hang" else CORRUPT_RANK
+        v = r0["verdict"] or {}
+        # a diagnosis that names no rank (a slow first step: every rank
+        # "progressing") acts on nothing
+        acting = [d for d in r0["diagnoses"]
+                  if d[0] not in ("progressing", "no_data")]
+        if drill == "hang":
+            if not r0["hang_fired"]:
+                fail("phase 20 hang: the watchdog never fired")
+            if (v.get("verdict"), v.get("hung_ranks")) != ("rank_missing",
+                                                           [victim]) or \
+                    len(acting) != 1:
+                fail(f"phase 20 hang: rank 0's verdict {v}, diagnoses "
+                     f"{r0['diagnoses']}")
+            if list(v.get("key") or [])[::2] != [HANG_AT, 1]:
+                fail(f"phase 20 hang: parked at {v.get('key')}, expected "
+                     f"step {HANG_AT}, seq 1")
+            if r0["offline"].get("hung_ranks") != [victim]:
+                fail(f"phase 20 hang: offline analysis {r0['offline']}")
+        else:
+            if v.get("rank") != victim or r0.get("gate") != "quarantine" \
+                    or acting:
+                fail(f"phase 20 corrupt: verdict {v}, publish gate "
+                     f"{r0.get('gate')}")
+        if r0["divergence"] is not None or not r0["sched_checked"]:
+            fail(f"phase 20 {drill}: schedule divergence "
+                 f"{r0['divergence']}, {r0['sched_checked']} steps checked")
+        for r in res:
+            evicted = r["rank"] == victim
+            if r["final"] == evicted or (not evicted and r["size"] != n - 1):
+                fail(f"phase 20 {drill}: rank {r['rank']} ended "
+                     f"final={r['final']} in a world of {r['size']}")
+            if not evicted and any(r["launches"][k] < 1 for k in NEED["zero1"]):
+                fail(f"phase 20 {drill}: rank {r['rank']} launches "
+                     f"{r['launches']}")
+        seen = [live for size, live in r0["fleet_seen"]]
+        if n not in seen or seen[-1] != n - 1:
+            fail(f"phase 20 {drill}: the aggregator saw {r0['fleet_seen']}")
+        s = r0["stamps"]
+        if not {"onset", "verdict", "evicted"} <= set(s):
+            fail(f"phase 20 {drill}: stamps {s}")
+        out[drill] = dict(
+            seconds=seconds, verdict=v, gate=r0.get("gate"),
+            onset_to_verdict_s=s["verdict"] - s["onset"],
+            verdict_to_eviction_s=s["evicted"] - s["verdict"],
+            live_ranks_seen=seen, steps_checked=r0["sched_checked"],
+            diagnoses=r0["diagnoses"], offline=r0.get("offline"))
+    return out
+
 
 def _summary(run: dict) -> str:
     return json.dumps({k: v for k, v in run.items() if k != "step_calls"})
@@ -5189,6 +5670,10 @@ def main() -> None:
     if len(sys.argv) > 3 and sys.argv[1] == "--preempt":
         sys.path.insert(0, ROOT)
         preempt_child(sys.argv[2], sys.argv[3])
+        return
+    if len(sys.argv) > 3 and sys.argv[1] == "--observe":
+        sys.path.insert(0, ROOT)
+        observe_child(sys.argv[2], sys.argv[3])
         return
     gpus = 1
     if len(sys.argv) > 2 and sys.argv[1] == "--gpus":
@@ -5329,6 +5814,15 @@ def main() -> None:
           f"{json.dumps(p19['preemption'])}; rollback "
           f"{json.dumps(p19['rollback'])}; retry {json.dumps(p19['retry'])}; "
           f"phase {p19['seconds']:.1f} s ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    p20 = observability_phase()
+    print(f"observability (phase 20, one GPU, ResNet-50 ZeRO-1 + int8 + EF + "
+          f"fused Adam, batch {P19_BATCH}, {OBS_STEPS} steps, every plane "
+          f"on against none): instrumented {p20['instrumented_ms_per_step']:.3f}"
+          f" ms a step (median {p20['instrumented_median_ms_per_step']:.3f}),"
+          f" plain {p20['plain_ms_per_step']:.3f} (median "
+          f"{p20['plain_median_ms_per_step']:.3f}); {json.dumps(p20)} "
+          f"({smi})", flush=True)
     ar = by_mode["allreduce"]
     print(f"e2e allreduce: NCCL calls a step in the optimizer update "
           f"{json.dumps(ar['nccl_calls']['update'])}, "
@@ -5451,6 +5945,14 @@ def main() -> None:
               f"ZeRO-1 + int8 + EF + fused Adam, {ELASTIC_SPEC}): "
               f"{json.dumps(elastic_rec)}; phase 4's ZeRO-1 img/s per GPU "
               f"{json.dumps(z1)} ({smi})", flush=True)
+        torch.cuda.empty_cache()
+        p20_world = drills_gpus(gpus)
+        for drill, rec in p20_world.items():
+            print(f"phase 20 {drill} drill at {gpus} GPUs (elastic ResNet-50 "
+                  f"ZeRO-1, every plane on): onset -> verdict "
+                  f"{rec['onset_to_verdict_s']:.3f} s, verdict -> eviction "
+                  f"{rec['verdict_to_eviction_s']:.3f} s; {json.dumps(rec)} "
+                  f"({smi})", flush=True)
         print(f"SyncBatchNorm at [64, 64, 112, 112] per GPU against "
               f"BatchNorm2d over the gathered batch, largest difference over "
               f"the reference's largest magnitude (bar {SYNC_BN_RTOL}), in "
@@ -5514,6 +6016,10 @@ def main() -> None:
     next(k for k in kernels if k["name"] == "fused_adam").update(
         launch_cap=K.ADAM_MAX_LEAVES, requant_epilogue=epilogue,
         ptxas=usage["fused_adam"])
+    for k in kernels:                     # phase 20's instrumented run
+        if k["name"] in p20["launches"]:
+            k["launches_by_mode"]["observe"] = p20["launches"][k["name"]]
+            k["launches"] += p20["launches"][k["name"]]
     kernels.append(bf16_adam_row(rows["fused_adam"], next(
         run for run in runs if run["mode"] == BF16_MODE)))
     print(json.dumps({"kernels": kernels}), flush=True)

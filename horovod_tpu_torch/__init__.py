@@ -88,8 +88,15 @@ from horovod_tpu_torch.optim import (  # noqa: F401
 )
 from horovod_tpu_torch.ops.flash_attention import flash_attention  # noqa: F401
 from horovod_tpu_torch.training import (  # noqa: F401
+    InstrumentedStep,
+    instrument_step,
     lm_xent,
     make_train_step,
     shard_batch,
     softmax_xent,
 )
+from horovod_tpu_torch.basics import flush_timeline  # noqa: F401
+from horovod_tpu_torch import profiler  # noqa: F401
+from horovod_tpu_torch import tuning  # noqa: F401
+from horovod_tpu_torch import observability  # noqa: F401
+from horovod_tpu_torch.observability import metrics  # noqa: F401

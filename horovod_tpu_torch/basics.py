@@ -22,6 +22,7 @@ run. It is off by default, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import threading
 from typing import Optional
@@ -50,6 +51,8 @@ class _State:
 
 
 _state = _State()
+
+logger = logging.getLogger("horovod_tpu_torch")
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -144,6 +147,43 @@ def init(device=None, *, init_method: Optional[str] = None,
                 _state.store = None
                 raise
         _state.initialized = True
+    _observability_up(r)
+
+
+def _observability_up(rank: int) -> None:
+    """Every rank records host spans for the fleet merge
+    (``HOROVOD_TRACE_ALL_RANKS=0``: rank 0 only); rank 0 serves the
+    metrics endpoint when ``HOROVOD_METRICS_PORT`` is set; the hang
+    watchdog is armed when ``HOROVOD_HANG_TIMEOUT`` > 0. Observability
+    never fails ``init``, but says why it is missing."""
+    try:
+        from horovod_tpu_torch.observability import exporters, flight, trace
+
+        all_ranks = os.environ.get(
+            "HOROVOD_TRACE_ALL_RANKS", "1").lower() not in ("0", "false")
+        trace.set_recording(rank == 0 or all_ranks)
+        if rank == 0:
+            exporters.maybe_start_http_server()
+        flight.maybe_arm_watchdog()
+    except Exception as e:
+        logger.debug("observability bring-up skipped: %s", e)
+
+
+def flush_timeline() -> None:
+    """Flush the host trace ring: rank 0 merges it into the
+    ``HOROVOD_TIMELINE`` file (the one the native core wrote, when it is
+    attached); every other rank writes its sidecar
+    ``<HOROVOD_TIMELINE>.rank<r>.json`` for the skew-corrected fleet merge
+    (:func:`~horovod_tpu_torch.observability.clock.merge_rank_traces`).
+    :func:`shutdown` and the preemption drain call it."""
+    from horovod_tpu_torch.observability import trace
+
+    if _state.rank == 0:
+        trace.flush()
+    else:
+        base = os.environ.get("HOROVOD_TIMELINE")
+        if base:
+            trace.flush(f"{base}.rank{_state.rank}.json")
 
 
 def _coordinator_port(n: int) -> int:
@@ -175,6 +215,7 @@ def shutdown() -> None:
         if _state.core is not None:
             _state.core.shutdown()
             _state.core = None
+        _observability_down()
         _state.host_mesh = None
         _state.mesh = None
         from horovod_tpu_torch.ops import collective as _C
@@ -184,6 +225,26 @@ def shutdown() -> None:
         _state.initialized = False
         _state.device = None
         _state.store = None
+
+
+def _observability_down() -> None:
+    """At shutdown, after the native core closed its timeline: merge the
+    host spans into it, disarm the hang watchdog and flush the flight
+    ring, and publish the last step's sanitizer record and the guard's
+    lagged verdict (the final step has no next boundary)."""
+    from horovod_tpu_torch.analysis import sanitizer
+    from horovod_tpu_torch.observability import flight
+    from horovod_tpu_torch.resilience import numerics
+
+    for what, fn in (("timeline", flush_timeline),
+                     ("flight", lambda: (flight.disarm_watchdog(),
+                                         flight.flush())),
+                     ("sanitizer", sanitizer.flush),
+                     ("numerics", numerics.flush_staged)):
+        try:
+            fn()
+        except Exception as e:
+            logger.debug("%s flush at shutdown failed: %s", what, e)
 
 
 def is_initialized() -> bool:

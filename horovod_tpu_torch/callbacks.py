@@ -4,10 +4,11 @@ Counterpart of ``horovod_tpu/callbacks.py``, as far as the port has it:
 the hook surface (:class:`Callback`, the Keras-named ``on_train_begin``
 ... ``on_batch_end``), the dispatcher a loop drives
 (:class:`CallbackList`, what :func:`horovod_tpu_torch.resilience.run`
-fires) and :class:`HealthCallback`. The JAX module imports JAX at module
-level, so these classes are copied, not the file. The broadcast,
-learning-rate, metrics and publish callbacks wait for the launcher port
-(ROADMAP Queue A item 12).
+fires), :class:`MetricsCallback` and :class:`HealthCallback`. The JAX
+module imports JAX at module level, so these classes are copied, not the
+file. The broadcast and learning-rate callbacks wait for the launcher
+port (ROADMAP Queue A item 12), the publish callback for serving (item
+11).
 
 A callback is wired to any *trainer* object via
 :meth:`Callback.set_trainer`; the hooks' names and meaning are Keras's.
@@ -81,6 +82,68 @@ class CallbackList:
 
     def on_batch_end(self, batch, logs=None):
         self._fire("on_batch_end", batch, logs)
+
+
+class MetricsCallback(Callback):
+    """Log (or dump) the metrics-registry snapshot every ``every_n_steps``
+    batches, and record the fit loop's own cadence under names of its own
+    (``fit_batch_seconds`` histogram, ``fit_batches`` counter,
+    ``fit_examples`` when the trainer has ``global_batch_size``), apart
+    from :class:`~horovod_tpu_torch.training.InstrumentedStep`'s
+    ``train_*``.
+
+    Args:
+      every_n_steps: emit cadence in batches (0 = only at train end).
+      dump_path: when set, write the JSON snapshot there (atomic replace)
+        instead of printing the summary.
+      printer: summary sink (default ``print``); only rank 0 emits.
+    """
+
+    def __init__(self, every_n_steps: int = 100, dump_path: str = None,
+                 printer: Callable[[str], Any] = print):
+        self.every_n_steps = every_n_steps
+        self.dump_path = dump_path
+        self.printer = printer
+        self._seen = 0
+        self._t0 = None
+
+    def _emit(self):
+        from horovod_tpu_torch import basics
+        from horovod_tpu_torch.observability import exporters
+
+        if basics.is_initialized() and basics.process_rank() != 0:
+            return
+        exporters.emit_snapshot(
+            self.dump_path, self.printer,
+            header=f"horovod_tpu_torch metrics @ batch {self._seen}:\n")
+
+    def on_batch_begin(self, batch, logs=None):
+        import time
+
+        self._t0 = time.perf_counter()
+
+    def on_batch_end(self, batch, logs=None):
+        import time
+
+        from horovod_tpu_torch.observability import metrics
+
+        self._seen += 1
+        if metrics.enabled():
+            if self._t0 is not None:
+                metrics.histogram(
+                    "fit_batch_seconds", help="fit-loop batch wall time"
+                ).observe(time.perf_counter() - self._t0)
+            metrics.counter("fit_batches", help="fit batches run").inc()
+            examples = getattr(self.trainer, "global_batch_size", None)
+            if examples:
+                metrics.counter(
+                    "fit_examples", help="examples seen by the fit loop"
+                ).inc(examples)
+        if self.every_n_steps and self._seen % self.every_n_steps == 0:
+            self._emit()
+
+    def on_train_end(self, logs=None):
+        self._emit()
 
 
 class HealthCallback(Callback):

@@ -174,6 +174,25 @@ def _gather_sharded(tree):
     return tree
 
 
+def _holds_sharded(tree) -> bool:
+    """Whether :func:`_gather_sharded` of ``tree`` enters a collective: the
+    world has more than one rank and the tree holds a ZeRO-1 state or an
+    :class:`FsdpParams`."""
+    if _world()[1] == 1:
+        return False
+    if isinstance(tree, FsdpParams):
+        return True
+    if isinstance(tree, dict):
+        shard = tree.get("shard")
+        if isinstance(shard, dict) and set(shard) == {"rank", "size"} \
+                and "inner" in tree:
+            return True
+        return any(_holds_sharded(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_holds_sharded(v) for v in tree)
+    return False
+
+
 def _world() -> tuple:
     """``(rank, size)``, a world of one before ``hvd.init``."""
     if basics.is_initialized():

@@ -63,6 +63,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.observability import trace as _trace
 from horovod_tpu_torch.resilience import health as _health
 
 logger = logging.getLogger("horovod_tpu_torch.core")
@@ -309,6 +310,11 @@ class NativeCore:
         self._lib.hvd_core_set_log_callback(self._log_cb)
 
         env = os.environ
+        if env.get("HOROVOD_TIMELINE"):
+            # the host recorder's ts=0 is the native timeline's t0
+            # (hvd_core_init runs next): one load of the merged file
+            # shows both on one timebase
+            _trace.set_epoch()
         rc = self._lib.hvd_core_init(
             rank,
             size,
@@ -384,7 +390,8 @@ class NativeCore:
             if self._stream is not None:
                 torch.cuda.set_device(self._device)
                 stream = torch.cuda.stream(self._stream)
-            with C.on_group(self._group), stream, torch.no_grad():
+            with C.on_group(self._group), stream, torch.no_grad(), \
+                    _trace.span("cycle", "EXECUTE_PLAN"):
                 for resp in responses:
                     self._execute_one(resp, handles)
             if responses:

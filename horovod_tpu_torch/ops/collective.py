@@ -68,6 +68,10 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import basics
+from horovod_tpu_torch.analysis import sanitizer as _sanitizer
+from horovod_tpu_torch.observability import flight as _flight
+from horovod_tpu_torch.observability import metrics as _metrics
+from horovod_tpu_torch.observability import straggler as _straggler
 from horovod_tpu_torch.ops import adasum as _adasum
 from horovod_tpu_torch.ops import kernels as _k
 from horovod_tpu_torch.resilience import chaos as _chaos
@@ -563,14 +567,75 @@ def _transient_dispatch_error(e: BaseException) -> bool:
     return any(m in msg for m in _TRANSIENT_DISPATCH_MARKERS)
 
 
+def _record_eager_op(op_name: str, tensors, axis=None) -> None:
+    """Count one dispatched eager collective and its payload bytes, and
+    give it its fleet correlation key ``(step, elastic generation, per-op
+    seq)`` through :func:`~horovod_tpu_torch.observability.straggler.
+    collective_begin` (arrival stamps, the ``rank_slow`` charge), the
+    flight ring's begin (the ``rank_hang_at_step`` charge fires there)
+    and, under ``HOROVOD_SANITIZE=1``, the schedule sanitizer's record.
+    The correlation runs with metrics off too: ranks that disagreed on
+    ``seq`` would mis-correlate every later collective."""
+    if basics.is_initialized():
+        world, prank, psize = (basics.size(), basics.process_rank(),
+                               basics.process_size())
+    else:
+        world, prank, psize = 1, 0, 1
+    key = _straggler.collective_begin(
+        op_name, world=world, process_rank=prank, process_size=psize)
+    _flight.collective_begin(
+        op_name, key, world=world, process_rank=prank, process_size=psize)
+    _sanitizer.record(op_name, tensors, axis=axis)
+    if not _metrics.enabled():
+        return
+    _metrics.counter(
+        f"{op_name}_count", help="eager collectives dispatched").inc()
+    _metrics.counter(
+        f"{op_name}_bytes", help="payload bytes through eager collectives"
+    ).inc(sum(t.numel() * t.element_size() for t in tensors
+              if isinstance(t, torch.Tensor)))
+    _metrics.counter(
+        f"{op_name}_tensors", help="tensors through eager collectives"
+    ).inc(len(tensors))
+
+
+#: this thread is inside a recorded public collective (a nested public
+#: call, such as an ``axis=`` op re-entering on its sub-group, is part of
+#: the outer op's record)
+_in_op = threading.local()
+
+
 def _guarded(fn):
     """Wrap one public eager collective with the fault-tolerance guard:
     chaos injection (``collective_delay``/``collective_fail``) ahead of
     the launch, and the shared retry policy around transient dispatch
     failures. The happy path is one chaos check and a bare call; the
-    backoff schedule is only built once a launch fails."""
+    backoff schedule is only built once a launch fails.
+
+    A call that launches here (not one this thread hands to the native
+    core, which records the op on its own thread when the plan runs, in
+    the same order on every rank) is recorded first
+    (:func:`_record_eager_op`), and the flight ring gets its end marker
+    once the launch returned."""
+    op_name = fn.__name__
+
     @functools.wraps(fn)
     def launch(*args, **kw):
+        if getattr(_in_op, "busy", False) or _via_core() is not None:
+            return _launch(*args, **kw)
+        first = args[0] if args else next(iter(kw.values()))
+        tensors = list(first) if isinstance(first, (list, tuple)) \
+            else [first]
+        _record_eager_op(op_name, tensors, axis=kw.get("axis"))
+        _in_op.busy = True
+        try:
+            out = _launch(*args, **kw)
+        finally:
+            _in_op.busy = False
+        _flight.collective_end()
+        return out
+
+    def _launch(*args, **kw):
         if _chaos.enabled():
             _chaos.maybe_delay("collective_delay")
 

@@ -41,6 +41,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from horovod_tpu_torch.observability import metrics as _metrics
+
 #: the reference fusion buffer's 64 MiB
 DEFAULT_BUCKET_BYTES = 64 * 1024 * 1024
 BUCKET_BYTES_ENV = "HOROVOD_BUCKET_BYTES"
@@ -300,6 +302,18 @@ def allreduce_bucket(flat, op, compression, *, predivide: float = 1.0,
     return outs[0], (res[0] if ef else None)
 
 
+def _record_buckets(mode: str, k: int) -> None:
+    """The ``grad_sync_buckets{mode=}`` gauge: gradient-sync collectives
+    (buckets) a step issues."""
+    if not _metrics.enabled():
+        return
+    _metrics.gauge(
+        "grad_sync_buckets",
+        help="gradient-sync collectives (buckets) issued per step",
+        mode=mode,
+    ).set(k)
+
+
 def bucketed_allreduce(grads: dict, op=None, *, compression=None,
                        bucket_bytes: Optional[int] = None,
                        plan: Optional[BucketPlan] = None,
@@ -339,4 +353,5 @@ def bucketed_allreduce(grads: dict, op=None, *, compression=None,
             new_res[key] = res
     out = assemble(flats, plan.groups, [tuple(l.shape) for l in leaves],
                    [l.dtype for l in leaves])
+    _record_buckets("allreduce", len(plan.groups))
     return dict(zip(keys, out)), new_res

@@ -48,8 +48,9 @@ import torch
 
 from horovod_tpu_torch import basics, pytree
 from horovod_tpu_torch.compression import (
-    MIN_QUANT_ELEMS, Compression, _quantizable, quantize_chunked,
+    INT8_BLOCK, MIN_QUANT_ELEMS, Compression, _quantizable, quantize_chunked,
 )
+from horovod_tpu_torch.observability import metrics as _metrics
 from horovod_tpu_torch.ops import collective as _C
 from horovod_tpu_torch.ops import kernels as _k
 from horovod_tpu_torch.ops import overlap as _ov
@@ -784,6 +785,100 @@ def _fsdp_init(optimizer, params, bucket_bytes=None):
             "inner": optimizer.init(dict(params.shards))}
 
 
+def _record_sync_bytes(mode: str, n: int, wire_bytes: int,
+                       gather_bytes: Optional[int] = None) -> None:
+    """The per-step gradient-sync wire volume under the ring model
+    (``grad_sync_bytes_per_step{mode=}``): allreduce moves
+    ``2(N-1)/N·B`` gradient bytes, the sharded modes ``(N-1)/N·B``
+    (reduce-scatter) plus the all-gather's bytes, reported apart
+    (``param_gather_bytes_per_step{mode=}``)."""
+    if not _metrics.enabled():
+        return
+    ring = (n - 1) / n if n > 1 else 0.0
+    factor = 2.0 * ring if mode == "allreduce" else ring
+    _metrics.gauge(
+        "grad_sync_bytes_per_step",
+        help="ring-model gradient bytes exchanged per step",
+        mode=mode,
+    ).set(factor * wire_bytes)
+    if gather_bytes is not None:
+        _metrics.gauge(
+            "param_gather_bytes_per_step",
+            help="ring-model parameter/update bytes all-gathered per step "
+                 "(sharded optimizer only)",
+            mode=mode,
+        ).set(ring * gather_bytes)
+
+
+def _tree_sync_wire_bytes(leaves, compression) -> int:
+    """Wire bytes of one exchange direction: each leaf through the
+    compressor's ``wire_bytes(shape, dtype)`` (its own dtype's bytes
+    without a compressor)."""
+    total = 0
+    for g in leaves:
+        hook = getattr(compression, "wire_bytes", None)
+        if hook is not None:
+            total += int(hook(tuple(g.shape), g.dtype))
+        else:
+            total += g.numel() * g.element_size()
+    return total
+
+
+def _fsdp_gather_wire_bytes(shards: dict, n: int, wire: str) -> int:
+    """Wire image of ONE parameter all-gather: a group on the f32 wire
+    moves its whole padded length ``Lp``; on the int8 wire each rank's
+    block-padded shard moves as int8 plus one bf16 scale a block, times
+    N ranks."""
+    total = 0
+    for s in shards.values():
+        lp = s.numel() * n
+        if wire == "int8" and _quantizable(s.dtype) and lp >= MIN_QUANT_ELEMS:
+            sp = s.numel() + (-s.numel()) % INT8_BLOCK
+            total += n * (sp + (sp // INT8_BLOCK) * 2)
+        else:
+            total += lp * s.element_size()
+    return total
+
+
+#: the traffic gauges' values by the update's shapes (they are the same
+#: every step: priced once, as the JAX package prices them at trace time)
+_traffic_cache: dict = {}
+
+
+def _record_traffic(grads, state, *, shard_optimizer, shard_params,
+                    compression, op, ov_bytes) -> None:
+    """The traffic gauges of one update (metrics on, in a world)."""
+    if not _metrics.enabled() or not basics.is_initialized() or op == Adasum:
+        return
+    tensors = list(grads.shards.values()) if shard_params \
+        else [grads[k] for k in tree_keys(grads)]
+    n = state["shard"]["size"] if shard_optimizer or shard_params \
+        else basics.size()
+    sig = (tuple((tuple(t.shape), t.dtype) for t in tensors), n,
+           shard_optimizer, shard_params, repr(compression), ov_bytes,
+           _fsdp_wire() if shard_params else None)
+    args = _traffic_cache.get(sig)
+    if args is None:
+        if shard_params:
+            wire = sum(s.numel() * n * s.element_size() for s in tensors)
+            # the gather runs twice a step (forward and the backward's
+            # re-gather under activation checkpointing)
+            args = ("zero3", wire, 2 * _fsdp_gather_wire_bytes(
+                grads.shards, n, _fsdp_wire()), len(tensors))
+        elif shard_optimizer:
+            args = ("sharded", _tree_sync_wire_bytes(tensors, compression),
+                    sum(g.numel() * g.element_size() for g in tensors),
+                    len(_zero_groups(tensors, n, ov_bytes)))
+        else:
+            args = ("allreduce", _tree_sync_wire_bytes(tensors, compression),
+                    None, None)
+        _traffic_cache[sig] = args
+    mode, wire, gather, buckets = args
+    _record_sync_bytes(mode, n, wire, gather)
+    if buckets is not None:
+        _ov._record_buckets(mode, buckets)
+
+
 def _fsdp_update(grads, state, params, *, optimizer, op):
     """One ZeRO-3 update on this rank: the gradient shards arrive summed
     over ranks (the gather's backward), so divide for Average, run the
@@ -1459,6 +1554,9 @@ def DistributedOptimizer(optimizer: Transform, *, op: ReduceOp = Average,
         if started is not None and not ov_bytes:
             raise ValueError("started= is the bucketed exchange: build the "
                              "optimizer with overlap=True")
+        _record_traffic(grads, state, shard_optimizer=shard_optimizer,
+                        shard_params=shard_params, compression=compression,
+                        op=op, ov_bytes=ov_bytes)
         if shard_params:
             return _fsdp_update(grads, state, params, optimizer=optimizer,
                                 op=op)
@@ -1547,6 +1645,14 @@ class DistributedGradientTape:
             outs = _C._grouped_allreduce([grads[k] for k in keys], self._op,
                                          self._compression)[0]
             grads = dict(zip(keys, outs))
+        if _metrics.enabled():
+            _metrics.counter(
+                "tape_steps", help="DistributedGradientTape gradient exchanges"
+            ).inc()
+            _metrics.counter(
+                "tape_grad_bytes", help="gradient bytes exchanged by the tape"
+            ).inc(sum(grads[k].numel() * grads[k].element_size()
+                      for k in keys))
         return (value, grads) if has_value else grads
 
 

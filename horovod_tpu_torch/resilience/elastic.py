@@ -41,10 +41,23 @@ a mesh over a subset of one process's devices):
   committed snapshot with the replay epoch bumped (every member reaches
   the same verdict, so no decision is published for it).
 
+- **eviction**: at each boundary the driver tombstones a rank the
+  fingerprint cross-check quarantined (:func:`~horovod_tpu_torch.
+  resilience.numerics.take_corrupt_ranks`) or, under
+  ``HOROVOD_HANG_EVICT=1``, one the hang watchdog named missing
+  (:func:`~horovod_tpu_torch.observability.flight.take_hung_ranks`),
+  never rank 0; the survivors re-form without it. The driver owns the
+  fingerprint boundary while it runs (``numerics.claim_boundary``).
+- **observability**: each generation re-anchors the straggler keys'
+  generation, records an ``epoch`` flight event and re-estimates this
+  rank's clock offset to the driver's KV server.
+- **hooks**: a rebuilt step's gradient hooks (``make_train_step``'s
+  ``register_post_accumulate_grad_hook`` handles) are removed when the
+  step is built again for a new membership.
+
 A rank that dies inside a collective is out of scope, as it is for the
-JAX driver: its peers block in the collective. The fingerprint boundary,
-hung-rank eviction, the observability re-anchoring and the weight
-publisher wait for later ports (ROADMAP Queue A items 10 and 11).
+JAX driver: its peers block in the collective. The weight publisher
+waits for the serving port (ROADMAP Queue A item 11).
 """
 
 from __future__ import annotations
@@ -56,7 +69,9 @@ import os
 import time
 from typing import Any, Callable, Iterable, List, Optional, Sequence
 
+from horovod_tpu_torch.observability import clock as _obs_clock
 from horovod_tpu_torch.observability import metrics as _metrics
+from horovod_tpu_torch.observability import straggler as _straggler
 from horovod_tpu_torch.resilience import chaos as _chaos, health as _health
 from horovod_tpu_torch.resilience import loop as _loop
 
@@ -297,6 +312,9 @@ class ElasticRun:
         #: (step, staged verdict) read one boundary late on non-commit
         #: steps — the guard's observability without fencing every step
         self._staged: Optional[tuple] = None
+        self._warned_unevictable: set = set()
+        #: the gradient hooks the current step's build registered
+        self._hooks: list = []
         self._numerics_rollbacks = 0
         self._recovering_until: Optional[int] = None
         # the base world, fixed at run(): its store, this process's rank
@@ -412,7 +430,7 @@ class ElasticRun:
             self._beat()
             rec = self._await(f"dec/{self._gen}/{self._seq}")
             self._seq += 1
-            if rec.get("op") == "end":
+            if "outcome" in rec:    # the run's end record
                 raise _Ended(rec)
             if rec["op"] == "resize":
                 raise WorldChanged(step, rec["alive"], rec["lost"],
@@ -420,6 +438,7 @@ class ElasticRun:
             return
         coord = self._coord
         self._collect_beats()
+        self._evict(coord)
         if _chaos.enabled():
             n_fail = _chaos.take_rank_fail(step)
             if n_fail:
@@ -462,6 +481,66 @@ class ElasticRun:
                 _health.record_rank_lost(r)
             raise WorldChanged(step, alive, lost, joined)
 
+    def _evict(self, coord) -> None:
+        """Driver: tombstone each rank the numerics cross-check
+        quarantined or the hang diagnosis queued (never rank 0: a corrupt
+        rank 0 stays quarantined, so publication stays gated); a failed
+        tombstone requeues the verdict for the next boundary."""
+        from horovod_tpu_torch.observability import flight as _flight
+        from horovod_tpu_torch.resilience import numerics as _numerics
+
+        for what, take, requeue in (
+                ("numerically corrupt", _numerics.take_corrupt_ranks,
+                 _numerics.requeue_corrupt_ranks),
+                ("hung", _flight.take_hung_ranks,
+                 _flight.requeue_hung_ranks)):
+            keep = []
+            for r in take():
+                if r == 0:
+                    keep.append(r)
+                    if r not in self._warned_unevictable:
+                        self._warned_unevictable.add(r)
+                        logger.error(
+                            "elastic: rank 0 flagged %s but it is the "
+                            "driver and cannot be evicted", what)
+                elif r in self._alive:
+                    logger.warning("elastic: evicting %s rank %d", what, r)
+                    try:
+                        coord.mark_dead(r)
+                    except Exception as e:
+                        keep.append(r)
+                        logger.warning(
+                            "elastic: eviction of %s rank %d failed (%s); "
+                            "requeued for the next boundary", what, r, e)
+            if keep:
+                requeue(keep)
+
+    def _sync_observability(self, gen: int) -> None:
+        """Re-anchor observability on a generation: the straggler keys
+        carry it (they never collide across generations), the flight ring
+        records the epoch, and this rank's clock offset to the driver's KV
+        server is estimated again. Never fails a resize."""
+        from horovod_tpu_torch.observability import flight as _flight
+
+        from horovod_tpu_torch.analysis import sanitizer as _sanitizer
+        from horovod_tpu_torch.run import rendezvous as _rdv
+
+        _straggler.set_generation(gen)
+        _sanitizer.begin_generation()
+        try:
+            _flight.record("epoch", generation=int(gen),
+                           alive=list(self._alive))
+            # the fleet's reference clock is the launcher's KV server;
+            # without one, the driver's own store (rank 0 only)
+            kv = _rdv.kv_client_from_env()
+            if kv is None and self._me == 0 and self._coord is not None:
+                kv = self._coord.server
+            if kv is not None:
+                _obs_clock.refresh_from_kv(kv, rank=self._me,
+                                           generation=gen)
+        except Exception as e:
+            logger.debug("observability re-anchoring skipped: %s", e)
+
     def _commit(self, step: int, state: Any) -> None:
         """Snapshot `state` as the rollback point: every ZeRO-1 row
         gathered (a collective over the members), then one host copy."""
@@ -484,6 +563,7 @@ class ElasticRun:
         def wrapped(state, step):
             from horovod_tpu_torch.resilience import numerics as _numerics
 
+            _numerics.claim_boundary()
             self._poll_membership(step)
             out = step_fn(state, step)
             # numerics policy: read the guard verdict carried in the
@@ -493,9 +573,11 @@ class ElasticRun:
                 self._has_guard = bool(_numerics.find_guard_states(out))
             v = None
             if self._has_guard:
-                if (step + 1) % self._snapshot_every == 0:
-                    # exact (synchronous) read: a commit must be gated on
-                    # THIS step's verdict (never snapshot mid-incident).
+                committing = (step + 1) % self._snapshot_every == 0
+                if _numerics.fingerprint_enabled() or committing:
+                    # exact (synchronous) read: the fingerprint plane
+                    # needs THIS step's record, and a commit must be gated
+                    # on THIS step's verdict (never snapshot mid-incident).
                     # Drain any staged verdict first so its chaos
                     # accounting and gauges are not lost.
                     if self._staged is not None:
@@ -510,6 +592,8 @@ class ElasticRun:
                     if self._staged is not None:
                         v = _numerics.note_step_staged(*self._staged)
                     self._staged = (step, _numerics.stage_verdict(out))
+            if _numerics.fingerprint_enabled():
+                _numerics.boundary(step)
             if v is not None and v["bad_streak"] >= \
                     _numerics.max_consecutive_bad():
                 raise _numerics.NumericsRollback(step, v["bad_streak"])
@@ -531,6 +615,19 @@ class ElasticRun:
             return out
 
         return wrapped
+
+    def _build(self):
+        """The step for the current membership; the previous build's
+        gradient hooks are removed first (they would stay registered on
+        the model, inert, across every resize)."""
+        from horovod_tpu_torch import training as _training
+
+        for h in self._hooks:
+            _training.release_hook(h)
+        mark = len(_training._step_hooks)
+        step_fn = self._step_builder(len(self._alive))
+        self._hooks = _training._step_hooks[mark:]
+        return step_fn
 
     def _open_generation(self, alive: Sequence[int]) -> int:
         """Driver: open the coordinator's next epoch over `alive` and pass
@@ -638,6 +735,7 @@ class ElasticRun:
         if self._me == 0:
             self._open_generation(alive)
         _data_sampler.generation_fence(gen, len(alive))
+        self._sync_observability(gen)
         dt = time.monotonic() - t0
         if _metrics.enabled():
             _metrics.counter(
@@ -776,6 +874,7 @@ class ElasticRun:
             if self._me == 0:
                 self._open_generation(self._alive)
             _data_sampler.generation_fence(self._gen, len(self._alive))
+            self._sync_observability(self._gen)
 
             next_step = 0
             if self._gen > 1:       # re-admitted from the start's park
@@ -800,7 +899,7 @@ class ElasticRun:
                 # membership, replay) may reuse the built step
                 membership = tuple(self._alive)
                 if step_fn is None or built_for != membership:
-                    step_fn = self._step_builder(len(self._alive))
+                    step_fn = self._build()
                     built_for = membership
                 try:
                     out = _loop.run(
@@ -851,6 +950,9 @@ class ElasticRun:
                 # drain it so its gauges/chaos accounting land
                 _numerics.note_step_staged(*self._staged)
                 self._staged = None
+            # a standalone InstrumentedStep loop after this run publishes
+            # its fingerprints again
+            _numerics.release_boundary()
             if self._me == 0:
                 if self._world > 1:     # releases the parked ranks
                     self._set("end", end)

@@ -1,10 +1,10 @@
 """Process-wide health state machine: ``HEALTHY → SUSPECT → DEGRADED → FATAL``.
 
 Counterpart of ``horovod_tpu/resilience/health.py``, copied whole: the
-``record_*`` feeds whose producers are not ported yet (serving, data,
-straggler, SLO, hang and fingerprint) are here already, so every layer
-that comes later feeds the same monitor. The flight-ring mirror of a
-transition is skipped until the observability port has that ring.
+``record_*`` feeds whose producers are not ported yet (serving, data)
+are here already, so every layer that comes later feeds the same
+monitor. Every transition is mirrored into the flight ring
+(:mod:`horovod_tpu_torch.observability.flight`).
 
 The reference's only health signal is the stall inspector's log line; here
 every failure-handling layer *feeds* one shared monitor and every consumer

@@ -20,15 +20,24 @@ turns that into a classified, resumable outcome:
    newest *valid* checkpoint and continues from the recorded step.
 
 A process holds its own rank's state, so the port differs from the JAX
-package's single controller in two places: the emergency checkpoint first
-gathers every ZeRO-1 row (``checkpoint._gather_sharded``, a collective
-when the world has more than one rank and the state is sharded: a
-whole-job SIGTERM, or the chaos charge, reaches every rank at the same
-step), and :func:`resume_state` hands back this rank's state
-(:func:`~horovod_tpu_torch.checkpoint.rank_state`: the optimizer state
-re-packed for the world, the arrays as tensors on its device). The
-observability flush and the final weight publication of the drain wait
-for the observability and serving ports (ROADMAP Queue A items 11, 10).
+package's single controller in two places. The emergency checkpoint of a
+sharded state needs every ZeRO-1 row or ZeRO-3 shard
+(``checkpoint._gather_sharded``, a collective), and a SIGTERM may reach
+only some ranks: so each preempted rank first posts
+``preempt/<gen>/<step>/<rank>`` on the world's rendezvous store and
+polls until every rank has posted, for at most
+``HOROVOD_PREEMPT_DRAIN_TIMEOUT`` seconds (:func:`_agree_to_gather`).
+When all posted, the rows are gathered and saved as before; when not,
+no rank enters the gather, the writer keeps the newest valid checkpoint
+(the skip is logged and counted in
+``resilience_emergency_checkpoint_unagreed``), and every preempted rank
+still exits 75. A peer that was not preempted blocks in its next
+collective, as under the JAX driver. :func:`resume_state` hands back this
+rank's state (:func:`~horovod_tpu_torch.checkpoint.rank_state`: the
+optimizer state re-packed for the world, the arrays as tensors on its
+device). The drain flushes the flight ring and the timeline before the
+checkpoint; the final weight publication waits for the serving port
+(ROADMAP Queue A item 11).
 
 This module is stdlib-importable; the data plane is imported inside the
 functions that need it.
@@ -119,6 +128,33 @@ def resume_state(checkpoint_dir: str) -> Optional[Tuple[int, Any]]:
         return int(payload["step"]), checkpoint.rank_state(payload["state"])
     # a checkpoint not written by run(): resume after its step number
     return step, checkpoint.rank_state(payload)
+
+
+def _agree_to_gather(step: int) -> bool:
+    """Whether every rank of the world was preempted at `step`: this rank
+    posts ``preempt/<gen>/<step>/<rank>`` on the world's rendezvous store
+    (``gen`` is the elastic generation the straggler keys carry) and polls
+    with ``check`` until every rank's key is there, for at most
+    :data:`DRAIN_TIMEOUT_S`. Enters no collective: a peer that was not
+    preempted never posts, and the caller skips the gather instead of
+    blocking in it."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.observability import straggler as _straggler
+
+    if not basics.is_initialized() or basics.process_size() == 1:
+        return True
+    store = basics._state.store
+    prefix = f"preempt/{_straggler.generation()}/{step}/"
+    store.set(prefix + str(basics.process_rank()), b"1")
+    keys = [prefix + str(r) for r in range(basics.process_size())]
+    deadline = time.monotonic() + DRAIN_TIMEOUT_S
+    pause = 1e-3
+    while not store.check(keys):
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(pause)
+        pause = min(2 * pause, 0.05)
+    return True
 
 
 def _drain(state: Any, timeout_s: float = DRAIN_TIMEOUT_S) -> None:
@@ -224,9 +260,22 @@ def run(
             raise Preempted(step, None, received["signum"])
         draining.set()
         _drain(state)
+        # flush the observability record before the emergency checkpoint:
+        # a supervisor's escalation to SIGKILL never reaches shutdown()
+        try:
+            from horovod_tpu_torch import basics as _basics
+            from horovod_tpu_torch.observability import flight as _flight
+
+            _flight.record("preempt", step=step)
+            _flight.flush()
+            _basics.flush_timeline()
+        except Exception:
+            logger.debug(
+                "observability flush during drain failed", exc_info=True)
         path = None
         note = "(disabled)"
         state_finite = True
+        agreed = True
         save_state = state
         if checkpoint_dir:
             # a live state carrying NaN/Inf must NOT become the emergency
@@ -235,18 +284,40 @@ def run(
             # serves both the sweep and the save — the drain window races
             # a supervisor's kill deadline, so the state must not cross
             # the bus twice. The rows of a sharded state are gathered on
-            # every rank first (the save needs them all); only the WRITER
-            # then pays the host copy: save() writes nothing elsewhere.
+            # every rank first (the save needs them all), and only once
+            # every rank has said it is preempted here: a peer that was
+            # not would never join the gather. Only the WRITER then pays
+            # the host copy: save() writes nothing elsewhere.
             from horovod_tpu_torch import checkpoint as _ckpt
             from horovod_tpu_torch.resilience import numerics as _numerics
             from horovod_tpu_torch.training import host_snapshot
 
-            save_state = _ckpt._gather_sharded(state)
+            if _ckpt._holds_sharded(state):
+                agreed = _agree_to_gather(step)
+            if agreed:
+                save_state = _ckpt._gather_sharded(state)
+                if _ckpt._is_writer():
+                    save_state = host_snapshot(save_state)
+                    if _numerics.checkpoint_finite_check_enabled():
+                        state_finite = _numerics.tree_finite(save_state)
+        if checkpoint_dir and not agreed:
+            note = "(skipped: not every rank was preempted at this step; " \
+                   "newest valid checkpoint preserved)"
+            from horovod_tpu_torch import checkpoint as _ckpt
+
             if _ckpt._is_writer():
-                save_state = host_snapshot(save_state)
-                if _numerics.checkpoint_finite_check_enabled():
-                    state_finite = _numerics.tree_finite(save_state)
-        if checkpoint_dir and not state_finite:
+                logger.error(
+                    "emergency checkpoint at step %d skipped: not every "
+                    "rank was preempted within %.3gs, so the sharded rows "
+                    "cannot be gathered", step, DRAIN_TIMEOUT_S,
+                )
+                if _metrics.enabled():
+                    _metrics.counter(
+                        "resilience_emergency_checkpoint_unagreed",
+                        help="emergency checkpoints skipped because not "
+                             "every rank was preempted at the step",
+                    ).inc()
+        elif checkpoint_dir and not state_finite:
             note = "(skipped: live state is non-finite; newest valid " \
                    "checkpoint preserved)"
             logger.error(

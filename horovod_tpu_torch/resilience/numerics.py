@@ -53,10 +53,19 @@ multiply the gradients by NaN / ``s`` on the guard's K-th update.
 
 The verdict readers set the JAX package's ``numerics_*`` gauges.
 
-Not ported yet: the fingerprint plane and its quarantine
-(``publish_fingerprint``, ``cross_check_fingerprints``,
-``maybe_note_output``, ``flush_staged``, the boundary claim; ROADMAP
-Queue A item 11).
+6. **The fingerprint plane** (``HOROVOD_NUMERICS_FINGERPRINT=1``, or the
+   ``grad_corrupt_rank=<r>:<step>`` chaos charge): at each step boundary
+   every rank publishes its gradient fingerprint (finiteness, its own
+   pre-reduction norm from the guard's all-gathered vector, per-dtype
+   norms) to the rendezvous KV under ``/numerics/<step>/<rank>``; rank 0
+   cross-checks the family (:func:`cross_check_fingerprints`) and
+   quarantines a rank whose record is non-finite or an outlier of the
+   median. The quarantine closes :func:`publish_gate_reason` and feeds
+   the elastic driver's eviction (:func:`take_corrupt_ranks`).
+   ``InstrumentedStep`` drives the boundary (:func:`set_step`,
+   :func:`maybe_note_output`) unless the elastic driver claimed it
+   (:func:`claim_boundary`); :func:`flush_staged` drains the last step's
+   lagged verdict at shutdown.
 """
 
 from __future__ import annotations
@@ -66,7 +75,8 @@ import logging
 import math
 import os
 import threading
-from typing import Any, Callable, List, NamedTuple, Optional
+import json
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -97,6 +107,22 @@ __all__ = [
     "tree_finite",
     "checkpoint_finite_check_enabled",
     "publish_gate_reason",
+    "configure",
+    "maybe_note_output",
+    "flush_staged",
+    "fingerprint_enabled",
+    "fingerprint_key",
+    "publish_fingerprint",
+    "cross_check_fingerprints",
+    "last_corruption",
+    "take_corrupt_ranks",
+    "requeue_corrupt_ranks",
+    "quarantine_pending",
+    "clear_quarantine",
+    "claim_boundary",
+    "release_boundary",
+    "set_step",
+    "boundary",
 ]
 
 logger = logging.getLogger("horovod_tpu_torch.resilience.numerics")
@@ -106,6 +132,8 @@ EWMA_ALPHA_ENV = "HOROVOD_NUMERICS_EWMA_ALPHA"
 WARMUP_ENV = "HOROVOD_NUMERICS_WARMUP"
 MAX_BAD_ENV = "HOROVOD_NUMERICS_MAX_BAD"
 MAX_ROLLBACKS_ENV = "HOROVOD_NUMERICS_MAX_ROLLBACKS"
+OUTLIER_ENV = "HOROVOD_NUMERICS_OUTLIER_FACTOR"
+FINGERPRINT_ENV = "HOROVOD_NUMERICS_FINGERPRINT"
 SCALE_INIT_ENV = "HOROVOD_NUMERICS_SCALE_INIT"
 SCALE_GROWTH_ENV = "HOROVOD_NUMERICS_SCALE_GROWTH_INTERVAL"
 GATE_ENV = "HOROVOD_PUBLISH_NUMERICS_GATE"
@@ -178,6 +206,24 @@ class NumericsError(RuntimeError):
 
 _lock = threading.Lock()
 _replay_epoch = 0
+_kv = None  # explicit KV override; falls back to the sanitizer's store
+_quarantine: set = set()
+_fp_override: Optional[bool] = None
+_last_record: Optional[dict] = None  # fingerprint of the last noted step
+_last_corruption: Optional[dict] = None
+_perturbed_steps: Dict[int, int] = {}  # step -> victim rank (sticky chaos)
+_warned_impossible_charge = False  # one loud warning per armed bad charge
+_last_boundary: Optional[int] = None
+#: steps whose cross-check found some peers' records missing, with the
+#: re-check attempts left
+_pending_checks: Dict[int, int] = {}
+PENDING_CHECK_ATTEMPTS = 8
+#: (step, rank) findings already reported (a re-check must not repeat)
+_flagged: set = set()
+#: a driver owns the fingerprint boundary (:func:`claim_boundary`)
+_external_boundary = False
+#: the standalone hook's lagged verdict (:func:`maybe_note_output`)
+_standalone_staged: Optional[tuple] = None
 
 
 def _env_float(name: str, default: float) -> float:
@@ -220,11 +266,38 @@ def bump_replay_epoch() -> int:
         return _replay_epoch
 
 
-def reset() -> None:
-    """Back to a replay epoch of 0 (tests)."""
-    global _replay_epoch
+def configure(*, kv=None, fingerprint: Optional[bool] = None) -> None:
+    """Programmatic setup: wire a KV store for the fingerprint plane or
+    force the fingerprint publication on/off (None = env/chaos-driven)."""
+    global _kv, _fp_override
     with _lock:
+        if kv is not None:
+            _kv = kv
+        if fingerprint is not None:
+            _fp_override = bool(fingerprint)
+
+
+def reset() -> None:
+    """Back to env-driven config, a replay epoch of 0 and an empty
+    quarantine (tests)."""
+    global _kv, _fp_override, _replay_epoch, _last_record, _last_corruption
+    global _step, _last_boundary, _external_boundary
+    global _warned_impossible_charge, _standalone_staged
+    with _lock:
+        _warned_impossible_charge = False
+        _kv = None
+        _fp_override = None
         _replay_epoch = 0
+        _last_record = None
+        _last_corruption = None
+        _last_boundary = None
+        _external_boundary = False
+        _standalone_staged = None
+        _perturbed_steps.clear()
+        _pending_checks.clear()
+        _flagged.clear()
+        _quarantine.clear()
+        _step = 0
 
 
 def _keys(tree: dict) -> list:
@@ -757,7 +830,7 @@ def note_step_staged(step: int, staged) -> Optional[dict]:
 
 
 def _note_verdict(step: int, v: dict) -> dict:
-    del step        # the fingerprint record keyed by it waits for item 11
+    global _last_record
     if _metrics.enabled():
         _metrics.gauge(
             "numerics_guard_bad_steps",
@@ -779,6 +852,14 @@ def _note_verdict(step: int, v: dict) -> dict:
             "numerics_loss_scale",
             help="current dynamic loss scale (1 when scaling is off)",
         ).set(v["loss_scale"])
+    with _lock:
+        _last_record = {
+            "step": int(step),
+            "finite": int(v["last_finite"]),
+            "norm": v["last_norm"],
+            "per_dtype": v["per_dtype"],
+            "rank_norms": v["rank_norms"],
+        }
     if _chaos.enabled():
         # consume a charge ONLY when the step recorded its injection: a
         # restored state whose counter is already past K never injects
@@ -787,6 +868,485 @@ def _note_verdict(step: int, v: dict) -> dict:
         if v["chaos_fired"] & 2 and _chaos.grad_spike() is not None:
             _chaos.consume_grad_spike()
     return v
+
+
+def maybe_note_output(step: int, out_tree) -> Optional[dict]:
+    """:class:`~horovod_tpu_torch.training.InstrumentedStep`'s standalone hook (the elastic
+    wrapper claims the boundary and runs :func:`note_step` itself).
+
+    Fingerprint plane on: read the verdict from the step's RETURNED
+    state synchronously so the record published at the next boundary
+    carries real data instead of the default — one device→host read a
+    step, the documented cost of the opt-in plane.
+
+    Plane off but a guard present: the troubleshooting contract is that
+    ``HOROVOD_NUMERICS_GUARD=1`` *alone* feeds the ``numerics_guard_*``
+    gauges and consumes fired chaos charges — but a synchronous read
+    here would wait for every step. So the verdict is STAGED
+    (:func:`stage_verdict`, an on-device copy the next step does not
+    overwrite) and noted one boundary late, keeping the host ahead; :func:`flush_staged` drains the final step's."""
+    global _standalone_staged
+    with _lock:
+        if _external_boundary:
+            return None
+    if fingerprint_enabled():
+        with _lock:
+            _standalone_staged = None
+        return note_step(step, out_tree)
+    if not (_metrics.enabled() or _chaos.enabled()):
+        return None
+    staged = stage_verdict(out_tree)
+    if staged is None:
+        return None
+    with _lock:
+        pending, _standalone_staged = _standalone_staged, (step, staged)
+    if pending is not None:
+        return note_step_staged(pending[0], pending[1])
+    return None
+
+
+def flush_staged() -> Optional[dict]:
+    """Drain the lagged standalone verdict (the LAST step of a loop has
+    no next boundary to read it at) — called from ``basics.shutdown``;
+    harmless when nothing is pending."""
+    global _standalone_staged
+    with _lock:
+        pending, _standalone_staged = _standalone_staged, None
+    if pending is None:
+        return None
+    return note_step_staged(pending[0], pending[1])
+
+
+# --------------------------------------------------------------------------
+# fingerprint plane: publish + cross-check + quarantine
+
+
+def fingerprint_enabled() -> bool:
+    """Fingerprint publication is on when forced via :func:`configure`,
+    the ``HOROVOD_NUMERICS_FINGERPRINT`` env is truthy, or the
+    ``grad_corrupt_rank`` chaos charge is armed (the drill implies the
+    plane it drills)."""
+    if _fp_override is not None:
+        return _fp_override
+    env = os.environ.get(FINGERPRINT_ENV, "")
+    if env:
+        return env.lower() not in ("0", "false", "off")
+    return _chaos.enabled() and _chaos.grad_corrupt() is not None
+
+
+def fingerprint_key(step: int, rank: int) -> str:
+    return f"/numerics/{int(step)}/{int(rank)}"
+
+
+def _store():
+    """The fingerprint KV: an explicit :func:`configure` override, else
+    the schedule sanitizer's store — fingerprints land beside the
+    sanitizer records, on the launcher KV when one is wired up and the
+    in-process store otherwise."""
+    with _lock:
+        if _kv is not None:
+            return _kv
+    from horovod_tpu_torch.analysis import sanitizer as _sanitizer
+
+    return _sanitizer._store()
+
+
+def _identity():
+    """(world, process_rank, process_size); a pre-init process is its own
+    1-rank world (mirrors the sanitizer)."""
+    try:
+        from horovod_tpu_torch import basics as _basics
+
+        if _basics.is_initialized():
+            return (
+                _basics.size(), _basics.process_rank(),
+                _basics.process_size()
+            )
+    except Exception as e:
+        logger.debug("numerics identity probe failed: %s", e)
+    return 1, 0, 1
+
+
+def _default_record(step: int) -> dict:
+    with _lock:
+        if _last_record is not None:
+            rec = dict(_last_record)
+            rec["step"] = int(step)
+            return rec
+    return {"step": int(step), "finite": 1, "norm": 0.0, "per_dtype": {}}
+
+
+def _corrupt_record(rec: dict) -> dict:
+    """The chaos perturbation: what a rank with a silently corrupted
+    gradient would publish — a non-finite fingerprint."""
+    out = dict(rec)
+    out["finite"] = 0
+    out["norm"] = None
+    return out
+
+
+def publish_fingerprint(step: int, record: Optional[dict] = None) -> None:
+    """Publish `step`'s gradient fingerprint to the KV. Single-controller
+    writes one record for EVERY rank (the dispatching process computed
+    them all), except a rank named by an armed ``grad_corrupt_rank``
+    charge, whose copy is perturbed; multi-process ranks publish only
+    their own (the matching process perturbs). The charge is consumed
+    ONLY by the process that perturbs — a 1-rank world leaves it armed."""
+    rec = record if record is not None else _default_record(step)
+    world, prank, psize = _identity()
+    store = _store()
+    ttl = _env_float("HOROVOD_SANITIZE_TTL", 120.0)
+    # sticky per-step perturbation: a step can be published from MORE
+    # than one boundary hook (InstrumentedStep + the elastic wrapper);
+    # once the charge perturbed a step, every republication of that step
+    # keeps the perturbed record instead of overwriting it clean
+    # device-rank ownership: with several devices per process (a 2-host
+    # × 4-chip topology) each process owns `world // psize` consecutive
+    # DEVICE ranks — `rank_norms` is indexed by device rank, so keying
+    # the published record by process rank would misattribute a corrupt
+    # chip to the wrong rank. Heterogeneous worlds (world % psize != 0)
+    # fall back to one record per process.
+    local = world // psize if psize > 1 and world % psize == 0 else 1
+    with _lock:
+        victim = _perturbed_steps.get(int(step))
+    gc = _chaos.grad_corrupt() if _chaos.enabled() else None
+    if victim is None and gc is not None and step >= gc[1]:
+        r = gc[0]
+        if world > 1 and not (0 < r < world):
+            # fail loudly, not silently inject nothing: this charge can
+            # NEVER fire in this world (rank 0 is the driver; r >= world
+            # does not exist). A 1-rank world legitimately stays armed —
+            # the drill may be aimed at a later multi-rank phase.
+            global _warned_impossible_charge
+            with _lock:
+                warned = _warned_impossible_charge
+                _warned_impossible_charge = True
+            if not warned:
+                logger.warning(
+                    "chaos: grad_corrupt_rank=%d can never fire in a "
+                    "%d-rank world (valid victims are 1..%d); the charge "
+                    "stays armed", r, world, world - 1)
+        elif psize > 1:
+            # guarded by the invalid-rank branch above: rank 0 (the
+            # driver, un-evictable) is never perturbed multi-process
+            # either — it would gate publication forever
+            if prank == r // local:
+                _chaos.consume_grad_corrupt()
+                victim = r
+        elif 0 < r < world:
+            victim = r
+            _chaos.consume_grad_corrupt()
+        if victim is not None:
+            with _lock:
+                _perturbed_steps[int(step)] = victim
+    def _rank_record(r: int) -> dict:
+        """Rank `r`'s own record: its PRE-reduction local norm when the
+        guard gathered one (-1 = that rank's gradients were non-finite),
+        else the shared record — localization needs the per-rank view,
+        NOT the globally-agreed verdict every rank shares."""
+        out = dict(rec)
+        rns = rec.get("rank_norms") or []
+        if len(rns) > r:
+            rn = float(rns[r])
+            out["norm"] = None if rn < 0 else rn
+            out["finite"] = 0 if rn < 0 else 1
+        out.pop("rank_norms", None)
+        return out
+
+    if psize > 1:
+        for r in range(prank * local, prank * local + local):
+            one = _corrupt_record(_rank_record(r)) \
+                if r == victim else _rank_record(r)
+            store.put(
+                fingerprint_key(step, r),
+                json.dumps(one, separators=(",", ":")).encode(), ttl=ttl)
+        return
+    for r in range(max(1, world)):
+        one = _corrupt_record(_rank_record(r)) \
+            if r == victim else _rank_record(r)
+        store.put(
+            fingerprint_key(step, r),
+            json.dumps(one, separators=(",", ":")).encode(),
+            ttl=ttl,
+        )
+    # bound the sticky map: steps far behind can no longer republish
+    with _lock:
+        for s in [s for s in _perturbed_steps if s < step - 64]:
+            _perturbed_steps.pop(s, None)
+
+
+def _schedule_diverged(step: int, rank: int) -> bool:
+    """Did the schedule sanitizer already name (step, rank) as a SCHEDULE
+    divergence? Then the anomaly is a control-flow bug, not data
+    corruption — the numerics verdict defers to it."""
+    try:
+        from horovod_tpu_torch.analysis import sanitizer as _sanitizer
+
+        d = _sanitizer.last_divergence()
+    except Exception as e:
+        logger.debug("sanitizer divergence probe failed: %s", e)
+        return False
+    return (
+        d is not None
+        and d.get("step") == step
+        and d.get("rank") == rank
+    )
+
+
+def cross_check_fingerprints(step: int) -> Optional[List[dict]]:
+    """Rank 0: compare every rank's published fingerprint for `step`.
+    A rank whose record is non-finite — or whose norm exceeds
+    ``HOROVOD_NUMERICS_OUTLIER_FACTOR`` (default 100) times the median of
+    the finite family — while its collective schedule matches is flagged:
+    quarantined, counted (``numerics_corrupt_ranks{rank=}``), and fed to
+    :func:`health.record_numeric_corruption` (SUSPECT with the rank
+    named). Returns the list of corruption findings, or None."""
+    global _last_corruption
+    world, prank, psize = _identity()
+    if prank != 0:
+        return None
+    store = _store()
+    # records are keyed by DEVICE rank whenever the world divides evenly
+    # over the processes (each process publishes its owned device ranks);
+    # only a heterogeneous world falls back to per-process records
+    n = world if psize == 1 or world % psize == 0 else psize
+    records: Dict[int, dict] = {}
+    missing = False
+    for r in range(max(1, n)):
+        blob = store.get(fingerprint_key(step, r))
+        if blob is None:
+            missing = True  # not published yet: defer, don't drop
+            continue
+        try:
+            records[r] = json.loads(blob)
+        except ValueError:
+            # an unparseable blob is a VERDICT, not an absence: garbled
+            # bytes often come from the exact corrupt host this plane
+            # hunts, and dropping the record would count the step as
+            # fully checked with the most-broken rank never examined.
+            # Judge it like a non-finite fingerprint.
+            records[r] = {"step": int(step), "finite": 0, "norm": None}
+    deferred = False
+    with _lock:
+        if missing and records:
+            # a peer's put has not landed (the corrupt rank is often the
+            # SLOW one): remember the step and re-check at the next
+            # boundaries instead of silently marking it done
+            left = _pending_checks.get(step, PENDING_CHECK_ATTEMPTS) - 1
+            if left > 0:
+                _pending_checks[step] = left
+                deferred = True
+            else:
+                _pending_checks.pop(step, None)
+        else:
+            _pending_checks.pop(step, None)
+    if not records:
+        return None
+    if _metrics.enabled() and not deferred:
+        # counted once per step, when the check COMPLETES (all records
+        # present, or the retry budget exhausted) — a deferred step's
+        # rechecks would otherwise inflate "steps checked" several-fold
+        _metrics.counter(
+            "numerics_fingerprints_checked",
+            help="steps whose cross-rank gradient fingerprints rank 0 "
+                 "compared",
+        ).inc()
+    finite_norms = [
+        float(rec["norm"])
+        for rec in records.values()
+        if rec.get("finite", 1) and rec.get("norm") is not None
+        and math.isfinite(float(rec["norm"]))
+    ]
+    med = float(np.median(finite_norms)) if finite_norms else 0.0
+    factor = _env_float(OUTLIER_ENV, 100.0)
+    # corruption is a MINORITY deviation from a healthy family: when the
+    # finite ranks are not a strict majority, the step went bad globally
+    # (a poisoned batch — the guard's skip already handled it) and naming
+    # "corrupt ranks" would mass-quarantine the fleet (8→1) for one
+    # skippable step
+    if 2 * len(finite_norms) <= len(records):
+        return None
+    # a family missing members — mid-deferral OR at retry-budget
+    # exhaustion — gets no norm-relative verdicts: 2 records of 8 would
+    # otherwise form a 2-rank "majority" whose partial median can indict
+    # a healthy rank. Non-finite records are corrupt regardless of
+    # family, so those are still judged below.
+    partial = deferred or len(records) < max(1, n)
+    findings: List[dict] = []
+    for r, rec in sorted(records.items()):
+        if _schedule_diverged(step, r):
+            continue
+        with _lock:
+            if (int(step), int(r)) in _flagged:
+                continue  # already reported on an earlier recheck
+        norm = rec.get("norm")
+        corrupt = not rec.get("finite", 1) or (
+            norm is not None and not math.isfinite(float(norm)))
+        if not corrupt and partial:
+            # the family is incomplete: a median over a partial record set
+            # can indict a HEALTHY rank (2 of 8 landed, one corrupt at 600
+            # and one healthy at 0.5 → median 300 puts the healthy rank
+            # below med/factor) and _flagged would then mute the real
+            # culprit forever. Non-finite records are corrupt regardless
+            # of family, so those were judged above; the norm-relative
+            # verdict requires every expected record — even at deferral-
+            # budget exhaustion a sliver of the family convicts nobody.
+            continue
+        if not corrupt and norm is not None and med > 0:
+            # symmetric family test: a rank blowing up (>factor×median)
+            # OR collapsing (stuck-at-zero SDC, <median/factor) is
+            # outside the fleet's family. norm == 0.0 exactly is the
+            # no-signal sentinel the default record publishes — never a
+            # verdict on its own. (`nv`, not `n`: the outer `n` is the
+            # expected-record count)
+            nv = float(norm)
+            corrupt = nv > factor * med or (0.0 < nv < med / factor)
+        if not corrupt:
+            continue
+        finding = {
+            "step": int(step),
+            "rank": int(r),
+            "norm": norm,
+            "finite": bool(rec.get("finite", 1)),
+            "median_norm": med,
+        }
+        findings.append(finding)
+        with _lock:
+            _quarantine.add(int(r))
+            _flagged.add((int(step), int(r)))
+            # bound the memory: findings far behind can't recur
+            for key in [x for x in _flagged if x[0] < step - 256]:
+                _flagged.discard(key)
+        _last_corruption = finding
+        if _metrics.enabled():
+            _metrics.counter(
+                "numerics_corrupt_ranks",
+                help="corrupt-gradient fingerprints attributed per rank",
+                rank=int(r),
+            ).inc()
+        from horovod_tpu_torch.resilience import health as _health
+
+        _health.record_numeric_corruption(int(r), step=int(step))
+        logger.warning(
+            "numerics: rank %d published a corrupt gradient fingerprint "
+            "at step %d (norm=%s, fleet median %.3g) — quarantined",
+            r, step, norm, med,
+        )
+    return findings or None
+
+
+def last_corruption() -> Optional[dict]:
+    """The most recent corruption finding this process detected, or None."""
+    return _last_corruption
+
+
+def take_corrupt_ranks() -> List[int]:
+    """Pop the quarantine set — the elastic coordinator's eviction feed
+    (each returned rank is tombstoned on the next membership sweep)."""
+    with _lock:
+        out = sorted(_quarantine)
+        _quarantine.clear()
+    return out
+
+
+def requeue_corrupt_ranks(ranks) -> None:
+    """Put corrupt ranks the coordinator could NOT evict back in the
+    quarantine set (rank 0 is the single-controller driver and cannot
+    tombstone itself). The publish gate keys on :func:`quarantine_pending`
+    — silently draining an un-evictable rank would re-open publication
+    of a corrupt trainer's weights. No metrics here: the finding was
+    already counted when it was flagged."""
+    with _lock:
+        _quarantine.update(int(r) for r in ranks)
+
+
+def quarantine_pending() -> bool:
+    with _lock:
+        return bool(_quarantine)
+
+
+def clear_quarantine() -> None:
+    """Drop pending quarantine verdicts without evicting (operator
+    override / non-elastic deployments)."""
+    with _lock:
+        _quarantine.clear()
+
+
+_step = 0
+
+
+def claim_boundary() -> None:
+    """A driver with authoritative step numbering (the elastic wrapper)
+    takes ownership of the fingerprint boundary; ``InstrumentedStep``'s
+    generic :func:`set_step` hook stands down. Without a single owner,
+    the two hooks' counters diverge after a step-fn rebuild (resize,
+    rollback, resume) and every step is published twice under different
+    keys. Sticky for the process; :func:`reset` clears it."""
+    global _external_boundary
+    with _lock:
+        _external_boundary = True
+
+
+def release_boundary() -> None:
+    """Undo :func:`claim_boundary` when the owning driver's run ends: a
+    later standalone ``InstrumentedStep`` loop in the same process must
+    be able to publish again (a claim pinned until the test-only
+    :func:`reset` would silently disable its fingerprint plane)."""
+    global _external_boundary
+    with _lock:
+        _external_boundary = False
+
+
+def set_step(step: int) -> None:
+    """Open step `step`'s fingerprint scope: the step that just finished
+    is published and (rank 0) cross-checked — the same boundary protocol
+    as the schedule sanitizer. ``InstrumentedStep`` calls this per
+    dispatched train step; explicit loops call :func:`boundary`. A no-op
+    once a driver :func:`claim_boundary`-ed the protocol."""
+    global _step
+    prev = _step
+    _step = int(step)
+    if not fingerprint_enabled() or _external_boundary:
+        return
+    if prev == _step:
+        # first call of a run (set_step(0) BEFORE step 0 executes): no
+        # step has finished — publishing here would emit a premature
+        # default record for step 0 whose boundary dedupe then suppresses
+        # the REAL record
+        return
+    boundary(prev)
+
+
+def boundary(step: int) -> Optional[List[dict]]:
+    """Publish + cross-check `step`'s fingerprint (no-op when the plane
+    is disabled). Consecutive duplicate calls for the same step are
+    deduplicated — an instrumented step inside the elastic wrapper
+    otherwise drives the boundary twice per step (double publish, double
+    cross-check). A rollback legitimately revisits EARLIER steps, which
+    never look like consecutive duplicates. Returns the corruption
+    findings, if any."""
+    global _last_boundary
+    if not fingerprint_enabled():
+        return None
+    with _lock:
+        dup = _last_boundary == int(step)
+        _last_boundary = int(step)
+        pending = sorted(_pending_checks)
+    out: Optional[List[dict]] = None
+    # re-check earlier steps whose peers had not published yet (the slow
+    # rank — often the corrupt one — publishes late; its step must not
+    # be silently dropped)
+    for p in pending:
+        if p != int(step):
+            out = cross_check_fingerprints(p) or out
+    if dup:
+        return out
+    publish_fingerprint(step)
+    return cross_check_fingerprints(step) or out
+
+
+# --------------------------------------------------------------------------
+# finiteness + publish gate
 
 
 # --------------------------------------------------------------------------
@@ -831,20 +1391,12 @@ def tree_finite(tree) -> bool:
     return True
 
 
-def quarantine_pending() -> bool:
-    """Always False: the quarantine set is filled by the fingerprint
-    plane's cross-check, which is not ported yet (ROADMAP Queue A item
-    11)."""
-    return False
-
-
 def publish_gate_reason(state, tree) -> Optional[str]:
     """Why a weight publication of ``tree`` (taken from the training
     ``state``) must be refused, or None when it is safe:
 
-    - ``"quarantine"`` — a corrupt rank was flagged and not yet evicted
-      (never, until the fingerprint plane is ported:
-      :func:`quarantine_pending`);
+    - ``"quarantine"`` — a corrupt rank was flagged by the fingerprint
+      cross-check and not yet evicted (:func:`quarantine_pending`);
     - ``"bad_step"`` — the trainer's most recent guarded steps were BAD;
     - ``"nonfinite"`` — ``tree`` itself carries NaN/Inf.
 

@@ -11,7 +11,14 @@ side by side cannot take each other's ports. ``native_core=True``
 attaches the native core in every rank; its coordinator's port is
 reserved here (:func:`reserve_port`: bound, not listening, until the
 world ends) and passed to the ranks through
-``HVD_CORE_COORD_ADDR``/``HVD_CORE_COORD_PORT``.
+``HVD_CORE_COORD_ADDR``/``HVD_CORE_COORD_PORT``. Until the launcher is
+ported, :func:`run_world` also plays its part for the observability
+planes: it serves one
+:class:`~horovod_tpu_torch.run.rendezvous.KVStoreServer` (HTTP, with a
+fresh secret) and exports ``HVD_RUN_KV_ADDR``/``HVD_RUN_KV_PORT``/
+``HVD_RUN_SECRET`` to every rank, as ``horovodrun`` does: the
+sanitizer, the flight recorder's tails, the numerics fingerprints and
+the metrics publisher of every rank meet there.
 ``fn`` must be importable by the children (a module-level function of a
 module that does not import JAX keeps the spawn cheap). A rank whose
 ``fn`` raises ``SystemExit`` (the preemption loop's ``Preempted``, exit
@@ -88,7 +95,7 @@ class WorldExit(RuntimeError):
 
 
 def _child(rank, n, port, device, fn, args, q, core_port=None,
-           timeout=120.0):
+           timeout=120.0, kv_env=None):
     import datetime
 
     import torch
@@ -96,6 +103,7 @@ def _child(rank, n, port, device, fn, args, q, core_port=None,
 
     import horovod_tpu_torch as hvd
 
+    os.environ.update(kv_env or {})
     if device == "cpu":
         torch.set_num_threads(1)
     if core_port is not None:
@@ -132,9 +140,16 @@ def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0,
                           timeout=datetime.timedelta(seconds=timeout))
     held = reserve_port() if native_core else None
     core_port = held.getsockname()[1] if held is not None else None
+    from horovod_tpu_torch.run.rendezvous import KVStoreServer, make_secret
+
+    secret = make_secret()
+    kv = KVStoreServer(secret=secret)
+    kv_env = {"HVD_RUN_KV_ADDR": "127.0.0.1",
+              "HVD_RUN_KV_PORT": str(kv.start()),
+              "HVD_RUN_SECRET": secret}
     procs = [ctx.Process(target=_child,
                          args=(r, n, store.port, device, fn, args, q,
-                               core_port, timeout))
+                               core_port, timeout, kv_env))
              for r in range(n)]
     results, exits = {}, {}
     try:
@@ -156,6 +171,7 @@ def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0,
                     p.kill()
         if held is not None:
             held.close()
+        kv.close()
         del store
     if exits:
         raise WorldExit(exits, {r: p.exitcode for r, p in enumerate(procs)},

@@ -11,6 +11,7 @@ sharded and gathered on use.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -18,6 +19,13 @@ import torch
 import torch.nn.functional as F
 
 from horovod_tpu_torch import basics, pytree
+from horovod_tpu_torch.analysis import sanitizer as _sanitizer
+from horovod_tpu_torch.observability import flight as _flight
+from horovod_tpu_torch.observability import metrics as _metrics
+from horovod_tpu_torch.observability import regression as _regression
+from horovod_tpu_torch.observability import slo as _slo
+from horovod_tpu_torch.observability import straggler as _straggler
+from horovod_tpu_torch.observability import trace as _trace
 from horovod_tpu_torch.models.layers import torch_params
 from horovod_tpu_torch.ops import overlap as _ov
 from horovod_tpu_torch.ops.collective import Average, allreduce
@@ -25,6 +33,7 @@ from horovod_tpu_torch.optim import (
     FsdpParams, distributed_transform, fsdp_gather_params, fsdp_pack_params,
     tree_keys,
 )
+from horovod_tpu_torch.resilience import health as _health
 from horovod_tpu_torch.resilience import numerics as _numerics
 
 
@@ -59,6 +68,124 @@ def _average_stats(stats: dict, keys: list) -> None:
         n = stats[k].numel()
         stats[k].copy_(flat[off:off + n].view(stats[k].shape))
         off += n
+
+
+class InstrumentedStep:
+    """Wrap a step callable so every call opens its step's observability
+    boundary and feeds the metrics registry (the JAX package's
+    ``InstrumentedStep``):
+
+    - before the call: the straggler correlation scope and the schedule
+      sanitizer (:func:`~horovod_tpu_torch.analysis.sanitizer.set_step`:
+      the finished step's record is published and cross-checked), the
+      flight ring's step boundary (progress for the hang watchdog) and
+      the numerics fingerprint boundary;
+    - around it, a ``step`` span in the host trace (``HOROVOD_TIMELINE``);
+    - after it: the guard's verdict read from the returned state
+      (:func:`~horovod_tpu_torch.resilience.numerics.maybe_note_output`),
+      a health beat, and with metrics on ``<name>_steps``/
+      ``<name>_examples`` counters, the ``<name>_step_seconds``
+      histogram of the call-to-call interval, ``<name>_examples_per_sec``
+      and ``<name>_mfu`` (against
+      :func:`~horovod_tpu_torch.profiler.device_peak_flops` times the
+      world size; not set on an untabled device or without
+      ``flops_per_step``), the SLO plane's ``step_time`` and the
+      regression sentinel.
+
+    It changes nothing the step computes. Attribute access delegates to
+    the wrapped step (``.hooks``, ``.last_exchange``)."""
+
+    def __init__(self, fn, *, batch_arg: Optional[int] = None,
+                 examples_per_step: Optional[int] = None,
+                 flops_per_step: Optional[float] = None,
+                 name: str = "train"):
+        self._fn = fn
+        self._batch_arg = batch_arg
+        self._examples = examples_per_step
+        self._flops = flops_per_step
+        self._name = name
+        self._last_t: Optional[float] = None
+        self._step_idx = 0
+        self._peak_total: Optional[float] = None  # world * peak, lazy
+
+    def _peak(self) -> Optional[float]:
+        if self._peak_total is None:
+            from horovod_tpu_torch import profiler
+
+            peak = profiler.device_peak_flops()
+            n = basics.size() if basics.is_initialized() else 1
+            self._peak_total = (peak or 0.0) * n
+        return self._peak_total or None
+
+    def __call__(self, *args, **kwargs):
+        idx = self._step_idx
+        _straggler.set_step(idx)
+        _sanitizer.set_step(idx)
+        _flight.step_boundary(idx)
+        _numerics.set_step(idx)
+        self._step_idx += 1
+        with _trace.span("step", f"{self._name} step {idx}", step=idx):
+            out = self._fn(*args, **kwargs)
+        _numerics.maybe_note_output(idx, out)
+        _health.beat()
+        if not _metrics.enabled():
+            return out
+        now = time.perf_counter()
+        name = self._name
+        examples = self._examples
+        if examples is None and self._batch_arg is not None:
+            try:
+                examples = int(args[self._batch_arg].shape[0])
+            except (IndexError, AttributeError, TypeError):
+                examples = None
+        _metrics.counter(f"{name}_steps", help="train steps dispatched").inc()
+        if examples:
+            _metrics.counter(
+                f"{name}_examples", help="examples trained on").inc(examples)
+        if self._last_t is not None:
+            dt = now - self._last_t
+            if dt > 0:
+                _metrics.histogram(
+                    f"{name}_step_seconds",
+                    help="inter-dispatch step interval").observe(dt)
+                if examples:
+                    _metrics.gauge(
+                        f"{name}_examples_per_sec",
+                        help="throughput over the last step interval",
+                    ).set(examples / dt)
+                if self._flops:
+                    peak = self._peak()
+                    if peak:
+                        _metrics.gauge(
+                            f"{name}_mfu",
+                            help="model FLOP utilization vs device peak",
+                        ).set(self._flops / dt / peak)
+                _slo.observe("step_time", dt)
+                _slo.sample_gauges()
+                _regression.track(f"{name}_step_seconds", dt)
+                if examples:
+                    _regression.track(
+                        f"{name}_examples_per_sec", examples / dt)
+                wait = _metrics.value("data_wait_seconds_recent")
+                if isinstance(wait, (int, float)):
+                    _regression.track("data_wait_seconds", float(wait))
+        self._last_t = now
+        return out
+
+    def __getattr__(self, item):
+        return getattr(self._fn, item)
+
+
+def instrument_step(fn, *, batch_arg: Optional[int] = None,
+                    examples_per_step: Optional[int] = None,
+                    flops_per_step: Optional[float] = None,
+                    name: str = "train") -> InstrumentedStep:
+    """Wrap a step in :class:`InstrumentedStep`. The port's builders
+    return the plain step; wrap it to instrument it (``batch_arg=1`` for
+    :func:`make_train_step`'s images)."""
+    return InstrumentedStep(
+        fn, batch_arg=batch_arg, examples_per_step=examples_per_step,
+        flops_per_step=flops_per_step, name=name)
 
 
 def make_train_step(model, tx, *, shard_optimizer: bool = False,
@@ -207,6 +334,19 @@ def make_train_step(model, tx, *, shard_optimizer: bool = False,
     return step
 
 
+#: every gradient hook :func:`make_train_step` registered and not yet
+#: released, in order (the elastic driver releases a rebuilt step's:
+#: those appended while its builder ran)
+_step_hooks: list = []
+
+
+def release_hook(handle) -> None:
+    """Remove one gradient hook a step registered."""
+    handle.remove()
+    if handle in _step_hooks:
+        _step_hooks.remove(handle)
+
+
 def _grad_hooks(model, params: dict, keys: list, live: dict) -> list:
     """One ``register_post_accumulate_grad_hook`` a parameter that backs a
     leaf of ``params``: when the parameter's gradient is final, each of
@@ -238,6 +378,7 @@ def _grad_hooks(model, params: dict, keys: list, live: dict) -> list:
                 ex.ready(i, p.grad.permute(perm))
 
         handles.append(p.register_post_accumulate_grad_hook(hook))
+    _step_hooks.extend(handles)
     return handles
 
 

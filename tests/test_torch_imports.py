@@ -52,6 +52,7 @@ def test_every_module_imports_with_jax_poisoned():
             "horovod_tpu_torch.resilience.elastic",
             "horovod_tpu_torch.run.rendezvous",
             "horovod_tpu_torch.callbacks"} <= set(mods)
+    assert set(OBSERVABILITY_MODULES) <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes'):\n"
@@ -152,6 +153,67 @@ def test_every_module_imports_with_jax_poisoned():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("ok")
+
+
+#: the modules of the observability and analysis slice
+OBSERVABILITY_MODULES = (
+    "horovod_tpu_torch.observability",
+    "horovod_tpu_torch.observability.trace",
+    "horovod_tpu_torch.observability.clock",
+    "horovod_tpu_torch.observability.exporters",
+    "horovod_tpu_torch.observability.straggler",
+    "horovod_tpu_torch.observability.aggregate",
+    "horovod_tpu_torch.observability.flight",
+    "horovod_tpu_torch.observability.slo",
+    "horovod_tpu_torch.observability.regression",
+    "horovod_tpu_torch.observability.reqtrace",
+    "horovod_tpu_torch.analysis",
+    "horovod_tpu_torch.analysis.sanitizer",
+    "horovod_tpu_torch.analysis.lint",
+    "horovod_tpu_torch.analysis.schedule",
+    "horovod_tpu_torch.profiler",
+    "horovod_tpu_torch.tuning",
+)
+
+
+@pytest.mark.parametrize("mod", OBSERVABILITY_MODULES)
+def test_observability_module_imports_neither_jax_nor_the_jax_package(mod):
+    """Each module of the slice, imported alone in a fresh interpreter,
+    loads nothing of JAX or of ``horovod_tpu``, and no line of its source
+    imports them lazily either (inside a function)."""
+    probe = (
+        "import sys, importlib\n"
+        f"m = importlib.import_module({mod!r})\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    path = ROOT / (mod.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / mod.replace(".", "/") / "__init__.py"
+    lazy = re.compile(r"^\s+(import|from) (jax|flax|optax|horovod_tpu)\b")
+    assert not [l for l in path.read_text().splitlines() if lazy.match(l)]
+
+
+def test_observability_exports_match_the_jax_package():
+    """``horovod_tpu_torch.observability`` and ``.analysis`` export every
+    name the JAX package's do."""
+    import horovod_tpu.analysis as ja
+    import horovod_tpu.observability as jo
+    import horovod_tpu_torch.analysis as ta
+    import horovod_tpu_torch.observability as to
+
+    for j, t in ((jo, to),):
+        missing = {n for n in vars(j) if not n.startswith("_")} - set(vars(t))
+        assert not missing, sorted(missing)
+    jax_only = {"interleave_profile", "collectives_before_last_compute"}
+    assert set(ja.__all__) - set(ta.__all__) == jax_only
+    for n in ta.__all__:
+        assert getattr(ta, n) is not None
 
 
 def test_parallel_exports_match_the_jax_package():
