@@ -355,6 +355,35 @@ Phases, each fatal on failure (exit code 1, no result line):
    boundary's ms a step. Then ``min_workers=N`` with one rank failed at
    step 2 raises ``WorldTooSmall`` on every rank after rank 0 wrote a
    valid checkpoint of step 2.
+21. serving (``horovod_tpu_torch.serving``), the flagship LM at full
+   width, in a world of one: (a) 8 steps under ``ElasticRun(publisher=
+   WeightPublisher(KVStoreClient over HTTP), publish_every=4)``:
+   generation 1 a keyframe, 2 an int8 delta whose every quantizable
+   leaf takes one ``quantize`` launch (logged and replayed in the kernel
+   phase as ``serve_delta``), B6 12 a step, and a ``WeightSubscriber``
+   over HTTP rebuilding each on the card bit-equal to the publisher's
+   decode; (b) an ``InferenceEngine`` (batch 8, page 16, chunk 256,
+   2048 positions) on 16 greedy requests of 128-1536 prompt tokens, 64
+   new each: the engine's logits within :data:`SERVE_LOGIT_RTOL` of
+   ``generate``'s path teacher-forced on the same streams (three
+   controls outside it: one perturbed weight, decoding one position
+   late, decoding against another row's cache), then the near-tie token bar
+   (a row may leave ``generate``'s tokens only where the reference's
+   top-2 gap is under twice that measured largest |Δlogit|: the most
+   that noise within it can move a difference of two logits); (c) 8
+   requests sharing a 1024-token prefix, token-identical to an uncached
+   engine with pages aliased; (d) speculative decoding (2-block draft,
+   lookahead 4) against (b), its logits within the same bar of (b)'s
+   before the near-tie rule may excuse a divergence;
+   (e) a ``GenerationRollout`` canary of generation 2 over 1 to a
+   verdict, and a ``FleetRouter`` over two replicas (each its own
+   subscriber) under ``replica_kill=1``, every request completed once
+   and token-identical to (b). With ``--gpus N``: (f) the TP engine over
+   a ``tp`` axis of N: teacher-forced logits within
+   :data:`TP_LOGIT_RTOL` of the one-GPU engine's (a control with one
+   perturbed weight outside it), the same greedy tokens on every rank,
+   each decode pass 2 all-reduces a block (plus the split embedding's
+   and vocabulary's all-gathers) and none from the control plane.
 
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
@@ -5654,6 +5683,944 @@ def drills_gpus(n: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: serving — the weight handoff, the paged engine, the prefix
+# cache, speculative decoding, rollout and the fleet, tensor parallelism
+
+#: the handoff's training: steps, publication cadence and payload chunks
+SERVE_STEPS, SERVE_EVERY = 8, 4
+SERVE_CHUNK_BYTES = 8 << 20
+#: the engine at full width: pages for 8 full sequences plus page 0
+SERVE_ENGINE = dict(max_batch=8, page_size=16, prefill_chunk=256,
+                    max_seq_len=2048, num_pages=8 * 128 + 1)
+#: (b)'s traffic: requests, new tokens, the prompt lengths' range
+SERVE_REQUESTS, SERVE_NEW, SERVE_PROMPT = 16, 64, (128, 1536)
+#: (c): the shared prefix and each request's own tail
+SERVE_PREFIX, SERVE_TAIL = 1024, 64
+#: (d): the draft's blocks and the tokens it proposes a pass
+SERVE_DRAFT, SERVE_LOOKAHEAD = 2, 4
+#: (e): the fleet pump at which replica 1 is killed
+SERVE_KILL_PUMP = 3
+#: (f): the teacher-forced stream (rows, tokens), the TP traffic
+TP_STREAM = (4, 512)
+TP_REQUESTS, TP_NEW = 8, 32
+#: (b), (d): the bar on the paged engine's logits against ``generate``'s
+#: path teacher-forced on the same streams (and on the speculative
+#: engine's against the plain engine's), max |Δ| over the reference's
+#: largest magnitude; it caps the |Δ| that the near-tie token bar may
+#: use. On the card the sound engine reads 0.0098 (Δ 0.0547 at 5.56), a
+#: control 0.116 or more; three controls must fail it: one perturbed
+#: weight (:data:`TP_CONTROL`), decoding one position late, decoding
+#: against the neighbouring row's cache
+SERVE_LOGIT_RTOL = 0.03
+#: (f): the bar on the TP engine's teacher-forced logits, max |Δ| over
+#: the one-GPU engine's largest magnitude, and the control, one weight
+#: leaf 12.5 % off (``ln_f``'s scale times 1.125), which must fail it
+TP_LOGIT_RTOL = 0.05
+TP_CONTROL = ("ln_f/scale", 1.125)
+#: the weights the four-GPU world loads, inside the checkout (git-ignored)
+SERVE_DIR = os.path.join(ROOT, "_smoke_serve")
+
+
+def _serve_load(model, params: dict) -> None:
+    """The state's parameters into ``model`` unless they are its own."""
+    import torch
+
+    with torch.no_grad():
+        for k, v in model.jax_params().items():
+            if params[k].data_ptr() != v.data_ptr():
+                v.copy_(params[k])
+
+
+def _tree_bits_equal(a: dict, b: dict) -> bool:
+    """Two flat trees (numpy or tensors) hold the same bits."""
+    import numpy as np
+    import torch
+
+    if set(a) != set(b):
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+        y = y.detach().cpu().numpy() if isinstance(y, torch.Tensor) else y
+        if x.shape != y.shape or not np.array_equal(
+                np.ascontiguousarray(x).view(np.uint8),
+                np.ascontiguousarray(y).view(np.uint8)):
+            return False
+    return True
+
+
+def serve_handoff(server, addr, roll_hook):
+    """(a): :data:`SERVE_STEPS` steps of the flagship LM under
+    ``ElasticRun(publisher=WeightPublisher(KVStoreClient over HTTP to
+    server), publish_every=SERVE_EVERY)``; after each publication a
+    ``WeightSubscriber`` over HTTP rebuilds it on the card, and
+    ``roll_hook()`` runs (the rollout's poll). Gates: generation 1 a
+    keyframe, 2 a delta; B1 launched once per quantizable leaf of the
+    delta and never for the keyframe; B6 12 a step; the card's
+    reconstruction bit-equal to the publisher's ``decode`` of its own
+    payload. Returns the record, the subscriber (holding generation 2 on
+    the card) and the delta's logged B1 calls."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.compression import Int8Compressor
+    from horovod_tpu_torch.models import TransformerLM
+    from horovod_tpu_torch.models.convert import flatten_tree
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.resilience import elastic
+    from horovod_tpu_torch.run.rendezvous import KVStoreClient
+    from horovod_tpu_torch.serving import (
+        WeightPublisher, WeightSubscriber, protocol,
+    )
+
+    dev = hvd.device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = TransformerLM(**LM, dtype=torch.bfloat16,
+                          attention_fn=hvd.flash_attention, seed=0, device=dev)
+    tok = np.random.RandomState(21).randint(
+        0, LM["vocab"], (LM_BATCH, LM_SEQ)).astype(np.int64)
+    x = torch.from_numpy(tok).to(dev)
+    y = torch.from_numpy(np.roll(tok, -1, axis=1)).to(dev)
+    tx = hvd.DistributedOptimizer(hvd.adamw(1e-4))
+    step = hvd.make_train_step(model, tx, loss_fn=hvd.lm_xent)
+    pub = WeightPublisher(KVStoreClient(*addr[:2], secret=addr[2]),
+                          keyframe_every=8, chunk_bytes=SERVE_CHUNK_BYTES,
+                          register=False, device=dev)
+    sub = WeightSubscriber(KVStoreClient(*addr[:2], secret=addr[2]),
+                           device=dev)
+    quantizable = sum(Int8Compressor.quantizes(tuple(p.shape), p.dtype)
+                      for p in model.jax_params().values())
+    pubs, delta_calls, losses = [], [], []
+    real_publish = pub.publish
+
+    def publish(state, step_no, **kw):
+        before = dict(K.launches)
+        calls: list = [[]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with logging_calls(calls):
+            gen = real_publish(state, step_no, **kw)
+        publish_s = time.perf_counter() - t0
+        launched = {k: K.launches[k] - before[k] for k in K.KERNELS}
+        m = json.loads(server.get(protocol.manifest_key("serving", gen)))
+        t0 = time.perf_counter()
+        fresh = sub.poll()
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        if fresh is None or sub.generation != gen:
+            fail(f"phase 21 (a): the subscriber did not apply generation "
+                 f"{gen} (serving {sub.generation})")
+        if not _tree_bits_equal(flatten_tree(fresh),
+                                flatten_tree(pub.reconstruction())):
+            fail(f"phase 21 (a): generation {gen} rebuilt on the card is not "
+                 "bit-equal to the publisher's decode of its payload")
+        want_q = quantizable if m["kind"] == "delta" else 0
+        if launched["quantize"] != want_q or len(calls[0]) != want_q:
+            fail(f"phase 21 (a): generation {gen} ({m['kind']}) launched "
+                 f"quantize {launched['quantize']} times ({len(calls[0])} "
+                 f"logged), expected {want_q}")
+        if m["kind"] == "delta":
+            delta_calls.extend(calls[0])
+        pubs.append(dict(generation=gen, kind=m["kind"], step=step_no,
+                         publish_s=publish_s, wire_bytes=m["wire_bytes"],
+                         payload_bytes=m["payload_bytes"],
+                         chunks=m["chunks"], apply_s=apply_s,
+                         quantize_launches=launched["quantize"],
+                         bit_equal=True))
+        roll_hook()
+        return gen
+
+    pub.publish = publish
+
+    def builder(world):
+        def step_fn(state, i):
+            _serve_load(model, state["params"])
+            opt, loss = step(state["opt_state"], x, y)
+            losses.append(float(loss))
+            return {"params": model.jax_params(), "opt_state": opt}
+        return step_fn
+
+    state = {"params": model.jax_params(),
+             "opt_state": tx.init(model.jax_params())}
+    K.reset_launches()
+    t0 = time.perf_counter()
+    elastic.run(builder, state, num_steps=SERVE_STEPS,
+                snapshot_every=SERVE_EVERY, publisher=pub,
+                publish_every=SERVE_EVERY)
+    train_s = time.perf_counter() - t0
+    launches = dict(K.launches)
+    if [(p["generation"], p["kind"]) for p in pubs] != [(1, "key"),
+                                                        (2, "delta")]:
+        fail(f"phase 21 (a): publications {pubs}")
+    if launches["flash_fwd"] != LM["depth"] * SERVE_STEPS:
+        fail(f"phase 21 (a): {launches['flash_fwd']} flash_fwd launches in "
+             f"{SERVE_STEPS} steps of a depth-{LM['depth']} model")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"phase 21 (a): losses {losses}")
+    del model, state, step, tx
+    torch.cuda.empty_cache()
+    rec = dict(steps=SERVE_STEPS, losses=losses, train_s=train_s,
+               publications=pubs, quantizable_leaves=quantizable,
+               flash_fwd_launches=launches["flash_fwd"],
+               chunk_bytes=SERVE_CHUNK_BYTES)
+    return rec, sub, delta_calls
+
+
+#: the engine's pass kinds and the ``serving_engine_steps`` kind that
+#: counts each pass (one forward of the target)
+SERVE_PASS_KINDS = {"prefill": "prefill", "spec": "spec_verify",
+                    "decode": "decode"}
+
+
+def _serve_instrument(engine) -> dict:
+    """Start reading a run of ``engine``: every logits row it consumes,
+    by request (the token bars' input; its one private hook), each
+    request's TTFT from the request trace's completions, and the engine's
+    own pass seconds and counters as they stand. ``st["stop"]()`` ends
+    the reading; :func:`_pass_stats` turns it into the run's numbers."""
+    import numpy as np
+
+    from horovod_tpu_torch.observability import metrics, reqtrace
+
+    def counters():
+        return dict(seconds=dict(engine.pass_seconds), prefill_tokens=(
+            metrics.value("serving_prefill_tokens") or 0), passes={
+            k: metrics.value("serving_engine_steps", kind=v) or 0
+            for k, v in SERVE_PASS_KINDS.items()})
+
+    st = dict(rows={}, ttft={}, start=counters())
+    real_consume = engine._consume_logits
+
+    def consume(s, row, generation=-1):
+        st["rows"].setdefault(s.req.rid, []).append(
+            np.asarray(row, np.float32))
+        return real_consume(s, row, generation)
+
+    def completed(req, summary):
+        if summary["ttft"] is not None:
+            st["ttft"][req.rid] = summary["ttft"]
+
+    def stop():
+        reqtrace.remove_completion_observer(completed)
+        del engine._consume_logits
+        st["end"] = counters()
+
+    engine._consume_logits = consume
+    reqtrace.add_completion_observer(completed)
+    st["stop"] = stop
+    return st
+
+
+def _serve_traffic(engine, prompts, tag: str, *, width: int = 8,
+                   wait_first: bool = False) -> list:
+    """Submit ``prompts`` (``width`` at once, then one as each slot
+    frees; with ``wait_first`` the first alone until it finishes) and
+    run the engine idle. Returns the requests."""
+    pending = list(enumerate(prompts))
+    reqs = []
+    if wait_first:
+        i, p = pending.pop(0)
+        reqs.append(engine.submit(p, SERVE_NEW, rid=f"{tag}-{i}"))
+        engine.run_until_idle()
+    for _ in range(100000):
+        live = len(engine.scheduler.active()) + engine.scheduler.queue_depth()
+        while pending and live < width:
+            i, p = pending.pop(0)
+            reqs.append(engine.submit(p, SERVE_NEW, rid=f"{tag}-{i}"))
+            live += 1
+        if not pending and engine.scheduler.idle():
+            break
+        engine.step()
+    for r in reqs:
+        if r.error is not None or len(r.generated) != SERVE_NEW:
+            fail(f"phase 21: request {r.rid} failed ({r.error})")
+    return reqs
+
+
+def _forced_logits(meta, weights: dict, prompts, forced, fault=None):
+    """Teacher-forced logits of ``generate``'s path (one batched prefill
+    of the right-padded prompts, then one single-token step a position on
+    the contiguous cache) along the streams ``forced`` ``[B, n]``:
+    ``[B, n, vocab]`` f32 on the card, position j the logits from which
+    token j was chosen. ``fault`` breaks the decode steps as a faulty
+    cache would: ``"position"`` decodes each token one position late,
+    ``"row"`` decodes each row against the next row's prefilled cache."""
+    import torch
+
+    dev = next(iter(weights.values())).device
+    b, n = forced.shape
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    t = int(lens.max())
+    pad = torch.zeros(b, t, dtype=torch.int64, device=dev)
+    for i, p in enumerate(prompts):
+        pad[i, :len(p)] = torch.as_tensor(p, device=dev)
+    f = torch.as_tensor(forced, device=dev, dtype=torch.int64)
+
+    def fwd(*a):
+        return torch.func.functional_call(meta, weights, a)
+
+    out = []
+    with torch.no_grad():
+        cache = meta.decode_cache(b, t + n, device=dev)
+        logits = fwd(pad, torch.arange(t, device=dev)[None].expand(b, t),
+                     cache)
+        out.append(logits[torch.arange(b, device=dev), lens - 1])
+        if fault == "row":
+            for kc, vc in cache:
+                kc.copy_(kc.roll(1, 0))
+                vc.copy_(vc.roll(1, 0))
+        late = int(fault == "position")
+        for j in range(n - 1):
+            logits = fwd(f[:, j:j + 1], (lens + j + late)[:, None], cache)
+            out.append(logits[:, -1])
+    return torch.stack(out, dim=1)
+
+
+def _near_tie_bar(label: str, ref_tokens, got_tokens, gap_of, delta: float):
+    """The token bar: a row of ``got_tokens`` may leave ``ref_tokens``
+    only at a position whose reference top-2 gap (``gap_of(row, j)``) is
+    under ``2 * delta``, the most that logits each within ``delta`` (the
+    largest |Δlogit| measured between the two paths) can move the
+    difference of two of them; its comparison stops there. Fails on a
+    divergence at a wider gap; returns the near-tie divergences
+    ``[(row, j, gap)]``."""
+    bound = 2 * delta
+    ties = []
+    for i, (r, g) in enumerate(zip(ref_tokens, got_tokens)):
+        diff = [j for j in range(len(r)) if int(r[j]) != int(g[j])]
+        if not diff:
+            continue
+        j = diff[0]
+        gap = gap_of(i, j)
+        if not gap < bound:
+            fail(f"phase 21 {label}: row {i} diverges at token {j} where the "
+                 f"reference's top-2 gap {gap:.6g} is not under twice the "
+                 f"measured max |dlogit| {delta:.6g}")
+        ties.append((i, j, gap))
+    return ties
+
+
+def _pass_stats(st: dict, reqs) -> dict:
+    """A run's numbers from :func:`_serve_instrument`'s reading: passes
+    and ms a pass by kind, prefill and decode tokens/s (a request's first
+    token comes from its last prefill pass, the rest from decode and spec
+    passes) and TTFT p50/p99 over ``reqs``."""
+    import numpy as np
+
+    a, b = st["start"], st["end"]
+    out = {}
+    secs = {k: b["seconds"].get(k, 0.0) - a["seconds"].get(k, 0.0)
+            for k in SERVE_PASS_KINDS}
+    for k in SERVE_PASS_KINDS:
+        n = int(b["passes"][k] - a["passes"][k])
+        if n:
+            out[f"{k}_passes"] = n
+            out[f"{k}_ms_per_pass"] = 1e3 * secs[k] / n
+    if secs["prefill"]:
+        out["prefill_tokens_per_s"] = (
+            b["prefill_tokens"] - a["prefill_tokens"]) / secs["prefill"]
+    dec_s = secs["decode"] + secs["spec"]
+    if dec_s:
+        out["decode_tokens_per_s"] = sum(
+            len(r.generated) - 1 for r in reqs) / dec_s
+    ttft = [st["ttft"][r.rid] for r in reqs if r.rid in st["ttft"]]
+    if ttft:
+        out["ttft_p50_s"] = float(np.percentile(ttft, 50))
+        out["ttft_p99_s"] = float(np.percentile(ttft, 99))
+    return out
+
+
+def _serve_prompts(seed: int) -> list:
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    return [rng.randint(0, LM["vocab"], n).astype(np.int32) for n in lens]
+
+
+def _kernel_ms(fn, iters: int = 3) -> float:
+    """The card's busy time a call of ``fn``: the sum of the durations of
+    the kernels a ``torch.profiler`` trace of ``iters`` calls shows (the
+    events of :data:`OBS_TRACE_CAT`), over ``iters``. Unlike
+    :func:`cuda_device_ms` it holds for a call of a thousand launches,
+    which fill the card's launch queue behind its sleep."""
+    import tempfile
+
+    import torch
+
+    from horovod_tpu_torch import profiler
+
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with profiler.timeline(d):
+            for _ in range(iters):
+                fn()
+        with open(os.path.join(d, "trace.json")) as f:
+            events = json.load(f).get("traceEvents", [])
+    return sum(e.get("dur", 0.0) for e in events
+               if e.get("cat") == OBS_TRACE_CAT) / 1e3 / iters
+
+
+def _gather_share(engine) -> dict:
+    """The page gather against the decode forward, both as the card's
+    kernel time (:func:`_kernel_ms`) at a decode pass's shapes: both
+    pools' gathers in every block through a full page table, and one
+    forward of the engine's decode model on tensors already on the card
+    (its writes to the trash page 0, so no live page changes)."""
+    import torch
+
+    from horovod_tpu_torch.ops.flash_attention import gather_pages
+
+    dev, b = engine.device, engine.max_batch
+    table = torch.randint(1, engine.num_pages, (b, engine.pages_per_seq),
+                          device=dev)
+    pools = engine._cache
+
+    def gathers():
+        for k, v in pools:
+            gather_pages(k, table)
+            gather_pages(v, table)
+
+    tok = torch.zeros(b, 1, dtype=torch.int64, device=dev)
+    pos = torch.full((b, 1), engine.max_seq_len - 1, dtype=torch.int64,
+                     device=dev)
+    trash = torch.zeros_like(table)
+    params = engine.arm_params("stable")
+
+    def forward():
+        with torch.no_grad():
+            torch.func.functional_call(engine._dec, params, (tok, pos), {
+                "cache": pools, "page_table": trash})
+
+    g, f = _kernel_ms(gathers), _kernel_ms(forward)
+    return dict(gather_device_ms=g, decode_forward_device_ms=f,
+                gather_share_of_decode_forward=g / f)
+
+
+def serving_phase(smi: str) -> dict:
+    """Phase 21 on one GPU, in a world of one: (a) the handoff, (b) the
+    engine at full width against ``generate`` under the near-tie token
+    bar, (c) the prefix cache against an uncached engine, (d) speculative
+    decoding against (b), (e) a ``GenerationRollout`` canary of
+    generation 2 over 1 and a two-replica ``FleetRouter`` under
+    ``replica_kill``. Returns the record, the delta's B1 calls (replayed
+    in the kernel phase) and (b)'s requests and tokens for (f)."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import TransformerLM
+    from horovod_tpu_torch.models.convert import flatten_tree, torch_weights
+    from horovod_tpu_torch.models.transformer import generate
+    from horovod_tpu_torch.observability import metrics
+    from horovod_tpu_torch.resilience import chaos, health
+    from horovod_tpu_torch.run.rendezvous import (
+        KVStoreClient, KVStoreServer, make_secret,
+    )
+    from horovod_tpu_torch.serving import (
+        FleetRollout, FleetRouter, GenerationRollout, InferenceEngine,
+        WeightSubscriber,
+    )
+
+    t_phase = time.perf_counter()
+    metrics.reset()
+    metrics.set_enabled(True)
+    health.reset()
+    dev = hvd.device()
+    meta = TransformerLM(**LM, dtype=torch.bfloat16, device="meta")
+    out = {}
+    # the rollout's engine and subscriber follow the handoff from gen 1
+    secret = make_secret()
+    server = KVStoreServer(secret=secret)
+    addr = ("127.0.0.1", server.start(), secret)
+    roll_engine = InferenceEngine(meta, device=dev, **dict(
+        SERVE_ENGINE, num_pages=4 * 128 + 1))
+    events = []
+    roll = GenerationRollout(
+        roll_engine, WeightSubscriber(KVStoreClient(
+            *addr[:2], secret=secret), device=dev),
+        canary_fraction=0.5, min_canary_requests=2,
+        on_event=lambda ev, g: events.append((ev, g)))
+    handoff, sub, delta_calls = serve_handoff(server, addr, roll.poll)
+    out["handoff"] = handoff
+    print(f"phase 21 (a): {json.dumps(handoff)}", flush=True)
+    if (roll.stable_generation, roll.canary_generation) != (1, 2):
+        fail(f"phase 21 (e): rollout stable {roll.stable_generation}, "
+             f"canary {roll.canary_generation}")
+    gen2 = sub.weights()
+    weights2 = torch_weights(meta, gen2, dev)
+
+    # (b) the engine at full width against generate
+    prompts = _serve_prompts(21)
+    eng = InferenceEngine(meta, device=dev, **SERVE_ENGINE)
+    eng.set_weights(gen2, generation=2)
+    st = _serve_instrument(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = _serve_traffic(eng, prompts, "b")
+    serve_s = time.perf_counter() - t0
+    st["stop"]()
+    tokens_b = [np.asarray(r.generated) for r in reqs]
+    pad = np.zeros((len(prompts), max(map(len, prompts))), np.int32)
+    for i, p in enumerate(prompts):
+        pad[i, :len(p)] = p
+    lens = np.array([len(p) for p in prompts])
+    t0 = time.perf_counter()
+    ref = generate(meta, gen2, pad, max_new_tokens=SERVE_NEW,
+                   prompt_lens=lens, device=dev).cpu().numpy()
+    generate_s = time.perf_counter() - t0
+    ref_tokens = [ref[i, lens[i]:lens[i] + SERVE_NEW]
+                  for i in range(len(prompts))]
+    streams = np.stack(tokens_b)
+    forced = _forced_logits(meta, weights2, prompts, streams)
+    eng_rows = torch.from_numpy(np.stack(
+        [np.stack(st["rows"][r.rid]) for r in reqs])).to(dev)
+    scale = float(forced.abs().max())
+    bound = float((eng_rows - forced).abs().max())
+    # the controls: the same reading against generate's path with one
+    # perturbed weight, decoding one position late, or against the
+    # neighbouring row's cache
+    key, factor = TP_CONTROL
+    flat2 = flatten_tree(gen2)
+    controls = {}
+    for name, w, fault in (
+            ("weight", torch_weights(meta, dict(
+                flat2, **{key: flat2[key] * factor}), dev), None),
+            ("position", weights2, "position"), ("row", weights2, "row")):
+        bad = _forced_logits(meta, w, prompts, streams, fault=fault)
+        controls[name] = float((eng_rows - bad).abs().max()) / scale
+        del bad
+    if not bound / scale <= SERVE_LOGIT_RTOL:
+        fail(f"phase 21 (b): the engine's teacher-forced logits differ from "
+             f"generate's path by {bound:.6g}, {bound / scale:.3g} of the "
+             f"largest magnitude {scale:.6g} (bar {SERVE_LOGIT_RTOL})")
+    passed = {k: v for k, v in controls.items() if not v > SERVE_LOGIT_RTOL}
+    if passed:
+        fail(f"phase 21 (b): controls pass the bar {SERVE_LOGIT_RTOL}: "
+             f"{passed}")
+    top2 = torch.topk(forced, 2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    ties = _near_tie_bar("(b)", ref_tokens, tokens_b,
+                         lambda i, j: float(gaps[i, j]), bound)
+    del eng_rows, forced, top2
+    out["engine"] = dict(
+        requests=len(reqs), new_tokens=SERVE_NEW,
+        prompt_tokens=int(lens.sum()), serve_s=serve_s,
+        generate_s=generate_s, max_abs_logit_delta=bound,
+        max_abs_logit=scale, logit_rel=bound / scale,
+        logit_bar=SERVE_LOGIT_RTOL, control_rel=controls,
+        near_tie_divergences=len(ties), ties=ties,
+        rows_identical=sum(np.array_equal(a, b)
+                           for a, b in zip(ref_tokens, tokens_b)),
+        **_pass_stats(st, reqs), **_gather_share(eng))
+    print(f"phase 21 (b): {json.dumps(out['engine'])}", flush=True)
+
+    # (c) the prefix cache against an uncached engine
+    rng = np.random.RandomState(23)
+    prefix = rng.randint(0, LM["vocab"], SERVE_PREFIX).astype(np.int32)
+    cprompts = [np.concatenate([prefix, rng.randint(
+        0, LM["vocab"], SERVE_TAIL).astype(np.int32)]) for _ in range(8)]
+    runs = {}
+    for cached in (True, False):
+        e = eng if cached else InferenceEngine(
+            meta, device=dev, prefix_cache=False, **SERVE_ENGINE)
+        if not cached:
+            e.set_weights(gen2, generation=2)
+        metrics.reset()
+        shared = [0]
+        real_step = e.step
+
+        def step(real_step=real_step, e=e):
+            ran = real_step()
+            shared[0] = max(shared[0], metrics.value(
+                "serving_prefix_pages_shared") or 0)
+            return ran
+
+        e.step = step
+        t0 = time.perf_counter()
+        rq = _serve_traffic(e, cprompts, f"c{int(cached)}", wait_first=True)
+        runs[cached] = dict(tokens=[list(r.generated) for r in rq],
+                            seconds=time.perf_counter() - t0,
+                            hits=metrics.value("serving_prefix_hits") or 0,
+                            prefill_tokens=metrics.value(
+                                "serving_prefill_tokens"),
+                            pages_shared_max=shared[0])
+        e.step = real_step
+        if not cached:
+            del e
+            torch.cuda.empty_cache()
+    if runs[True]["tokens"] != runs[False]["tokens"]:
+        fail("phase 21 (c): prefix-cached tokens differ from the uncached "
+             "engine's")
+    if not runs[True]["pages_shared_max"] > 0 or not runs[True]["hits"]:
+        fail(f"phase 21 (c): no page was aliased ({runs[True]})")
+    out["prefix"] = dict(
+        requests=8, prefix=SERVE_PREFIX, tail=SERVE_TAIL, identical=True,
+        hits=runs[True]["hits"], pages_shared_max=runs[True][
+            "pages_shared_max"],
+        prefill_tokens_cached=runs[True]["prefill_tokens"],
+        prefill_tokens_uncached=runs[False]["prefill_tokens"],
+        seconds_cached=runs[True]["seconds"],
+        seconds_uncached=runs[False]["seconds"])
+
+    # (d) speculative decoding against (b)
+    metrics.reset()
+    spec = InferenceEngine(meta, device=dev, draft_depth=SERVE_DRAFT,
+                           spec_lookahead=SERVE_LOOKAHEAD, **SERVE_ENGINE)
+    spec.set_weights(gen2, generation=2)
+    sst = _serve_instrument(spec)
+    rq = _serve_traffic(spec, prompts, "d")
+    sst["stop"]()
+    tokens_d = [np.asarray(r.generated) for r in rq]
+    exact = all(np.array_equal(a, b) for a, b in zip(tokens_b, tokens_d))
+    # the verify pass's [b, K+1] forwards sum in other shapes than the
+    # decode pass's [b, 1]: read the largest |Δlogit| over each row's
+    # common stream (to its first divergence, included), hold it to the
+    # bar, then the divergences to it
+    dmax, dscale = 0.0, 0.0
+    for r_b, r_d, tb, td in zip(reqs, rq, tokens_b, tokens_d):
+        n = next((j for j in range(SERVE_NEW) if tb[j] != td[j]), SERVE_NEW)
+        for j in range(min(n + 1, SERVE_NEW)):
+            row = st["rows"][r_b.rid][j]
+            dmax = max(dmax, float(np.abs(row - sst["rows"][r_d.rid][j])
+                                   .max()))
+            dscale = max(dscale, float(np.abs(row).max()))
+    if not dmax / dscale <= SERVE_LOGIT_RTOL:
+        fail(f"phase 21 (d): the speculative engine's logits differ from "
+             f"the plain engine's by {dmax:.6g}, {dmax / dscale:.3g} of the "
+             f"largest magnitude {dscale:.6g} (bar {SERVE_LOGIT_RTOL})")
+
+    def gap_b(i, j):
+        row = np.sort(st["rows"][reqs[i].rid][j])
+        return float(row[-1] - row[-2])
+
+    dties = _near_tie_bar("(d)", tokens_b, tokens_d, gap_b, dmax)
+    proposed = metrics.value("spec_proposed") or 0
+    out["spec"] = dict(draft_depth=SERVE_DRAFT, lookahead=SERVE_LOOKAHEAD,
+                       identical_to_plain=exact, max_abs_logit_delta=dmax,
+                       logit_rel=dmax / dscale,
+                       near_tie_divergences=len(dties),
+                       acceptance=(metrics.value("spec_accepted") or 0)
+                       / max(1, proposed), proposed=proposed,
+                       **_pass_stats(sst, rq))
+    del spec
+    torch.cuda.empty_cache()
+
+    # (e) the rollout's verdict on generation 2, then the fleet
+    # 16 rids: 4 of them hash into the canary's half of the traffic
+    rreqs = [roll.submit(f"roll-{i}", p[:256], 16)
+             for i, p in enumerate(_serve_prompts(25))]
+    roll.drain()
+    verdicts = [ev for ev in events if ev[0] in ("promoted", "rolled_back")]
+    if not verdicts:
+        fail(f"phase 21 (e): the rollout reached no verdict ({events})")
+    out["rollout"] = dict(
+        events=events, verdict=verdicts[-1][0],
+        reason=health.MONITOR.reason() or "healthy canary",
+        requests=len(rreqs),
+        errors=sum(r.error is not None for r in rreqs))
+    del roll, roll_engine
+    torch.cuda.empty_cache()
+    metrics.reset()
+    router = FleetRouter(store=server, hedge_after=0.0)
+    for i in range(2):
+        router.add_replica(f"r{i}", InferenceEngine(
+            meta, device=dev, **SERVE_ENGINE), WeightSubscriber(
+            KVStoreClient(*addr[:2], secret=addr[2]), device=dev))
+    frollout = FleetRollout(router, server, canary_fraction=1.0,
+                            max_latency_ratio=None)
+    t0 = time.perf_counter()
+    router.pump()
+    fleet_apply_s = time.perf_counter() - t0
+    if frollout.stable_generation != 2:
+        fail(f"phase 21 (e): the fleet serves generation "
+             f"{frollout.stable_generation}")
+    chaos.configure(f"replica_kill=1:{SERVE_KILL_PUMP}")
+    try:
+        t0 = time.perf_counter()
+        freqs = [router.submit(f"f-{i}", p, SERVE_NEW)
+                 for i, p in enumerate(prompts)]
+        router.drain()
+        fleet_s = time.perf_counter() - t0
+    finally:
+        chaos.reset()
+    done = metrics.value("fleet_requests", arm="stable", outcome="ok")
+    bad = [q.rid for q in freqs if q.error is not None or q.result is None]
+    if bad or done != len(prompts) or not router.replica("r1").dead:
+        fail(f"phase 21 (e): fleet requests {bad} failed, {done} completed "
+             f"of {len(prompts)}, r1 dead {router.replica('r1').dead}")
+    mism = [q.rid for q, t in zip(freqs, tokens_b)
+            if not np.array_equal(np.asarray(q.generated), t)]
+    if mism:
+        fail(f"phase 21 (e): fleet tokens differ from (b)'s for {mism}")
+    out["fleet"] = dict(
+        replicas=2, requests=len(freqs), completed_once=int(done),
+        failed_over=metrics.value("fleet_requests_failed_over") or 0,
+        replicas_lost=metrics.value("resilience_replicas_lost") or 0,
+        served_by={r: sum(q.replica == r for q in freqs)
+                   for r in ("r0", "r1")},
+        identical_to_b=True, seconds=fleet_s, subscribe_apply_s=fleet_apply_s)
+    router.close()
+    server.close()
+    del router, eng, weights2
+    gen2_flat = {k: v.detach().cpu() for k, v in flatten_tree(gen2).items()}
+    del gen2, sub
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, delta_calls, dict(prompts=prompts, tokens=tokens_b,
+                                  gen2_flat=gen2_flat)
+
+
+def _tp_stream(seed: int):
+    import numpy as np
+
+    b, t = TP_STREAM
+    return np.random.RandomState(seed).randint(0, LM["vocab"], (b, t))
+
+
+def _tp_forced(engine, params, stream):
+    """Teacher-forced logits of the engine's forward over ``stream`` ``[b,
+    t]`` in prefill chunks on a page table of fresh pages: ``[b, t,
+    vocab]`` f32 on the card."""
+    import numpy as np
+    import torch
+
+    b, t = stream.shape
+    c, mb = engine.prefill_chunk, engine.max_batch
+    table = np.zeros((mb, engine.pages_per_seq), np.int32)
+    per = -(-t // engine.page_size)
+    for i in range(b):
+        table[i, :per] = 1 + i * per + np.arange(per)
+    out = []
+    for c0 in range(0, t, c):
+        tok = np.zeros((mb, c), np.int32)
+        pos = np.zeros((mb, c), np.int32)
+        tok[:b] = stream[:, c0:c0 + c]
+        pos[:b] = c0 + np.arange(c)
+        out.append(engine._run(params, tok, pos, table, "tp_forced")[:b])
+    return torch.cat(out, dim=1)
+
+
+def serving_tp_rank(perturb: bool) -> dict:
+    """One rank of (f): the TP engine over the mesh ``{"tp": n}`` on
+    generation 2's weights (read from :data:`SERVE_DIR`). Teacher-forced
+    logits of the fixed stream against the one-GPU engine's (max |Δ|
+    over the reference's largest magnitude), with ``perturb`` the same
+    after one perturbed weight (the control, on every rank: the TP
+    forward is a collective); then greedy traffic, every
+    decode pass's all-reduces and all-gathers counted, and the control
+    plane's calls."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import TransformerLM
+    from horovod_tpu_torch.parallel import build_mesh
+    from horovod_tpu_torch.serving import InferenceEngine
+    from horovod_tpu_torch.testing import watching_calls
+
+    dev = hvd.device()
+    build_mesh({"tp": hvd.size()})
+    flat = torch.load(os.path.join(SERVE_DIR, "gen2.pt"), map_location=dev)
+    ref = torch.load(os.path.join(SERVE_DIR, "forced.pt"), map_location=dev)
+    prompts = [p.numpy() for p in torch.load(
+        os.path.join(SERVE_DIR, "traffic.pt"))]
+    meta = TransformerLM(**LM, dtype=torch.bfloat16, device="meta")
+    eng = InferenceEngine(meta, device=dev, tp_axis="tp", **dict(
+        SERVE_ENGINE, num_pages=4 * 128 + 1))
+    eng.set_weights(flat, generation=2)
+    stream = _tp_stream(26)
+    scale = float(ref.abs().max())
+    got = _tp_forced(eng, eng.arm_params("stable"), stream)
+    rel = float((got - ref).abs().max()) / scale
+    rec = dict(rank=hvd.rank(), rel=rel)
+    if perturb:
+        bad = dict(flat)
+        key, factor = TP_CONTROL
+        bad[key] = flat[key] * factor
+        ctl = InferenceEngine(meta, device=dev, tp_axis="tp", **dict(
+            SERVE_ENGINE, num_pages=4 * 128 + 1))
+        ctl.set_weights(bad, generation=2)
+        cgot = _tp_forced(ctl, ctl.arm_params("stable"), stream)
+        rec["control_rel"] = float((cgot - ref).abs().max()) / scale
+        del ctl, cgot
+    del got
+    torch.cuda.empty_cache()
+    calls = []
+    decode = []
+    real_decode = eng._decode_pass
+
+    def counted(*a, **kw):
+        n0 = len(calls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ran = real_decode(*a, **kw)
+        if ran:
+            decode.append((len(calls) - n0, time.perf_counter() - t0,
+                           len([s for s in eng.scheduler.active()
+                                if not s.prefilling])))
+        return ran
+
+    eng._decode_pass = counted
+    with watching_calls(dist, DIST_CALLS, lambda n, a, k: calls.append(n)):
+        n0 = len(calls)
+        reqs = [eng.submit(p, TP_NEW, rid=f"tp-{i}")
+                for i, p in enumerate(prompts)]
+        eng.scheduler.admit()
+        control = len(calls) - n0
+        eng.run_until_idle()
+    ar = [c for c in calls if c == "all_reduce"]
+    per_pass = sorted({n for n, _, _ in decode})
+    rec.update(tokens=[list(map(int, r.generated)) for r in reqs],
+               errors=[r.error for r in reqs if r.error is not None],
+               decode_calls_per_pass=per_pass, control_calls=control,
+               all_reduces=len(ar), decode_passes=len(decode),
+               decode_s=sum(s for _, s, _ in decode),
+               decode_tokens=sum(n for _, _, n in decode))
+    return rec
+
+
+def serving_tp_gpus(n: int, traffic: dict) -> dict:
+    """(f): generation 2 and the one-GPU engine's teacher-forced logits of
+    the fixed stream go to :data:`SERVE_DIR`, then a world of ``n`` runs
+    :func:`serving_tp_rank`. Gates: every rank within
+    :data:`TP_LOGIT_RTOL`, the control (one perturbed weight) outside
+    it; every rank the same greedy tokens; each decode pass
+    exactly 2 all-reduces a block plus the two all-gathers of the split
+    embedding and vocabulary; the control plane no call."""
+    import shutil
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import TransformerLM
+    from horovod_tpu_torch.serving import InferenceEngine
+    from horovod_tpu_torch.testing import run_world
+
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    os.makedirs(SERVE_DIR)
+    try:
+        hvd.init()
+        try:
+            dev = hvd.device()
+            meta = TransformerLM(**LM, dtype=torch.bfloat16, device="meta")
+            eng = InferenceEngine(meta, device=dev, **dict(
+                SERVE_ENGINE, num_pages=4 * 128 + 1))
+            flat = {k: v.detach().cpu()
+                    for k, v in traffic["gen2_flat"].items()}
+            eng.set_weights(flat, generation=2)
+            ref = _tp_forced(eng, eng.arm_params("stable"), _tp_stream(26))
+            torch.save(flat, os.path.join(SERVE_DIR, "gen2.pt"))
+            torch.save(ref.cpu(), os.path.join(SERVE_DIR, "forced.pt"))
+            torch.save([torch.from_numpy(p[:512]) for p in traffic[
+                "prompts"][:TP_REQUESTS]], os.path.join(SERVE_DIR,
+                                                        "traffic.pt"))
+            del eng, ref
+            torch.cuda.empty_cache()
+        finally:
+            hvd.shutdown()
+        t0 = time.perf_counter()
+        try:
+            res = run_world(_serving_tp_rank, n, device=None, timeout=600)
+        except Exception as e:
+            fail(f"{n} GPUs, phase 21 (f): {e}")
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    per_block = 2 * LM["depth"]
+    for r in res:
+        if r["rel"] > TP_LOGIT_RTOL:
+            fail(f"phase 21 (f): rank {r['rank']}'s teacher-forced logits "
+                 f"differ from the one-GPU engine's by {r['rel']:.3g} of the "
+                 f"largest magnitude (bar {TP_LOGIT_RTOL})")
+        if r["tokens"] != res[0]["tokens"] or r["errors"]:
+            fail(f"phase 21 (f): rank {r['rank']} emitted other tokens "
+                 f"({r['errors']})")
+        if r["decode_calls_per_pass"] != [per_block + 2] or \
+                r["all_reduces"] % per_block or r["control_calls"]:
+            fail(f"phase 21 (f): rank {r['rank']}: calls a decode pass "
+                 f"{r['decode_calls_per_pass']} (expected {per_block} "
+                 f"all-reduces + 2 all-gathers), control plane "
+                 f"{r['control_calls']}")
+    ctl = res[0]["control_rel"]
+    if not ctl > TP_LOGIT_RTOL:
+        fail(f"phase 21 (f): the control (one perturbed weight) passes the "
+             f"bar: {ctl:.3g} <= {TP_LOGIT_RTOL}")
+    r0 = res[0]
+    return dict(gpus=n, rel=[r["rel"] for r in res], bar=TP_LOGIT_RTOL,
+                control_rel=ctl, tokens_identical_across_ranks=True,
+                all_reduces_per_decode_pass=per_block,
+                all_gathers_per_decode_pass=2,
+                decode_passes=r0["decode_passes"],
+                decode_tokens_per_s_per_gpu=r0["decode_tokens"] / max(
+                    r0["decode_s"], 1e-9) / n,
+                decode_ms_per_pass=1e3 * r0["decode_s"] / max(
+                    1, r0["decode_passes"]),
+                seconds=seconds)
+
+
+def _serving_tp_rank() -> dict:
+    return serving_tp_rank(perturb=True)
+
+
+def print_serving(p21: dict, smi: str) -> None:
+    """Phase 21's lines, each number beside the card's name and limit."""
+    a, b, c, d = p21["handoff"], p21["engine"], p21["prefix"], p21["spec"]
+    for pub in a["publications"]:
+        print(f"phase 21 (a) publication {pub['generation']} "
+              f"({pub['kind']}, step {pub['step']}): publish "
+              f"{pub['publish_s']:.3f} s, {pub['wire_bytes']} wire bytes "
+              f"({pub['payload_bytes']} payload, {pub['chunks']} chunks), "
+              f"quantize launches {pub['quantize_launches']}; subscriber "
+              f"apply on the card {pub['apply_s']:.3f} s, bit-equal ({smi})",
+              flush=True)
+    print(f"phase 21 (a) handoff: {a['steps']} steps in {a['train_s']:.2f} s "
+          f"(elastic, world of one), flash_fwd {a['flash_fwd_launches']}, "
+          f"{a['quantizable_leaves']} quantizable leaves, losses "
+          f"{a['losses']} ({smi})", flush=True)
+    print(f"phase 21 (b) engine (max_batch 8, page 16, chunk 256, 2048): "
+          f"prefill {b['prefill_tokens_per_s']:.1f} tokens/s, decode "
+          f"{b['decode_tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{b['ttft_p50_s']:.4f} s p99 {b['ttft_p99_s']:.4f} s, ms a pass "
+          f"prefill {b['prefill_ms_per_pass']:.3f} decode "
+          f"{b['decode_ms_per_pass']:.3f} (host), page gather "
+          f"{b['gather_device_ms']:.4f} ms of the decode forward's "
+          f"{b['decode_forward_device_ms']:.4f} ms of kernel time "
+          f"({100 * b['gather_share_of_decode_forward']:.1f} %); "
+          f"teacher-forced logits against generate's path within "
+          f"{b['logit_rel']:.4g} of the largest magnitude "
+          f"{b['max_abs_logit']:.4g} (bar {b['logit_bar']}; controls "
+          f"{json.dumps(b['control_rel'])}); tokens against generate: "
+          f"{b['rows_identical']}/{b['requests']} rows identical, "
+          f"{b['near_tie_divergences']} near-tie divergences (gap under 2 x "
+          f"max |dlogit| {b['max_abs_logit_delta']:.4g}) ({smi})",
+          flush=True)
+    print(f"phase 21 (c) prefix cache ({c['requests']} requests, "
+          f"{c['prefix']}-token prefix): tokens identical to the uncached "
+          f"engine, {c['hits']} hits, up to {c['pages_shared_max']} pages "
+          f"aliased, prefill tokens {c['prefill_tokens_cached']} vs "
+          f"{c['prefill_tokens_uncached']}, seconds "
+          f"{c['seconds_cached']:.3f} vs {c['seconds_uncached']:.3f} ({smi})",
+          flush=True)
+    print(f"phase 21 (d) speculative (draft {d['draft_depth']} blocks, "
+          f"lookahead {d['lookahead']}): acceptance {d['acceptance']:.4f}, "
+          f"decode {d['decode_tokens_per_s']:.1f} tokens/s, identical to "
+          f"plain decode {d['identical_to_plain']}, logits within "
+          f"{d['logit_rel']:.4g} of the plain engine's largest magnitude "
+          f"(max |dlogit| {d['max_abs_logit_delta']:.4g}), "
+          f"{d['near_tie_divergences']} near-tie divergences ({smi})",
+          flush=True)
+    print(f"phase 21 (e) rollout verdict on generation 2: "
+          f"{p21['rollout']['verdict']} ({p21['rollout']['reason']}); fleet "
+          f"{json.dumps(p21['fleet'])} ({smi})", flush=True)
+    rest = {k: v for k, v in p21.items() if k != "handoff"}
+    print(f"phase 21: {p21['seconds']:.1f} s; {json.dumps(rest)}", flush=True)
+
+
 def _summary(run: dict) -> str:
     return json.dumps({k: v for k, v in run.items() if k != "step_calls"})
 
@@ -5823,6 +6790,13 @@ def main() -> None:
           f" plain {p20['plain_ms_per_step']:.3f} (median "
           f"{p20['plain_median_ms_per_step']:.3f}); {json.dumps(p20)} "
           f"({smi})", flush=True)
+    torch.cuda.empty_cache()
+    hvd.init()
+    try:
+        p21, serve_delta_calls, serve_traffic = serving_phase(smi)
+    finally:
+        hvd.shutdown()
+    print_serving(p21, smi)
     ar = by_mode["allreduce"]
     print(f"e2e allreduce: NCCL calls a step in the optimizer update "
           f"{json.dumps(ar['nccl_calls']['update'])}, "
@@ -5862,6 +6836,13 @@ def main() -> None:
           f"{json.dumps(lp['powersgd'])} ({smi})", flush=True)
     step_calls = {run["mode"]: run["step_calls"] for run in runs}
     step_calls.update(replay["step_calls"])
+    # phase 21: the handoff's training (B6) and its delta's B1 calls
+    step_calls["serve_delta"] = serve_delta_calls
+    for mode, k, n in (("serve_handoff", "flash_fwd",
+                        p21["handoff"]["flash_fwd_launches"]),
+                       ("serve_delta", "quantize", len(serve_delta_calls))):
+        runs.append(dict(mode=mode, launches={
+            name: n if name == k else 0 for name in K.KERNELS}))
     if gpus > 1:
         torch.cuda.empty_cache()
         try:
@@ -5947,6 +6928,15 @@ def main() -> None:
               f"{json.dumps(z1)} ({smi})", flush=True)
         torch.cuda.empty_cache()
         p20_world = drills_gpus(gpus)
+        torch.cuda.empty_cache()
+        p21_tp = serving_tp_gpus(gpus, serve_traffic)
+        print(f"phase 21 (f) TP engine over a tp axis of {gpus} (flagship LM, "
+              f"generation 2, bf16): teacher-forced logits within "
+              f"{max(p21_tp['rel']):.4g} of the one-GPU engine's largest "
+              f"magnitude (bar {TP_LOGIT_RTOL}; the control, one perturbed "
+              f"weight, {p21_tp['control_rel']:.4g}); decode "
+              f"{p21_tp['decode_tokens_per_s_per_gpu']:.1f} tokens/s a GPU; "
+              f"{json.dumps(p21_tp)} ({smi})", flush=True)
         for drill, rec in p20_world.items():
             print(f"phase 20 {drill} drill at {gpus} GPUs (elastic ResNet-50 "
                   f"ZeRO-1, every plane on): onset -> verdict "
@@ -6013,6 +7003,8 @@ def main() -> None:
     next(k for k in kernels
          if k["name"] == "dequant_accumulate_requantize").update(
         ptxas=usage["int8_wire"])
+    next(k for k in kernels if k["name"] == "quantize").update(
+        serve_delta=rows["quantize"]["by_mode"]["serve_delta"])
     next(k for k in kernels if k["name"] == "fused_adam").update(
         launch_cap=K.ADAM_MAX_LEAVES, requant_epilogue=epilogue,
         ptxas=usage["fused_adam"])

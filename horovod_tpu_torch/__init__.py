@@ -96,6 +96,7 @@ from horovod_tpu_torch.training import (  # noqa: F401
     softmax_xent,
 )
 from horovod_tpu_torch.basics import flush_timeline  # noqa: F401
+from horovod_tpu_torch.serving import subscribe_weights  # noqa: F401
 from horovod_tpu_torch import profiler  # noqa: F401
 from horovod_tpu_torch import tuning  # noqa: F401
 from horovod_tpu_torch import observability  # noqa: F401

@@ -337,6 +337,22 @@ def device() -> torch.device:
     return _state.device
 
 
+def default_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else this
+    process's (:func:`device`) once :func:`init` has run, else
+    ``cuda:0``; raises when that needs CUDA and there is none (pass
+    ``device="cpu"`` to run on the CPU deliberately)."""
+    if device is not None:
+        return torch.device(device)
+    if _state.initialized:
+        return _state.device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU "
+            "deliberately")
+    return torch.device("cuda", 0)
+
+
 def num_rank_is_power_2(num: int) -> bool:
     """Is ``num`` a power of two? The Adasum precondition user scripts
     check before opting into ``op=hvd.Adasum``."""

@@ -4,11 +4,10 @@ Counterpart of ``horovod_tpu/callbacks.py``, as far as the port has it:
 the hook surface (:class:`Callback`, the Keras-named ``on_train_begin``
 ... ``on_batch_end``), the dispatcher a loop drives
 (:class:`CallbackList`, what :func:`horovod_tpu_torch.resilience.run`
-fires), :class:`MetricsCallback` and :class:`HealthCallback`. The JAX
-module imports JAX at module level, so these classes are copied, not the
-file. The broadcast and learning-rate callbacks wait for the launcher
-port (ROADMAP Queue A item 12), the publish callback for serving (item
-11).
+fires), :class:`MetricsCallback`, :class:`HealthCallback` and
+:class:`PublishCallback`. The JAX module imports JAX at module level, so
+these classes are copied, not the file. The broadcast and learning-rate
+callbacks wait for the launcher port (ROADMAP Queue A item 12).
 
 A callback is wired to any *trainer* object via
 :meth:`Callback.set_trainer`; the hooks' names and meaning are Keras's.
@@ -192,3 +191,53 @@ class HealthCallback(Callback):
                 f"{self._health.MONITOR.reason()}"
             )
         self._health.beat()
+
+
+class PublishCallback(Callback):
+    """Stream consolidated weights to a serving fleet from inside a fit
+    loop: every `every` completed batches (and once more at train end),
+    rank 0 publishes ``trainer.params`` through a
+    :class:`horovod_tpu_torch.serving.WeightPublisher`. Publication
+    failures are logged and swallowed — the staleness contract on the
+    subscriber side covers the gap; training never dies because the
+    serving KV is down.
+
+    For ``resilience.run``/``elastic.run`` loops use the
+    ``publisher=``/``publish_every=`` arguments of
+    :class:`~horovod_tpu_torch.resilience.elastic.ElasticRun` instead
+    (they publish the committed, reshard-safe snapshot)."""
+
+    def __init__(self, publisher, every: int = 100):
+        if every < 1:
+            raise ValueError(f"publish cadence must be >= 1, got {every}")
+        self.publisher = publisher
+        self.every = every
+        self._seen = 0
+        self._published_at = -1
+
+    def _publish(self, batch: int) -> None:
+        from horovod_tpu_torch import basics
+
+        if basics.is_initialized() and basics.process_rank() != 0:
+            return  # one writer, same as checkpointing
+        params = getattr(self.trainer, "params", None)
+        if params is None:
+            return
+        from horovod_tpu_torch import serving as _serving
+
+        try:
+            self.publisher.publish({"params": params}, batch)
+            self._published_at = batch
+        except _serving.PublishError as e:
+            logging.getLogger("horovod_tpu_torch.serving").warning(
+                "weight publication at batch %d failed: %s", batch, e)
+
+    def on_batch_end(self, batch, logs=None):
+        self._seen = batch + 1
+        if (batch + 1) % self.every == 0:
+            self._publish(batch + 1)
+
+    def on_train_end(self, logs=None):
+        # the final weights are the ones a serving fleet actually wants
+        if self._seen and self._published_at != self._seen:
+            self._publish(self._seen)

@@ -21,5 +21,6 @@ from horovod_tpu_torch.models.transformer import (  # noqa: F401
     TransformerTiny,
     apply_rope,
     default_attention,
+    generate,
     transformer_param_specs,
 )

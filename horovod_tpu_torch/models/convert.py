@@ -97,6 +97,23 @@ def load_flax_variables(model, params: dict,
         _copy_into(model.jax_batch_stats(), batch_stats, "batch_stats")
 
 
+def torch_weights(model, params: dict, device) -> dict:
+    """``params`` (the JAX package's nested tree, or flat ``a/b/c`` keys;
+    numpy or tensor leaves, in flax's layouts) as ``{parameter name:
+    tensor}`` in ``model``'s layouts on ``device``, what
+    ``torch.func.functional_call(model, ...)`` takes. Leaves already on
+    ``device`` are not copied before the layout change."""
+    from horovod_tpu_torch.models.layers import torch_params
+    from horovod_tpu_torch.training import host_tensor
+
+    def dev(v):
+        t = v if isinstance(v, torch.Tensor) else host_tensor(v)
+        return t.to(device)
+
+    return torch_params(model, {k: dev(v)
+                                for k, v in flatten_tree(params).items()})
+
+
 def flax_params(model) -> dict:
     """The model's parameters as the JAX package's nested numpy tree."""
     return unflatten_tree({k: v.detach().cpu().numpy().copy()

@@ -118,6 +118,17 @@ class Dense(nn.Module):
         return out
 
 
+def layer_norm(x, scale, bias, dtype):
+    """flax ``nn.LayerNorm``'s forward on the last dim (see
+    :class:`LayerNorm`)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    mu2 = (xf * xf).mean(dim=-1, keepdim=True)
+    var = torch.clamp_min(mu2 - mu * mu, 0.0)
+    mul = torch.rsqrt(var + _LN_EPS) * scale
+    return ((xf - mu) * mul + bias).to(dtype)
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=dtype)``: eps 1e-6, fast variance
     ``E[x²] - E[x]²`` clamped at 0 (``F.layer_norm`` takes the two-pass
@@ -135,12 +146,7 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
-        xf = x.float()
-        mu = xf.mean(dim=-1, keepdim=True)
-        mu2 = (xf * xf).mean(dim=-1, keepdim=True)
-        var = torch.clamp_min(mu2 - mu * mu, 0.0)
-        mul = torch.rsqrt(var + _LN_EPS) * self.scale
-        return ((xf - mu) * mul + self.bias).to(self.dtype)
+        return layer_norm(x, self.scale, self.bias, self.dtype)
 
     def jax_params(self, grad=False):
         if grad:

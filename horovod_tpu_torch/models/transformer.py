@@ -1,8 +1,8 @@
-"""Decoder-only Transformer LM in PyTorch (training path).
+"""Decoder-only Transformer LM in PyTorch: training, kv-cache decode and
+the paged serving mode.
 
-Counterpart of ``horovod_tpu/models/transformer.py`` without the kv-cache
-decode and the paged serving mode. It computes what the flax model
-computes:
+Counterpart of ``horovod_tpu/models/transformer.py``. It computes what
+the flax model computes:
 
 - pre-LN blocks; flax's ``nn.LayerNorm`` written out: eps 1e-6 and the
   fast variance ``E[x²] - E[x]²`` clamped at 0, stats in f32
@@ -18,6 +18,16 @@ computes:
   (:func:`default_attention`, or
   :func:`horovod_tpu_torch.ops.flash_attention.flash_attention`);
 - logits in f32.
+
+Decoding: ``forward(tokens, positions, cache=, page_table=)`` runs a
+chunk of tokens against a kv cache the caller owns and passes in, one
+``(k, v)`` pair a block, written in place (there is no flax-style
+``mutable`` collection): a contiguous cache ``[B, L, H_kv, D]``
+(:meth:`TransformerLM.decode_cache`; each row's chunk lands at its
+``positions[:, 0]``, as ``dynamic_update_slice``), or with a
+``page_table`` a page pool ``[P, page_size, H_kv, D]``
+(:meth:`TransformerLM.paged_cache`; the serving engine's). :func:`generate`
+is the batched prefill + per-token decode loop.
 
 Tensor parallelism: :func:`transformer_param_specs` names the dim each
 flax-keyed leaf splits over a model axis (Megatron's column/row rules),
@@ -44,7 +54,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch.models.layers import Dense, Embed, LayerNorm
-from horovod_tpu_torch.ops.flash_attention import NEG_INF, repeat_kv_heads
+from horovod_tpu_torch.ops.flash_attention import (
+    NEG_INF, decode_attention, paged_decode_attention, repeat_kv_heads,
+)
 from horovod_tpu_torch.parallel import spmd
 
 
@@ -54,12 +66,14 @@ def apply_rope(x, positions, *, base: float = 10000.0):
     by ``positions * base**(-i/(D/2))``; math in f32, result in x's
     dtype. ``positions`` are the global token indices, ``[B or 1, T]``."""
     half = x.shape[-1] // 2
+    # constants by torch.full: torch.tensor(..., device=cuda) is a copy
+    # from the host that waits for the card
     expo = (-torch.arange(half, dtype=torch.float32, device=x.device)
-            / torch.tensor(float(half), device=x.device))
+            / torch.full((), float(half), device=x.device))
     # XLA's f32 pow is correctly rounded (PyTorch's is not, always):
     # take it in f64 and round once
-    freqs = torch.pow(torch.tensor(base, dtype=torch.float64, device=x.device),
-                      expo.double()).float()
+    freqs = torch.pow(torch.full((), base, dtype=torch.float64,
+                                 device=x.device), expo.double()).float()
     angles = positions[..., None].float() * freqs          # [B?, T, half]
     cos = torch.cos(angles)[..., None, :]                  # over heads
     sin = torch.sin(angles)[..., None, :]
@@ -81,6 +95,47 @@ def default_attention(q, k, v, *, causal: bool = True, sm_scale=None):
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _decode_attention(q, k_cache, v_cache, start_pos):
+    """The historical name of
+    :func:`horovod_tpu_torch.ops.flash_attention.decode_attention`."""
+    return decode_attention(q, k_cache, v_cache, start_pos)
+
+
+def write_cache(cache, k, v, positions, page_table=None):
+    """Write a chunk's ``k``/``v`` ``[B, T, H_kv, D]`` into one block's
+    cache ``(k, v)`` in place, and return the per-row frontier
+    ``positions[:, 0]``.
+
+    - contiguous ``[B, L, H_kv, D]``: row b's chunk at
+      ``positions[b, 0]``, clamped into ``[0, L - T]`` as
+      ``dynamic_update_slice`` clamps;
+    - paged ``[P, page_size, H_kv, D]`` with ``page_table`` ``[B,
+      pages_per_seq]``: token p of row b to slot ``page_table[b, p //
+      page_size] * page_size + p % page_size`` of the flat pool, the page
+      index clamped to the table as ``take_along_axis`` clamps. Rows the
+      engine masks and pad tails past a row's pages go to page 0, whose
+      contents are never visible; duplicate slots there make the write
+      order-dependent, which is harmless only for that reason."""
+    kc, vc = cache
+    start = positions[:, 0]
+    if page_table is None:
+        b, t = k.shape[:2]
+        st = start.clamp(0, kc.shape[1] - t)
+        idx = (st[:, None] + torch.arange(t, device=k.device)[None, :])
+        idx = idx[:, :, None, None].expand(b, t, kc.shape[2], kc.shape[3])
+        kc.scatter_(1, idx, k.to(kc.dtype))
+        vc.scatter_(1, idx, v.to(vc.dtype))
+        return start
+    ps = kc.shape[1]
+    page_idx = (positions // ps).clamp_max(page_table.shape[1] - 1)
+    page_ids = torch.gather(page_table, 1, page_idx)
+    slots = (page_ids * ps + positions % ps).reshape(-1)
+    flat = (-1, kc.shape[2], kc.shape[3])
+    kc.view(flat)[slots] = k.to(kc.dtype).reshape(flat)
+    vc.view(flat)[slots] = v.to(vc.dtype).reshape(flat)
+    return start
 
 
 class TransformerBlock(nn.Module):
@@ -109,7 +164,7 @@ class TransformerBlock(nn.Module):
         self.mlp_up = Dense(dim, mlp_ratio * dim, bias=True, **kw)
         self.mlp_down = Dense(mlp_ratio * dim, dim, bias=True, **kw)
 
-    def forward(self, x, positions=None):
+    def forward(self, x, positions=None, cache=None, page_table=None):
         b, t = x.shape[:2]
         h = self.ln1(x)
         if self.h_kv == self.heads:
@@ -126,7 +181,15 @@ class TransformerBlock(nn.Module):
                                  "token indices)")
             q = apply_rope(q, positions, base=self.rope_base)
             k = apply_rope(k, positions, base=self.rope_base)
-        att = self.attention_fn(q, k, v, causal=True)
+        if cache is None:
+            att = self.attention_fn(q, k, v, causal=True)
+        elif page_table is not None:
+            start = write_cache(cache, k, v, positions, page_table)
+            att = paged_decode_attention(q, cache[0], cache[1], page_table,
+                                         start, page_size=cache[0].shape[1])
+        else:
+            start = write_cache(cache, k, v, positions)
+            att = decode_attention(q, cache[0], cache[1], start)
         x = x + self.proj(att.reshape(b, t, self.dim))
         h = self.mlp_up(self.ln2(x))
         h = self.mlp_down(F.gelu(h, approximate="tanh"))
@@ -155,6 +218,9 @@ class TransformerLM(nn.Module):
             raise ValueError(f"heads ({heads}) must be a multiple of "
                              f"kv_heads ({kv_heads})")
         self.dtype, self.max_len, self.depth = dtype, max_len, depth
+        self.vocab, self.dim, self.heads = vocab, dim, heads
+        self.kv_heads, self.mlp_ratio = kv_heads, mlp_ratio
+        self.pos_embedding, self.rope_base = pos_embedding, rope_base
         self.use_rope = pos_embedding == "rope"
         kw = dict(dtype=dtype, device=device)
         self.tok_embed = Embed(vocab, dim, **kw)
@@ -180,16 +246,68 @@ class TransformerLM(nn.Module):
             with torch.no_grad():
                 self.pos_embed.normal_(0.0, 0.02, generator=gen)
 
-    def forward(self, tokens, positions=None):
+    def config(self, **overrides) -> dict:
+        """The constructor's configuration (``overrides`` replace fields),
+        to build a model of the same shape: a draft of fewer blocks, or a
+        parameterless twin on the ``meta`` device."""
+        cfg = dict(vocab=self.vocab, dim=self.dim, depth=self.depth,
+                   heads=self.heads, kv_heads=self.kv_heads,
+                   mlp_ratio=self.mlp_ratio, max_len=self.max_len,
+                   dtype=self.dtype, pos_embedding=self.pos_embedding,
+                   rope_base=self.rope_base)
+        cfg.update(overrides)
+        return cfg
+
+    def _cache_shape(self, lead) -> tuple:
+        return (*lead, self.kv_heads or self.heads, self.dim // self.heads)
+
+    def decode_cache(self, batch: int, length: int, device=None) -> list:
+        """A zero contiguous kv cache: one ``(k, v)`` ``[batch, length,
+        H_kv, D]`` pair a block, in the compute dtype."""
+        shape = self._cache_shape((batch, length))
+        return [(torch.zeros(shape, dtype=self.dtype, device=device),
+                 torch.zeros(shape, dtype=self.dtype, device=device))
+                for _ in range(self.depth)]
+
+    def paged_cache(self, num_pages: int, page_size: int, device=None,
+                    heads_div: int = 1) -> list:
+        """A zero page pool: one ``(k, v)`` ``[num_pages, page_size,
+        H_kv / heads_div, D]`` pair a block (``heads_div`` is a tensor-
+        parallel axis's size: a rank's head block)."""
+        h_kv = (self.kv_heads or self.heads) // heads_div
+        shape = (num_pages, page_size, h_kv, self.dim // self.heads)
+        return [(torch.zeros(shape, dtype=self.dtype, device=device),
+                 torch.zeros(shape, dtype=self.dtype, device=device))
+                for _ in range(self.depth)]
+
+    def forward(self, tokens, positions=None, cache=None, page_table=None):
+        """Logits ``[B, T, vocab]`` (f32) of ``tokens`` ``[B, T]``.
+
+        With ``cache`` (a list of one ``(k, v)`` pair a block) the chunk
+        is decoded against it and written into it in place; ``positions``
+        ``[B, T]`` (each row's global token indices) is then required, and
+        ``page_table`` selects the paged cache. A learned position past
+        the table is clamped: only a paged prefill chunk's pad tail
+        carries one, and its logits are never read (the JAX package's
+        ``jnp.take`` fills NaN there instead)."""
+        if cache is not None and positions is None:
+            raise ValueError(
+                "decoding against a cache requires positions (the cache "
+                "index of each token, [B, T]) — use generate()")
+        if cache is not None and len(cache) != self.depth:
+            raise ValueError(f"cache has {len(cache)} blocks, the model "
+                             f"{self.depth}")
         if positions is None:
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]
         x = self.tok_embed(tokens)
         if not self.use_rope:
-            x = x + self.pos_embed[positions].to(self.dtype)
+            x = x + self.pos_embed[positions.clamp(0, self.max_len - 1)].to(
+                self.dtype)
         for i in range(self.depth):
             x = getattr(self, f"block{i}")(
-                x, positions if self.use_rope else None)
+                x, positions if (self.use_rope or cache is not None) else None,
+                None if cache is None else cache[i], page_table)
         return self.lm_head(self.ln_f(x)).float()
 
     def _collect(self, grad: bool) -> dict:
@@ -327,3 +445,100 @@ TransformerTiny = _with_defaults(vocab=1024, dim=64, depth=2, heads=4,
                                  max_len=4096)
 #: ~GPT-2-small scale
 TransformerSmall = _with_defaults(vocab=32768, dim=768, depth=12, heads=12)
+
+
+def _sample(logits, temperature: float, generator):
+    """Greedy argmax (``temperature == 0``) or a draw from
+    ``softmax(logits / temperature)`` with ``generator``."""
+    if temperature > 0.0:
+        p = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(p, 1, generator=generator)[:, 0].to(
+            torch.int32)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+@torch.no_grad()
+def generate(model: TransformerLM, params, prompt, *, max_new_tokens: int,
+             temperature: float = 0.0, generator=None, prompt_lens=None,
+             device=None):
+    """Autoregressive decoding with a kv cache: one batched prefill
+    forward writes the whole prompt's K/V, then one forward a token,
+    greedy (``temperature == 0``) or sampled. The cache holds ``T_prompt
+    + max_new_tokens`` positions, ``H_kv`` wide.
+
+    Ragged batches: ``prompt_lens`` ``[B]`` with a right-padded
+    ``prompt``; each row decodes from its own length (the per-row
+    frontier keeps the pads unreachable until a decode step overwrites
+    them).
+
+    Args:
+      model: a :class:`TransformerLM`; it runs where its parameters are.
+      params: ``None`` (the model's own parameters), or a tree keyed by
+        flax path (the JAX package's nested dict, or ``jax_params()``'s
+        flat keys) in flax's layouts, run through
+        ``torch.func.functional_call``.
+      prompt: int tokens ``[B, T_prompt]`` (a tensor or numpy array).
+      max_new_tokens: tokens to append to each row.
+      temperature: 0 = greedy; > 0 samples ``logits / temperature``.
+      generator: the ``torch.Generator`` (on the model's device) the
+        samples are drawn from; required when ``temperature > 0``. The
+        JAX package's ``fold_in``-keyed draws are not reproduced.
+      prompt_lens: optional ``[B]`` true prompt lengths (1..T_prompt).
+      device: where to run; by default the model's parameters' device,
+        or, for a parameterless (``meta``) model, this process's device
+        once ``init`` has run, else ``cuda:0``.
+
+    Returns int32 tokens ``[B, T_prompt + max_new_tokens]``; a ragged row
+    carries its generated tokens at ``[L_i, L_i + max_new_tokens)``, and
+    the columns past them are unspecified padding."""
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature > 0 needs a torch.Generator")
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    dev = model.ln_f.scale.device
+    if device is not None or dev.type == "meta":
+        from horovod_tpu_torch.basics import default_device
+
+        dev = default_device(device)
+    if params is not None:
+        from horovod_tpu_torch.models.convert import torch_weights
+
+        weights = torch_weights(model, params, dev)
+
+        def fwd(*a, **kw):
+            return torch.func.functional_call(model, weights, a, kw)
+    else:
+        fwd = model
+    prompt = torch.as_tensor(prompt).to(device=dev, dtype=torch.int64)
+    b, t_prompt = prompt.shape
+    total = t_prompt + max_new_tokens
+    if total > model.max_len:
+        raise ValueError(f"prompt + max_new_tokens = {total} exceeds max_len "
+                         f"{model.max_len}")
+    if prompt_lens is not None:
+        lens = torch.as_tensor(prompt_lens).to(device=dev, dtype=torch.int64)
+        if tuple(lens.shape) != (b,):
+            raise ValueError(f"prompt_lens must be [B]={b}, got "
+                             f"{tuple(lens.shape)}")
+        lo, hi = int(lens.min()), int(lens.max())
+        if lo < 1 or hi > t_prompt:
+            raise ValueError(f"prompt_lens must be in [1, {t_prompt}], got "
+                             f"[{lo}, {hi}]")
+    else:
+        lens = torch.full((b,), t_prompt, dtype=torch.int64, device=dev)
+    cache = model.decode_cache(b, total, device=dev)
+    pos = torch.arange(t_prompt, device=dev)[None, :].expand(b, t_prompt)
+    logits = fwd(prompt, pos, cache)
+    # each row's first token comes from ITS last real position
+    last = logits[torch.arange(b, device=dev), lens - 1]
+    tok = _sample(last, temperature, generator)
+    gen = [tok]
+    for i in range(max_new_tokens - 1):
+        logits = fwd(tok[:, None].to(torch.int64), (lens + i)[:, None], cache)
+        tok = _sample(logits[:, -1], temperature, generator)
+        gen.append(tok)
+    gen = torch.stack(gen, dim=1)
+    out = torch.nn.functional.pad(prompt.to(torch.int32),
+                                  (0, max_new_tokens))
+    idx = lens[:, None] + torch.arange(max_new_tokens, device=dev)[None, :]
+    return out.scatter_(1, idx, gen)

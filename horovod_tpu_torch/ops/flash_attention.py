@@ -1,8 +1,8 @@
 """Blockwise (flash) attention.
 
-Counterpart of ``horovod_tpu/ops/flash_attention.py`` (training path;
-the kv-cache decode primitives wait for serving). Layout is the JAX
-package's: ``q`` ``[B, Tq, H, D]``, ``k``/``v`` ``[B, Tk, H_kv, D]`` with
+Counterpart of ``horovod_tpu/ops/flash_attention.py``: the training
+path and the kv-cache decode primitives serving runs on. Layout is the
+JAX package's: ``q`` ``[B, Tq, H, D]``, ``k``/``v`` ``[B, Tk, H_kv, D]`` with
 ``H % H_kv == 0`` (grouped-query attention broadcasts each K/V head over
 its query group; MQA is ``H_kv == 1``).
 
@@ -15,6 +15,13 @@ its query group; MQA is ``H_kv == 1``).
   each block's probabilities from ``(q, k, lse)``, so no score matrix is
   saved (O(T) extra memory), and keeps K/V ``H_kv``-wide, broadcasting
   each block over the query group and summing its gradient back.
+
+- decode: :func:`decode_attention` (a chunk of queries against a
+  contiguous kv cache, masked per row at its frontier),
+  :func:`paged_decode_attention` (the same against a page pool through a
+  page table) and :func:`tp_paged_decode_attention` (one rank's head
+  block of it). They are plain PyTorch, as the JAX package's are plain
+  ``jnp``: no TPU kernel stands behind them.
 
 ``_attention_scan`` and ``_block_bwd`` keep the reference's
 ``q_offset``/``kv_offset`` arguments (global positions of element 0), the
@@ -239,3 +246,93 @@ def flash_attention(q, k, v, *, causal: bool = False,
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     return _Flash.apply(q, k, v, bool(causal), float(sm_scale), int(block_k))
+
+
+def decode_attention(q, k_cache, v_cache, start_pos):
+    """Attention of a new chunk ``q`` ``[B, T, H, D]`` (query t sits at
+    global position ``start_pos[b] + t``) against a kv cache ``[B, L,
+    H_kv, D]``, causally masked per row; GQA-aware. T = 1 is the decode
+    step, T = the prompt (or a prefill chunk) the prefill. Cache
+    positions past a row's frontier score ``NEG_INF`` (never ``-inf``),
+    which ``exp`` turns into an exact 0.
+
+    The JAX package's expression order: the scale multiplies the
+    ``q·k`` product (not ``q`` before it, as the flash path does), the
+    softmax runs in f32 and is cast to ``q``'s dtype before ``p·v``."""
+    if k_cache.shape[2] != q.shape[2]:
+        k_cache, v_cache = repeat_kv_heads(q, k_cache, v_cache)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k_cache) * q.shape[-1] ** -0.5
+    t, l = q.shape[1], k_cache.shape[1]
+    qpos = start_pos[:, None] + torch.arange(t, device=q.device)[None, :]
+    valid = (torch.arange(l, device=q.device)[None, None, :]
+             <= qpos[:, :, None])                               # [B, T, L]
+    s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v_cache)
+
+
+def gather_pages(pages, page_table):
+    """A page pool ``[P, page_size, H_kv, D]`` re-linearised per row
+    through ``page_table`` ``[B, pages_per_seq]``: ``[B, pages_per_seq *
+    page_size, H_kv, D]``, token p of row b at index p."""
+    b = page_table.shape[0]
+    return pages[page_table].reshape(b, -1, pages.shape[2], pages.shape[3])
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, start_pos, *,
+                           page_size: int):
+    """Decode attention against a paged kv cache (vLLM's memory model).
+
+    ``k_pages``/``v_pages``: the page pool ``[P, page_size, H_kv, D]``;
+    ``page_table``: ``[B, pages_per_seq]`` page ids per sequence slot,
+    position-ordered (token p of row b lives in page ``page_table[b, p
+    // page_size]`` at offset ``p % page_size``); ``q``: ``[B, T, H,
+    D]`` with query t at ``start_pos[b] + t``.
+
+    The gather re-linearises each row's pages and defers to
+    :func:`decode_attention`. Slots at or past a row's frontier
+    (``start_pos + T``) are zeroed before the matmuls: the causal mask
+    already gives them no weight, but a recycled page may hold NaN from a
+    poisoned weight generation, and ``0 × NaN`` would leak it through
+    ``p·v``. Zeroing is exact for finite values, so parity with the
+    contiguous path holds."""
+    if k_pages.shape[1] != page_size:
+        raise ValueError(f"page pool pages hold {k_pages.shape[1]} tokens, "
+                         f"page_size is {page_size}")
+    k_cache = gather_pages(k_pages, page_table)
+    v_cache = gather_pages(v_pages, page_table)
+    frontier = start_pos + q.shape[1]  # exclusive per-row high-water mark
+    live = (torch.arange(k_cache.shape[1], device=q.device)[None, :]
+            < frontier[:, None])[..., None, None]
+    k_cache = torch.where(live, k_cache, torch.zeros((), dtype=k_cache.dtype,
+                                                     device=q.device))
+    v_cache = torch.where(live, v_cache, torch.zeros((), dtype=v_cache.dtype,
+                                                     device=q.device))
+    return decode_attention(q, k_cache, v_cache, start_pos)
+
+
+def tp_paged_decode_attention(q, k_pages, v_pages, page_table, start_pos, *,
+                              page_size: int, axis: str = "tp"):
+    """:func:`paged_decode_attention` on this rank's head block of a
+    tensor-parallel mesh axis.
+
+    Attention is independent per head, so with ``q`` and the page pools
+    head-sharded (each rank holds ``H / n`` query heads and ``H_kv / n``
+    kv heads of the axis's ``n``) each rank runs the plain paged decode
+    on its block and no collective is needed; ``page_table`` and
+    ``start_pos`` are the same on every rank. The JAX package's version
+    is this inside ``shard_map``; the port's ranks already hold their
+    blocks, so this validates the head counts and defers."""
+    from horovod_tpu_torch.parallel import spmd
+
+    n = spmd.axis_size(axis)
+    h, h_kv = q.shape[2], k_pages.shape[2]
+    if h % h_kv:
+        raise ValueError(
+            f"this rank's {h} query heads are not a multiple of its {h_kv} "
+            f"kv heads (tp axis {axis!r} of size {n})")
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(f"k/v page pools differ: {tuple(k_pages.shape)} vs "
+                         f"{tuple(v_pages.shape)}")
+    return paged_decode_attention(q, k_pages, v_pages, page_table, start_pos,
+                                  page_size=page_size)

@@ -6,8 +6,13 @@ guard (``grad_nan_at_step``, ``grad_spike_at_step``), the eager dispatch
 guard of :mod:`horovod_tpu_torch.ops.collective` (``collective_fail``,
 ``collective_delay``), the preemption loop (``sigterm_at_step``) and the
 elastic driver (``rank_fail``, ``rank_fail_at_step``,
-``rank_join_at_step``); the other charges' consumers come with the
-serving, data and observability ports. Besides the metrics counter, each
+``rank_join_at_step``), the serving plane (:mod:`horovod_tpu_torch.
+serving`: ``publish_fail`` and ``kv_restart_at_step`` in the publisher,
+``subscriber_stall`` in the subscriber, ``request_burst``,
+``cache_evict_at_pass`` and ``slow_decode`` in the engine,
+``replica_kill`` and ``replica_stale`` in the fleet) and the
+observability planes; the data charges' consumers come with the data
+port. Besides the metrics counter, each
 injection is counted in :data:`injected` (site -> count).
 
 Every recovery path in this package is only trustworthy if tier-1 can

@@ -56,8 +56,14 @@ a mesh over a subset of one process's devices):
   step is built again for a new membership.
 
 A rank that dies inside a collective is out of scope, as it is for the
-JAX driver: its peers block in the collective. The weight publisher
-waits for the serving port (ROADMAP Queue A item 11).
+JAX driver: its peers block in the collective.
+
+- **publication**: with ``publisher=`` (a
+  :class:`~horovod_tpu_torch.serving.WeightPublisher`, on the rank that
+  writes) and ``publish_every=N``, the committed snapshot is published
+  every N steps, and again from the post-resize state after each
+  resize; the publisher's generation fence is the elastic generation, so
+  a resize aborts a publication in flight.
 """
 
 from __future__ import annotations
@@ -289,10 +295,15 @@ class ElasticRun:
         snapshot_every: int = 1,
         reshard_fn: Optional[Callable[[Any, int], Any]] = None,
         coordinator: Optional[ElasticCoordinator] = None,
+        publisher=None,
+        publish_every: int = 0,
     ):
         if min_workers is None:
             min_workers = int(os.environ.get(MIN_WORKERS_ENV, "1"))
         self._step_builder = step_builder
+        self._publisher = publisher
+        self._publish_every = max(0, publish_every)
+        self._published_step: Optional[int] = None
         self._min_workers = max(1, min_workers)
         self._max_workers = max_workers
         self._snapshot_every = max(1, snapshot_every)
@@ -612,9 +623,43 @@ class ElasticRun:
                     # rollbacks *without* progress, so it resets here
                     self._numerics_rollbacks = 0
                     self._recovering_until = None
+            self._maybe_publish(step + 1)
             return out
 
         return wrapped
+
+    def _maybe_publish(self, step: int) -> None:
+        """Publish the COMMITTED snapshot on the publish cadence — the
+        consolidated state (host copy, reshard-safe), not the live device
+        tree, so a publication is always replayable after a resize. A
+        fence abort here means a concurrent party resized under us; the
+        resize path republishes, so it is not an error."""
+        if self._publisher is None or self._publish_every <= 0:
+            return
+        if step % self._publish_every or self._committed is None:
+            return
+        if self._committed_step == self._published_step:
+            # snapshot_every > publish_every: the committed tree has not
+            # moved since the last publication — re-publishing it would
+            # mint identical generations and reset subscriber staleness
+            # for weights that never changed
+            return
+        from horovod_tpu_torch import serving as _serving
+
+        try:
+            self._publisher.publish(self._committed, self._committed_step)
+            self._published_step = self._committed_step
+        except _serving.PublishAborted as e:
+            logger.warning("publication fenced off mid-resize: %s", e)
+        except _serving.PublishError as e:
+            logger.warning(
+                "weight publication at step %d failed: %s", step, e)
+
+    def _fence(self) -> int:
+        """The publish fence: the coordinator's generation on the driver,
+        this rank's generation elsewhere."""
+        return self._coord.generation if self._coord is not None \
+            else self._gen
 
     def _build(self):
         """The step for the current membership; the previous build's
@@ -753,6 +798,21 @@ class ElasticRun:
             "joined=%s) in %.3fs",
             len(alive), gen, list(wc.lost), list(wc.joined), dt,
         )
+        if self._publisher is not None and self._published_step != next_step:
+            # republish from the post-resize consolidated state: any
+            # generation the fence aborted mid-resize is superseded here,
+            # and subscribers see the exact weights the replayed steps
+            # start from (off-cadence on purpose — the resize IS the
+            # event; skipped only when this exact committed step already
+            # published)
+            from horovod_tpu_torch import serving as _serving
+
+            try:
+                self._publisher.publish(state, next_step)
+                self._published_step = next_step
+            except _serving.PublishError as e:
+                logger.warning(
+                    "post-resize weight publication failed: %s", e)
         return state, next_step
 
     def _numerics_rollback(self, nr):
@@ -845,6 +905,10 @@ class ElasticRun:
         self._max_workers = min(cap, self._world)
         if self._me == 0 and self._coord is None:
             self._coord = ElasticCoordinator()
+        if self._publisher is not None and self._publisher.fence_fn is None:
+            # the elastic generation IS the publish fence: a resize bumps
+            # it, aborting any in-flight generation before it can commit
+            self._publisher.fence_fn = self._fence
         end = {"outcome": "error", "error": "the driver raised"}
         try:
             # initial formation at full strength (bounded by max_workers);
@@ -973,6 +1037,8 @@ def run(
     checkpoint_every: int = 0,
     callbacks: Optional[Iterable] = None,
     coordinator: Optional[ElasticCoordinator] = None,
+    publisher=None,
+    publish_every: int = 0,
 ) -> Any:
     """Drive elastic training: ``state = step_fn(state, i)`` where
     ``step_fn = step_builder(world_size)`` is rebuilt every time membership
@@ -1002,6 +1068,11 @@ def run(
       75), and resume all keep working inside each epoch.
     - `coordinator`: an :class:`ElasticCoordinator` for rank 0 (by default
       the run owns a private one).
+    - `publisher` / `publish_every`: a
+      :class:`~horovod_tpu_torch.serving.WeightPublisher` (give it on the
+      rank that writes) publishing the committed snapshot every
+      `publish_every` steps and after each resize, fenced on the elastic
+      generation.
 
     The numerics guard composes (:mod:`horovod_tpu_torch.resilience.
     numerics`): when the carried state holds a guarded optimizer, the
@@ -1022,6 +1093,8 @@ def run(
         snapshot_every=snapshot_every,
         reshard_fn=reshard_fn,
         coordinator=coordinator,
+        publisher=publisher,
+        publish_every=publish_every,
     ).run(
         state,
         num_steps=num_steps,

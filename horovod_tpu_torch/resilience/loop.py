@@ -35,9 +35,10 @@ still exits 75. A peer that was not preempted blocks in its next
 collective, as under the JAX driver. :func:`resume_state` hands back this
 rank's state (:func:`~horovod_tpu_torch.checkpoint.rank_state`: the
 optimizer state re-packed for the world, the arrays as tensors on its
-device). The drain flushes the flight ring and the timeline before the
-checkpoint; the final weight publication waits for the serving port
-(ROADMAP Queue A item 11).
+device). The drain flushes the flight ring and the timeline, then every
+registered weight publisher (:func:`horovod_tpu_torch.serving.
+flush_on_preempt`: a final generation for the serving fleet, inside the
+drain budget), before the checkpoint.
 
 This module is stdlib-importable; the data plane is imported inside the
 functions that need it.
@@ -259,6 +260,7 @@ def run(
             # checkpoint again over the first pass's in-progress write
             raise Preempted(step, None, received["signum"])
         draining.set()
+        drain_deadline = time.monotonic() + DRAIN_TIMEOUT_S
         _drain(state)
         # flush the observability record before the emergency checkpoint:
         # a supervisor's escalation to SIGKILL never reaches shutdown()
@@ -272,6 +274,28 @@ def run(
         except Exception:
             logger.debug(
                 "observability flush during drain failed", exc_info=True)
+        # final weight publication (best-effort, inside the remaining drain
+        # budget): a preempted trainer's subscribers get the last good
+        # generation instead of a staleness gap the length of the restart.
+        # Before the emergency checkpoint: the publish is bounded and
+        # lossy-safe where the checkpoint is neither.
+        try:
+            from horovod_tpu_torch import serving as _serving
+
+            if _serving.active_publishers():
+                budget = max(0.5, drain_deadline - time.monotonic())
+                flushed = _serving.flush_on_preempt(state, step, budget)
+                if flushed:
+                    logger.warning(
+                        "flushed final weight publication from %d "
+                        "publisher(s) before the emergency checkpoint",
+                        flushed,
+                    )
+        except Exception:
+            logger.warning(
+                "final weight publication failed; continuing to the "
+                "emergency checkpoint", exc_info=True,
+            )
         path = None
         note = "(disabled)"
         state_finite = True

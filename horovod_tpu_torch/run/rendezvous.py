@@ -1525,6 +1525,12 @@ class InProcessKVStore:
         with self._lock:
             return self._d.get(key)
 
+    def delete(self, key: str, tombstone: bool = False) -> bool:
+        """Drop ``key`` (a tombstone reads as missing here)."""
+        del tombstone
+        with self._lock:
+            return self._d.pop(key, None) is not None
+
 
 def kv_client_from_env() -> Optional["KVStoreClient"]:
     """:class:`KVStoreClient` built from the launcher env — the shared

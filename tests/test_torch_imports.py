@@ -53,6 +53,7 @@ def test_every_module_imports_with_jax_poisoned():
             "horovod_tpu_torch.run.rendezvous",
             "horovod_tpu_torch.callbacks"} <= set(mods)
     assert set(OBSERVABILITY_MODULES) <= set(mods)
+    assert set(SERVING_MODULES) <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes'):\n"
@@ -197,6 +198,72 @@ def test_observability_module_imports_neither_jax_nor_the_jax_package(mod):
         path = ROOT / mod.replace(".", "/") / "__init__.py"
     lazy = re.compile(r"^\s+(import|from) (jax|flax|optax|horovod_tpu)\b")
     assert not [l for l in path.read_text().splitlines() if lazy.match(l)]
+
+
+#: the modules of the serving slice
+SERVING_MODULES = (
+    "horovod_tpu_torch.serving",
+    "horovod_tpu_torch.serving.protocol",
+    "horovod_tpu_torch.serving.scheduler",
+    "horovod_tpu_torch.serving.publisher",
+    "horovod_tpu_torch.serving.subscriber",
+    "horovod_tpu_torch.serving.engine",
+    "horovod_tpu_torch.serving.rollout",
+    "horovod_tpu_torch.serving.fleet",
+)
+
+
+@pytest.mark.parametrize("mod", SERVING_MODULES)
+def test_serving_module_imports_with_jax_and_the_jax_package_blocked(mod):
+    """Each serving module imports alone in a fresh interpreter where
+    ``jax`` (and flax, optax, ml_dtypes) and ``horovod_tpu`` cannot be
+    imported, and no line of its source imports them lazily."""
+    probe = (
+        "import sys, importlib\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', "
+        "'horovod_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"m = importlib.import_module({mod!r})\n"
+        "import horovod_tpu_torch.serving as s\n"
+        "for n in s.__all__:\n"
+        "    assert getattr(s, n) is not None, n\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    path = ROOT / (mod.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / mod.replace(".", "/") / "__init__.py"
+    lazy = re.compile(r"^\s+(import|from) (jax|flax|optax|horovod_tpu)\b")
+    assert not [l for l in path.read_text().splitlines() if lazy.match(l)]
+
+
+def test_serving_package_import_stays_light():
+    """``import horovod_tpu_torch.serving`` loads the handoff surface
+    only: the engine, rollout, fleet and scheduler load on first use of
+    their names, as in the JAX package; its exports are
+    the JAX package's."""
+    import horovod_tpu.serving as js
+
+    probe = (
+        "import sys\n"
+        "import horovod_tpu_torch.serving as s\n"
+        "heavy = [n for n in ('horovod_tpu_torch.serving.engine',\n"
+        "         'horovod_tpu_torch.serving.rollout',\n"
+        "         'horovod_tpu_torch.serving.fleet',\n"
+        "         'horovod_tpu_torch.serving.scheduler') if n in sys.modules]\n"
+        "assert not heavy, heavy\n"
+        "assert s.InferenceEngine.__module__ == "
+        "'horovod_tpu_torch.serving.engine'\n"
+        "assert 'horovod_tpu_torch.serving.engine' in sys.modules\n"
+        "print(sorted(s.__all__))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == str(sorted(js.__all__))
 
 
 def test_observability_exports_match_the_jax_package():
