@@ -384,6 +384,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    perturbed weight outside it), the same greedy tokens on every rank,
    each decode pass 2 all-reduces a block (plus the split embedding's
    and vocabulary's all-gathers) and none from the control plane.
+22. the launcher and the input plane (``tools/launcher_phase.py``'s
+   worker, a plain user script): 2,048 synthetic 224x224x3 uint8 images
+   from a seed in an ``ArrayShardStore`` of 16 shards, read through a
+   ``ResumableLoader`` (prefetch 2, placed on the card) by ResNet-50
+   ZeRO-1 + int8 + EF around ``inject_hyperparams(fused_adam)``, batch 64
+   a GPU, 2 epochs under ``resilience.run`` (a checkpoint an epoch) with
+   the broadcast, metric-average, warmup and metrics callbacks, launched
+   by ``python -m horovod_tpu_torch.run -np N --kv-standbys 1``. One GPU:
+   (a) the launched run bit-equal to the worker run without the launcher;
+   (b) each step's ids the sample index's, each epoch every id once, the
+   first batch on the card the store's rows; (c) each step's lr the
+   warmup's, in its logged ``fused_adam`` call too (B1, B3, B5 once a
+   step; the calls replayed as ``hvdrun@1``); (d) a SIGTERM to the
+   launcher while the worker holds step 10: exit 75, then the same
+   command resumes at step 11 bit-equal to (a) on (a)'s ids; (e) the
+   primary KV store SIGKILLed while rank 0 holds step 12: the standby
+   promoted, every rank's client failed over, the later step keys on the
+   promoted store, bit-equal to (a); (f) ``shard_corrupt=3:0``: shard 3
+   quarantined, each of its samples substituted by the store's rule,
+   health SUSPECT naming it, exit 0. Printed: launch to first step (by
+   part), loader-fed img/s a GPU beside phase 4's, the wait for a batch,
+   the copy to the card, peak memory. With ``--gpus N``: (a)-(c) at N
+   ranks against ``testing.run_world``, every rank on its own GPU with
+   identical parameters, and (e) at N ranks (``hvdrun@N``).
 
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
@@ -6621,6 +6645,614 @@ def print_serving(p21: dict, smi: str) -> None:
     print(f"phase 21: {p21['seconds']:.1f} s; {json.dumps(rest)}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 22: the launcher and the input plane
+
+
+#: phase 22's run (ResNet-50 on the launcher's GPU): the dataset (images,
+#: side, classes, rows a shard), rows a GPU a step, epochs, learning rate
+#: (warmed up over the first epoch, then halved each epoch), the stream's
+#: seed
+P22 = dict(images=2048, side=224, classes=1000, shard=128, batch=64,
+           epochs=2, lr=1e-3, seed=7)
+#: one GPU: the step a SIGTERM holds in epoch 0, the step the primary KV
+#: store is killed at, the corrupt shard; across N GPUs, the kill's step
+P22_PREEMPT_AT, P22_KILL_AT, P22_CORRUPT = 10, 12, 3
+P22_KILL_AT_WORLD = 3
+P22_DIR = os.path.join(ROOT, "_smoke_launcher")
+#: seconds a launched job may take
+P22_TIMEOUT = 600
+#: when main() started (the elapsed lines)
+T0 = time.perf_counter()
+
+
+def _p22_tool() -> str:
+    return os.path.join(ROOT, "tools", "launcher_phase.py")
+
+
+def _p22_env(cache_all: bool = True, **extra) -> dict:
+    """The jobs' environment: deterministic cuBLAS (the workers turn on
+    deterministic algorithms), the schedule sanitizer (its step keys are
+    what the failover drill reads on the promoted store), a 1 s primary
+    lease, the repository importable. ``cache_all``: a shard cache that
+    holds the whole dataset, for the drills, whose readings are bits (the
+    default of 8 shards thrashes: every batch of a shuffled epoch touches
+    all 16); the timed run keeps the store's default, as a deployment
+    whose dataset outgrows memory would."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               HOROVOD_SANITIZE="1", HOROVOD_KV_REPLICA_LEASE="1.0",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    env.pop("HOROVOD_CHAOS", None)
+    env.pop("HOROVOD_DATA_CACHE_SHARDS", None)
+    if cache_all:
+        env["HOROVOD_DATA_CACHE_SHARDS"] = str(
+            -(-P22["images"] // P22["shard"]))
+    env.update(extra)
+    return env
+
+
+def p22_cfg(tag: str, n: int, **kw) -> str:
+    """A worker config for the run ``tag`` on ``n`` GPUs (its own output
+    directory, checkpoint directory and signal directory); returns its
+    path."""
+    import shutil
+
+    out = os.path.join(P22_DIR, tag)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cfg = dict(store=os.path.join(P22_DIR, "store"), model="resnet50",
+               model_seed=0, classes=P22["classes"], batch=P22["batch"] * n,
+               seed=P22["seed"], epochs=P22["epochs"], lr=P22["lr"],
+               warmup_epochs=1, checkpoint_dir=os.path.join(out, "ckpt"),
+               deterministic=True, out=out, signal_dir=out)
+    cfg.update(kw)
+    path = os.path.join(out, "cfg.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _p22_records(cfg_path: str, n: int) -> list:
+    with open(cfg_path) as f:
+        out = json.load(f)["out"]
+    recs = []
+    for r in range(n):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _p22_job(argv: list, cfg_path: str, env: dict, during=None) -> dict:
+    """Run one job (its output in the run's directory); ``during(proc,
+    out)`` runs while it does. ``{"rc", "seconds", "t_launch"}``."""
+    with open(cfg_path) as f:
+        out = json.load(f)["out"]
+    t_launch = time.time()
+    with open(os.path.join(out, "job.log"), "w") as log:
+        proc = subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT,
+                                env=env, cwd=ROOT)
+        try:
+            if during is not None:
+                during(proc, out)
+            rc = proc.wait(timeout=P22_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    res = dict(rc=rc, seconds=time.time() - t_launch, t_launch=t_launch)
+    if rc not in (0, 75):
+        with open(os.path.join(out, "job.log")) as f:
+            res["log"] = f.read()[-4000:]
+    return res
+
+
+def hvdrun_argv(n: int, cfg_path: str) -> list:
+    """``python -m horovod_tpu_torch.run -np n --kv-standbys 1`` of the
+    worker, as a user launches it."""
+    return [sys.executable, "-m", "horovod_tpu_torch.run", "-np", str(n),
+            "--kv-standbys", "1", sys.executable, _p22_tool(), "--worker",
+            cfg_path]
+
+
+def hvdrun(n: int, cfg_path: str, env: dict, during=None) -> dict:
+    return _p22_job(hvdrun_argv(n, cfg_path), cfg_path, env, during)
+
+
+def _p22_side_by_side(*jobs) -> list:
+    """Jobs (``(argv, cfg_path, env, during)`` or a callable) run side by
+    side on the same GPUs: the drills and the references, whose readings
+    are their bits, not their times; results in order."""
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        futs = [ex.submit(j) if callable(j) else ex.submit(_p22_job, *j)
+                for j in jobs]
+        return [f.result() for f in futs]
+
+
+def _p22_wait_file(path: str, proc, timeout: float = 300.0) -> dict:
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if proc.poll() is not None:
+            fail(f"phase 22: the job ended (rc {proc.returncode}) before "
+                 f"{os.path.basename(path)}")
+        if time.monotonic() - t0 > timeout:
+            fail(f"phase 22: {os.path.basename(path)} never came")
+        time.sleep(0.02)
+    with open(path) as f:
+        return json.load(f)
+
+
+def _primary_of(launcher_pid: int) -> int:
+    """The launcher's primary KV store process (its child running
+    ``horovod_tpu_torch.run.replication --role primary``)."""
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == launcher_pid and \
+                b"horovod_tpu_torch.run.replication" in argv and \
+                b"primary" in argv:
+            return int(pid)
+    fail("phase 22: no primary KV store process under the launcher")
+
+
+def p22_expected_lr(i: int, spe: int, n: int) -> float:
+    """The learning rate at step ``i``: in the first epoch Goyal et al.'s
+    warmup, as ``LearningRateWarmupCallback`` computes it, then
+    ``lr * 0.5 ** epoch`` at the fractional epoch, as the worker's
+    ``LearningRateScheduleCallback`` does."""
+    e, k = divmod(i, spe)
+    epoch = e + float(k) / spe
+    if e == 0:
+        return P22["lr"] * ((min(epoch, 1) * (n - 1) / 1 + 1) / n)
+    return P22["lr"] * 0.5 ** epoch
+
+
+def _p22_check_run(label: str, recs: list, n: int, first: int = 0,
+                   want_sha=None) -> dict:
+    """(b) and (c) of one run's records: every rank's ids at each step are
+    the sample index's prediction, each epoch visits every id once, the
+    first batch equals the store's rows, each step's learning rate and
+    its logged ``fused_adam`` call's are the schedule's, B1, B3 and B5 each
+    launched once a step; every rank's parameters identical (and equal to
+    ``want_sha`` when given)."""
+    from horovod_tpu_torch.data import GlobalSampleIndex
+
+    index = GlobalSampleIndex(P22["images"], P22["batch"] * n,
+                              seed=P22["seed"])
+    spe = index.steps_per_epoch
+    want_launch = {k: v for k, v in expected_launches(
+        "zero1", n, 161).items() if v}
+    seen: dict = {}
+    for r, rec in enumerate(recs):
+        if rec["rank"] != r or rec["size"] != n:
+            fail(f"phase 22 {label}: rank {r}'s record is rank "
+                 f"{rec['rank']} of {rec['size']}")
+        if first == 0 and rec.get("first_batch_equal") is False:
+            fail(f"phase 22 {label}: rank {r}'s first batch on the card is "
+                 "not the store's rows")
+        steps = [s["i"] for s in rec["steps"]]
+        if steps != list(range(first, spe * P22["epochs"])):
+            fail(f"phase 22 {label}: rank {r} ran steps {steps}")
+        for s in rec["steps"]:
+            e, st = divmod(s["i"], spe)
+            if s["key"] != [e, st] or s["ids"] != index.rank_indices(
+                    e, st, r, n).tolist():
+                fail(f"phase 22 {label}: rank {r} step {s['i']} consumed "
+                     f"{s['key']} {s['ids'][:4]}... not the index's")
+            for v in s["ids"]:
+                seen.setdefault(e, []).append(v)
+            lr = p22_expected_lr(s["i"], spe, n)
+            if s["lr"] != lr:
+                fail(f"phase 22 {label}: step {s['i']} lr {s['lr']} is not "
+                     f"the schedule's {lr}")
+            if s["launches"] != want_launch:
+                fail(f"phase 22 {label}: rank {r} step {s['i']} launched "
+                     f"{s['launches']}, expected {want_launch}")
+        for step, sigs in zip(rec["steps"], rec["calls"]):
+            for sig in sigs:
+                if sig[0] == "fused_adam" and dict(map(tuple, sig[4]))[
+                        "lr"] != step["lr"]:
+                    fail(f"phase 22 {label}: step {step['i']}'s fused_adam "
+                         f"call has lr {dict(map(tuple, sig[4]))['lr']}, "
+                         f"the schedule's is {step['lr']}")
+    if first == 0:
+        for e, ids in seen.items():
+            if sorted(ids) != list(range(P22["images"])):
+                fail(f"phase 22 {label}: epoch {e} did not visit every id "
+                     "exactly once")
+    shas = {rec["params_sha"] for rec in recs}
+    if len(shas) != 1:
+        fail(f"phase 22 {label}: the ranks' final parameters differ")
+    sha = shas.pop()
+    if want_sha is not None and sha != want_sha:
+        fail(f"phase 22 {label}: final parameters differ from the run "
+             "without the launcher")
+    return dict(sha=sha, steps=spe * P22["epochs"], steps_per_epoch=spe)
+
+
+def _tuples(x):
+    return tuple(map(_tuples, x)) if isinstance(x, list) else x
+
+
+def p22_replay_calls(rec: dict) -> list:
+    """The logged kernel calls to replay of one rank's run: those of the
+    first step of each epoch and of its last step, each with its own
+    ``lr`` (the warmup's first rate, the schedule's first and last; a
+    step whose rate an earlier one had is left out)."""
+    spe = len(rec["steps"]) // P22["epochs"]
+    keep, rates = [], set()
+    for j in [*range(0, len(rec["steps"]), spe), len(rec["steps"]) - 1]:
+        if rec["steps"][j]["lr"] not in rates:
+            keep.append(j)
+            rates.add(rec["steps"][j]["lr"])
+    return [_tuples(sig) for j in keep for sig in rec["calls"][j]]
+
+
+def _p22_stats(label: str, res: dict, recs: list, n: int) -> dict:
+    """The run's readings: launch to first step; img/s a GPU fed by the
+    loader, over the second epoch's wall time (its waits for a batch,
+    steps, callbacks and the first epoch's checkpoint included), and over
+    its steps alone (each synchronised); the step loop's wait for a
+    batch; peak memory."""
+    rec = recs[0]
+    spe = len(rec["steps"]) // P22["epochs"]
+    steps = rec["steps"]
+    loop_s = steps[-1]["t_end"] - steps[spe - 1]["t_end"]
+    second = [s["step_s"] for s in steps[spe:]]
+    waits = sorted(s["wait_s"] for s in rec["steps"])
+    marks = {}
+    if rec.get("t_start") is not None:
+        t = res["t_launch"]
+        for name, key in (("launcher_and_start", "t_start"),
+                          ("init", "t_init"), ("model", "t_model"),
+                          ("build", "t_built"), ("to_first_step",
+                                                 "t_first")):
+            marks[name] = max(r[key] for r in recs) - t
+            t = max(r[key] for r in recs)
+    return dict(
+        label=label, rc=res["rc"], job_s=res["seconds"],
+        launch_to_first_step_s=min(r["t_first"] for r in recs)
+        - res["t_launch"], startup_s=marks,
+        img_per_s_per_gpu=P22["batch"] * len(second) / loop_s,
+        step_img_per_s_per_gpu=P22["batch"] * len(second) / sum(second),
+        wait_p50_ms=1e3 * waits[len(waits) // 2],
+        wait_max_ms=1e3 * waits[-1],
+        copy_ms=rec.get("copy_ms"), copy_bytes=rec.get("copy_bytes"),
+        peak_gib=max(r.get("peak_gib", 0.0) for r in recs),
+        launches={k: sum(s["launches"].get(k, 0) for s in rec["steps"])
+                  for k in ("quantize", "dequant_accumulate", "fused_adam")},
+        epoch_logs=rec["epoch_logs"])
+
+
+def _p22_kill_primary(kill_at: int, times: dict):
+    """The failover drill's driver: when rank 0 holds step ``kill_at``,
+    SIGKILL the launcher's primary KV store, let the rank go on, and time
+    the standby's promotion."""
+    import signal
+
+    from horovod_tpu_torch.run import replication
+    from horovod_tpu_torch.run.rendezvous import parse_endpoints
+
+    def during(proc, out):
+        note = _p22_wait_file(os.path.join(out, "kill_at"), proc)
+        if note["step"] != kill_at:
+            fail(f"phase 22 (e): rank 0 announced step {note['step']}")
+        eps = parse_endpoints(note["kv_addrs"])
+        primary = _primary_of(proc.pid)
+        os.kill(primary, signal.SIGKILL)
+        t_kill = time.monotonic()
+        with open(os.path.join(out, "killed"), "w") as f:
+            f.write("1")
+        while True:
+            st = replication.status_of(*eps[1], secret=note["secret"])
+            if st is not None and st.get("role") == "primary":
+                times["kill_to_promotion_s"] = time.monotonic() - t_kill
+                break
+            if time.monotonic() - t_kill > 60 or proc.poll() is not None:
+                fail("phase 22 (e): the standby was not promoted within 60 s")
+            time.sleep(0.01)
+
+    return during
+
+
+def _p22_check_failover(label: str, recs: list) -> dict:
+    out = {}
+    for rec in recs:
+        kv = rec["kv"]
+        if not kv["failovers"] or kv["failovers"] < 1:
+            fail(f"phase 22 {label}: rank {rec['rank']}'s KV client counted "
+                 f"no failover ({kv})")
+        if kv.get("later_keys") is not None and \
+                kv["later_keys_on_standby"] != kv["later_keys"]:
+            fail(f"phase 22 {label}: rank {rec['rank']}'s step keys after "
+                 f"the kill: {kv['later_keys_on_standby']} of "
+                 f"{kv['later_keys']} on the promoted store")
+        out[rec["rank"]] = kv
+    return out
+
+
+def launcher_phase(smi: str) -> tuple:
+    """Phase 22 on one GPU: ``(record, the logged kernel calls to
+    replay)``. Writes the dataset, runs the worker without the launcher
+    (the reference), then through it: (a) the run, (b) its stream, (c)
+    its learning rate, (d) a SIGTERM to the launcher and the resume, (e)
+    the primary KV store killed, (f) a corrupt shard."""
+    import shutil
+    import signal
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import launcher_phase as LP
+
+    t0 = time.perf_counter()
+    shutil.rmtree(P22_DIR, ignore_errors=True)
+    rec = {}
+    try:
+        t = time.perf_counter()
+        manifest = LP.make_dataset(os.path.join(P22_DIR, "store"),
+                                   P22["images"], P22["side"],
+                                   P22["classes"], P22["shard"])
+        rec["dataset"] = dict(
+            images=manifest["n"], shards=len(manifest["shards"]),
+            bytes=_dir_bytes(os.path.join(P22_DIR, "store")),
+            write_s=time.perf_counter() - t)
+        env = _p22_env()
+        # the reference (no launcher), (f), (d)'s preempted run and (e)
+        # side by side; then (a) alone (its times are readings), then (d)'s
+        # resume
+        ref_cfg = p22_cfg("reference", 1)
+        # (no first-batch check in (f): its own gather would count again)
+        f_cfg = p22_cfg("corrupt", 1, row_sums=True, checkpoint_dir=None,
+                        check_first=False)
+        d_cfg = p22_cfg("preempt", 1, preempt_at=P22_PREEMPT_AT)
+        e_cfg = p22_cfg("failover", 1, kill_at=P22_KILL_AT)
+
+        def sigterm(proc, out):
+            _p22_wait_file(os.path.join(out, "at_preempt"), proc)
+            proc.send_signal(signal.SIGTERM)
+
+        times: dict = {}
+        ref, f, d, e = _p22_side_by_side(
+            ([sys.executable, _p22_tool(), "--worker", ref_cfg], ref_cfg,
+             env, None),
+            (hvdrun_argv(1, f_cfg), f_cfg, _p22_env(
+                HOROVOD_CHAOS=f"shard_corrupt={P22_CORRUPT}:0"), None),
+            (hvdrun_argv(1, d_cfg), d_cfg, env, sigterm),
+            (hvdrun_argv(1, e_cfg), e_cfg, env,
+             _p22_kill_primary(P22_KILL_AT, times)))
+        if ref["rc"] != 0:
+            fail(f"phase 22: the worker without the launcher: rc "
+                 f"{ref['rc']}\n{ref.get('log', '')}")
+        if f["rc"] != 0:
+            fail(f"phase 22 (f): exit {f['rc']}\n{f.get('log', '')}")
+        if d["rc"] != 75:
+            fail(f"phase 22 (d): the preempted job exited {d['rc']}, not "
+                 f"75\n{d.get('log', '')}")
+        if e["rc"] != 0:
+            fail(f"phase 22 (e): exit {e['rc']}\n{e.get('log', '')}")
+        ref_sha = _p22_records(ref_cfg, 1)[0]["params_sha"]
+        rec["f"] = _p22_check_corrupt(_p22_records(f_cfg, 1)[0])
+        rec["f"]["job_s"] = f["seconds"]
+        e_recs = _p22_records(e_cfg, 1)
+        _p22_check_run("(e)", e_recs, 1, want_sha=ref_sha)
+        rec["e"] = dict(times, kv=_p22_check_failover("(e)", e_recs),
+                        bit_equal=True, job_s=e["seconds"])
+        # (a)-(c), at the store's default shard cache
+        a_cfg = p22_cfg("run", 1, log_calls=True, copy_ms=True)
+        a = hvdrun(1, a_cfg, _p22_env(cache_all=False))
+        if a["rc"] != 0:
+            fail(f"phase 22 (a): hvdrun exit {a['rc']}\n{a.get('log', '')}")
+        a_recs = _p22_records(a_cfg, 1)
+        rec["a"] = _p22_check_run("(a)", a_recs, 1, want_sha=ref_sha)
+        rec["a"].update(_p22_stats("(a)", a, a_recs, 1))
+        calls = p22_replay_calls(a_recs[0])
+        with open(d_cfg) as fh:
+            cfg = json.load(fh)
+        cfg.pop("preempt_at")
+        with open(d_cfg, "w") as fh:
+            json.dump(cfg, fh)
+        d2 = hvdrun(1, d_cfg, env)
+        if d2["rc"] != 0:
+            fail(f"phase 22 (d): the resumed job exited {d2['rc']}\n"
+                 f"{d2.get('log', '')}")
+        d_recs = _p22_records(d_cfg, 1)
+        first = d_recs[0]["steps"][0]["i"]
+        if first != P22_PREEMPT_AT + 1:
+            fail(f"phase 22 (d): resumed at step {first}, expected "
+                 f"{P22_PREEMPT_AT + 1}")
+        _p22_check_run("(d)", d_recs, 1, first=first, want_sha=ref_sha)
+        a_ids = {st["i"]: st["ids"] for st in a_recs[0]["steps"]}
+        if any(st["ids"] != a_ids[st["i"]] for st in d_recs[0]["steps"]):
+            fail("phase 22 (d): the resumed run's ids differ from (a)'s")
+        rec["d"] = dict(preempted_rc=d["rc"], preempted_s=d["seconds"],
+                        resumed_at=first, resumed_s=d2["seconds"],
+                        bit_equal=True)
+    finally:
+        shutil.rmtree(P22_DIR, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, calls
+
+
+def _p22_check_corrupt(rec: dict) -> dict:
+    """(f): the shard quarantined, every sample of it substituted by the
+    store's rule (``healthy_rows[id % n_healthy]``: the delivered row's
+    pixel sum and label are the substitute's), the count in
+    ``data_samples_substituted``, health SUSPECT naming the shard."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    n, side = P22["images"], P22["side"]
+    x = rng.integers(0, 256, (n, side, side, 3), dtype=np.uint8)
+    y = rng.integers(0, P22["classes"], (n,), dtype=np.int64)
+    sums = x.reshape(n, -1).sum(axis=1, dtype=np.int64)
+    del x
+    lo, hi = P22_CORRUPT * P22["shard"], (P22_CORRUPT + 1) * P22["shard"]
+    healthy = np.concatenate([np.arange(lo), np.arange(hi, n)])
+    if rec["quarantined"] != [P22_CORRUPT]:
+        fail(f"phase 22 (f): quarantined {rec['quarantined']}")
+    substituted = 0
+    for s in rec["steps"]:
+        for j, i in enumerate(s["ids"]):
+            src = i
+            if lo <= i < hi:
+                src = int(healthy[i % healthy.size])
+                substituted += 1
+            if s["row_sums"][j] != sums[src] or s["labels"][j] != y[src]:
+                fail(f"phase 22 (f): step {s['i']} row {j} (id {i}) is not "
+                     f"row {src}")
+    # the producer runs ahead of the step loop by up to prefetch + 1
+    # batches (gathered, so counted, but never consumed): the counter is
+    # the consumed samples' substitutions plus those of the first k
+    # batches of the next epoch, for one k in 0..3
+    from horovod_tpu_torch.data import GlobalSampleIndex
+
+    index = GlobalSampleIndex(n, P22["batch"], seed=P22["seed"])
+    ahead = [substituted]
+    for k in range(3):
+        ids = index.rank_indices(P22["epochs"], k, 0, 1)
+        ahead.append(ahead[-1] + int(((ids >= lo) & (ids < hi)).sum()))
+    if rec["substituted"] not in ahead:
+        fail(f"phase 22 (f): data_samples_substituted "
+             f"{rec['substituted']}, the rule predicts {substituted} "
+             f"consumed (with the prefetch's run-ahead: one of {ahead})")
+    shard = f"shard-{P22_CORRUPT:05d}.npz"
+    suspect = [s for s in rec["steps"] if s["health"] == "SUSPECT"
+               and shard in s.get("health_reason", "")]
+    if not suspect:
+        fail(f"phase 22 (f): health never SUSPECT naming {shard}: "
+             f"{[s['health'] for s in rec['steps']]}")
+    return dict(quarantined=rec["quarantined"], substituted=substituted,
+                counter=rec["substituted"], suspect_from_step=suspect[0]["i"],
+                reason=suspect[0]["health_reason"], exit_code=0)
+
+
+def launcher_gpus(n: int, smi: str) -> tuple:
+    """Phase 22 across ``n`` GPUs: the worker in ``testing.run_world``
+    (the reference), ``hvdrun -np n`` ((a)-(c): every rank on its own GPU,
+    every rank's parameters identical and equal to the reference's), and
+    (e) at ``n`` ranks, the three side by side (their readings are their
+    bits; the one-GPU part times the launched run): ``(record, rank 0's
+    logged calls to replay)``."""
+    import shutil
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import launcher_phase as LP
+    from horovod_tpu_torch.testing import run_world
+
+    t0 = time.perf_counter()
+    shutil.rmtree(P22_DIR, ignore_errors=True)
+    rec = {}
+    try:
+        LP.make_dataset(os.path.join(P22_DIR, "store"), P22["images"],
+                        P22["side"], P22["classes"], P22["shard"])
+        env = _p22_env()
+        ref_cfg = p22_cfg("reference", n)
+        with open(ref_cfg) as f:
+            cfg = json.load(f)
+        e_cfg = p22_cfg("failover", n, kill_at=P22_KILL_AT_WORLD)
+        a_cfg = p22_cfg("run", n, log_calls=True)
+        times: dict = {}
+
+        def reference():
+            try:
+                return run_world(LP.worker, n, cfg, device=None,
+                                 timeout=P22_TIMEOUT)
+            except RuntimeError as err:
+                fail(f"phase 22 at {n} GPUs, run_world: {err}")
+
+        # run_world's children take this process's environment
+        saved = dict(os.environ)
+        os.environ.update({k: env[k] for k in (
+            "CUBLAS_WORKSPACE_CONFIG", "HOROVOD_SANITIZE", "PYTHONPATH",
+            "HOROVOD_DATA_CACHE_SHARDS")})
+        try:
+            ref, e, a = _p22_side_by_side(
+                reference, (hvdrun_argv(n, e_cfg), e_cfg, env,
+                            _p22_kill_primary(P22_KILL_AT_WORLD, times)),
+                (hvdrun_argv(n, a_cfg), a_cfg, env, None))
+        finally:
+            os.environ.clear()
+            os.environ.update(saved)
+        ref_sha = _p22_check_run(f"run_world@{n}", ref, n)["sha"]
+        if e["rc"] != 0:
+            fail(f"phase 22 (e) at {n}: exit {e['rc']}\n{e.get('log', '')}")
+        e_recs = _p22_records(e_cfg, n)
+        _p22_check_run(f"(e)@{n}", e_recs, n, want_sha=ref_sha)
+        rec["e"] = dict(times, kv=_p22_check_failover(f"(e)@{n}", e_recs),
+                        bit_equal=True, job_s=e["seconds"])
+        if a["rc"] != 0:
+            fail(f"phase 22 (a) at {n}: exit {a['rc']}\n{a.get('log', '')}")
+        a_recs = _p22_records(a_cfg, n)
+        devices = {r["device"] for r in a_recs}
+        if len(devices) != n:
+            fail(f"phase 22 (a) at {n}: the ranks ran on {sorted(devices)}")
+        rec["a"] = _p22_check_run(f"(a)@{n}", a_recs, n, want_sha=ref_sha)
+        rec["a"].update(_p22_stats(f"(a)@{n}", a, a_recs, n))
+        rec["a"]["devices"] = sorted(devices)
+        calls = p22_replay_calls(a_recs[0])
+    finally:
+        shutil.rmtree(P22_DIR, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, calls
+
+
+def launcher_kernel_rows(label: str, calls: list) -> dict:
+    """The kernel phase's replay of phase 22's logged calls under
+    ``label`` (in a world of one); ``{kernel: its by_mode row}``."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    try:
+        rows = kernel_phase({label: calls},
+                            {k: (label,) for k in TPU_KERNELS})
+    finally:
+        hvd.shutdown()
+    return {k: r["by_mode"][label] for k, r in rows.items()
+            if label in r["by_mode"]}
+
+
+def print_launcher(p22: dict, smi: str, z1_img_s=None) -> None:
+    a = p22["a"]
+    print(f"phase 22 (one GPU, hvdrun -np 1 --kv-standbys 1, ResNet-50 "
+          f"ZeRO-1 + int8 + EF + inject_hyperparams(fused_adam), "
+          f"{P22['images']} images of {P22['side']}x{P22['side']}x3 in "
+          f"{p22['dataset']['shards']} shards, batch {P22['batch']}, "
+          f"{P22['epochs']} epochs): launch to first step "
+          f"{a['launch_to_first_step_s']:.3f} s (by part "
+          f"{json.dumps(a['startup_s'])}); loader-fed "
+          f"{a['img_per_s_per_gpu']:.2f} img/s a GPU over the second "
+          f"epoch's wall time, the store's default shard cache (its steps "
+          f"alone {a['step_img_per_s_per_gpu']:.2f}; phase 4's synthetic "
+          f"ZeRO-1: {'not run' if z1_img_s is None else f'{z1_img_s:.2f}'})"
+          f"; wait for a batch p50 {a['wait_p50_ms']:.3f} ms, max "
+          f"{a['wait_max_ms']:.3f} ms; copy to the card "
+          f"{a['copy_ms'] or 0:.3f} ms a batch ({a['copy_bytes']} bytes); peak "
+          f"{a['peak_gib']:.2f} GiB; (d) resumed at step "
+          f"{p22['d']['resumed_at']} bit-equal; (e) kill to promotion "
+          f"{p22['e']['kill_to_promotion_s']:.3f} s, bit-equal; (f) "
+          f"{p22['f']['substituted']} samples substituted from shard "
+          f"{P22_CORRUPT}; phase {p22['seconds']:.1f} s ({smi})", flush=True)
+    print(f"phase 22: {json.dumps(p22)}", flush=True)
+
+
+def print_launcher_world(rec: dict, n: int, smi: str) -> None:
+    a = rec["a"]
+    print(f"phase 22 at {n} GPUs (hvdrun -np {n}, ranks on "
+          f"{a['devices']}): every rank's parameters identical and equal "
+          f"to testing.run_world's (the launched run, run_world and (e) "
+          f"side by side on the same GPUs: no rate is a reading); peak "
+          f"{a['peak_gib']:.2f} GiB; (e) kill to promotion "
+          f"{rec['e']['kill_to_promotion_s']:.3f} s, bit-equal; "
+          f"{rec['seconds']:.1f} s ({smi})", flush=True)
+    print(f"phase 22 at {n} GPUs: {json.dumps(rec)}", flush=True)
+
+
 def _summary(run: dict) -> str:
     return json.dumps({k: v for k, v in run.items() if k != "step_calls"})
 
@@ -6645,6 +7277,8 @@ def main() -> None:
     gpus = 1
     if len(sys.argv) > 2 and sys.argv[1] == "--gpus":
         gpus = int(sys.argv[2])
+    global T0
+    T0 = time.perf_counter()
 
     import torch
 
@@ -6766,6 +7400,8 @@ def main() -> None:
               f"{json.dumps({k: v / run['steps'] for k, v in run['launches'].items() if v})} "
               f"({smi})", flush=True)
     torch.cuda.empty_cache()
+    print(f"elapsed after phases 4-9, 16-18: {time.perf_counter() - T0:.1f}"
+          " s", flush=True)
     ckpt = checkpoint_phase()
     print(f"checkpoint (one GPU, ResNet-50 ZeRO-1 + int8 + EF): "
           f"{json.dumps(ckpt)} ({smi})", flush=True)
@@ -6775,6 +7411,8 @@ def main() -> None:
           f"batch 64, 161 gradients from post-accumulate-grad hooks): "
           f"{json.dumps(front)} ({smi})", flush=True)
     torch.cuda.empty_cache()
+    print(f"elapsed after phases 10-12: {time.perf_counter() - T0:.1f} s",
+          flush=True)
     p19 = resilience_phase()
     print(f"resilience (phase 19, one GPU, ResNet-50 ZeRO-1 + int8 + EF + "
           f"fused Adam, batch {P19_BATCH}): preemption "
@@ -6797,6 +7435,13 @@ def main() -> None:
     finally:
         hvd.shutdown()
     print_serving(p21, smi)
+    print(f"elapsed after phase 21: {time.perf_counter() - T0:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    p22, p22_calls = launcher_phase(smi)
+    print_launcher(p22, smi, by_mode["zero1"]["img_per_s"])
+    print(f"elapsed after phase 22: {time.perf_counter() - T0:.1f} s",
+          flush=True)
     ar = by_mode["allreduce"]
     print(f"e2e allreduce: NCCL calls a step in the optimizer update "
           f"{json.dumps(ar['nccl_calls']['update'])}, "
@@ -6843,10 +7488,16 @@ def main() -> None:
                        ("serve_delta", "quantize", len(serve_delta_calls))):
         runs.append(dict(mode=mode, launches={
             name: n if name == k else 0 for name in K.KERNELS}))
+    # phase 22: the launched worker's B1/B3/B5 calls, each step's own lr
+    step_calls["hvdrun@1"] = p22_calls
+    runs.append(dict(mode="hvdrun@1", launches={
+        name: p22["a"]["launches"].get(name, 0) for name in K.KERNELS}))
     if gpus > 1:
         torch.cuda.empty_cache()
         try:
             world_runs, world_ckpt, z3_moved = run_gpus(gpus, WORLD_MODES)
+            print(f"elapsed after the {gpus}-GPU world runs: "
+                  f"{time.perf_counter() - T0:.1f} s", flush=True)
             one = restore_world_of_one(CKPT_DIR)
         finally:
             import shutil
@@ -6911,12 +7562,16 @@ def main() -> None:
                 step_calls[run["mode"]] = run["step_calls"]
             runs.append(run)
         torch.cuda.empty_cache()
+        print(f"elapsed after phase 12 at {gpus} GPUs: "
+              f"{time.perf_counter() - T0:.1f} s", flush=True)
         par_world = run_parallel_gpus(gpus)
         print_parallel(par_world, smi)
         for run in par_world:
             step_calls[run["mode"]] = run["step_calls"]
         runs += par_world
         torch.cuda.empty_cache()
+        print(f"elapsed after phase 18 at {gpus} GPUs: "
+              f"{time.perf_counter() - T0:.1f} s", flush=True)
         elastic_rec, elastic_run, elastic_calls = elastic_gpus(gpus)
         step_calls[f"elastic@{gpus - 1}"] = elastic_calls
         runs.append(elastic_run)
@@ -6927,8 +7582,12 @@ def main() -> None:
               f"{json.dumps(elastic_rec)}; phase 4's ZeRO-1 img/s per GPU "
               f"{json.dumps(z1)} ({smi})", flush=True)
         torch.cuda.empty_cache()
+        print(f"elapsed after phase 19 at {gpus} GPUs: "
+              f"{time.perf_counter() - T0:.1f} s", flush=True)
         p20_world = drills_gpus(gpus)
         torch.cuda.empty_cache()
+        print(f"elapsed after phase 20 at {gpus} GPUs: "
+              f"{time.perf_counter() - T0:.1f} s", flush=True)
         p21_tp = serving_tp_gpus(gpus, serve_traffic)
         print(f"phase 21 (f) TP engine over a tp axis of {gpus} (flagship LM, "
               f"generation 2, bf16): teacher-forced logits within "
@@ -6937,6 +7596,15 @@ def main() -> None:
               f"weight, {p21_tp['control_rel']:.4g}); decode "
               f"{p21_tp['decode_tokens_per_s_per_gpu']:.1f} tokens/s a GPU; "
               f"{json.dumps(p21_tp)} ({smi})", flush=True)
+        torch.cuda.empty_cache()
+        p22_world, p22_wcalls = launcher_gpus(gpus, smi)
+        print_launcher_world(p22_world, gpus, smi)
+        step_calls[f"hvdrun@{gpus}"] = p22_wcalls
+        runs.append(dict(mode=f"hvdrun@{gpus}", launches={
+            name: p22_world["a"]["launches"].get(name, 0)
+            for name in K.KERNELS}))
+        print(f"elapsed after phase 22 at {gpus} GPUs: "
+              f"{time.perf_counter() - T0:.1f} s", flush=True)
         for drill, rec in p20_world.items():
             print(f"phase 20 {drill} drill at {gpus} GPUs (elastic ResNet-50 "
                   f"ZeRO-1, every plane on): onset -> verdict "

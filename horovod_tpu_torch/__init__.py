@@ -12,6 +12,8 @@ Horovod's own PyTorch API (``DistributedOptimizer`` over a
 ``horovod_tpu_torch.torch``.
 """
 
+__version__ = "0.1.0"
+
 from horovod_tpu_torch.basics import (  # noqa: F401
     ccl_built,
     cross_rank,
@@ -91,6 +93,7 @@ from horovod_tpu_torch.training import (  # noqa: F401
     InstrumentedStep,
     instrument_step,
     lm_xent,
+    make_loader_step,
     make_train_step,
     shard_batch,
     softmax_xent,

@@ -8,7 +8,7 @@ size, and every collective runs over the one process group
 
 Identity comes from the environment, first ``HOROVOD_RANK`` /
 ``HOROVOD_SIZE`` / ``HOROVOD_LOCAL_RANK`` / ``HOROVOD_LOCAL_SIZE`` (what
-``horovod_tpu.run`` exports), then torchrun's ``RANK`` / ``WORLD_SIZE`` /
+``horovod_tpu_torch.run`` exports), then torchrun's ``RANK`` / ``WORLD_SIZE`` /
 ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``; with neither the world is this one
 process. A multi-process world rendezvous at ``init_method`` (default
 ``env://``, i.e. ``MASTER_ADDR``/``MASTER_PORT``).
@@ -88,11 +88,17 @@ def init(device=None, *, init_method: Optional[str] = None,
     with _state.lock:
         if _state.initialized:
             return
+        from horovod_tpu_torch import compat
+
+        compat.warn_if_unsupported()
         r = rank if rank is not None else _env_int("HOROVOD_RANK", "RANK")
         n = size if size is not None else _env_int("HOROVOD_SIZE", "WORLD_SIZE")
         lr = local_rank if local_rank is not None else _env_int(
             "HOROVOD_LOCAL_RANK", "LOCAL_RANK")
-        ls = _env_int("HOROVOD_LOCAL_SIZE", "LOCAL_WORLD_SIZE")
+        # the launched slot's host-local size; a world the caller sizes
+        # itself (``size=``, the elastic re-formations) derives its own
+        ls = _env_int("HOROVOD_LOCAL_SIZE", "LOCAL_WORLD_SIZE") \
+            if size is None else None
         r, n = (r or 0), (n or 1)
         lr = lr if lr is not None else r
         if not 0 <= r < n:
@@ -102,7 +108,15 @@ def init(device=None, *, init_method: Optional[str] = None,
                 raise RuntimeError(
                     "horovod_tpu_torch.init(): CUDA is not available; pass "
                     "device='cpu' to run on the CPU deliberately")
-            dev = torch.device("cuda", lr % torch.cuda.device_count())
+            gpus = torch.cuda.device_count()
+            slots = ls if ls is not None else lr + 1
+            if slots > gpus:
+                raise RuntimeError(
+                    f"horovod_tpu_torch.init(): {slots} local slots on this "
+                    f"host but {gpus} visible GPUs: one process drives one "
+                    f"GPU, so launch at most {gpus} slots a host (two ranks "
+                    f"on one GPU would fail later inside NCCL)")
+            dev = torch.device("cuda", lr % gpus)
         else:
             dev = torch.device(device)
         if dev.type == "cuda":

@@ -1,23 +1,31 @@
 """Training-loop callbacks.
 
-Counterpart of ``horovod_tpu/callbacks.py``, as far as the port has it:
-the hook surface (:class:`Callback`, the Keras-named ``on_train_begin``
-... ``on_batch_end``), the dispatcher a loop drives
-(:class:`CallbackList`, what :func:`horovod_tpu_torch.resilience.run`
-fires), :class:`MetricsCallback`, :class:`HealthCallback` and
-:class:`PublishCallback`. The JAX module imports JAX at module level, so
-these classes are copied, not the file. The broadcast and learning-rate
-callbacks wait for the launcher port (ROADMAP Queue A item 12).
+Counterpart of ``horovod_tpu/callbacks.py``: the hook surface
+(:class:`Callback`, the Keras-named ``on_train_begin`` ...
+``on_batch_end``), the dispatcher a loop drives (:class:`CallbackList`,
+what :func:`horovod_tpu_torch.resilience.run` fires),
+:class:`BroadcastGlobalVariablesCallback`, :class:`MetricAverageCallback`,
+:class:`LearningRateScheduleCallback`, :class:`LearningRateWarmupCallback`,
+:class:`MetricsCallback`, :class:`HealthCallback` and
+:class:`PublishCallback`, and the optimizer-state helpers :func:`apply_lr`
+and :func:`scale_momentum`. The JAX module imports JAX at module level, so
+these are ported, not the file.
 
 A callback is wired to any *trainer* object via
 :meth:`Callback.set_trainer`; the hooks' names and meaning are Keras's.
-stdlib-only at import.
+The trainer contract is attribute-based: ``trainer.params`` (a dict of
+tensors, broadcast in place), ``trainer.opt_state`` (a state of
+:mod:`horovod_tpu_torch.optim`) and ``trainer.lr`` (a float the LR
+callbacks set; build the optimizer with
+:func:`horovod_tpu_torch.optim.inject_hyperparams` and push it into the
+state with :func:`apply_lr` each step). stdlib-only at import.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any, Callable, List
+import math
+from typing import Any, Callable, Dict, List, Optional
 
 
 class Callback:
@@ -81,6 +89,182 @@ class CallbackList:
 
     def on_batch_end(self, batch, logs=None):
         self._fire("on_batch_end", batch, logs)
+
+
+class BroadcastGlobalVariablesCallback(Callback):
+    """Broadcast initial parameters and optimizer state from `root_rank` so
+    all ranks start identically (reference ``_keras/callbacks.py:22-46``).
+    The parameters are overwritten in place
+    (:func:`~horovod_tpu_torch.optim.broadcast_parameters`: views write
+    through to the model); the optimizer state goes through
+    :func:`~horovod_tpu_torch.optim.broadcast_optimizer_state`, which
+    leaves ZeRO-1 rows alone (each rank's row is its own state)."""
+
+    def __init__(self, root_rank: int = 0):
+        self.root_rank = root_rank
+        self.broadcast_done = False
+
+    def on_batch_end(self, batch, logs=None):
+        if self.broadcast_done:
+            return
+        from horovod_tpu_torch.optim import (
+            broadcast_optimizer_state, broadcast_parameters,
+        )
+
+        t = self.trainer
+        if getattr(t, "params", None) is not None:
+            t.params = broadcast_parameters(t.params, self.root_rank)
+        if getattr(t, "opt_state", None) is not None:
+            t.opt_state = broadcast_optimizer_state(
+                t.opt_state, self.root_rank)
+        self.broadcast_done = True
+
+    # the reference broadcasts after the first batch (variables exist by
+    # then); the port's parameters exist up-front, so train_begin works
+    def on_train_begin(self, logs=None):
+        self.on_batch_end(0, logs)
+
+
+class MetricAverageCallback(Callback):
+    """Average epoch metrics over ranks before they are logged or
+    checkpointed (reference ``_keras/callbacks.py:48-87``): each numeric
+    (or 0-d tensor) entry of ``logs`` becomes its mean over the world,
+    reduced in float64 on this process's device."""
+
+    def _average(self, logs: Optional[Dict[str, Any]]):
+        if not logs:
+            return
+        import numpy as np
+        import torch
+
+        from horovod_tpu_torch import basics
+        from horovod_tpu_torch.ops import collective as C
+
+        for k, v in list(logs.items()):
+            if isinstance(v, (int, float, np.floating, np.integer)) or (
+                hasattr(v, "shape") and tuple(v.shape) == ()
+            ):
+                t = torch.full((), float(v), dtype=torch.float64,
+                               device=basics.device())
+                logs[k] = float(C.allreduce(t, C.Average))
+
+    def on_epoch_end(self, epoch, logs=None):
+        self._average(logs)
+
+
+class LearningRateScheduleCallback(Callback):
+    """Multiply the base LR by ``multiplier(epoch)`` (or a constant) within
+    ``[start_epoch, end_epoch)`` (reference ``_keras/callbacks.py:90-152``).
+
+    With ``staircase=True`` the LR changes per epoch; otherwise per batch,
+    using fractional epochs (requires ``steps_per_epoch``). When the
+    multiplier changes and ``momentum_correction`` is set, SGD-momentum
+    buffers are rescaled by ``new_lr/old_lr`` so the effective update
+    magnitude is preserved across the LR jump (reference
+    ``_keras/callbacks.py:118-136``)."""
+
+    def __init__(self, multiplier, start_epoch: int = 0,
+                 end_epoch: Optional[int] = None, staircase: bool = True,
+                 momentum_correction: bool = True,
+                 steps_per_epoch: Optional[int] = None,
+                 initial_lr: Optional[float] = None):
+        self.start_epoch = start_epoch
+        self.end_epoch = end_epoch
+        self.staircase = staircase
+        self.momentum_correction = momentum_correction
+        self.initial_lr = initial_lr
+        self.steps_per_epoch = steps_per_epoch
+        self.current_epoch = 0
+        self._last_lr = None
+        if callable(multiplier):
+            self.multiplier = multiplier
+        else:
+            self.multiplier = lambda epoch: multiplier
+
+    def _in_window(self, epoch) -> bool:
+        return epoch >= self.start_epoch and (
+            self.end_epoch is None or epoch < self.end_epoch
+        )
+
+    def _resolve_initial_lr(self):
+        if self.initial_lr is None:
+            self.initial_lr = getattr(self.trainer, "lr", None)
+        if self.initial_lr is None:
+            raise ValueError(
+                "initial_lr not given and trainer has no .lr attribute"
+            )
+
+    def _set_lr(self, lr: float):
+        old = self._last_lr
+        self.trainer.lr = lr
+        if (
+            self.momentum_correction
+            and old
+            and old > 0
+            and not math.isclose(lr, old)
+        ):
+            scale_momentum(self.trainer, lr / old)
+        self._last_lr = lr
+
+    def on_train_begin(self, logs=None):
+        self._resolve_initial_lr()
+        if self._last_lr is None:
+            self._last_lr = self.initial_lr
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self.current_epoch = epoch
+        if self.staircase and self._in_window(epoch):
+            self._resolve_initial_lr()
+            self._set_lr(self.initial_lr * self.multiplier(epoch))
+
+    def on_batch_begin(self, batch, logs=None):
+        if self.staircase or not self._in_window(self.current_epoch):
+            return
+        if self.steps_per_epoch is None:
+            raise ValueError(
+                "steps_per_epoch is required with staircase=False "
+                "(reference _keras/callbacks.py:108-116)"
+            )
+        self._resolve_initial_lr()
+        epoch = self.current_epoch + float(batch) / self.steps_per_epoch
+        self._set_lr(self.initial_lr * self.multiplier(epoch))
+
+
+class LearningRateWarmupCallback(LearningRateScheduleCallback):
+    """Ramp the LR from ``initial_lr / size`` to ``initial_lr`` over the first
+    ``warmup_epochs`` — the "gradual warmup" of Goyal et al. the reference
+    implements (``_keras/callbacks.py:155-192``):
+
+        lr = initial_lr * (epoch * (size - 1) / warmup_epochs + 1) / size
+    """
+
+    def __init__(self, warmup_epochs: int = 5, momentum_correction: bool = True,
+                 steps_per_epoch: Optional[int] = None, verbose: int = 0,
+                 initial_lr: Optional[float] = None):
+        from horovod_tpu_torch import basics
+
+        def multiplier(epoch):
+            if warmup_epochs > 0:
+                epoch = min(epoch, warmup_epochs)
+                return (
+                    epoch * (basics.size() - 1) / warmup_epochs + 1
+                ) / basics.size()
+            return 1.0
+
+        super().__init__(
+            multiplier, start_epoch=0, end_epoch=warmup_epochs + 1,
+            staircase=False, momentum_correction=momentum_correction,
+            steps_per_epoch=steps_per_epoch, initial_lr=initial_lr,
+        )
+        self.verbose = verbose
+        self.warmup_epochs = warmup_epochs
+
+    def on_epoch_end(self, epoch, logs=None):
+        if epoch == self.warmup_epochs - 1 and self.verbose:
+            print(
+                f"Epoch {epoch + 1}: finished gradual learning rate warmup to "
+                f"{self.trainer.lr}."
+            )
 
 
 class MetricsCallback(Callback):
@@ -241,3 +425,62 @@ class PublishCallback(Callback):
         # the final weights are the ones a serving fleet actually wants
         if self._seen and self._published_at != self._seen:
             self._publish(self._seen)
+
+
+# --------------------------------------------------------------------------
+# optimizer states
+
+
+def _walk(x, fn):
+    """``fn`` on every dict of a state tree (dicts, lists and tuples,
+    named ones included, descended into)."""
+    if isinstance(x, dict):
+        fn(x)
+        for v in x.values():
+            _walk(v, fn)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            _walk(v, fn)
+
+
+def apply_lr(opt_state, lr: float):
+    """Push a callback-adjusted LR into an
+    :func:`~horovod_tpu_torch.optim.inject_hyperparams` state, wherever it
+    sits (under a ZeRO-1 state's ``inner``, a guard's, ...); returns the
+    state, updated in place. Use in the fit loop each step:
+    ``opt_state = apply_lr(opt_state, trainer.lr)``."""
+    found = []
+
+    def set_lr(d):
+        hp = d.get("hyperparams")
+        if "inner_state" in d and isinstance(hp, dict) \
+                and "learning_rate" in hp:
+            hp["learning_rate"] = float(lr)
+            found.append(d)
+
+    _walk(opt_state, set_lr)
+    if not found:
+        raise ValueError(
+            "opt_state has no injected 'learning_rate' hyperparameter; build "
+            "the optimizer with optim.inject_hyperparams(optim.sgd)(...)"
+        )
+    return opt_state
+
+
+def scale_momentum(trainer, factor: float):
+    """Rescale SGD momentum buffers by `factor` (= new_lr/old_lr) — the
+    reference's momentum-correction trick applied to
+    :func:`~horovod_tpu_torch.optim.sgd`'s ``trace`` (reference
+    ``_keras/callbacks.py:118-136``), in the buffers' dtype."""
+    opt_state = getattr(trainer, "opt_state", None)
+    if opt_state is None:
+        return
+    from horovod_tpu_torch.ops import kernels as _k
+
+    def rescale(d):
+        if set(d) == {"trace"} and isinstance(d["trace"], dict):
+            d["trace"] = {k: t * _k._adam_scalar(factor, t)
+                          for k, t in d["trace"].items()}
+
+    _walk(opt_state, rescale)
+    trainer.opt_state = opt_state

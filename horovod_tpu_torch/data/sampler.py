@@ -18,7 +18,7 @@ package:
   restored before its loader registers is kept pending and applied at
   :func:`register`.
 
-The loaders themselves are not ported yet.
+The loaders are :mod:`horovod_tpu_torch.data.loader`'s.
 """
 
 from __future__ import annotations

@@ -190,12 +190,32 @@ def _adam_from_jax(inner):
             "nu": flatten_tree(dict(a.nu))}
 
 
+def _sgd_from_jax(inner):
+    """optax SGD's ``(TraceState(trace), EmptyState)`` as the port's
+    ``{"trace"}``, ``(EmptyState, EmptyState)`` (no momentum) as ``{}``;
+    ``None`` for any other state."""
+    if not isinstance(inner, tuple) or hasattr(inner, "_fields"):
+        return None
+    names = [type(s).__name__ for s in inner]
+    if any(n not in ("TraceState", "EmptyState") for n in names) or \
+            names.count("TraceState") > 1 or not names:
+        return None
+    if "TraceState" not in names:
+        return {}
+    return {"trace": flatten_tree(dict(
+        inner[names.index("TraceState")].trace))}
+
+
 def opt_state_from_jax(state):
     """A JAX package optimizer state (as ``checkpoint.restore`` gives it)
     in the port's layout; a state of another kind comes back as it is.
 
     - optax Adam → ``{"count", "mu", "nu"}`` (trees flattened to the
-      port's ``/``-joined keys);
+      port's ``/``-joined keys); optax SGD → ``{"trace"}`` (``{}`` without
+      momentum);
+    - optax ``inject_hyperparams`` → ``{"count", "hyperparams": {name:
+      float}, "inner_state"}`` (:func:`~horovod_tpu_torch.optim.
+      inject_hyperparams`'s), its inner state converted;
     - ``_EFState(inner, residual)`` → ``{"inner", "residual"}``;
     - ``_PowerSGDState(inner, residual, q)`` → ``{"inner", "residual",
       "q"}``, ``q`` with ``None`` for the leaves that do not factorize;
@@ -208,6 +228,11 @@ def opt_state_from_jax(state):
       the JAX package's name) → the same, its ``inner`` converted and its
       scalars as they are."""
     name = type(state).__name__
+    if name in ("InjectHyperparamsState", "InjectStatefulHyperparamsState"):
+        return {"count": int(np.asarray(state.count)),
+                "hyperparams": {k: float(np.asarray(v))
+                                for k, v in dict(state.hyperparams).items()},
+                "inner_state": opt_state_from_jax(state.inner_state)}
     if name == "NumericsGuardState":
         return state._replace(inner=opt_state_from_jax(state.inner))
     if name == "MultiStepsState":
@@ -222,7 +247,8 @@ def opt_state_from_jax(state):
     if parts is None:
         adam = _adam_from_jax(state)
         if adam is None:
-            return state
+            sgd = _sgd_from_jax(state)
+            return state if sgd is None else sgd
         if np.ndim(adam["count"]) == 1:     # a bare ZeRO-1 Adam state
             return {"shard": {"size": int(np.shape(adam["count"])[0])},
                     "inner": adam}

@@ -19,6 +19,10 @@ layout-dependent.
   interchangeable;
 - :func:`adamw` — optax's ``adamw`` (Adam, decoupled weight decay, then
   ``-lr``), plain PyTorch, same state;
+- :func:`sgd` — optax's ``sgd`` (momentum ``trace``, then ``-lr``), plain
+  PyTorch, and :func:`inject_hyperparams`, optax's, which keeps a
+  factory's hyperparameters (the learning rate) in its state as host
+  floats;
 - :func:`DistributedOptimizer` — allreduce mode (Horovod's classic
   gradient allreduce, optionally with error feedback, or Adasum), ZeRO-1
   (``shard_optimizer=True``: flat-packed reduce-scatter, this rank's
@@ -146,8 +150,9 @@ def fused_adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     shard a dtype). The new moments are per-leaf views into two flat
     buffers, the updates into a third: the state is :func:`adam`'s and
     interchangeable with it. On CPU tensors it runs the kernel's plain
-    version, which is :func:`adam`'s arithmetic. Only a static float
-    learning rate."""
+    version, which is :func:`adam`'s arithmetic. A float learning rate:
+    to change it during a run, build the optimizer with
+    :func:`inject_hyperparams`."""
     if callable(learning_rate):
         raise ValueError("fused_adam requires a static float learning_rate")
     lr = float(learning_rate)
@@ -164,6 +169,79 @@ def fused_adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
                                       "nu": dict(zip(keys, nus))}
 
     return Transform(_adam_init, update)
+
+
+def sgd(learning_rate: float, momentum: Optional[float] = None,
+        nesterov: bool = False) -> Transform:
+    """Plain PyTorch SGD, expression for expression optax's ``sgd``:
+    ``chain(trace(decay=momentum, nesterov), scale(-lr))``, each
+    operation rounded on its own, the constants in the leaf's type. The
+    state is ``{"trace": {leaf: tensor}}`` (optax's ``TraceState``), or
+    ``{}`` without momentum; :func:`horovod_tpu_torch.callbacks.
+    scale_momentum` rescales its ``trace``."""
+    lr = float(learning_rate)
+
+    def init(params):
+        if momentum is None:
+            return {}
+        return {"trace": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    def update(grads, state, params=None):
+        keys = tree_keys(grads)
+        d, new = dict(grads), {}
+        if momentum is not None:
+            trace = {}
+            for k in keys:
+                g, decay = grads[k], _k._adam_scalar(momentum, grads[k])
+                trace[k] = g + decay * state["trace"][k]
+                d[k] = g + decay * trace[k] if nesterov else trace[k]
+            new = {"trace": trace}
+        return {k: _k._adam_scalar(-lr, d[k]) * d[k] for k in keys}, new
+
+    return Transform(init, update)
+
+
+def _host_float(x) -> float:
+    """A hyperparameter as a host float (a restored one may come back as
+    an array or a 0-d tensor: read once, kept as a float after)."""
+    if isinstance(x, torch.Tensor):
+        return float(x.item())
+    return float(np.asarray(x))
+
+
+def inject_hyperparams(factory: Callable):
+    """optax's ``inject_hyperparams``: ``inject_hyperparams(fused_adam)(
+    learning_rate=1e-3)`` is the optimizer ``factory(**hyperparams)``
+    whose numeric hyperparameters live in its state, ``{"count",
+    "hyperparams": {name: float}, "inner_state"}``, as host floats, so a
+    callback can change them between updates
+    (:func:`horovod_tpu_torch.callbacks.apply_lr`); the others
+    (``nesterov``) are static arguments, as in optax. Each update builds
+    ``factory`` with the state's values: under ``fused_adam`` the
+    learning rate reaches the kernel as its ``neg_lr`` argument, so a new
+    value costs nothing and rebuilds nothing."""
+
+    def make(**hyperparams) -> Transform:
+        static = {k: v for k, v in hyperparams.items()
+                  if isinstance(v, bool) or not isinstance(
+                      v, (int, float, np.number, np.ndarray, torch.Tensor))}
+
+        def init(params):
+            hp = {k: _host_float(v) for k, v in hyperparams.items()
+                  if k not in static}
+            return {"count": 0, "hyperparams": hp,
+                    "inner_state": factory(**hp, **static).init(params)}
+
+        def update(grads, state, params=None):
+            hp = {k: _host_float(v) for k, v in state["hyperparams"].items()}
+            ups, inner = factory(**hp, **static).update(
+                grads, state["inner_state"], params)
+            return ups, {"count": int(state["count"]) + 1,
+                         "hyperparams": hp, "inner_state": inner}
+
+        return Transform(init, update)
+
+    return make
 
 
 # --------------------------------------------------------------------------

@@ -10,9 +10,11 @@ elastic driver (``rank_fail``, ``rank_fail_at_step``,
 serving`: ``publish_fail`` and ``kv_restart_at_step`` in the publisher,
 ``subscriber_stall`` in the subscriber, ``request_burst``,
 ``cache_evict_at_pass`` and ``slow_decode`` in the engine,
-``replica_kill`` and ``replica_stale`` in the fleet) and the
-observability planes; the data charges' consumers come with the data
-port. Besides the metrics counter, each
+``replica_kill`` and ``replica_stale`` in the fleet), the
+observability planes, and the input plane (``data_stall`` in
+:class:`~horovod_tpu_torch.data.ResumableLoader`'s producer,
+``shard_corrupt`` in :class:`~horovod_tpu_torch.data.ArrayShardStore`).
+Besides the metrics counter, each
 injection is counted in :data:`injected` (site -> count).
 
 Every recovery path in this package is only trustworthy if tier-1 can

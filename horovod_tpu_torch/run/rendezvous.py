@@ -34,7 +34,7 @@ runs independent of traffic patterns (``rendezvous_keys_swept``).
 **High availability**: the hooks the JAX package's ``run/replication.py``
 drives are here (:meth:`KVStoreServer.apply_replicated`,
 :meth:`KVStoreServer.promote`, :meth:`KVStoreServer.attach_replicator`);
-the replicator module itself comes with the launcher port. A primary
+the replicator is :mod:`horovod_tpu_torch.run.replication`. A primary
 server ships every WAL record to warm standbys before acknowledging the
 mutation (quorum 1 by default), every mutation carries a monotone
 **fencing epoch** persisted in the WAL (``fe`` field), and a deposed

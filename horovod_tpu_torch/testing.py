@@ -11,14 +11,15 @@ side by side cannot take each other's ports. ``native_core=True``
 attaches the native core in every rank; its coordinator's port is
 reserved here (:func:`reserve_port`: bound, not listening, until the
 world ends) and passed to the ranks through
-``HVD_CORE_COORD_ADDR``/``HVD_CORE_COORD_PORT``. Until the launcher is
-ported, :func:`run_world` also plays its part for the observability
-planes: it serves one
+``HVD_CORE_COORD_ADDR``/``HVD_CORE_COORD_PORT``. Like the launcher
+(``python -m horovod_tpu_torch.run``), :func:`run_world` serves one
 :class:`~horovod_tpu_torch.run.rendezvous.KVStoreServer` (HTTP, with a
 fresh secret) and exports ``HVD_RUN_KV_ADDR``/``HVD_RUN_KV_PORT``/
-``HVD_RUN_SECRET`` to every rank, as ``horovodrun`` does: the
-sanitizer, the flight recorder's tails, the numerics fingerprints and
-the metrics publisher of every rank meet there.
+``HVD_RUN_SECRET`` to every rank: the sanitizer, the flight recorder's
+tails, the numerics fingerprints and the metrics publisher of every rank
+meet there. Each rank's environment is the launcher's for its slot
+(:func:`horovod_tpu_torch.run.runner.worker_env`): the same identity,
+store and coordinator variables.
 ``fn`` must be importable by the children (a module-level function of a
 module that does not import JAX keeps the spawn cheap). A rank whose
 ``fn`` raises ``SystemExit`` (the preemption loop's ``Preempted``, exit
@@ -37,6 +38,8 @@ import traceback
 
 import torch.multiprocessing as mp
 
+from horovod_tpu_torch.run.runner import reserve_port  # noqa: F401
+
 
 def free_port() -> int:
     """A port that was free when this returned (another process may take
@@ -44,18 +47,6 @@ def free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
-
-
-def reserve_port() -> socket.socket:
-    """A socket bound to a port the kernel picks, with ``SO_REUSEADDR``
-    and not listening: while it is open the kernel hands the port to no
-    other ``bind`` to port 0, and a listener that also sets
-    ``SO_REUSEADDR`` (the native core's coordinator does) can still bind
-    and listen on it. Close it once that listener is up."""
-    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-    s.bind(("0.0.0.0", 0))
-    return s
 
 
 @contextlib.contextmanager
@@ -94,8 +85,8 @@ class WorldExit(RuntimeError):
         super().__init__(f"ranks exited: {codes}")
 
 
-def _child(rank, n, port, device, fn, args, q, core_port=None,
-           timeout=120.0, kv_env=None):
+def _child(rank, n, port, device, fn, args, q, native_core=False,
+           timeout=120.0, env=None):
     import datetime
 
     import torch
@@ -103,17 +94,14 @@ def _child(rank, n, port, device, fn, args, q, core_port=None,
 
     import horovod_tpu_torch as hvd
 
-    os.environ.update(kv_env or {})
+    os.environ.update(env or {})
     if device == "cpu":
         torch.set_num_threads(1)
-    if core_port is not None:
-        os.environ["HVD_CORE_COORD_ADDR"] = "127.0.0.1"
-        os.environ["HVD_CORE_COORD_PORT"] = str(core_port)
     try:
         store = dist.TCPStore("127.0.0.1", port, n, is_master=False,
                               timeout=datetime.timedelta(seconds=timeout))
         hvd.init(device=device, store=store, rank=rank, size=n,
-                 native_core=core_port is not None)
+                 native_core=native_core)
         out = fn(*args)
         q.put((rank, True, out))
     except SystemExit as e:     # the process exits with its code
@@ -140,16 +128,23 @@ def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0,
                           timeout=datetime.timedelta(seconds=timeout))
     held = reserve_port() if native_core else None
     core_port = held.getsockname()[1] if held is not None else None
+    from horovod_tpu_torch.run import hosts
     from horovod_tpu_torch.run.rendezvous import KVStoreServer, make_secret
+    from horovod_tpu_torch.run.runner import worker_env
 
     secret = make_secret()
     kv = KVStoreServer(secret=secret)
     kv_env = {"HVD_RUN_KV_ADDR": "127.0.0.1",
               "HVD_RUN_KV_PORT": str(kv.start()),
               "HVD_RUN_SECRET": secret}
+    slots = hosts.allocate([hosts.HostInfo("localhost", n)], n)
     procs = [ctx.Process(target=_child,
                          args=(r, n, store.port, device, fn, args, q,
-                               core_port, timeout, kv_env))
+                               native_core, timeout,
+                               worker_env(slots[r], kv_env,
+                                          store_addr="127.0.0.1",
+                                          store_port=store.port,
+                                          core_port=core_port)))
              for r in range(n)]
     results, exits = {}, {}
     try:

@@ -188,6 +188,30 @@ def instrument_step(fn, *, batch_arg: Optional[int] = None,
         flops_per_step=flops_per_step, name=name)
 
 
+def make_loader_step(step_fn: Callable, loader) -> Callable:
+    """Adapt a batch-consuming step to the ``(state, i) -> state`` shape
+    :func:`horovod_tpu_torch.resilience.run` / ``elastic.run`` drive,
+    drawing each step's batch from a
+    :class:`~horovod_tpu_torch.data.ResumableLoader`::
+
+        stepped = make_loader_step(
+            lambda state, batch, i: train(state, *batch), loader)
+        final = resilience.run(stepped, state, num_steps=N)
+
+    The loader's **cursor** — not the loop index — decides what each step
+    consumes: a checkpoint resume, an elastic rollback, or a numerics
+    replay moves the cursor (with the replay salt folded in), so the
+    adapted step re-draws exactly the batches the recovery semantics
+    promise. ``step_fn(state, batch, i)`` receives the placed batch (a
+    tuple for multi-array sources)."""
+
+    def stepped(state, i):
+        batch = loader.next_batch()
+        return step_fn(state, batch, i)
+
+    return stepped
+
+
 def make_train_step(model, tx, *, shard_optimizer: bool = False,
                     shard_params: bool = False, params=None,
                     compression=None, reduce_op=Average,

@@ -239,6 +239,72 @@ def test_serving_module_imports_with_jax_and_the_jax_package_blocked(mod):
     assert not [l for l in path.read_text().splitlines() if lazy.match(l)]
 
 
+#: the modules of the launcher and input-plane slice
+LAUNCHER_MODULES = (
+    "horovod_tpu_torch.run",
+    "horovod_tpu_torch.run.__main__",
+    "horovod_tpu_torch.run.hosts",
+    "horovod_tpu_torch.run.config_parser",
+    "horovod_tpu_torch.run.safe_exec",
+    "horovod_tpu_torch.run.env_util",
+    "horovod_tpu_torch.run.replication",
+    "horovod_tpu_torch.run.runner",
+    "horovod_tpu_torch.data",
+    "horovod_tpu_torch.data.store",
+    "horovod_tpu_torch.data.loader",
+    "horovod_tpu_torch.compat",
+    "horovod_tpu_torch.callbacks",
+    "horovod_tpu_torch.training",
+    "horovod_tpu_torch.optim",
+)
+
+
+@pytest.mark.parametrize("mod", LAUNCHER_MODULES)
+def test_launcher_module_imports_with_jax_and_the_jax_package_blocked(mod):
+    """Each module of the launcher slice imports alone in a fresh
+    interpreter where ``jax`` (and flax, optax, ml_dtypes) and
+    ``horovod_tpu`` cannot be imported, has the JAX package's public names
+    it ports, and no line of its source imports them lazily."""
+    probe = (
+        "import sys, importlib\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', "
+        "'horovod_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"m = importlib.import_module({mod!r})\n"
+        "from horovod_tpu_torch import callbacks, optim, training\n"
+        "from horovod_tpu_torch.data import (ArrayShardStore, HDFSStore,\n"
+        "    LocalStore, ResumableLoader, ShardedLoader, shard_indices)\n"
+        "from horovod_tpu_torch.run import run, run_commandline, main\n"
+        "for n in ('BroadcastGlobalVariablesCallback', "
+        "'MetricAverageCallback', 'LearningRateScheduleCallback', "
+        "'LearningRateWarmupCallback', 'apply_lr', 'scale_momentum'):\n"
+        "    assert callable(getattr(callbacks, n)), n\n"
+        "assert callable(optim.inject_hyperparams) and callable(optim.sgd)\n"
+        "assert callable(training.make_loader_step)\n"
+        "assert 'horovod_tpu' not in sys.modules or "
+        "sys.modules['horovod_tpu'] is None\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    path = ROOT / (mod.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / mod.replace(".", "/") / "__init__.py"
+    lazy = re.compile(r"^\s+(import|from) (jax|flax|optax|horovod_tpu)\b")
+    assert not [l for l in path.read_text().splitlines() if lazy.match(l)]
+
+
+def test_the_launcher_tool_imports_neither_jax_nor_the_jax_package():
+    """``tools/launcher_phase.py`` (phase 22's worker) and ``bin/
+    hvdrun_torch`` import no JAX: every import line names the port, the
+    standard library, numpy or torch (or ``chip_smoke``)."""
+    for rel in ("tools/launcher_phase.py", "bin/hvdrun_torch"):
+        text = (ROOT / rel).read_text()
+        assert not re.search(r"^\s*(import|from) (jax|flax|optax|"
+                             r"horovod_tpu)\b", text, re.M), rel
+
+
 def test_serving_package_import_stays_light():
     """``import horovod_tpu_torch.serving`` loads the handoff surface
     only: the engine, rollout, fleet and scheduler load on first use of
