@@ -408,6 +408,33 @@ Phases, each fatal on failure (exit code 1, no result line):
    the copy to the card, peak memory. With ``--gpus N``: (a)-(c) at N
    ranks against ``testing.run_world``, every rank on its own GPU with
    identical parameters, and (e) at N ranks (``hvdrun@N``).
+23. the TensorFlow, Keras, MXNet and Spark frontends and the estimator
+   (``tools/frontends_phase.py``): a probe line of which of tensorflow,
+   keras, pandas, pyarrow, cloudpickle, mxnet and pyspark import, with
+   their versions (a part that needs a package runs exactly when the
+   probe finds it, and is fatal on failure); (a) the MXNet bridge in a
+   world of one on numpy arrays and a duck-typed NDArray: every result
+   its input's kind and exact, every collective handed a tensor on
+   ``cuda:0``; (c) with pandas and pyarrow, ``TorchEstimator`` fits and
+   transforms a 2-layer MLP at ``num_proc=1``, TF32 off, its weights
+   within :data:`P23_WEIGHT_RTOL` of the same fit on the CPU (plain
+   PyTorch, the same seed and shards; a control on another shuffle seed
+   outside it). With ``--gpus N``: (b) a Spark barrier job of N
+   processes without Spark (``testing.run_barrier_job``), each forming
+   its world on ``cuda:<local_rank>`` from ``spark._run_barrier_slot``'s
+   environment (rank 0 serving the world's store on port 0): the MXNet
+   bridge exact on every rank, and with TensorFlow and Keras the TF
+   frontend's Adasum identical on every rank, launching B8
+   (``frontends@N``); (c) at ``num_proc=N`` through ``run.run``, every
+   rank's parameters identical.
+
+With ``--gpus N`` the one-GPU phases that run in child processes go
+side by side on the spare cards while this process drives the others on
+``cuda:0``: phase 10's child, phase 19's preemption children and phase
+20's children one after another on ``cuda:1``, phase 22's one-GPU jobs
+on ``cuda:2``; and phase 23's four-GPU jobs run beside phase 22's. Their
+checks are bits; their lines say that their times are no readings (the
+one-GPU run's are). ``elapsed after ...`` lines mark the parts.
 
 A kernel's ``ms``/``plain_ms``/``bound_ms``/``library_ms`` in the
 ``{"kernels": [...]}`` line are per step: the sum over one step of each
@@ -591,6 +618,19 @@ def main_modes(gpus: int) -> dict:
         else REPLAY_MODES
     return {k: adasum if k.startswith("adasum") else ONE_GPU_MODES
             for k in TPU_KERNELS}
+
+
+def child_env(gpu=None, **extra) -> dict:
+    """This process's environment for a child process, with ``extra``.
+    ``gpu``: the child sees that card alone (with ``--gpus N`` the
+    one-GPU phases that run in child processes go side by side on the
+    spare cards), without the ZeRO-3 wire knob the foreground's runs set
+    around themselves."""
+    env = dict(os.environ, **extra)
+    if gpu is not None:
+        env["CUDA_VISIBLE_DEVICES"] = str(gpu)
+        env.pop("HOROVOD_FSDP_WIRE", None)
+    return env
 
 
 def fail(msg: str) -> None:
@@ -2856,13 +2896,13 @@ def checkpoint_child(directory: str) -> None:
         hvd.shutdown()
 
 
-def checkpoint_phase() -> dict:
-    """Run :func:`checkpoint_child` in its own process and return its
-    record."""
+def checkpoint_phase(gpu=None) -> dict:
+    """Run :func:`checkpoint_child` in its own process (on card ``gpu``
+    alone, when given) and return its record."""
     import shutil
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env = child_env(gpu, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     try:
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--checkpoint", CKPT_DIR], capture_output=True,
@@ -4741,16 +4781,17 @@ def _leaf_list(tree) -> list:
     return pytree.flatten(tree)[0]
 
 
-def preemption_phase() -> dict:
+def preemption_phase(gpu=None) -> dict:
     """Run :func:`preempt_child` as ``preempt``, which must leave with exit
     code 75 and a valid emergency checkpoint of step :data:`PREEMPT_AT`,
     the second SIGTERM only latched; then as ``resume``, whose final state
-    must equal the uninterrupted run's bit for bit."""
+    must equal the uninterrupted run's bit for bit (on card ``gpu`` alone,
+    when given)."""
     import shutil
 
     directory = os.path.join(CKPT_DIR, "preempt")
     shutil.rmtree(directory, ignore_errors=True)
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env = child_env(gpu, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     env.pop("HOROVOD_CHAOS", None)
     out = {}
     try:
@@ -4898,15 +4939,16 @@ def retry_phase() -> dict:
                 retried_call_s=dt)
 
 
-def resilience_phase() -> dict:
-    """Phase 19 on one GPU: :func:`preemption_phase` (child processes),
-    then in a world of one :func:`rollback_phase` and :func:`retry_phase`."""
+def resilience_phase(preemption=preemption_phase) -> dict:
+    """Phase 19 on one GPU: :func:`preemption_phase` (child processes;
+    ``preemption`` gives its record), then in a world of one
+    :func:`rollback_phase` and :func:`retry_phase`."""
     import torch
 
     import horovod_tpu_torch as hvd
 
     t0 = time.perf_counter()
-    out = {"preemption": preemption_phase()}
+    out = {"preemption": preemption()}
     hvd.init()
     try:
         out["rollback"] = rollback_phase()
@@ -5405,20 +5447,21 @@ def _observe_files(directory: str) -> dict:
                           for k, sym in OBS_KERNELS.items()})
 
 
-def observability_phase() -> dict:
+def observability_phase(gpu=None) -> dict:
     """Phase 20 on one GPU: :func:`observe_child` plain, then
     instrumented. The parameters and running stats after the last step
     must be bit-equal; B1, B3 and B5 must launch once a step in both; the
     timeline must hold one step span a step, the flight sidecar load with
     its torn tail and be analyzed, the Prometheus exposition parse, the
     aggregator see one live rank, and the profiler trace name each
-    kernel's symbol."""
+    kernel's symbol. The children run on card ``gpu`` alone, when
+    given."""
     import shutil
 
     directory = os.path.join(CKPT_DIR, "observe")
     shutil.rmtree(directory, ignore_errors=True)
     os.makedirs(directory)
-    base = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    base = child_env(gpu, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     for k in list(_obs_env(directory)) + ["HOROVOD_CHAOS"]:
         base.pop(k, None)
     out = {}
@@ -6670,7 +6713,7 @@ def _p22_tool() -> str:
     return os.path.join(ROOT, "tools", "launcher_phase.py")
 
 
-def _p22_env(cache_all: bool = True, **extra) -> dict:
+def _p22_env(cache_all: bool = True, gpu=None, **extra) -> dict:
     """The jobs' environment: deterministic cuBLAS (the workers turn on
     deterministic algorithms), the schedule sanitizer (its step keys are
     what the failover drill reads on the promoted store), a 1 s primary
@@ -6678,11 +6721,12 @@ def _p22_env(cache_all: bool = True, **extra) -> dict:
     holds the whole dataset, for the drills, whose readings are bits (the
     default of 8 shards thrashes: every batch of a shuffled epoch touches
     all 16); the timed run keeps the store's default, as a deployment
-    whose dataset outgrows memory would."""
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
-               HOROVOD_SANITIZE="1", HOROVOD_KV_REPLICA_LEASE="1.0",
-               PYTHONPATH=os.pathsep.join(
-                   p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    whose dataset outgrows memory would. ``gpu``: the jobs see that card
+    alone."""
+    env = child_env(gpu, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                    HOROVOD_SANITIZE="1", HOROVOD_KV_REPLICA_LEASE="1.0",
+                    PYTHONPATH=os.pathsep.join(
+                        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
     env.pop("HOROVOD_CHAOS", None)
     env.pop("HOROVOD_DATA_CACHE_SHARDS", None)
     if cache_all:
@@ -6976,12 +7020,13 @@ def _p22_check_failover(label: str, recs: list) -> dict:
     return out
 
 
-def launcher_phase(smi: str) -> tuple:
+def launcher_phase(smi: str, gpu=None) -> tuple:
     """Phase 22 on one GPU: ``(record, the logged kernel calls to
     replay)``. Writes the dataset, runs the worker without the launcher
     (the reference), then through it: (a) the run, (b) its stream, (c)
     its learning rate, (d) a SIGTERM to the launcher and the resume, (e)
-    the primary KV store killed, (f) a corrupt shard."""
+    the primary KV store killed, (f) a corrupt shard. ``gpu``: every job
+    sees that card alone."""
     import shutil
     import signal
 
@@ -7002,7 +7047,7 @@ def launcher_phase(smi: str) -> tuple:
             images=manifest["n"], shards=len(manifest["shards"]),
             bytes=_dir_bytes(os.path.join(P22_DIR, "store")),
             write_s=time.perf_counter() - t)
-        env = _p22_env()
+        env = _p22_env(gpu=gpu)
         # the reference (no launcher), (f), (d)'s preempted run and (e)
         # side by side; then (a) alone (its times are readings), then (d)'s
         # resume
@@ -7022,7 +7067,8 @@ def launcher_phase(smi: str) -> tuple:
             ([sys.executable, _p22_tool(), "--worker", ref_cfg], ref_cfg,
              env, None),
             (hvdrun_argv(1, f_cfg), f_cfg, _p22_env(
-                HOROVOD_CHAOS=f"shard_corrupt={P22_CORRUPT}:0"), None),
+                gpu=gpu, HOROVOD_CHAOS=f"shard_corrupt={P22_CORRUPT}:0"),
+             None),
             (hvdrun_argv(1, d_cfg), d_cfg, env, sigterm),
             (hvdrun_argv(1, e_cfg), e_cfg, env,
              _p22_kill_primary(P22_KILL_AT, times)))
@@ -7045,7 +7091,7 @@ def launcher_phase(smi: str) -> tuple:
                         bit_equal=True, job_s=e["seconds"])
         # (a)-(c), at the store's default shard cache
         a_cfg = p22_cfg("run", 1, log_calls=True, copy_ms=True)
-        a = hvdrun(1, a_cfg, _p22_env(cache_all=False))
+        a = hvdrun(1, a_cfg, _p22_env(cache_all=False, gpu=gpu))
         if a["rc"] != 0:
             fail(f"phase 22 (a): hvdrun exit {a['rc']}\n{a.get('log', '')}")
         a_recs = _p22_records(a_cfg, 1)
@@ -7162,23 +7208,17 @@ def launcher_gpus(n: int, smi: str) -> tuple:
         def reference():
             try:
                 return run_world(LP.worker, n, cfg, device=None,
-                                 timeout=P22_TIMEOUT)
+                                 timeout=P22_TIMEOUT, env={k: env[k] for k in (
+                                     "CUBLAS_WORKSPACE_CONFIG",
+                                     "HOROVOD_SANITIZE", "PYTHONPATH",
+                                     "HOROVOD_DATA_CACHE_SHARDS")})
             except RuntimeError as err:
                 fail(f"phase 22 at {n} GPUs, run_world: {err}")
 
-        # run_world's children take this process's environment
-        saved = dict(os.environ)
-        os.environ.update({k: env[k] for k in (
-            "CUBLAS_WORKSPACE_CONFIG", "HOROVOD_SANITIZE", "PYTHONPATH",
-            "HOROVOD_DATA_CACHE_SHARDS")})
-        try:
-            ref, e, a = _p22_side_by_side(
-                reference, (hvdrun_argv(n, e_cfg), e_cfg, env,
-                            _p22_kill_primary(P22_KILL_AT_WORLD, times)),
-                (hvdrun_argv(n, a_cfg), a_cfg, env, None))
-        finally:
-            os.environ.clear()
-            os.environ.update(saved)
+        ref, e, a = _p22_side_by_side(
+            reference, (hvdrun_argv(n, e_cfg), e_cfg, env,
+                        _p22_kill_primary(P22_KILL_AT_WORLD, times)),
+            (hvdrun_argv(n, a_cfg), a_cfg, env, None))
         ref_sha = _p22_check_run(f"run_world@{n}", ref, n)["sha"]
         if e["rc"] != 0:
             fail(f"phase 22 (e) at {n}: exit {e['rc']}\n{e.get('log', '')}")
@@ -7217,7 +7257,7 @@ def launcher_kernel_rows(label: str, calls: list) -> dict:
             if label in r["by_mode"]}
 
 
-def print_launcher(p22: dict, smi: str, z1_img_s=None) -> None:
+def print_launcher(p22: dict, smi: str, z1_img_s=None, note="") -> None:
     a = p22["a"]
     print(f"phase 22 (one GPU, hvdrun -np 1 --kv-standbys 1, ResNet-50 "
           f"ZeRO-1 + int8 + EF + inject_hyperparams(fused_adam), "
@@ -7237,7 +7277,8 @@ def print_launcher(p22: dict, smi: str, z1_img_s=None) -> None:
           f"{p22['d']['resumed_at']} bit-equal; (e) kill to promotion "
           f"{p22['e']['kill_to_promotion_s']:.3f} s, bit-equal; (f) "
           f"{p22['f']['substituted']} samples substituted from shard "
-          f"{P22_CORRUPT}; phase {p22['seconds']:.1f} s ({smi})", flush=True)
+          f"{P22_CORRUPT}; phase {p22['seconds']:.1f} s{note} ({smi})",
+          flush=True)
     print(f"phase 22: {json.dumps(p22)}", flush=True)
 
 
@@ -7251,6 +7292,246 @@ def print_launcher_world(rec: dict, n: int, smi: str) -> None:
           f"{rec['e']['kill_to_promotion_s']:.3f} s, bit-equal; "
           f"{rec['seconds']:.1f} s ({smi})", flush=True)
     print(f"phase 22 at {n} GPUs: {json.dumps(rec)}", flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 23: the TensorFlow, Keras, MXNet and Spark frontends, the estimator
+
+P23_DIR = os.path.join(ROOT, "_smoke_frontends")
+#: (c)'s bar: the largest difference between the card's fitted weights and
+#: the CPU's (plain PyTorch, the same seed and shards), over the CPU
+#: weights' largest magnitude; the control (the CPU fit on another
+#: shuffle seed) must lie outside it
+P23_WEIGHT_RTOL = 1e-4
+P23_TIMEOUT = 600
+
+
+def _p23_tool():
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import frontends_phase as FP
+
+    return FP
+
+
+def _p23_estimator(n: int) -> dict:
+    """(c): ``TorchEstimator`` fits tools/frontends_phase.py's MLP on its
+    DataFrame at ``num_proc=n`` (``n`` > 1: through ``run.run``, one
+    process a GPU, the worker wrapped to report every rank's parameters'
+    digest) and transforms rows; its weights and epoch losses against
+    the same fit on the CPU (plain PyTorch), TF32 off."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.data import LocalStore
+    from horovod_tpu_torch.estimator import TorchEstimator
+
+    FP = _p23_tool()
+    est = FP.EST
+    df = FP.est_frame()
+    init = FP.est_model()
+    model = copy.deepcopy(init)
+
+    class EveryRank(TorchEstimator):
+        def _make_train_fn(self, run_id):
+            import functools
+
+            return functools.partial(FP.every_rank,
+                                     super()._make_train_fn(run_id))
+
+        def _make_model(self, result, run_id):
+            self.rank_shas = result["rank_shas"]
+            self.devices = result["devices"]
+            return super()._make_model(result, run_id)
+
+    directory = os.path.join(P23_DIR, f"est{n}")
+    shutil.rmtree(directory, ignore_errors=True)
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0", PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.path.join(ROOT, "tools"),
+                    os.environ.get("PYTHONPATH")) if p))
+    fit = (TorchEstimator if n == 1 else EveryRank)(
+        model=model, optimizer=torch.optim.SGD(model.parameters(),
+                                               lr=est["lr"]),
+        loss=torch.nn.functional.mse_loss,
+        feature_cols=[f"f{i}" for i in range(est["features"])],
+        label_cols=["label"], batch_size=est["batch"], epochs=est["epochs"],
+        num_proc=n, store=LocalStore(directory), seed=est["seed"], env=env)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    try:
+        fitted = fit.fit(df)
+        fit_s = time.perf_counter() - t0
+        pred = fitted.transform(df.head(256))["label_pred"].to_numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        shutil.rmtree(directory, ignore_errors=True)
+    got = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    ref, ctrl = copy.deepcopy(init), copy.deepcopy(init)
+    ref_hist = FP.plain_fit(ref, df, n, est["seed"])
+    FP.plain_fit(ctrl, df, n, est["seed"] + 1)
+
+    def rel(m):
+        w = m.state_dict()
+        top = max(float(v.abs().max()) for v in w.values())
+        return max(float((got[k] - v).abs().max()) for k, v in w.items()) / top
+
+    err, ctrl_err = rel(ref), rel(ctrl)
+    label = f"phase 23 (c) num_proc={n}"
+    if not err <= P23_WEIGHT_RTOL < ctrl_err:
+        fail(f"{label}: the card's weights lie {err:.3g} from the CPU fit's "
+             f"(bar {P23_WEIGHT_RTOL}; the control {ctrl_err:.3g})")
+    if not np.allclose(fitted.history_, ref_hist, rtol=1e-4) or \
+            not np.isfinite(pred).all():
+        fail(f"{label}: losses {fitted.history_} vs the CPU's {ref_hist}")
+    out = dict(num_proc=n, fit_s=fit_s, losses=fitted.history_,
+               cpu_losses=ref_hist, weight_rel_err=err,
+               control_rel_err=ctrl_err, bar=P23_WEIGHT_RTOL,
+               rows=est["rows"], epochs=est["epochs"])
+    if n > 1:
+        if len(set(fit.rank_shas)) != 1:
+            fail(f"{label}: the ranks' parameters differ ({fit.rank_shas})")
+        if sorted(fit.devices) != [f"cuda:{r}" for r in range(n)]:
+            fail(f"{label}: the ranks ran on {fit.devices}")
+        out.update(ranks_identical=True, devices=fit.devices)
+    return out
+
+
+def frontends_phase(smi: str) -> dict:
+    """Phase 23 on one GPU: the package probe; (a) the MXNet bridge in a
+    world of one, every collective handed a tensor on ``cuda:0``, every
+    result its input's kind and numpy's; (c) with pandas and pyarrow,
+    ``TorchEstimator`` at ``num_proc=1``."""
+    import horovod_tpu_torch as hvd
+
+    FP = _p23_tool()
+    t0 = time.perf_counter()
+    rec = {"probe": FP.run_probe()}
+    print(f"phase 23 probe: {json.dumps(rec['probe'])} ({smi})", flush=True)
+    hvd.init()
+    try:
+        a = FP.mxnet_ops(0, 1)
+    finally:
+        hvd.shutdown()
+    bad = FP.check_mxnet(a, 1, "cuda:0")
+    if bad:
+        fail(f"phase 23 (a): {bad}")
+    rec["a"] = dict(collectives=len(a["devices"]),
+                    devices=sorted({d for _, d in a["devices"]}),
+                    kinds=a["kinds"], exact=True)
+    if rec["probe"]["pandas"] and rec["probe"]["pyarrow"]:
+        rec["c"] = _p23_estimator(1)
+    else:
+        rec["c"] = "not run: pandas and pyarrow do not both import here"
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def frontends_gpus(n: int, probe: dict, smi: str) -> dict:
+    """Phase 23 across ``n`` GPUs: (b) a Spark barrier job of ``n``
+    processes without Spark (``testing.run_barrier_job``), each forming
+    the world from ``spark._run_barrier_slot``'s environment on
+    ``cuda:<local_rank>``; the MXNet bridge exact on every rank; with
+    TensorFlow and Keras, the TF frontend's Adasum of an f32 delta and of
+    the same through its bf16 wire identical on every rank, each
+    launching B8 (``adasum_pair_combine``: one tensor a call, whatever
+    its type; B9 is the grouped route); (c) with pandas and pyarrow,
+    ``TorchEstimator(num_proc=n)`` through ``run.run``."""
+    import numpy as np
+
+    from horovod_tpu_torch.testing import run_barrier_job
+
+    FP = _p23_tool()
+    with_tf = bool(probe["tensorflow"] and probe["keras"]
+                   and probe.get("keras_backend") == "tensorflow")
+    t0 = time.perf_counter()
+    try:
+        res = run_barrier_job(FP.slot_fn, n, with_tf, timeout=P23_TIMEOUT)
+    except RuntimeError as e:
+        fail(f"phase 23 (b) at {n} GPUs: {e}")
+    b_s = time.perf_counter() - t0
+    for r, got in enumerate(res):
+        dev = f"cuda:{got['local_rank']}"
+        if (got["rank"], got["size"], got["device"]) != (r, n, dev):
+            fail(f"phase 23 (b): task {r} is rank {got['rank']} of "
+                 f"{got['size']} on {got['device']}")
+        bad = FP.check_mxnet(got["mxnet"], n, dev)
+        if bad:
+            fail(f"phase 23 (b) rank {r}: {bad}")
+    devices = sorted(got["device"] for got in res)
+    if len(set(devices)) != n:
+        fail(f"phase 23 (b): the ranks ran on {devices}")
+    rec = {"b": dict(ranks=n, devices=devices, exact=True, job_s=b_s)}
+    launches = {}
+    if with_tf:
+        for wire in ("f32", "bf16"):
+            kernel = "adasum_pair_combine"
+            vals = [got["tf"][wire]["value"] for got in res]
+            if not all(np.array_equal(v, vals[0]) for v in vals) or \
+                    not np.isfinite(vals[0]).all():
+                fail(f"phase 23 (b): the TF Adasum ({wire}) differs between "
+                     "ranks or is not finite")
+            counts = [got["tf"][wire]["launches"] for got in res]
+            if any(c != counts[0] for c in counts) or \
+                    not counts[0].get(kernel):
+                fail(f"phase 23 (b): the TF Adasum ({wire}) launched "
+                     f"{counts}, not {kernel}")
+            for k, v in counts[0].items():
+                launches[k] = launches.get(k, 0) + v
+        rec["b"]["tf_adasum"] = dict(identical=True, launches=launches)
+    else:
+        rec["b"]["tf_adasum"] = "not run: TensorFlow with Keras on its " \
+                                "TensorFlow backend does not import here"
+    rec["launches"] = launches
+    if probe["pandas"] and probe["pyarrow"]:
+        rec["c"] = _p23_estimator(n)
+    else:
+        rec["c"] = "not run: pandas and pyarrow do not both import here"
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def print_frontends(rec: dict, smi: str) -> None:
+    a, c = rec["a"], rec["c"]
+    est = c if isinstance(c, str) else (
+        f"TorchEstimator num_proc=1 fit {c['fit_s']:.2f} s, weights within "
+        f"{c['weight_rel_err']:.3g} of the CPU fit's largest magnitude (bar "
+        f"{c['bar']}; the control {c['control_rel_err']:.3g}), losses "
+        f"{c['losses']} (CPU {c['cpu_losses']})")
+    print(f"phase 23 (one GPU, the frontends): (a) the MXNet bridge, "
+          f"{a['collectives']} collectives handed tensors on "
+          f"{a['devices']}, results {a['kinds']} equal to numpy; (c) {est}; "
+          f"phase {rec['seconds']:.1f} s ({smi})", flush=True)
+    print(f"phase 23: {json.dumps(rec)}", flush=True)
+
+
+def print_frontends_world(rec: dict, n: int, smi: str,
+                          beside: bool = False) -> None:
+    b, c = rec["b"], rec["c"]
+    est = c if isinstance(c, str) else (
+        f"TorchEstimator num_proc={n} through run.run on {c['devices']}: "
+        f"every rank's parameters identical, within "
+        f"{c['weight_rel_err']:.3g} of the CPU's {n}-shard fit (bar "
+        f"{c['bar']}; the control {c['control_rel_err']:.3g}), fit "
+        f"{c['fit_s']:.2f} s")
+    print(f"phase 23 at {n} GPUs: (b) a barrier job of {n} processes on "
+          f"{b['devices']}, the MXNet bridge exact on every rank, TF "
+          f"Adasum {json.dumps(b['tf_adasum'])}, job {b['job_s']:.1f} s; "
+          f"(c) {est}; phase {rec['seconds']:.1f} s"
+          + (" (side by side with phase 22's jobs: no time is a reading)"
+             if beside else "") + f" ({smi})", flush=True)
+    print(f"phase 23 at {n} GPUs: {json.dumps(rec)}", flush=True)
+
+
+def one_gpu_children(gpu: int) -> dict:
+    """With ``--gpus N``: phase 10's checkpoint child, phase 19's
+    preemption children and phase 20's children, one after another on
+    card ``gpu`` alone, side by side with the phases this process drives
+    on ``cuda:0`` (their checks are bits; their times are no readings)."""
+    return {"ckpt": checkpoint_phase(gpu), "preemption": preemption_phase(gpu),
+            "p20": observability_phase(gpu)}
 
 
 def _summary(run: dict) -> str:
@@ -7327,6 +7608,18 @@ def main() -> None:
     usage = {n: ptxas_usage(r["log"]) for n, r in report.items()}
     print(f"ptxas: {json.dumps(usage)}", flush=True)
 
+    # with --gpus N the one-GPU phases that run in child processes go side
+    # by side on the spare cards: 10, 19's preemption and 20 on cuda:1,
+    # 22 on cuda:2 (cuda:1 at N = 2)
+    children = launched = None
+    side_note = ""
+    if gpus > 1:
+        pool = concurrent.futures.ThreadPoolExecutor(2)
+        children = pool.submit(one_gpu_children, 1)
+        launched = pool.submit(launcher_phase, smi, min(2, gpus - 1))
+        pool.shutdown(wait=False)
+        side_note = (" (side by side with the one-GPU phases on cuda:0, on "
+                     "a card of its own: its times are no readings)")
     cpu = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--cpu-reference"], capture_output=True, text=True,
                          timeout=300)
@@ -7402,9 +7695,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"elapsed after phases 4-9, 16-18: {time.perf_counter() - T0:.1f}"
           " s", flush=True)
-    ckpt = checkpoint_phase()
+    ckpt = children.result()["ckpt"] if children else checkpoint_phase()
     print(f"checkpoint (one GPU, ResNet-50 ZeRO-1 + int8 + EF): "
-          f"{json.dumps(ckpt)} ({smi})", flush=True)
+          f"{json.dumps(ckpt)}{side_note} ({smi})", flush=True)
     torch.cuda.empty_cache()
     front = frontend_core_phase()
     print(f"frontend named ops through the native core (one GPU, ResNet-50 "
@@ -7413,21 +7706,23 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"elapsed after phases 10-12: {time.perf_counter() - T0:.1f} s",
           flush=True)
-    p19 = resilience_phase()
+    p19 = resilience_phase(
+        (lambda: children.result()["preemption"]) if children
+        else preemption_phase)
     print(f"resilience (phase 19, one GPU, ResNet-50 ZeRO-1 + int8 + EF + "
           f"fused Adam, batch {P19_BATCH}): preemption "
-          f"{json.dumps(p19['preemption'])}; rollback "
+          f"{json.dumps(p19['preemption'])}{side_note}; rollback "
           f"{json.dumps(p19['rollback'])}; retry {json.dumps(p19['retry'])}; "
           f"phase {p19['seconds']:.1f} s ({smi})", flush=True)
     torch.cuda.empty_cache()
-    p20 = observability_phase()
+    p20 = children.result()["p20"] if children else observability_phase()
     print(f"observability (phase 20, one GPU, ResNet-50 ZeRO-1 + int8 + EF + "
           f"fused Adam, batch {P19_BATCH}, {OBS_STEPS} steps, every plane "
           f"on against none): instrumented {p20['instrumented_ms_per_step']:.3f}"
           f" ms a step (median {p20['instrumented_median_ms_per_step']:.3f}),"
           f" plain {p20['plain_ms_per_step']:.3f} (median "
-          f"{p20['plain_median_ms_per_step']:.3f}); {json.dumps(p20)} "
-          f"({smi})", flush=True)
+          f"{p20['plain_median_ms_per_step']:.3f}); {json.dumps(p20)}"
+          f"{side_note} ({smi})", flush=True)
     torch.cuda.empty_cache()
     hvd.init()
     try:
@@ -7438,8 +7733,12 @@ def main() -> None:
     print(f"elapsed after phase 21: {time.perf_counter() - T0:.1f} s",
           flush=True)
     torch.cuda.empty_cache()
-    p22, p22_calls = launcher_phase(smi)
-    print_launcher(p22, smi, by_mode["zero1"]["img_per_s"])
+    p23 = frontends_phase(smi)
+    print_frontends(p23, smi)
+    print(f"elapsed after phase 23: {time.perf_counter() - T0:.1f} s",
+          flush=True)
+    p22, p22_calls = launched.result() if launched else launcher_phase(smi)
+    print_launcher(p22, smi, by_mode["zero1"]["img_per_s"], side_note)
     print(f"elapsed after phase 22: {time.perf_counter() - T0:.1f} s",
           flush=True)
     ar = by_mode["allreduce"]
@@ -7597,13 +7896,22 @@ def main() -> None:
               f"{p21_tp['decode_tokens_per_s_per_gpu']:.1f} tokens/s a GPU; "
               f"{json.dumps(p21_tp)} ({smi})", flush=True)
         torch.cuda.empty_cache()
-        p22_world, p22_wcalls = launcher_gpus(gpus, smi)
+        # phase 22's jobs and phase 23's side by side on the N cards
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            p23_f = ex.submit(frontends_gpus, gpus, p23["probe"], smi)
+            p22_world, p22_wcalls = launcher_gpus(gpus, smi)
+            p23_world = p23_f.result()
         print_launcher_world(p22_world, gpus, smi)
+        print_frontends_world(p23_world, gpus, smi, beside=True)
         step_calls[f"hvdrun@{gpus}"] = p22_wcalls
         runs.append(dict(mode=f"hvdrun@{gpus}", launches={
             name: p22_world["a"]["launches"].get(name, 0)
             for name in K.KERNELS}))
-        print(f"elapsed after phase 22 at {gpus} GPUs: "
+        if p23_world["launches"]:
+            runs.append(dict(mode=f"frontends@{gpus}", launches={
+                name: p23_world["launches"].get(name, 0)
+                for name in K.KERNELS}))
+        print(f"elapsed after phases 22-23 at {gpus} GPUs: "
               f"{time.perf_counter() - T0:.1f} s", flush=True)
         for drill, rec in p20_world.items():
             print(f"phase 20 {drill} drill at {gpus} GPUs (elastic ResNet-50 "

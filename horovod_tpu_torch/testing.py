@@ -27,6 +27,11 @@ code 75) exits its process with that code, and :func:`run_world` raises
 :class:`WorldExit` with every such rank's code.
 ``watching_calls(module, names, on_call)`` reports every call of some of
 a module's functions (kernel wrappers, collectives) while it is open.
+``run_barrier_job(fn, n, *args)`` runs a Spark barrier job without
+Spark: ``n`` processes, each through
+:func:`horovod_tpu_torch.spark._run_barrier_slot` with a
+:class:`StoreBarrierContext` (pyspark's ``BarrierTaskContext`` surface
+over a store this process serves).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import os
 import socket
+import time
 import traceback
 
 import torch.multiprocessing as mp
@@ -85,6 +91,53 @@ class WorldExit(RuntimeError):
         super().__init__(f"ranks exited: {codes}")
 
 
+def _collect(q, procs, timeout: float, what: str):
+    """Yield each process's ``(index, ok, out)`` from ``q``, within
+    ``timeout`` seconds in all. A process that ends without putting its
+    item fails the wait at once: a rank that crashed (an abort in a
+    collective, a kill) would otherwise hold the caller for the whole
+    timeout while its peers wait on it. Raises ``RuntimeError`` naming
+    the processes at fault."""
+    import queue
+
+    deadline = time.monotonic() + timeout
+    seen = set()
+    while len(seen) < len(procs):
+        try:
+            item = q.get(timeout=1.0)
+        except queue.Empty:
+            gone = [i for i, p in enumerate(procs)
+                    if i not in seen and p.exitcode is not None]
+            try:    # an item put just before its process ended may lag
+                item = q.get(timeout=2.0) if gone else None
+            except queue.Empty:
+                item = None
+            if item is None and gone:
+                raise RuntimeError(
+                    f"{what}: process(es) {gone} ended (exit codes "
+                    f"{[procs[i].exitcode for i in gone]}) without a "
+                    f"result") from None
+            if item is None:
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"{what}: no result from process(es) "
+                        f"{sorted(set(range(len(procs))) - seen)} within "
+                        f"{timeout} s") from None
+                continue
+        seen.add(item[0])
+        yield item
+
+
+def _stop(procs) -> None:
+    """Join each started process for up to 10 s, then kill it."""
+    for p in procs:
+        if p.pid is not None:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+
+
 def _child(rank, n, port, device, fn, args, q, native_core=False,
            timeout=120.0, env=None):
     import datetime
@@ -114,9 +167,12 @@ def _child(rank, n, port, device, fn, args, q, native_core=False,
 
 
 def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0,
-              native_core: bool = False) -> list:
+              native_core: bool = False, env=None) -> list:
     """``[fn(*args) on rank 0, ..., on rank n-1]``; raises with the first
-    failing rank's traceback."""
+    failing rank's traceback, at once when a rank's process ends without
+    a result, and when ``timeout`` seconds pass without every result
+    (the processes are killed). ``env``: variables every rank sets
+    before it starts (this process's environment stays as it is)."""
     import datetime
 
     import torch.distributed as dist
@@ -141,7 +197,8 @@ def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0,
     procs = [ctx.Process(target=_child,
                          args=(r, n, store.port, device, fn, args, q,
                                native_core, timeout,
-                               worker_env(slots[r], kv_env,
+                               worker_env(slots[r],
+                                          dict(kv_env, **(env or {})),
                                           store_addr="127.0.0.1",
                                           store_port=store.port,
                                           core_port=core_port)))
@@ -150,8 +207,7 @@ def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0,
     try:
         for p in procs:
             p.start()
-        for _ in range(n):
-            rank, ok, out = q.get(timeout=timeout)
+        for rank, ok, out in _collect(q, procs, timeout, "run_world"):
             if ok == "exit":
                 exits[rank] = out
             elif not ok:
@@ -159,11 +215,7 @@ def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0,
             else:
                 results[rank] = out
     finally:
-        for p in procs:
-            if p.pid is not None:
-                p.join(timeout=10)
-                if p.is_alive():
-                    p.kill()
+        _stop(procs)
         if held is not None:
             held.close()
         kv.close()
@@ -171,4 +223,86 @@ def run_world(fn, n: int, *args, device="cpu", timeout: float = 120.0,
     if exits:
         raise WorldExit(exits, {r: p.exitcode for r, p in enumerate(procs)},
                         results)
+    return [results[r] for r in range(n)]
+
+
+class StoreBarrierContext:
+    """A stand-in for pyspark's ``BarrierTaskContext`` over a
+    ``torch.distributed`` store: ``partitionId()``, ``allGather(message)``
+    and ``barrier()``, the surface :func:`horovod_tpu_torch.spark.
+    _run_barrier_slot` uses. ``allGather`` returns the messages in the
+    tasks' reverse order: Spark orders them by task attempt, not by
+    partition, so the slot must read the partition from the message."""
+
+    def __init__(self, idx: int, n: int, store, timeout: float = 120.0):
+        self.idx, self.n, self.store = idx, n, store
+        self.timeout = timeout
+        self._round = 0
+
+    def partitionId(self) -> int:
+        return self.idx
+
+    def allGather(self, message: str = "") -> list:
+        import datetime
+
+        keys = [f"barrier/{self._round}/{i}" for i in range(self.n)]
+        self._round += 1
+        self.store.set(keys[self.idx], message)
+        self.store.wait(keys, datetime.timedelta(seconds=self.timeout))
+        return [self.store.get(k).decode() for k in reversed(keys)]
+
+    def barrier(self) -> None:
+        self.allGather("")
+
+
+def _barrier_child(idx, n, port, fn, args, q, timeout):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.spark import _run_barrier_slot
+
+    torch.set_num_threads(1)
+    try:
+        store = dist.TCPStore("127.0.0.1", port, n, is_master=False,
+                              timeout=datetime.timedelta(seconds=timeout))
+        ctx = StoreBarrierContext(idx, n, store, timeout)
+        (rank, out), = list(_run_barrier_slot(ctx, fn, args, {}))
+        q.put((idx, True, (rank, out)))
+    except BaseException:  # noqa: BLE001 - shipped to the parent
+        q.put((idx, False, traceback.format_exc()))
+
+
+def run_barrier_job(fn, n: int, *args, timeout: float = 120.0) -> list:
+    """A Spark barrier job without Spark: ``n`` processes, each calling
+    :func:`horovod_tpu_torch.spark._run_barrier_slot` with a
+    :class:`StoreBarrierContext` (its ``allGather`` over a store this
+    process serves on port 0) and ``fn(*args)``, which forms its world
+    with ``hvd.init()`` from the slot's environment. Returns
+    ``[fn's result on rank 0, ..., on rank n-1]``; raises as
+    :func:`run_world` does (the tasks are killed)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store = dist.TCPStore("127.0.0.1", 0, None, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=timeout))
+    procs = [ctx.Process(target=_barrier_child,
+                         args=(i, n, store.port, fn, args, q, timeout))
+             for i in range(n)]
+    results = {}
+    try:
+        for p in procs:
+            p.start()
+        for idx, ok, out in _collect(q, procs, timeout, "barrier job"):
+            if not ok:
+                raise RuntimeError(f"task {idx} failed:\n{out}")
+            results[out[0]] = out[1]
+    finally:
+        _stop(procs)
+        del store
     return [results[r] for r in range(n)]

@@ -167,7 +167,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def synchronize(self):
         """Wait for all outstanding gradient allreduces and write the reduced
         gradients back (reference ``torch/__init__.py:165-215``)."""
-        missing_p = self._requires_update - set(self._handles.keys())
+        # in parameter order: without the native core every rank must
+        # launch its collectives in one order (a set's order follows the
+        # tensors' addresses, which differ between processes)
+        missing_p = [p for pg in self.param_groups for p in pg["params"]
+                     if p in self._requires_update and p not in self._handles]
         for p in missing_p:
             if p.grad is None:
                 p.grad = p.data.new(p.size()).zero_()
@@ -386,7 +390,8 @@ class _DistributedAdasumOptimizer(torch.optim.Optimizer):
 
     def step(self, closure=None):
         loss = closure() if closure is not None else None
-        missing_p = self._requires_update - set(self._handles.keys())
+        missing_p = [p for pg in self.param_groups for p in pg["params"]
+                     if p in self._requires_update and p not in self._handles]
         for p in missing_p:
             self._handles[p] = self._allreduce_delta_async(p)
         for p, (handle, ctx) in list(self._handles.items()):
