@@ -358,9 +358,10 @@ Phases, each fatal on failure (exit code 1, no result line):
 21. serving (``horovod_tpu_torch.serving``), the flagship LM at full
    width, in a world of one: (a) 8 steps under ``ElasticRun(publisher=
    WeightPublisher(KVStoreClient over HTTP), publish_every=4)``:
-   generation 1 a keyframe, 2 an int8 delta whose every quantizable
-   leaf takes one ``quantize`` launch (logged and replayed in the kernel
-   phase as ``serve_delta``), B6 12 a step, and a ``WeightSubscriber``
+   generation 1 a keyframe, 2 an int8 delta whose quantizable leaves
+   take one ``quantize`` launch together (their padded deltas end to end;
+   logged and replayed in the kernel phase as ``serve_delta``), B6 12 a
+   step, and a ``WeightSubscriber``
    over HTTP rebuilding each on the card bit-equal to the publisher's
    decode; (b) an ``InferenceEngine`` (batch 8, page 16, chunk 256,
    2048 positions) on 16 greedy requests of 128-1536 prompt tokens, 64
@@ -1348,6 +1349,51 @@ def adam_epilogue_check(L: int) -> dict:
         lambda: K.fused_adam_update(g, mu, nu, 3, requant_block=256, **kw)))
 
 
+def adam_bf16_edge_check() -> dict:
+    """B5's bf16 instantiation where the path's data do not reach: every
+    bf16 bit pattern as a gradient (NaN, infinities, zeros of both signs,
+    subnormals), against every pattern as mu and every magnitude as nu in
+    other orders, in an aligned leaf, a leaf at an odd element offset (one
+    element a thread) and one whose length leaves a ragged tail; at a host
+    count of 1 and 1000 and at a device count (a guarded state's), with
+    eps_root 0 and 1e-12. Each ``fused_adam_multi`` call bit-equal to the
+    plain version, per leaf (NaN payloads aside). Returns what was
+    checked."""
+    import torch
+
+    from horovod_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(23)
+    pat = torch.arange(-(1 << 15), 1 << 15, device=dev,
+                       dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    n = pat.numel()
+    g = torch.cat([pat, pat[torch.randperm(n, device=dev, generator=gen)]])
+    mu = torch.cat([pat[torch.randperm(n, device=dev, generator=gen)]
+                    for _ in range(2)])
+    nu = torch.cat([pat[torch.randperm(n, device=dev, generator=gen)].abs()
+                    for _ in range(2)])
+    L = g.numel()
+    leaves = [(g, mu, nu), (g[1:], mu[1:], nu[1:]),
+              (g[:L - 5], mu[:L - 5], nu[:L - 5])]
+    done = []
+    for count in (1, 1000, torch.tensor(7, dtype=torch.int32, device=dev)):
+        for eps_root in (0.0, 1e-12):
+            kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, eps_root=eps_root)
+            c = K.adam_constants(count=count, **kw)
+            out = K.fused_adam_multi(*map(list, zip(*leaves)), count, **kw)
+            for j, leaf in enumerate(leaves):
+                ref = K.fused_adam_plain(*leaf, c)
+                bad = _bits(tuple(o[j] for o in out), ref)
+                if bad:
+                    fail(f"fused_adam bf16 edge leaf {j} (count "
+                         f"{int(count)}, eps_root {eps_root}): {bad}")
+            done.append([int(count), isinstance(count, torch.Tensor),
+                         eps_root])
+    return dict(leaves=[x[0].numel() for x in leaves], runs=done,
+                bit_equal=True)
+
+
 def ptxas_usage(log: str) -> dict:
     """Registers and spills of each kernel, from ``-Xptxas -v``'s report."""
     import re
@@ -1359,9 +1405,6 @@ def ptxas_usage(log: str) -> dict:
             base = re.search(r"flash_fwd_(?:mma|f32)|[a-z_]+_kernel",
                              m.group(1).split("_cu_")[-1])
             args = re.findall(r"L[ib](\d+)E", m.group(1))
-            if base and base.group(0) == "adam_kernel" \
-                    and "I13__nv_bfloat16" in m.group(1):   # B5 on bf16
-                args = ["bf16"] + args
             name = (base.group(0) if base else m.group(1)) + (
                 f"<{', '.join(args)}>" if args else "")
             usage[name] = {}
@@ -5823,10 +5866,10 @@ def serve_handoff(server, addr, roll_hook):
     server), publish_every=SERVE_EVERY)``; after each publication a
     ``WeightSubscriber`` over HTTP rebuilds it on the card, and
     ``roll_hook()`` runs (the rollout's poll). Gates: generation 1 a
-    keyframe, 2 a delta; B1 launched once per quantizable leaf of the
-    delta and never for the keyframe; B6 12 a step; the card's
-    reconstruction bit-equal to the publisher's ``decode`` of its own
-    payload. Returns the record, the subscriber (holding generation 2 on
+    keyframe, 2 a delta; B1 launched once for the delta (over all its
+    quantizable leaves) and never for the keyframe; B6 12 a step; the
+    card's reconstruction bit-equal to the publisher's ``decode`` of its
+    own payload. Returns the record, the subscriber (holding generation 2 on
     the card) and the delta's logged B1 calls."""
     import numpy as np
     import torch
@@ -5883,7 +5926,7 @@ def serve_handoff(server, addr, roll_hook):
                                 flatten_tree(pub.reconstruction())):
             fail(f"phase 21 (a): generation {gen} rebuilt on the card is not "
                  "bit-equal to the publisher's decode of its payload")
-        want_q = quantizable if m["kind"] == "delta" else 0
+        want_q = int(quantizable > 0) if m["kind"] == "delta" else 0
         if launched["quantize"] != want_q or len(calls[0]) != want_q:
             fail(f"phase 21 (a): generation {gen} ({m['kind']}) launched "
                  f"quantize {launched['quantize']} times ({len(calls[0])} "
@@ -7932,6 +7975,8 @@ def main() -> None:
     epilogue = adam_epilogue_check(L)
     print(f"fused_adam requant epilogue agrees bit for bit: "
           f"{json.dumps(epilogue)}", flush=True)
+    print(f"fused_adam bf16 at every bf16 pattern agrees bit for bit: "
+          f"{json.dumps(adam_bf16_edge_check())}", flush=True)
     rows = kernel_phase(step_calls, main_modes(gpus))
     for name, r in rows.items():
         print(f"kernel {name}: {json.dumps(r)}", flush=True)

@@ -15,8 +15,8 @@
 // its Python doubles.
 //
 // Bound on an H100 SXM (3.35 TB/s): memory. Per element it reads g, mu,
-// nu (12 bytes) and writes u, mu', nu' (12 bytes) for ~12 f32
-// operations: 0.5 operations per byte against the card's ~20.
+// nu and writes u, mu', nu' (24 bytes in f32, 12 in bf16) for ~12
+// operations: 0.5-1 operations per byte against the card's ~20.
 //
 // Dispatch. The reference runs one Pallas call per leaf, all fused into
 // one XLA program under jit; here a step's leaves (161 for ResNet-50) go
@@ -27,28 +27,49 @@
 // kMaxLeaves fits the table in them). The leaves are cut into chunks of
 // kChunk elements, chunk c being chunk c - first[i] of the last leaf i
 // with first[i] <= c; 16 blocks an SM walk the chunks grid-stride, a
-// block looking its leaf up again only when a chunk leaves it, in float4s
-// where the leaf is aligned and one element a thread otherwise (Adasum's
-// leaves are views into one group buffer at any offset). A flat shard
-// (ZeRO-1, ZeRO-3) thus keeps the grid and the loop of the one-leaf
+// block looking its leaf up again only when a chunk leaves it, in 16-byte
+// groups where the leaf is aligned and one element a thread otherwise
+// (Adasum's leaves are views into one group buffer at any offset). A flat
+// shard (ZeRO-1, ZeRO-3) thus keeps the grid and the loop of the one-leaf
 // kernel this replaces.
 //
-// Element types. The kernel is instantiated for f32 and bf16 leaves; one
-// launch takes leaves of one type (the wrapper groups a call's leaves by
-// dtype). For bf16 every operation takes two bf16 values and its f32
-// result (__f*_rn) is rounded to bf16 (__float2bfloat16_rn), the constants
-// rounded to bf16 first and the square root correctly rounded in f32
-// before its own rounding: what optax's weakly typed constants and the
-// reference's kernel compute for a bf16 leaf. The f32 instantiation is
-// the expressions above, unchanged. A 16-byte access is 4 f32 or 8 bf16.
+// Element types. One launch takes leaves of one type (the wrapper groups
+// a call's leaves by dtype): adam_kernel f32 leaves, the expressions
+// above, 256 threads a block, one 16-byte group (4 f32) a thread a chunk;
+// adam_pair_kernel bf16 leaves.
+//
+// bf16 leaves take the reference's bf16 arithmetic: every operation on two
+// bf16 values, its f32 result (__f*_rn) rounded to bf16, the constants
+// rounded to bf16 first, the square root correctly rounded in f32 before
+// its own rounding (what optax's weakly typed constants and the
+// reference's kernel compute). Done so, an operation and its rounding are
+// two to four instructions an element (a conversion among them, on the
+// SM's quarter-rate pipe) and each divide a multi-instruction __fdiv_rn.
+// adam_pair_kernel gets the same bits two elements a 32-bit word:
+// - * and + are one fma.rn.bf16x2 (a*b + -0, a*1 + b), the exact result
+//   rounded once to bf16, which equals the f32 rounding followed by the
+//   bf16 one for every pair of bf16 operands;
+// - the divides by b1c and b2c multiply by their f32 reciprocals (once a
+//   launch), the divide by den multiplies by rcp.approx(den), the square
+//   root is sqrt.approx: each within 2^-22 of the correctly rounded f32
+//   value, which decides no bf16 rounding of a quotient or root of bf16
+//   values in the normal range. Where an operand or a quotient leaves
+//   that range (a reciprocal that is not a normal f32, a den quotient
+//   nearer 0 than 2^-125, a root of a subnormal or a negative), the pair
+//   takes __fdiv_rn / __fsqrt_rn;
+// - the four f32 results round to bf16 two at a time (cvt.rn.bf16x2.f32).
+// tests/test_torch_adam_bf16_rounding.py holds a numpy model of these
+// lines against the f32 operation followed by bf16 rounding. A bf16 block
+// (adam_pair_kernel) is 128 threads, two 16-byte groups (8 bf16 each) a
+// thread a chunk, both loaded before either is computed.
 //
 // Bias corrections. By value, or (bc non-null) read from a device buffer
 // [b1c, b2c]: a guarded optimizer's step count lives on the device (a
 // skipped step keeps it without a host read), so its bias corrections
 // are computed there, as the reference's kernel takes its traced ones.
 //
-// The epilogue (f32, one leaf only): each warp takes whole 256-element blocks,
-// eight elements a lane, quantizes the update with int8_wire.cuh's
+// The epilogue (f32, one leaf only): each warp takes whole 256-element
+// blocks, eight elements a lane, quantizes the update with int8_wire.cuh's
 // requant_lane and writes q and the bf16 scale. The tail past the leaf's
 // length is the update of zero g, mu, nu, as the reference pads.
 #include <cuda_bf16.h>
@@ -63,11 +84,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;           // f32: a 16-byte group a thread
+constexpr int kThreads16 = 128;         // bf16: two 16-byte groups a thread
 constexpr int kWarps = kThreads / 32;
 constexpr long long kChunk = 2048;      // ops.kernels.ADAM_CHUNK
+constexpr int kGroups16 = kChunk / (8 * kThreads16);
 constexpr int kMaxLeaves = 256;         // ops.kernels.ADAM_MAX_LEAVES
-static_assert(kChunk % (8 * kThreads) == 0 && kChunk % hvdt::kBlock == 0,
+static_assert(kChunk % (4 * kThreads) == 0 && kGroups16 == 2 &&
+                  kChunk % hvdt::kBlock == 0,
               "a chunk is whole 16-byte rounds and whole int8 blocks");
 
 struct AdamConsts {
@@ -92,92 +116,163 @@ struct AdamTable {
 };
 static_assert(sizeof(AdamTable) <= 32764, "kernel parameters over 32,764 B");
 
-// one element type's loads, stores and rounding
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static constexpr int kVec = 4;        // elements a 16-byte access
-  __device__ static float load(const float* p) { return *p; }
-  __device__ static void put(float* p, float x) { *p = x; }
-  __device__ static float r(float x) { return x; }
-  __device__ static void load_vec(const float* p, float (&x)[kVec]) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  }
-  __device__ static void store_vec(float* p, const float (&x)[kVec]) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  __device__ static void put(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16_rn(x);
-  }
-  // x's value rounded to bf16 (x is exactly representable afterwards)
-  __device__ static float r(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  __device__ static void load_vec(const __nv_bfloat16* p, float (&x)[kVec]) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      x[2 * k] = __uint_as_float(w[k] << 16);
-      x[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-    }
-  }
-  __device__ static void store_vec(__nv_bfloat16* p, const float (&x)[kVec]) {
-    uint32_t w[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(x[2 * k]));
-      const uint32_t hi =
-          __bfloat16_as_ushort(__float2bfloat16_rn(x[2 * k + 1]));
-      w[k] = lo | (hi << 16);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
-
-// one element: every operation rounded by E::r (a no-op for f32, where
-// this is the f32 expressions of the header exactly)
-template <typename T>
+// one f32 element: the expressions of the header
 __device__ __forceinline__ float adam_elem(float g, float& mu, float& nu,
                                            const AdamConsts& c) {
-  using E = Elem<T>;
-  const float m2 = E::r(__fadd_rn(E::r(__fmul_rn(c.omb1, g)),
-                                  E::r(__fmul_rn(c.b1, mu))));
-  const float v2 = E::r(__fadd_rn(E::r(__fmul_rn(c.omb2, E::r(__fmul_rn(g, g)))),
-                                  E::r(__fmul_rn(c.b2, nu))));
-  const float den = E::r(__fadd_rn(
-      E::r(__fsqrt_rn(E::r(__fadd_rn(E::r(__fdiv_rn(v2, c.b2c)), c.eps_root)))),
-      c.eps));
+  const float m2 = __fadd_rn(__fmul_rn(c.omb1, g), __fmul_rn(c.b1, mu));
+  const float v2 = __fadd_rn(__fmul_rn(c.omb2, __fmul_rn(g, g)),
+                             __fmul_rn(c.b2, nu));
+  const float den = __fadd_rn(
+      __fsqrt_rn(__fadd_rn(__fdiv_rn(v2, c.b2c), c.eps_root)), c.eps);
   mu = m2;
   nu = v2;
-  return E::r(__fmul_rn(c.neg_lr, E::r(__fdiv_rn(E::r(__fdiv_rn(m2, c.b1c)), den))));
+  return __fmul_rn(c.neg_lr, __fdiv_rn(__fdiv_rn(m2, c.b1c), den));
 }
 
-// the step's constants in the leaves' type: bias corrections from the
-// device buffer when there is one, each constant rounded by E::r
-template <typename T>
-__device__ __forceinline__ AdamConsts consts_of(const AdamTable& t) {
-  using E = Elem<T>;
+// the f32 step's constants: bias corrections from the device buffer when
+// there is one
+__device__ __forceinline__ AdamConsts consts_f32(const AdamTable& t) {
   AdamConsts c = t.c;
   if (t.bc != nullptr) {
     c.b1c = t.bc[0];
     c.b2c = t.bc[1];
   }
-  return AdamConsts{E::r(c.omb1), E::r(c.b1), E::r(c.omb2), E::r(c.b2),
-                    E::r(c.b1c), E::r(c.b2c), E::r(c.eps), E::r(c.eps_root),
-                    E::r(c.neg_lr)};
+  return c;
 }
+
+// bf16, two elements a 32-bit word (the low half the first) --------------
+namespace bf {
+
+__device__ __forceinline__ float lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// f32 l and h rounded to bf16 (to nearest even) and packed
+__device__ __forceinline__ uint32_t pack(float l, float h) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(h), "f"(l));
+  return d;
+}
+
+// a * b + c on both halves, the exact result rounded once to bf16
+__device__ __forceinline__ uint32_t fma2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// a * b (+ -0 keeps an exact product's sign of zero) and a + b
+__device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
+  return fma2(a, b, 0x80008000u);
+}
+__device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
+  return fma2(a, 0x3f803f80u, b);
+}
+
+// 1 / b is a normal f32, or b is 0, inf or NaN (whose reciprocals give
+// the quotient's own inf, 0 or NaN)
+__device__ __forceinline__ bool rcp_fits(float b) {
+  const float a = fabsf(b);
+  return (a >= 0x1p-126f && a <= 0x1p126f) || a == 0.0f ||
+         a == __int_as_float(0x7f800000) || a != a;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// a / b for a launch's constant b, rcp = __frcp_rn(b), fast = rcp_fits(b)
+__device__ __forceinline__ uint32_t div_const(uint32_t a, float b, float rcp,
+                                              bool fast) {
+  if (fast) return pack(__fmul_rn(lo(a), rcp), __fmul_rn(hi(a), rcp));
+  return pack(__fdiv_rn(lo(a), b), __fdiv_rn(hi(a), b));
+}
+
+// a quotient the approximate reciprocal may give: 0, or not below 2^-125
+__device__ __forceinline__ bool quotient_fits(float q) {
+  return !(fabsf(q) < 0x1p-125f) || q == 0.0f;
+}
+
+// a / d, both pairs of bf16 values
+__device__ __forceinline__ uint32_t div_pair(uint32_t a, uint32_t d) {
+  const float dl = lo(d), dh = hi(d);
+  if (rcp_fits(dl) && rcp_fits(dh)) {
+    const float ql = __fmul_rn(lo(a), rcp_approx(dl));
+    const float qh = __fmul_rn(hi(a), rcp_approx(dh));
+    if (quotient_fits(ql) && quotient_fits(qh)) return pack(ql, qh);
+  }
+  return pack(__fdiv_rn(lo(a), dl), __fdiv_rn(hi(a), dh));
+}
+
+// a root's operand sqrt.approx takes: a normal, +inf, or 0 (kept as is)
+__device__ __forceinline__ bool root_fits(float t) {
+  return t >= 0x1p-126f || t == 0.0f;
+}
+
+__device__ __forceinline__ uint32_t root(uint32_t t) {
+  const float l = lo(t), h = hi(t);
+  if (root_fits(l) && root_fits(h))
+    return pack(l == 0.0f ? l : sqrt_approx(l),
+                h == 0.0f ? h : sqrt_approx(h));
+  return pack(__fsqrt_rn(l), __fsqrt_rn(h));
+}
+
+// the step's constants: each bf16 value twice in a word; b1c, b2c as
+// bf16 values with their f32 reciprocals
+struct Consts {
+  uint32_t omb1, b1, omb2, b2, eps, eps_root, neg_lr;
+  float b1c, b2c, rcp1, rcp2;
+  bool fast1, fast2;
+};
+
+__device__ __forceinline__ uint32_t twice(float x) {
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  return h | (h << 16);
+}
+
+__device__ __forceinline__ Consts consts(const AdamTable& t) {
+  const AdamConsts a = consts_f32(t);
+  Consts c;
+  c.omb1 = twice(a.omb1);
+  c.b1 = twice(a.b1);
+  c.omb2 = twice(a.omb2);
+  c.b2 = twice(a.b2);
+  c.eps = twice(a.eps);
+  c.eps_root = twice(a.eps_root);
+  c.neg_lr = twice(a.neg_lr);
+  c.b1c = lo(twice(a.b1c));
+  c.b2c = lo(twice(a.b2c));
+  c.rcp1 = __frcp_rn(c.b1c);
+  c.rcp2 = __frcp_rn(c.b2c);
+  c.fast1 = rcp_fits(c.b1c);
+  c.fast2 = rcp_fits(c.b2c);
+  return c;
+}
+
+// one Adam step of two elements: g, mu, nu in; u, mu', nu' out
+__device__ __forceinline__ uint32_t adam_pair(uint32_t g, uint32_t& mu,
+                                              uint32_t& nu, const Consts& c) {
+  const uint32_t m2 = add(mul(c.omb1, g), mul(c.b1, mu));
+  const uint32_t v2 = add(mul(c.omb2, mul(g, g)), mul(c.b2, nu));
+  const uint32_t t2 = add(div_const(v2, c.b2c, c.rcp2, c.fast2), c.eps_root);
+  const uint32_t den = add(root(t2), c.eps);
+  mu = m2;
+  nu = v2;
+  return mul(c.neg_lr, div_pair(div_const(m2, c.b1c, c.rcp1, c.fast1), den));
+}
+
+}  // namespace bf
 
 // the epilogue's 256-element blocks of [b0, b1): eight elements a lane
 __device__ __forceinline__ void adam_requant(const AdamTable& t,
@@ -211,7 +306,7 @@ __device__ __forceinline__ void adam_requant(const AdamTable& t,
     }
 #pragma unroll
     for (int k = 0; k < hvdt::kLane; ++k)
-      x[k] = adam_elem<float>(x[k], m[k], v[k], c);
+      x[k] = adam_elem(x[k], m[k], v[k], c);
     if (whole) {
       hvdt::store(u + e, x);
       hvdt::store(mu2 + e, m);
@@ -234,78 +329,83 @@ __device__ __forceinline__ void adam_requant(const AdamTable& t,
   }
 }
 
-// one leaf's pointers, as a block keeps them while its chunks stay in it
-template <typename T>
+// one f32 leaf's pointers, as a block keeps them while its chunks stay in it
 struct Leaf {
-  const T *g, *mu, *nu;
-  T *u, *mu2, *nu2;
+  const float *g, *mu, *nu;
+  float *u, *mu2, *nu2;
   long long n;
   int first, end;                       // its chunks [first, end)
   bool vec;
 };
 
-// elements [b0, b1) of a leaf: 16-byte groups with a scalar tail, or one
-// element a thread for an unaligned leaf
-template <typename T>
-__device__ __forceinline__ void adam_chunk(const Leaf<T>& f, const AdamConsts& c,
+// elements [b0, b1) of an f32 leaf: 16-byte groups with a scalar tail, or
+// one element a thread for an unaligned leaf
+__device__ __forceinline__ void adam_chunk(const Leaf& f, const AdamConsts& c,
                                            long long b0, long long b1) {
-  using E = Elem<T>;
-  constexpr int V = E::kVec;
-  const T* __restrict__ g = f.g;
-  const T* __restrict__ mu = f.mu;
-  const T* __restrict__ nu = f.nu;
-  T* __restrict__ u = f.u;
-  T* __restrict__ mu2 = f.mu2;
-  T* __restrict__ nu2 = f.nu2;
+  const float* __restrict__ g = f.g;
+  const float* __restrict__ mu = f.mu;
+  const float* __restrict__ nu = f.nu;
+  float* __restrict__ u = f.u;
+  float* __restrict__ mu2 = f.mu2;
+  float* __restrict__ nu2 = f.nu2;
   if (f.vec) {
-    for (long long e = b0 + V * threadIdx.x; e < b1; e += V * kThreads) {
-      if (e + V <= b1) {                // read-only path for the inputs
-        float x[V], m[V], v[V];
-        E::load_vec(g + e, x);
-        E::load_vec(mu + e, m);
-        E::load_vec(nu + e, v);
-#pragma unroll
-        for (int k = 0; k < V; ++k) x[k] = adam_elem<T>(x[k], m[k], v[k], c);
-        E::store_vec(u + e, x);
-        E::store_vec(mu2 + e, m);
-        E::store_vec(nu2 + e, v);
+    for (long long e = b0 + 4 * threadIdx.x; e < b1; e += 4 * kThreads) {
+      if (e + 4 <= b1) {                // read-only path for the inputs
+        const float4 x = __ldg(reinterpret_cast<const float4*>(g + e));
+        float4 m = __ldg(reinterpret_cast<const float4*>(mu + e));
+        float4 v = __ldg(reinterpret_cast<const float4*>(nu + e));
+        const float4 d = make_float4(adam_elem(x.x, m.x, v.x, c),
+                                     adam_elem(x.y, m.y, v.y, c),
+                                     adam_elem(x.z, m.z, v.z, c),
+                                     adam_elem(x.w, m.w, v.w, c));
+        *reinterpret_cast<float4*>(u + e) = d;
+        *reinterpret_cast<float4*>(mu2 + e) = m;
+        *reinterpret_cast<float4*>(nu2 + e) = v;
       } else {                          // the leaf's ragged tail
         for (long long k = e; k < b1; ++k) {
-          float m = E::load(mu + k), v = E::load(nu + k);
-          E::put(u + k, adam_elem<T>(E::load(g + k), m, v, c));
-          E::put(mu2 + k, m);
-          E::put(nu2 + k, v);
+          float m = mu[k], v = nu[k];
+          u[k] = adam_elem(g[k], m, v, c);
+          mu2[k] = m;
+          nu2[k] = v;
         }
       }
     }
   } else {
     for (long long k = b0 + threadIdx.x; k < b1; k += kThreads) {
-      float m = E::load(mu + k), v = E::load(nu + k);
-      E::put(u + k, adam_elem<T>(E::load(g + k), m, v, c));
-      E::put(mu2 + k, m);
-      E::put(nu2 + k, v);
+      float m = mu[k], v = nu[k];
+      u[k] = adam_elem(g[k], m, v, c);
+      mu2[k] = m;
+      nu2[k] = v;
     }
   }
 }
 
-template <typename T, bool kRequant>
+// the last leaf i with first[i] <= ch, searching up from i
+__device__ __forceinline__ int leaf_of(const AdamTable& t, int ch, int i) {
+  int hi = t.n_leaves - 1;
+  while (i < hi) {
+    const int mid = (i + hi + 1) >> 1;
+    if (t.first[mid] <= ch) i = mid; else hi = mid - 1;
+  }
+  return i;
+}
+
+// f32 leaves (with the int8 epilogue: one leaf)
+template <bool kRequant>
 __global__ void __launch_bounds__(kThreads)
 adam_kernel(const __grid_constant__ AdamTable t) {
-  const AdamConsts c = consts_of<T>(t);
+  const AdamConsts c = consts_f32(t);
   const int chunks = t.first[t.n_leaves];
   int i = 0;
-  Leaf<T> f{};                          // f.end = 0: found at the first chunk
+  Leaf f{};                             // f.end = 0: found at the first chunk
   for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
-    if (ch >= f.end) {                  // the last leaf with first <= ch
-      int hi = t.n_leaves - 1;
-      while (i < hi) {
-        const int mid = (i + hi + 1) >> 1;
-        if (t.first[mid] <= ch) i = mid; else hi = mid - 1;
-      }
-      f = Leaf<T>{static_cast<const T*>(t.g[i]), static_cast<const T*>(t.mu[i]),
-                  static_cast<const T*>(t.nu[i]), static_cast<T*>(t.u[i]),
-                  static_cast<T*>(t.mu2[i]), static_cast<T*>(t.nu2[i]), t.n[i],
-                  t.first[i], t.first[i + 1], t.vec[i] != 0};
+    if (ch >= f.end) {
+      i = leaf_of(t, ch, i);
+      f = Leaf{static_cast<const float*>(t.g[i]),
+               static_cast<const float*>(t.mu[i]),
+               static_cast<const float*>(t.nu[i]), static_cast<float*>(t.u[i]),
+               static_cast<float*>(t.mu2[i]), static_cast<float*>(t.nu2[i]),
+               t.n[i], t.first[i], t.first[i + 1], t.vec[i] != 0};
     }
     const long long b0 = static_cast<long long>(ch - f.first) * kChunk;
     if constexpr (kRequant) {           // whole int8 blocks, zero-padded
@@ -313,7 +413,75 @@ adam_kernel(const __grid_constant__ AdamTable t) {
           (f.n + hvdt::kBlock - 1) / hvdt::kBlock * hvdt::kBlock;
       adam_requant(t, c, b0, min(b0 + kChunk, nq));
     } else {
-      adam_chunk<T>(f, c, b0, min(b0 + kChunk, f.n));
+      adam_chunk(f, c, b0, min(b0 + kChunk, f.n));
+    }
+  }
+}
+
+// element k of bf16 leaf i, alone (the low half of a pair)
+__device__ __forceinline__ void adam_one(const AdamTable& t, int i,
+                                         const bf::Consts& c, long long k) {
+  auto in = [&](const void* p) -> uint32_t {
+    return __bfloat16_as_ushort(static_cast<const __nv_bfloat16*>(p)[k]);
+  };
+  auto out = [&](void* p, uint32_t w) {
+    static_cast<__nv_bfloat16*>(p)[k] =
+        __ushort_as_bfloat16(static_cast<unsigned short>(w));
+  };
+  uint32_t m = in(t.mu[i]), v = in(t.nu[i]);
+  out(t.u[i], bf::adam_pair(in(t.g[i]), m, v, c));
+  out(t.mu2[i], m);
+  out(t.nu2[i], v);
+}
+
+// bf16 leaves. A chunk of leaf i: a thread's two 16-byte groups loaded
+// before either is computed, then a scalar tail; one element a thread
+// for an unaligned leaf. The leaf's pointers are read from the table at
+// each chunk (nothing held across chunks but its index).
+__global__ void __launch_bounds__(kThreads16)
+adam_pair_kernel(const __grid_constant__ AdamTable t) {
+  const bf::Consts c = bf::consts(t);
+  const int chunks = t.first[t.n_leaves];
+  int i = 0, end = 0;
+  for (int ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
+    if (ch >= end) {
+      i = leaf_of(t, ch, i);
+      end = t.first[i + 1];
+    }
+    const long long b0 = static_cast<long long>(ch - t.first[i]) * kChunk;
+    const long long b1 = min(b0 + kChunk, t.n[i]);
+    if (!t.vec[i]) {
+      for (long long k = b0 + threadIdx.x; k < b1; k += kThreads16)
+        adam_one(t, i, c, k);
+      continue;
+    }
+    const uint4* g = static_cast<const uint4*>(t.g[i]);
+    const uint4* mu = static_cast<const uint4*>(t.mu[i]);
+    const uint4* nu = static_cast<const uint4*>(t.nu[i]);
+    uint4 x[kGroups16], m[kGroups16], v[kGroups16];
+#pragma unroll
+    for (int j = 0; j < kGroups16; ++j) {
+      const long long e = b0 / 8 + threadIdx.x + j * kThreads16;  // group
+      if (8 * e + 8 <= b1) {
+        x[j] = __ldg(g + e);
+        m[j] = __ldg(mu + e);
+        v[j] = __ldg(nu + e);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kGroups16; ++j) {
+      const long long e = b0 / 8 + threadIdx.x + j * kThreads16;
+      if (8 * e + 8 <= b1) {
+        x[j].x = bf::adam_pair(x[j].x, m[j].x, v[j].x, c);
+        x[j].y = bf::adam_pair(x[j].y, m[j].y, v[j].y, c);
+        x[j].z = bf::adam_pair(x[j].z, m[j].z, v[j].z, c);
+        x[j].w = bf::adam_pair(x[j].w, m[j].w, v[j].w, c);
+        static_cast<uint4*>(t.u[i])[e] = x[j];
+        static_cast<uint4*>(t.mu2[i])[e] = m[j];
+        static_cast<uint4*>(t.nu2[i])[e] = v[j];
+      } else {                          // the leaf's ragged tail
+        for (long long k = 8 * e; k < b1; ++k) adam_one(t, i, c, k);
+      }
     }
   }
 }
@@ -332,10 +500,9 @@ int grid_cap() {
   return cap;
 }
 
-template <typename T, bool kRequant>
-int launch(const long long* ptrs, const long long* n, const int* first, int k,
-           void* q, void* s, const float* bc, const AdamConsts& c,
-           cudaStream_t stream) {
+int launch(void (*kernel)(AdamTable), int threads, const long long* ptrs,
+           const long long* n, const int* first, int k, void* q, void* s,
+           const float* bc, const AdamConsts& c, cudaStream_t stream) {
   AdamTable t{};
   for (int i = 0; i < k; ++i) {
     const long long* p = ptrs + 6 * i;
@@ -365,7 +532,7 @@ int launch(const long long* ptrs, const long long* n, const int* first, int k,
   }
   const unsigned int grid =
       static_cast<unsigned int>(first[k] < cap ? first[k] : cap);
-  adam_kernel<T, kRequant><<<grid, kThreads, 0, stream>>>(t);
+  kernel<<<grid, threads, 0, stream>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -391,10 +558,14 @@ int hvd_fused_adam(const long long* ptrs, const long long* n, const int* first,
     return static_cast<int>(cudaErrorInvalidValue);
   const AdamConsts c{omb1, b1, omb2, b2, b1c, b2c, eps, eps_root, neg_lr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q != nullptr) return launch<float, true>(ptrs, n, first, k, q, s, bc, c, st);
+  if (q != nullptr)
+    return launch(adam_kernel<true>, kThreads, ptrs, n, first, k, q, s, bc, c,
+                  st);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(ptrs, n, first, k, q, s, bc, c, st);
-  return launch<float, false>(ptrs, n, first, k, q, s, bc, c, st);
+    return launch(adam_pair_kernel, kThreads16, ptrs, n, first, k, q, s, bc,
+                  c, st);
+  return launch(adam_kernel<false>, kThreads, ptrs, n, first, k, q, s, bc, c,
+                st);
 }
 
 }  // extern "C"

@@ -40,10 +40,14 @@ its bf16 arrays, and read back as ``V2`` (this side imports no
 Quantization is the collective wire's format
 (:func:`horovod_tpu_torch.compression.quantize_blockwise`: one bf16
 max-abs scale per 256-element block), decided per leaf by
-:meth:`~horovod_tpu_torch.compression.Int8Compressor.quantizes`; the
-encoder moves each quantizable delta leaf to the publisher's device, so
-on a CUDA device the ``quantize`` kernel runs it. Leaves below the floor
-and non-float leaves ride raw, as on the collective wire.
+:meth:`~horovod_tpu_torch.compression.Int8Compressor.quantizes`. The
+encoder writes the quantizable deltas of one dtype end to end into one
+host buffer, each padded to whole blocks (so no block spans two leaves),
+moves it to the publisher's device in one copy and quantizes it in one
+call (on a CUDA device one ``quantize`` launch); each leaf's q and
+scales are its slices of the result, the bits a per-leaf quantize
+gives. Leaves below the floor and non-float leaves ride raw, as on the
+collective wire.
 """
 
 from __future__ import annotations
@@ -197,10 +201,11 @@ def encode(tree: Any, base: Optional[Any] = None, *,
     full precision. With a ``base`` (the previous generation's
     reconstruction, same treedef) each quantizable leaf's *delta* is
     blockwise-int8 quantized on ``device`` (by default this process's
-    device, else ``cuda:0``: the ``quantize`` kernel; a CPU device takes
-    its plain version), the others ride their raw delta, non-array
-    leaves as objects. The delta is taken on the host, in the leaf's
-    dtype, as the JAX package takes it. Returns ``(payload, info)``:
+    device, else ``cuda:0``: one ``quantize`` launch a dtype over every
+    such delta, see the module docstring; a CPU device takes its plain
+    version), the others ride their raw delta, non-array leaves as
+    objects. The delta is taken on the host, in the leaf's dtype, as the
+    JAX package takes it. Returns ``(payload, info)``:
     ``info["wire_bytes"]`` counts the array bytes on the wire,
     ``info["kind"]`` is ``"key"``/``"delta"``, ``info["quantized"]`` the
     leaves quantized."""
@@ -211,11 +216,10 @@ def encode(tree: Any, base: Optional[Any] = None, *,
         if base_def != treedef:
             raise ValueError(
                 "delta base treedef does not match the published tree")
-    records: List[tuple] = []
+    records: List[Any] = []
     wire = 0
     finite = True  # float leaves of the ENCODED tree (keyframe path)
-    dev = None
-    n_q = 0
+    quant: dict = {}  # dtype -> [(record index, leaf, its base)]
     for i, leaf in enumerate(leaves):
         if not _is_array(leaf):
             records.append(("obj", leaf))
@@ -234,19 +238,22 @@ def encode(tree: Any, base: Optional[Any] = None, *,
             records.append(("full", arr))
             wire += arr.nbytes
             continue
-        delta = arr - np.asarray(_host(base_leaves[i]), dtype=arr.dtype)
+        base_arr = np.asarray(_host(base_leaves[i]), dtype=arr.dtype)
         if _quantizes(arr):
-            if dev is None:
-                dev = _device(True if device is None else device)
-            flat = torch.from_numpy(np.ascontiguousarray(delta).reshape(-1))
-            q, scales = quantize_blockwise(flat.to(dev), block)
-            q_np, s_np = _host(q), _host(scales)
-            records.append(("q", q_np, s_np, tuple(arr.shape), arr.dtype.str))
-            wire += q_np.size + s_np.size * 2  # int8 values + bf16 scales
-            n_q += 1
+            quant.setdefault(arr.dtype, []).append((len(records), arr,
+                                                    base_arr))
+            records.append(None)  # filled below
         else:
+            delta = arr - base_arr
             records.append(("raw", delta))
             wire += delta.nbytes
+    if quant:
+        dev = _device(True if device is None else device)
+        for dtype, items in quant.items():
+            for (j, arr, _), (q, scales) in zip(
+                    items, _quantize_deltas(dtype, items, block, dev)):
+                records[j] = ("q", q, scales, tuple(arr.shape), dtype.str)
+                wire += q.size + scales.size * 2  # int8 values + bf16 scales
     kind = "key" if base is None else "delta"
     payload = _dumps({
         "v": FORMAT_VERSION,
@@ -256,13 +263,29 @@ def encode(tree: Any, base: Optional[Any] = None, *,
         "records": records,
     })
     info = {"kind": kind, "wire_bytes": wire, "leaves": len(leaves),
-            "quantized": n_q}
+            "quantized": sum(map(len, quant.values()))}
     if base is None:
         # keyframe: the encoded tree IS the publisher's reconstruction;
         # its finiteness is recorded here so the publisher's poisoned-base
         # check needs no second pass
         info["finite"] = finite
     return payload, info
+
+
+def _quantize_deltas(dtype, items, block: int, dev) -> list:
+    """The deltas ``leaf - base`` of ``items`` (one dtype), each written
+    into its place in one host buffer padded to whole blocks, quantized
+    by one call on ``dev``: each leaf's ``(q, scales)``, host slices of
+    the one result."""
+    sizes = [arr.size + (-arr.size) % block for _, arr, _ in items]
+    offs = np.cumsum([0] + sizes)
+    buf = np.zeros(int(offs[-1]), dtype)
+    for (_, arr, base_arr), o in zip(items, offs):
+        np.subtract(arr, base_arr, out=buf[o:o + arr.size].reshape(arr.shape))
+    q, scales = quantize_blockwise(torch.from_numpy(buf).to(dev), block)
+    q, scales = _host(q), _host(scales)
+    return [(q[o:o + n], scales[o // block:(o + n) // block])
+            for o, n in zip(offs, sizes)]
 
 
 def decode(payload: bytes, base: Optional[Any] = None, *,

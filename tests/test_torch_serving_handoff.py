@@ -176,6 +176,131 @@ def test_payload_reads_across_packages_bit_equal():
         jrec, trec = jrec_next, trec_next
 
 
+def _per_leaf_encode(tree, base, block=256):
+    """The delta encode of one ``quantize`` call a quantizable leaf (each
+    delta padded to whole blocks and quantized alone): the reference the
+    one-call encoder's payload is held to, byte for byte."""
+    from horovod_tpu_torch import compression as tc
+
+    leaves, treedef = pytree.flatten(tree)
+    records = []
+    for leaf, b in zip(leaves, pytree.flatten(base)[0]):
+        if not tprotocol._is_array(leaf):
+            records.append(("obj", leaf))
+            continue
+        arr = tprotocol._host(leaf)
+        if arr.dtype.kind not in "fiu":
+            records.append(("full", arr))
+            continue
+        delta = arr - np.asarray(tprotocol._host(b), dtype=arr.dtype)
+        if tprotocol._quantizes(arr):
+            q, sc = tc.quantize_blockwise(
+                torch.from_numpy(np.ascontiguousarray(delta).reshape(-1)),
+                block)
+            records.append(("q", tprotocol._host(q), tprotocol._host(sc),
+                            tuple(arr.shape), arr.dtype.str))
+        else:
+            records.append(("raw", delta))
+    return tprotocol._dumps({"v": tprotocol.FORMAT_VERSION, "kind": "delta",
+                             "block": block, "treedef": treedef,
+                             "records": records})
+
+
+def _quantize_launches(monkeypatch):
+    """Send CPU tensors down ``kernels.quantize_blockwise``'s CUDA path
+    and run its launches through the plain version, which reads and
+    writes through the pointers the wrapper passes: the launches' lengths,
+    in order."""
+    import ctypes
+
+    from horovod_tpu_torch.ops import kernels as K
+
+    launched = []
+
+    def at(ptr, n, ctype):
+        return np.ctypeslib.as_array((ctype * n).from_address(ptr))
+
+    def launch(kernel, lib, sym, device, x, q, sc, d, n):
+        assert (kernel, sym, d) == ("quantize", "hvd_quantize", None)
+        qq, ss = K.quantize_plain(torch.from_numpy(at(x, n, ctypes.c_float)))
+        at(q, n, ctypes.c_int8)[:] = qq.numpy()
+        at(sc, n // 256, ctypes.c_int16)[:] = ss.view(torch.int16).numpy()
+        launched.append(n)
+
+    monkeypatch.setattr(K, "_on_cuda", lambda *ts: True)
+    monkeypatch.setattr(K, "_launch", launch)
+    return launched
+
+
+def _delta_tree(seed, lengths):
+    rng = np.random.RandomState(seed)
+    return {f"w{i:02d}": rng.randn(n).astype(np.float32).reshape(-1, 1)
+            if n % 2 else rng.randn(n).astype(np.float32).reshape(2, -1)
+            for i, n in enumerate(lengths)}
+
+
+@pytest.mark.parametrize("lengths", [
+    (1024, 2048, 4096, 1 << 14),                 # block multiples
+    (1025, 1300, 2055, 4097, 1024, 3000),        # and not
+])
+def test_delta_is_one_quantize_call_byte_equal_to_per_leaf(lengths,
+                                                           monkeypatch):
+    """A delta of many quantizable leaves is ONE ``quantize`` launch over
+    their padded deltas end to end, and its payload is the per-leaf
+    encode's byte for byte (records, scales, treedef, pickle)."""
+    base = _delta_tree(0, lengths)
+    tree = _drift(base, 1)
+    want = _per_leaf_encode(tree, base)
+    launched = _quantize_launches(monkeypatch)
+    payload, info = tprotocol.encode(tree, base, device="cpu")
+    assert launched == [sum(n + (-n) % 256 for n in lengths)]
+    assert info["quantized"] == len(lengths)
+    assert payload == want
+
+
+def test_delta_mixing_records_is_byte_equal_to_per_leaf(monkeypatch):
+    """A tree of raw (small f32, int), ``full`` (bool, bf16 bits), ``obj``
+    and quantizable f32 and f64 leaves: one launch a quantizable dtype on
+    the card path (f32 here; f64 takes the plain version, as the kernel
+    takes f32 only), the payload the per-leaf encode's byte for byte, and
+    its decode the same tree either way."""
+    rng = np.random.RandomState(5)
+    base = {"a": rng.randn(3000).astype(np.float32),
+            "b": rng.randn(7).astype(np.float32),
+            "c": np.arange(2000, dtype=np.int32),
+            "d": rng.rand(9) > 0.5,
+            "e": rng.randn(1500).astype(np.float32).astype(
+                ml_dtypes.bfloat16).view(np.int16).view("V2"),
+            "f": rng.randn(1100).astype(np.float64),
+            "g": rng.randn(40, 64).astype(np.float32),
+            "h": 3, "i": "tag"}
+    tree = dict(_drift(base, 2), d=~base["d"], h=4)
+    want = _per_leaf_encode(tree, base)
+    payload, info = tprotocol.encode(tree, base, device="cpu")
+    assert payload == want and info["quantized"] == 3
+    assert _bits(tprotocol.decode(payload, base)) == \
+        _bits(tprotocol.decode(want, base))
+    f32 = {k: v for k, v in tree.items() if k != "f"}
+    f32_base = {k: v for k, v in base.items() if k != "f"}
+    want = _per_leaf_encode(f32, f32_base)
+    launched = _quantize_launches(monkeypatch)
+    assert tprotocol.encode(f32, f32_base, device="cpu")[0] == want
+    assert launched == [3072 + 2560]
+
+
+def test_delta_without_quantizable_leaves_launches_nothing(monkeypatch):
+    """Every leaf below the floor or not a wide float: no launch, the
+    per-leaf encode's payload."""
+    rng = np.random.RandomState(6)
+    base = {"b": rng.randn(1023).astype(np.float32),
+            "c": np.arange(5000, dtype=np.int64), "m": rng.rand(3) > 0.5}
+    tree = dict(_drift(base, 3), m=~base["m"])
+    launched = _quantize_launches(monkeypatch)
+    payload, info = tprotocol.encode(tree, base, device="cpu")
+    assert launched == [] and info["quantized"] == 0
+    assert payload == _per_leaf_encode(tree, base)
+
+
 def test_encode_refuses_a_mismatched_base_and_unknown_versions():
     payload, _ = tprotocol.encode(_tree(0))
     with pytest.raises(ValueError, match="treedef"):

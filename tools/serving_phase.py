@@ -9,7 +9,7 @@ Builds the kernels, then in a world of one ``chip_smoke.serving_phase``:
 publisher, a subscriber over HTTP rebuilding each generation on the
 card), (b) the paged engine against ``generate``, (c) the prefix cache,
 (d) speculative decoding, (e) the rollout's verdict and the fleet under
-``replica_kill``; then replays the delta's ``quantize`` calls against
+``replica_kill``; then replays the delta's one ``quantize`` call against
 the plain version (the kernel phase's ``serve_delta`` row). With
 ``--gpus N``, ``chip_smoke.serving_tp_gpus(N)``: (f), the TP engine over
 a ``tp`` axis of N. Prints the phase's lines and one JSON line; needs a
